@@ -138,3 +138,113 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="int8"):
         decode_attention(qd, kd, kd, k_scale=torch.ones(2, 9, 4, device=dev),
                          v_scale=torch.ones(2, 9, 4, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", ["plain", "mask", "ragged_mask"])
+def test_flash_backward_kernels_match_plain(dev, dtype, d, causal, case):
+    """dq and dk/dv kernels against flash_attention_backward_reference from
+    the same saved (out, lse) and a nonzero lse cotangent; (b, h, L, d)
+    views of [b, L, h, d] tensors as the model passes them; a masked case
+    has a padded row and a fully masked row, whose gradients are exactly 0."""
+    from tpu_air_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_with_lse)
+
+    rng = np.random.default_rng(d + 7 * causal)
+    b, h = 3, 2
+    L = 200 if case == "ragged_mask" else 128
+
+    def t(shape=(b, L, h, d)):
+        return _t(rng.standard_normal(shape), dev, dtype).transpose(1, 2)
+
+    q, k, v, do = t(), t(), t(), t()
+    mask = None
+    if case != "plain":
+        m = np.arange(L)[None] < np.array([L, L - 37, 0])[:, None]
+        mask = _t(m, dev, torch.float32)
+    out, lse = flash_attention_with_lse(q, k, v, kv_mask=mask, causal=causal)
+    glse = _t(rng.standard_normal((b, h, L)), dev, torch.float32)
+    before = (flash_attention_backward.dq_launches, flash_attention_backward.dkv_launches)
+    got = flash_attention_backward(q, k, v, mask, out, lse, do, glse, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_backward.dq_launches, flash_attention_backward.dkv_launches) == \
+        (before[0] + 1, before[1] + 1)
+
+    def flat(x):
+        return x.reshape(b * h, L, d)
+
+    want = flash_attention_backward_reference(
+        flat(q), flat(k), flat(v), mask, flat(out), lse.reshape(b * h, L), flat(do),
+        glse.reshape(b * h, L), d ** -0.5, causal)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == dtype
+        assert torch.isfinite(g.float()).all()
+        err = _err(flat(g), w)
+        assert err < TOL[dtype], err
+        if mask is not None:
+            assert g[2].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_match_plain_at_lm_shape(dev, dtype):
+    """The long-context LM's shape (B*H 8, L 8192, D 128, causal).  Most of
+    its gradients are far below 1, where the bound above would be absolute and
+    as large as the values, so each tensor is held to ||kernel - plain|| /
+    ||plain||: 1e-4 in f32; in bf16 1e-2, above the 2^-7 that one ulp of
+    every element would give."""
+    from tpu_air_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_with_lse)
+
+    h, L, d = 8, 8192, 128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, do = (torch.randn(1, L, h, d, device=dev, generator=gen).to(dtype).transpose(1, 2)
+                   for _ in range(4))
+    out, lse = flash_attention_with_lse(q, k, v, causal=True)
+    got = flash_attention_backward(q, k, v, None, out, lse, do, None, d ** -0.5, True)
+
+    def flat(x):
+        return x.reshape(h, L, d)
+
+    want = flash_attention_backward_reference(flat(q), flat(k), flat(v), None, flat(out),
+                                              lse.reshape(h, L), flat(do), None, d ** -0.5, True)
+    for g, w in zip(got, want):
+        w = w.float()
+        rel = ((flat(g).float() - w).norm() / w.norm()).item()
+        assert rel < {torch.float32: 1e-4, torch.bfloat16: 1e-2}[dtype], rel
+
+
+def test_flash_autograd_launches_both_backward_kernels(dev):
+    """Autograd through flash attention on the card runs the forward kernel
+    once and each backward kernel once; no plain version is involved."""
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    q, k, v = (torch.randn(2, 4, 96, 64, device=dev, requires_grad=True) for _ in range(3))
+    counts = (flash_attention.launches, flash_attention_backward.dq_launches,
+              flash_attention_backward.dkv_launches)
+    flash_attention(q, k, v, causal=True).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_backward.dq_launches,
+            flash_attention_backward.dkv_launches) == tuple(c + 1 for c in counts)
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+
+
+def test_backward_wrapper_rejects_what_the_kernels_do_not_take(dev):
+    from tpu_air_torch.ops.flash_attention import flash_attention_backward
+
+    def call(q, k=None, mask=None):
+        k = q if k is None else k
+        lse = torch.zeros(q.shape[:3], device=dev)
+        return flash_attention_backward(q, k, k, mask, q, lse, q, None, 1.0, False)
+
+    with pytest.raises(ValueError, match="head dim"):
+        call(torch.zeros(2, 4, 8, 24, device=dev))
+    with pytest.raises(TypeError):
+        call(torch.zeros(2, 4, 8, 16, device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError, match="do not match"):
+        call(torch.zeros(2, 4, 8, 16, device=dev), torch.zeros(2, 3, 8, 16, device=dev))
+    with pytest.raises(ValueError, match="kv_mask"):
+        call(torch.zeros(2, 4, 8, 16, device=dev), mask=torch.ones(2, 9, device=dev))

@@ -33,6 +33,7 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
     mods = _modules()
     assert "tpu_air_torch.models.t5.modeling" in mods
     assert "tpu_air_torch.ops.decode_attention" in mods
+    assert "tpu_air_torch.train.lm_trainer" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -82,16 +83,22 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     from tpu_air_torch.device import resolve_device
+    from tpu_air_torch.models.lm import CausalLM, LMConfig
     from tpu_air_torch.models.t5.config import T5Config
     from tpu_air_torch.models.t5.hf_import import load_t5
     from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
     from tpu_air_torch.predict.predictors import T5GenerativePredictor
+    from tpu_air_torch.train import LMTrainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T5ForConditionalGeneration(T5Config.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CausalLM(LMConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMTrainer(model_config=LMConfig.tiny())
     asset = os.path.join(ROOT, "tests", "assets", "flan_t5_tiny")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_t5(asset)
@@ -100,3 +107,5 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     model = T5ForConditionalGeneration(T5Config.tiny(), device="cpu")
     assert model.device == torch.device("cpu")
+    assert CausalLM(LMConfig.tiny(), device="cpu").device == torch.device("cpu")
+    assert LMTrainer(model_config=LMConfig.tiny(), device="cpu").device == torch.device("cpu")

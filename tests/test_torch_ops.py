@@ -201,3 +201,110 @@ def test_cpu_wrappers_take_plain_versions():
                               v_scale=torch.ones(3, 2, 4, 16))
     with pytest.raises(ValueError, match="qlen==1"):
         tdec.decode_attention(torch.zeros(3, 2, 4, 16), _t(k), _t(v))
+
+
+# -- the backward ---------------------------------------------------------
+
+
+def _bwd_inputs(seed=0, b=2, h=4, L=64, d=16):
+    """q/k/v/do (B*H, L, D), an lse cotangent, and a key mask with a padded
+    tail on batch row 0 and every key masked on batch row 1."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((b * h, L, d)).astype(np.float32) for _ in range(4))
+    glse = rng.standard_normal((b * h, L)).astype(np.float32)
+    mask = (np.arange(L)[None] < np.array([L - 9, 0])[:, None]).astype(np.float32)
+    return q, k, v, do, glse, mask
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_reference_matches_pallas_bwd(with_mask, causal):
+    """The port's plain backward against the JAX package's blockwise
+    backward (both Pallas kernels, interpret mode, 32-wide tiles) from the
+    same saved (out, lse), with a nonzero lse cotangent.  Rows whose every
+    key is masked get exactly zero gradients in both."""
+    q, k, v, do, glse, mask = _bwd_inputs()
+    if not with_mask:
+        mask = None
+    scale = 0.25
+    out, lse = tflash.flash_attention_reference(_t(q), _t(k), _t(v), None, _t(mask),
+                                                scale, causal)
+    got = tflash.flash_attention_backward_reference(
+        _t(q), _t(k), _t(v), _t(mask), out, lse, _t(do), _t(glse), scale, causal)
+    addmask = None if mask is None else (1.0 - _j(mask)) * jflash._NEG_INF
+    want = jflash._pallas_bwd(_j(q), _j(k), _j(v), addmask, jnp.asarray(out.numpy()),
+                              jnp.asarray(lse.numpy()), _j(do), _j(glse), scale, causal,
+                              32, 32, True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=ATOL,
+                                   err_msg=name)
+        if mask is not None:
+            assert np.abs(g.numpy()[4:]).max() == 0.0, name   # batch row 1: all masked
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_grads_match_jax_grad(with_mask, causal):
+    """Autograd through the port's flash attention (both outputs used, so a
+    nonzero lse cotangent) equals jax.grad of flash_attention_with_lse,
+    (B, H, L, D) strided views as the model passes them."""
+    q, k, v, _, w, mask = _bwd_inputs(seed=1)
+    if not with_mask:
+        mask = None
+    b, h, L, d = 2, 4, 64, 16
+
+    def as4(a):
+        return _t(a.reshape(b, h, L, d)).transpose(1, 2).contiguous().transpose(1, 2)
+
+    tq, tk, tv = (as4(a).requires_grad_() for a in (q, k, v))
+    out, lse = tflash.flash_attention_with_lse(tq, tk, tv, kv_mask=_t(mask), causal=causal)
+    ((out * 0.3).sum() + (lse * _t(w).reshape(b, h, L)).sum()).backward()
+
+    def f(q, k, v):
+        o, lse = jflash.flash_attention_with_lse(q, k, v, kv_mask=_j(mask), causal=causal,
+                                                 block_q=32, block_k=32, interpret=True)
+        return (o * 0.3).sum() + (lse * _j(w)).sum()
+
+    want = jax.grad(f, argnums=(0, 1, 2))(_j(q), _j(k), _j(v))
+    for name, t, g in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.reshape(b * h, L, d).numpy(), np.asarray(g),
+                                   atol=ATOL, rtol=ATOL, err_msg=name)
+    assert tflash.flash_attention.launches == 0
+    assert tflash.flash_attention_backward.dq_launches == 0
+    assert tflash.flash_attention_backward.dkv_launches == 0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fully_masked_row_gets_zero_gradient(causal):
+    """A query row whose every key is masked is padding: its forward output
+    is the mean of V, but its gradient is exactly zero (the JAX package's
+    custom VJP, tests/test_ops.py::test_fully_masked_row_grads_are_finite_
+    and_small).  Autograd of the plain forward would give that row's keys a
+    uniform, nonzero dv."""
+    q, k, v, _, _, mask = _bwd_inputs(seed=2)
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    tflash.flash_attention(tq, tk, tv, kv_mask=_t(mask), causal=causal).sum().backward()
+    for t in (tq, tk, tv):
+        assert torch.isfinite(t.grad).all()
+        assert t.grad[4:].abs().max().item() == 0.0      # batch row 1: all masked
+        assert t.grad[:4].abs().max().item() > 0.0
+
+
+def test_flash_bias_grads_recompute_through_reference():
+    """With a bias the backward recomputes through the plain forward under
+    autograd, as the JAX package's VJP does, and returns the bias gradient
+    in the bias's own (batch-shared) shape; the key mask gets none."""
+    q, k, v, bias, mask = _flash_inputs("H")
+    mask[1] = 1.0                     # no fully masked row: both VJPs agree
+    tq, tk, tv, tb = (_t(a).requires_grad_() for a in (q, k, v, bias))
+    tflash.flash_attention(tq, tk, tv, tb, kv_mask=_t(mask), scale=1.0).sum().backward()
+
+    def f(q, k, v, bias):
+        return jflash.flash_attention(q, k, v, bias, kv_mask=_j(mask), scale=1.0,
+                                      block_q=32, block_k=32, interpret=True).sum()
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3))(_j(q), _j(k), _j(v), _j(bias))
+    for name, t, g in zip(("dq", "dk", "dv", "dbias"), (tq, tk, tv, tb), want):
+        assert t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)

@@ -3,7 +3,9 @@
 Each ``ops/csrc/<name>.cu`` is compiled at first use by ``nvcc`` into a shared
 library with a plain C interface under ``tpu_air_torch/_build/`` and loaded
 with :mod:`ctypes`.  The library's file name carries a hash of its source, so
-an edited kernel is rebuilt and a stale one is never loaded.  Nothing here
+an edited kernel is rebuilt and a stale one is never loaded.  ``ptxas -v``
+reports each kernel's registers, shared memory and spills; :func:`build`
+returns that report for every source it compiled.  Nothing here
 runs at import time: the CPU tests import every module of the port on a
 machine without ``nvcc``.
 """
@@ -22,7 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -59,7 +61,7 @@ def _start(name: str):
     return proc, tmp, final
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started) -> str:
     proc, tmp, final = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
@@ -68,23 +70,27 @@ def _finish(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed to build {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, final)
+    return log
 
 
-def build(names: Iterable[str]) -> None:
-    """Compile the named sources, all nvcc processes started together."""
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile the named sources, all nvcc processes started together.
+    Returns the compiler's output (the ``ptxas -v`` report) of each source
+    compiled here; a source already built is absent."""
     names = list(names)
     with _lock:
         started = {n: _start(n) for n in names}
-        errors = []
+        logs, errors = {}, []
         for n, s in started.items():
             if s is None:
                 continue
             try:
-                _finish(n, s)
+                logs[n] = _finish(n, s)
             except RuntimeError as e:  # collect every failure, then raise once
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
+        return logs
 
 
 def sources() -> list:
@@ -103,11 +109,11 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def kernel_fn(name: str, argtypes):
-    """The C entry ``<name>_fwd`` of ``csrc/<name>.cu``, typed: pointers
-    and the stream as ``c_void_p`` (a plain int would be cut to 32 bits),
-    returning the launch's ``cudaError_t``."""
-    fn = getattr(load(name), f"{name}_fwd")
+def kernel_fn(name: str, entry: str, argtypes):
+    """The C entry ``entry`` of ``csrc/<name>.cu``, typed: pointers and the
+    stream as ``c_void_p`` (a plain int would be cut to 32 bits), returning
+    the launch's ``cudaError_t``."""
+    fn = getattr(load(name), entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = list(argtypes)

@@ -142,7 +142,7 @@ def _launch(q, k, v, bias, kv_mask, k_scale, v_scale):
             raise ValueError(f"decode_attention: {name} must be contiguous")
         args.append(t.data_ptr())
     out = torch.empty(b, h, d, dtype=q.dtype, device=q.device)
-    fn = _build.kernel_fn(_NAME, _ARGTYPES)
+    fn = _build.kernel_fn(_NAME, f"{_NAME}_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*args, out.data_ptr(), b, L, h, d, _QTYPES[q.dtype], int(kv_int8),

@@ -1,0 +1,143 @@
+"""Training session — the loop's reporting channel (the port's counterpart
+of ``tpu_air/train/session.py``).
+
+The training loop calls ``session.report(metrics, checkpoint)`` once per
+epoch; the session records the history (also appended to
+``progress.jsonl``), retains checkpoints under the run directory by
+``CheckpointConfig`` and tracks the best and the latest one.  Fault-plan
+hooks, tracing spans, metric sinks and weight publishing wait for the
+slices that port them.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from .checkpoint import Checkpoint
+from .config import CheckpointConfig
+
+
+class Session:
+    def __init__(
+        self,
+        run_dir: str,
+        checkpoint_config: Optional[CheckpointConfig] = None,
+        datasets: Optional[Dict[str, Any]] = None,
+        config: Optional[Dict[str, Any]] = None,
+        world_size: int = 1,
+    ):
+        self.run_dir = run_dir
+        self.checkpoint_config = checkpoint_config or CheckpointConfig()
+        if self.checkpoint_config.publish_weights_to:
+            raise NotImplementedError(
+                "CheckpointConfig.publish_weights_to: publishing to a WeightStore "
+                "waits for the port's serve plane (ROADMAP Queue 1 item 6)")
+        self.datasets = datasets or {}
+        self.config = config or {}
+        self.world_size = world_size
+        self.history: List[Dict[str, Any]] = []
+        self.checkpoints: List[Tuple[str, Dict[str, Any]]] = []  # (dir, metrics)
+        self._iter = 0
+        os.makedirs(run_dir, exist_ok=True)
+
+    def get_dataset_shard(self, name: str):
+        return self.datasets.get(name)
+
+    def report(self, metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None):
+        self._iter += 1
+        rec = dict(metrics)
+        rec.setdefault("training_iteration", self._iter)
+        rec.setdefault("_timestamp", time.time())
+        self.history.append(rec)
+        with open(os.path.join(self.run_dir, "progress.jsonl"), "a") as f:
+            f.write(json.dumps(rec, default=float) + "\n")
+        if checkpoint is not None:
+            self._retain(checkpoint, rec)
+
+    # -- retention (CheckpointConfig semantics) -----------------------------
+    def _retain(self, checkpoint: Checkpoint, metrics: Dict[str, Any]):
+        ckpt_dir = os.path.join(self.run_dir, f"checkpoint_{self._iter:06d}")
+        src = checkpoint.path
+        checkpoint.to_directory(ckpt_dir)
+        # from_model() stages into a tempdir; once copied under run_dir the
+        # staging copy would leak one state dict per epoch — remove it and
+        # repoint the handle at the retained copy.
+        if (
+            src
+            and os.path.abspath(src) != os.path.abspath(ckpt_dir)
+            and os.path.abspath(src).startswith(tempfile.gettempdir() + os.sep)
+        ):
+            shutil.rmtree(src, ignore_errors=True)
+            checkpoint._path = ckpt_dir
+        self.checkpoints.append((ckpt_dir, metrics))
+        cfg = self.checkpoint_config
+        if cfg.num_to_keep is None or len(self.checkpoints) <= cfg.num_to_keep:
+            return
+        attr = cfg.checkpoint_score_attribute
+        if attr:
+            sign = 1 if cfg.checkpoint_score_order == "min" else -1
+            ranked = sorted(
+                self.checkpoints,
+                key=lambda cm: sign * float(cm[1].get(attr, float("inf") * sign)),
+            )
+        else:
+            ranked = list(reversed(self.checkpoints))  # keep most recent
+        keep = {path for path, _ in ranked[: cfg.num_to_keep]}
+        for path, _ in self.checkpoints:
+            if path not in keep:
+                shutil.rmtree(path, ignore_errors=True)
+        self.checkpoints = [cm for cm in self.checkpoints if cm[0] in keep]
+
+    # -- results ------------------------------------------------------------
+    def best_checkpoint(self) -> Optional[Tuple[str, Dict[str, Any]]]:
+        if not self.checkpoints:
+            return None
+        cfg = self.checkpoint_config
+        attr = cfg.checkpoint_score_attribute
+        if not attr:
+            return self.checkpoints[-1]
+        sign = 1 if cfg.checkpoint_score_order == "min" else -1
+        return min(
+            self.checkpoints,
+            key=lambda cm: sign * float(cm[1].get(attr, float("inf") * sign)),
+        )
+
+    def latest_checkpoint(self) -> Optional[Tuple[str, Dict[str, Any]]]:
+        return self.checkpoints[-1] if self.checkpoints else None
+
+
+# -- the active session (what training loops import) -------------------------
+
+_active: Optional[Session] = None
+
+
+def _set_active(s: Optional[Session]):
+    global _active
+    _active = s
+
+
+def get_session() -> Session:
+    if _active is None:
+        raise RuntimeError("no active training session (call inside a trainer loop)")
+    return _active
+
+
+def report(metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None):
+    get_session().report(metrics, checkpoint)
+
+
+def get_dataset_shard(name: str):
+    return get_session().get_dataset_shard(name)
+
+
+def get_config() -> Dict[str, Any]:
+    return get_session().config
+
+
+def get_world_size() -> int:
+    return get_session().world_size
