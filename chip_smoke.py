@@ -9,7 +9,9 @@ Phases, each fatal on failure:
 1. build    — compile every kernel of ``tpu_air_torch/ops/csrc`` (one nvcc per
               source, started together) and print, from ``ptxas -v``, each
               kernel's registers, shared memory and spills, and the card's
-              name and power limit;
+              name and power limit; then, from ``cuobjdump -sass``, each
+              kernel's count of tensor-core (HMMA) instructions: every
+              tensor-core kernel (``*_mma_kernel``) must have some;
 2. compare  — each T5 kernel against its plain PyTorch version on the card, at
               the generation path's shapes and at edge cases (masked rows,
               causal, ragged lengths, int8 slabs), against a stated tolerance;
@@ -80,6 +82,9 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # of the element, so the ratio is at most 2^-7 = 7.8e-3 (1e-2).
 NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SEED = 0
+# how each kernel computes its products in bf16, the type the main paths run
+DESIGN = {"flash_attention": "mma.sync bf16", "decode_attention": "cuda-core f32",
+          "flash_attention_bwd_dq": "cuda-core f32", "flash_attention_bwd_dkv": "mma.sync bf16"}
 # main-path dials: W3 batch generation at the reference's max_new_tokens=128
 BATCH, PROMPT_LEN, NEW_TOKENS = 64, 512, 128
 SMALL_BATCH, RAGGED_LEN = 8, 200          # edge cases of the compare phase
@@ -253,7 +258,26 @@ def ptxas_usage(log: str) -> list:
 # -- phase 1 -----------------------------------------------------------------
 
 
+def hmma_counts(sass: str) -> dict:
+    """{kernel instantiation: count of HMMA instructions} from the output of
+    ``cuobjdump -sass``."""
+    import re
+
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (_Z\w+)", line)
+        if m:
+            fn = _demangle(m.group(1))
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHMMA\.", line):
+            counts[fn] += 1
+    return counts
+
+
 def build() -> None:
+    import os
+    import shutil
+
     from tpu_air_torch.ops import _build
 
     names = _build.sources()
@@ -264,6 +288,19 @@ def build() -> None:
         log(f"[build] ptxas {src}.cu: " + "; ".join(
             f"{fn} {regs} regs {smem} B smem {spill} B spill"
             for fn, regs, smem, spill in ptxas_usage(report)))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        log("[build] cuobjdump not found: HMMA counts not read")
+        return
+    for src in names:
+        sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(src)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        counts = hmma_counts(sass)
+        log(f"[build] HMMA instructions in {src}.cu (cuobjdump -sass): "
+            + "; ".join(f"{fn} {n}" for fn, n in sorted(counts.items())))
+        idle = [fn for fn, n in counts.items() if "_mma_kernel" in fn and n == 0]
+        if idle:
+            raise AssertionError(f"[build] tensor-core kernels without HMMA: {idle}")
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -563,7 +600,7 @@ def timing(dev, errs: dict, launches: dict) -> list:
     flops = 4 * H * L * D * int(keys.sum())
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
     flash_row = {
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention", "route": "cuda", "design": DESIGN["flash_attention"],
         "source": "tpu_air_torch/ops/csrc/flash_attention.cu",
         "replaces": "tpu_air/ops/flash_attention.py:59",
         "launches": launches["flash_attention"],
@@ -612,7 +649,7 @@ def timing(dev, errs: dict, launches: dict) -> list:
             "bytes": nbytes, "flops": flops,
         }
     decode_row = {
-        "name": "decode_attention", "route": "cuda",
+        "name": "decode_attention", "route": "cuda", "design": DESIGN["decode_attention"],
         "source": "tpu_air_torch/ops/csrc/decode_attention.cu",
         "replaces": "tpu_air/ops/decode_attention.py:61",
         "launches": launches["decode_attention"], **rows["cross"],
@@ -621,7 +658,8 @@ def timing(dev, errs: dict, launches: dict) -> list:
     for r in (flash_row, decode_row):   # aliases of ms and max_abs_err
         r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
     for r in (flash_row, decode_row, rows["self"]):
-        log(f"[timing] {r.get('name', 'decode_attention self step')} {r['shape']}: kernel "
+        log(f"[timing] {r.get('name', 'decode_attention self step')} "
+            f"({DESIGN[r.get('name', 'decode_attention')]}) {r['shape']}: kernel "
             f"{r['ms']:.4f} ms device time ({r['back_to_back_ms']:.4f} ms back to back, "
             f"host {r['host_us_per_call']:.1f} us/call), plain "
             f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
@@ -825,9 +863,9 @@ def lm_main_path(dev) -> dict:
         f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.4f}); heaviest kernels "
         "per step: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c:g}" for k, (t, c) in top))
     per_launch = {}
-    for name, kernel in (("flash_attention", "flash_fwd_kernel"),
+    for name, kernel in (("flash_attention", "flash_fwd_mma_kernel"),
                          ("flash_attention_bwd_dq", "flash_bwd_dq_kernel"),
-                         ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel")):
+                         ("flash_attention_bwd_dkv", "flash_bwd_dkv_mma_kernel")):
         hits = [(t, c) for k, (t, c) in prof["kernels"].items() if kernel in k]
         if sum(c for _, c in hits) != cfg.n_layers:
             raise AssertionError(f"[lm] the step profile holds {hits} of {kernel}")
@@ -1029,8 +1067,8 @@ def lm_timing(dev, kernels: list, bwd_errs: dict, lm_stats: dict) -> list:
                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                       "err_norm_over_plain_norm": rel, "norm_tol": NORM_TOL[torch.bfloat16],
                       "bytes": nbytes, "flops": flops, "shape": shape}
-        log(f"[lm timing] {name} {shape}: kernel {ms:.3f} ms device time a launch, plain "
-            f"{plain_ms:.3f} ms, SDPA {'forward' if name == 'flash_attention' else 'backward'} "
+        log(f"[lm timing] {name} ({DESIGN[name]}) {shape}: kernel {ms:.3f} ms device time a "
+            f"launch, plain {plain_ms:.3f} ms, SDPA {'forward' if name == 'flash_attention' else 'backward'} "
             f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
     log(f"[lm timing] by CUDA events: flash_attention {fwd_events_ms:.3f} ms, one "
         f"flash_attention_backward call (delta, dq, dk/dv) {bwd_events_ms:.3f} ms; the plain "
@@ -1046,7 +1084,7 @@ def lm_timing(dev, kernels: list, bwd_errs: dict, lm_stats: dict) -> list:
     for name, line in (("flash_attention_bwd_dq", 368), ("flash_attention_bwd_dkv", 399)):
         r = rows[name]
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "design": DESIGN[name],
             "source": "tpu_air_torch/ops/csrc/flash_attention_bwd.cu",
             "replaces": f"tpu_air/ops/flash_attention.py:{line}",
             "launches": launches[name], **r,

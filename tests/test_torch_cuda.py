@@ -123,6 +123,118 @@ def test_decode_kernel_matches_plain(dev, dtype, d, L, case):
     assert err < TOL[dtype], err
 
 
+def _edge_mask(L, dev):
+    """Key mask of three batch rows: full, ragged, fully masked."""
+    m = np.arange(L)[None] < np.array([L, max(1, L - 37), 0])[:, None]
+    return _t(m, dev, torch.float32)
+
+
+# lengths at every edge of the tensor-core kernels' 64-row tiles (and the
+# 32-row query tiles of the D=128 dk/dv kernel)
+EDGE_LENGTHS = [1, 63, 64, 65, 129, 200]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", EDGE_LENGTHS)
+def test_flash_kernel_matches_plain_at_tile_edges(dev, d, causal, L):
+    """The bf16 tensor-core forward at lengths around its tile edges, with a
+    ragged key mask and a fully masked row (whose output is the mean of V)."""
+    from tpu_air_torch.ops.flash_attention import flash_attention_reference, flash_attention_with_lse
+
+    rng = np.random.default_rng(L + d + 1000 * causal)
+    b, h, dtype = 3, 2, torch.bfloat16
+    q, k, v = (_t(rng.standard_normal((b, L, h, d)), dev, dtype).transpose(1, 2)
+               for _ in range(3))
+    mask = _edge_mask(L, dev)
+    out, lse = flash_attention_with_lse(q, k, v, kv_mask=mask, scale=1.0, causal=causal)
+    torch.cuda.synchronize()
+    flat = [t.reshape(b * h, L, d) for t in (q, k, v)]
+    want, want_lse = flash_attention_reference(*flat, None, mask, 1.0, causal)
+    got = out.reshape(b * h, L, d)
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) < TOL[dtype]
+    lse = lse.reshape(b * h, L)
+    live = want_lse.abs() < 1e20
+    assert (lse[live] - want_lse[live]).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", EDGE_LENGTHS)
+def test_flash_backward_kernels_match_plain_at_tile_edges(dev, d, causal, L):
+    """dq and the bf16 tensor-core dk/dv kernel at lengths around their tile
+    edges, with a ragged key mask and a fully masked row."""
+    from tpu_air_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_with_lse)
+
+    rng = np.random.default_rng(L + d + 1000 * causal)
+    b, h, dtype = 3, 2, torch.bfloat16
+    q, k, v, do = (_t(rng.standard_normal((b, L, h, d)), dev, dtype).transpose(1, 2)
+                   for _ in range(4))
+    mask = _edge_mask(L, dev)
+    out, lse = flash_attention_with_lse(q, k, v, kv_mask=mask, causal=causal)
+    glse = _t(rng.standard_normal((b, h, L)), dev, torch.float32)
+    got = flash_attention_backward(q, k, v, mask, out, lse, do, glse, d ** -0.5, causal)
+    torch.cuda.synchronize()
+
+    def flat(x):
+        return x.reshape(b * h, L, d)
+
+    want = flash_attention_backward_reference(
+        flat(q), flat(k), flat(v), mask, flat(out), lse.reshape(b * h, L), flat(do),
+        glse.reshape(b * h, L), d ** -0.5, causal)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _err(flat(g), w) < TOL[dtype]
+        assert g[2].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bf16_fully_masked_row_dk_dv_are_exactly_zero(dev, d):
+    """In bf16 the tensor-core dk/dv kernel hard-zeroes masked scores: keys
+    of a fully masked batch row get dk = dv = 0 exactly, as do the keys that
+    a ragged row's mask hides, causal or not."""
+    from tpu_air_torch.ops.flash_attention import flash_attention_backward, flash_attention_with_lse
+
+    rng = np.random.default_rng(d)
+    b, h, L = 3, 2, 200
+    for causal in (False, True):
+        q, k, v, do = (_t(rng.standard_normal((b, L, h, d)), dev, torch.bfloat16).transpose(1, 2)
+                       for _ in range(4))
+        mask = _edge_mask(L, dev)
+        out, lse = flash_attention_with_lse(q, k, v, kv_mask=mask, causal=causal)
+        _, dk, dv = flash_attention_backward(q, k, v, mask, out, lse, do, None, d ** -0.5, causal)
+        torch.cuda.synchronize()
+        for g in (dk, dv):
+            assert g[2].abs().max().item() == 0.0
+            assert g[1, :, L - 37:].abs().max().item() == 0.0
+
+
+def test_bf16_rows_off_16_bytes_are_copied_then_run(dev):
+    """A bf16 view whose rows do not start on 16-byte boundaries cannot feed
+    the tensor-core kernels' cp.async copies: the wrapper copies it to a
+    contiguous tensor, and forward and backward agree with the aligned
+    input's results."""
+    from tpu_air_torch.ops.flash_attention import flash_attention
+
+    b, h, L, d = 2, 3, 80, 64
+    base = torch.randn(b * h * L * d + 3, device=dev).to(torch.bfloat16)
+    q = base[3:].view(b, h, L, d)                   # 6 bytes off a 16-byte boundary
+    qa = q.clone()
+    k, v = (torch.randn(b, h, L, d, device=dev).to(torch.bfloat16) for _ in range(2))
+    grads = []
+    for x in (q, qa):
+        leaves = [t.detach().requires_grad_() for t in (x, k, v)]
+        out = flash_attention(*leaves, causal=True)
+        out.float().square().sum().backward()
+        grads.append((out, *(t.grad for t in leaves)))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     from tpu_air_torch.ops.decode_attention import decode_attention
     from tpu_air_torch.ops.flash_attention import flash_attention

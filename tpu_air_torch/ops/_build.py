@@ -2,8 +2,9 @@
 
 Each ``ops/csrc/<name>.cu`` is compiled at first use by ``nvcc`` into a shared
 library with a plain C interface under ``tpu_air_torch/_build/`` and loaded
-with :mod:`ctypes`.  The library's file name carries a hash of its source, so
-an edited kernel is rebuilt and a stale one is never loaded.  ``ptxas -v``
+with :mod:`ctypes`.  The library's file name carries a hash of its source and
+of the shared headers ``ops/csrc/*.cuh``, so an edited kernel or header is
+rebuilt and a stale library is never loaded.  ``ptxas -v``
 reports each kernel's registers, shared memory and spills; :func:`build`
 returns that report for every source it compiled.  Nothing here
 runs at import time: the CPU tests import every module of the port on a
@@ -42,9 +43,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    """The library's path: its name carries a hash of ``<name>.cu``, of every
+    shared header ``csrc/*.cuh`` (in sorted order) and of the flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

@@ -3,7 +3,7 @@
 // Two kernels, from the forward's saved (out, lse) statistics:
 //   flash_bwd_dq_kernel  replaces tpu_air/ops/flash_attention.py::_bwd_dq_kernel
 //                        (and _bwd_dq_nm), launched there by _pallas_bwd;
-//   flash_bwd_dkv_kernel replaces tpu_air/ops/flash_attention.py::_bwd_dkv_kernel
+//   flash_bwd_dkv_*      replaces tpu_air/ops/flash_attention.py::_bwd_dkv_kernel
 //                        (and _bwd_dkv_nm), launched there by _pallas_bwd.
 //
 // What they compute, per (batch*head), query row i and key row j:
@@ -19,18 +19,11 @@
 //   dk_j  = sum_i ds_ij q_i * scale,  dv_j = sum_i p_ij do_i   (dk/dv kernel)
 // Sums are f32; outputs are written in the input type.
 //
-// What bounds it on the H100: at the long-context LM shape (B*H = 8,
-// L = 8192, D = 128, causal, bf16) the two kernels do ~481 GFLOP (dq
-// 3 * 2 * D flops per live (i, j) pair, dk/dv 4 * 2 * D) on ~134 MB of
-// inputs and outputs, so the card's bound is the ~0.49 ms of tensor-core
-// work, far above the ~0.04 ms of memory traffic.  These first versions
-// run the products on the CUDA cores in f32 (67 TFLOP/s at most), so they
-// are bound by FMA throughput and by the shared-memory loads that feed it; the
-// design keeps the shared-memory side small: every operand is read from
-// shared memory as float4 (one load per four FMAs), and the threads that
-// share a row read neighbouring 16-byte words, so a warp's load is one
-// conflict-free wavefront.  Moving the products onto the tensor cores
-// (mma.sync / wgmma) is the next step.
+// What bounds them on the H100: operations.  At the long-context LM shape
+// (B*H = 8, L = 8192, D = 128, causal, bf16) dq does 206 GFLOP (3 products
+// of 2 * D flops per live (i, j) pair) and dk/dv 275 GFLOP (4 products) on
+// 84 and 101 MB of inputs and outputs: 0.21 and 0.28 ms at the 989 TFLOP/s bf16
+// tensor-core peak, far above the ~0.03 ms of memory traffic.
 //
 // Hopper has no ordered grid: the TPU kernels carry their accumulators in
 // VMEM across a sequential grid axis.  Here each block owns its output rows
@@ -41,12 +34,38 @@
 // registers.  No atomics, so results are deterministic.  q/k/v/do are read
 // and dq/dk/dv written through (b, h, l) strides with D contiguous, so the
 // model's [b, L, h, d] projections need no transposed copy.
+//
+// dk/dv in bf16 (flash_bwd_dkv_mma_kernel) runs every product on the tensor
+// cores (mma.sync m16n8k16, f32 accumulation): one block of 4 warps per
+// (b*h, 64-key tile), each warp owning 16 keys, with its dK and dV
+// accumulators in f32 fragments.  K and V stay in shared memory and their
+// fragments are fetched by ldmatrix at each use, which keeps the two
+// accumulators (2 * D / 2 registers a lane) plus one query tile's score
+// fragments under the register limit; at D = 128 the query tile is 32 rows
+// for the same reason.  Query tiles (Q, dO, lse, delta) pass through a
+// two-stage cp.async ring, tile i + 1 loading while tile i multiplies.  Per
+// tile, all in registers: S^T = K Q^T, P^T = exp(S^T - lse) with the hard
+// zero, dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T
+// Q; P^T and dS^T are rounded to bf16 as the A operand of the next product,
+// as the Pallas kernel casts p and ds before its products.  Key tiles
+// launch in order, so under causal masking the longest (the first) start
+// first.
+//
+// dq, and dk/dv in f32, run on the CUDA cores (the tensor cores' only f32
+// product is TF32, too coarse for the f32 parity of the port): every operand
+// is read from shared memory as float4 (one load per four FMAs) and the
+// threads that share a row read neighbouring 16-byte words, so a warp's load
+// is one conflict-free wavefront; FMA throughput and those loads bound them.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskedAtOrBelow = 0.5f * kNegInf;  // _bwd_p's hard-zero line
@@ -276,6 +295,191 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int D> struct MmaDkv {
+  static constexpr int BK = 64;                  // keys per block, 16 per warp
+  static constexpr int BQ = D >= 128 ? 32 : 64;  // query rows per step
+  static constexpr int LD = D + 8;               // padded shared row, elements
+  // K, V; two stages of Q, dO; two stages of lse, delta; the key mask row
+  static constexpr int SMEM = (2 * BK + 4 * BQ) * LD * (int)sizeof(bf16) +
+                              (4 * BQ + BK) * (int)sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const float* __restrict__ mask, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                         Strides sdo, Strides sdk, Strides sdv, int heads, int lq, int lk,
+                         int heads_per_mask, float scale, int causal) {
+  using namespace mma_bf16;
+  constexpr int BK = MmaDkv<D>::BK, BQ = MmaDkv<D>::BQ, LD = MmaDkv<D>::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [BK][LD]
+  bf16* v_s = k_s + BK * LD;                      // [BK][LD]
+  bf16* q_s = v_s + BK * LD;                      // [2][BQ][LD]
+  bf16* do_s = q_s + 2 * BQ * LD;                 // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * BQ * LD);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                              // [2][BQ]
+  float* madd_s = delta_s + 2 * BQ;  // [BK] the additive key mask of this block's keys
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int bi = bh / heads;
+  const int hi = bh % heads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = warp * 16 + g;  // this lane's keys: k0 + row0 and k0 + row0 + 8
+
+  const bf16* qb = q + bi * sq.b + hi * sq.h;
+  const bf16* dob = dout + bi * sdo.b + hi * sdo.h;
+  const float* lseb = lse + (long long)bh * lq;
+  const float* deltab = delta + (long long)bh * lq;
+  if (threadIdx.x < BK) {  // read after the first __syncthreads below
+    const int key = k0 + threadIdx.x;
+    madd_s[threadIdx.x] = (mask != nullptr && key < lk)
+                              ? (1.f - mask[(long long)(bh / heads_per_mask) * lk + key]) * kNegInf
+                              : 0.f;
+  }
+
+  // causal: queries before this block's first key see none of its keys
+  const int qs0 = causal ? k0 : 0;
+  const int n_q = qs0 < lq ? (lq - qs0 + BQ - 1) / BQ : 0;
+  auto stage_q = [&](int it) {
+    const int qs = qs0 + it * BQ, buf = it & 1;
+    stage_rows<D, BQ, kThreads>(q_s + buf * BQ * LD, qb, sq.l, qs, lq);
+    stage_rows<D, BQ, kThreads>(do_s + buf * BQ * LD, dob, sdo.l, qs, lq);
+    if (threadIdx.x < BQ) {
+      const int i = threadIdx.x;
+      const bool ok = qs + i < lq;
+      cp_async4(lse_s + buf * BQ + i, ok ? lseb + qs + i : lseb, ok);
+      cp_async4(delta_s + buf * BQ + i, ok ? deltab + qs + i : deltab, ok);
+    }
+  };
+  stage_rows<D, BK, kThreads>(k_s, k + bi * sk.b + hi * sk.h, sk.l, k0, lk);
+  stage_rows<D, BK, kThreads>(v_s, v + bi * sv.b + hi * sv.h, sv.l, k0, lk);
+  if (n_q > 0) stage_q(0);
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_q; ++it) {
+    const int qs = qs0 + it * BQ, buf = it & 1;
+    if (it + 1 < n_q) {  // tile it + 1 loads while tile it multiplies
+      stage_q(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qt = q_s + buf * BQ * LD;
+    const bf16* do_t = do_s + buf * BQ * LD;
+    const float* lset = lse_s + buf * BQ;
+    const float* deltat = delta_s + buf * BQ;
+
+    // S^T = K Q^T: 16 keys x BQ queries per warp
+    float s[BQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_addr(k_s, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int n2 = 0; n2 < BQ / 16; ++n2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, bt_addr(qt, LD, n2 * 16, kk * 16, lane));
+        mma(s[2 * n2], a, b[0], b[1]);
+        mma(s[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    // P^T = exp(S^T - lse), hard-zeroed where masked, causal or ragged
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + 8 * (e / 2);
+        const int key = k0 + r;
+        const int col = n * 8 + 2 * t + (e & 1);
+        const float x = s[n][e] * scale + madd_s[r];
+        const bool live = key < lk && qs + col < lq && !(causal && key > qs + col) &&
+                          x > kMaskedAtOrBelow;
+        s[n][e] = live ? __expf(x - lset[col]) : 0.f;
+      }
+    }
+    // dV += P^T dO
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t a[4];
+      to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, b_addr(do_t, LD, kk * 16, n2 * 16, lane));
+        mma(dv_acc[2 * n2], a, b[0], b[1]);
+        mma(dv_acc[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    // dP^T = V dO^T
+    float dp[BQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_addr(v_s, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int n2 = 0; n2 < BQ / 16; ++n2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, bt_addr(do_t, LD, n2 * 16, kk * 16, lane));
+        mma(dp[2 * n2], a, b[0], b[1]);
+        mma(dp[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - deltat[n * 8 + 2 * t + (e & 1)]);
+    // dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t a[4];
+      to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, b_addr(qt, LD, kk * 16, n2 * 16, lane));
+        mma(dk_acc[2 * n2], a, b[0], b[1]);
+        mma(dk_acc[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next load overwrites it
+  }
+  cp_async_wait<0>();  // no copy outlives the block (n_q == 0 never waited)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + row0 + 8 * i;
+    if (key >= lk) continue;
+    bf16* dkp = dk + bi * sdk.b + hi * sdk.h + (long long)key * sdk.l + 2 * t;
+    bf16* dvp = dv + bi * sdv.b + hi * sdv.h + (long long)key * sdv.l + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + n * 8) =
+          __floats2bfloat162_rn(dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + n * 8) =
+          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta, *mask;
@@ -287,36 +491,52 @@ struct Args {
 };
 
 template <typename T, int D>
-cudaError_t launch(const Args& a, bool dkv) {
-  constexpr int ROWS = Tiling<D>::ROWS;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  if (dkv) {
-    dim3 grid((a.lk + ROWS - 1) / ROWS, a.bh);
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
-        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.out0),
-        static_cast<T*>(a.out1), a.sq, a.sk, a.sv, a.sdo, a.s0, a.s1, a.heads, a.lq,
-        a.lk, a.heads_per_mask, a.scale, a.causal);
-  } else {
-    dim3 grid((a.lq + ROWS - 1) / ROWS, a.bh);
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
-        q, k, v, dout, a.lse, a.delta, a.mask, static_cast<T*>(a.out0), a.sq, a.sk,
-        a.sv, a.sdo, a.s0, a.heads, a.lq, a.lk, a.heads_per_mask, a.scale, a.causal);
-  }
+cudaError_t launch_dq(const Args& a) {
+  dim3 grid((a.lq + Tiling<D>::ROWS - 1) / Tiling<D>::ROWS, a.bh);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, a.mask, static_cast<T*>(a.out0), a.sq,
+      a.sk, a.sv, a.sdo, a.s0, a.heads, a.lq, a.lk, a.heads_per_mask, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, const Args& a, bool dkv) {
-  switch (d) {
-    case 16: return launch<T, 16>(a, dkv);
-    case 32: return launch<T, 32>(a, dkv);
-    case 64: return launch<T, 64>(a, dkv);
-    case 128: return launch<T, 128>(a, dkv);
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_dkv_f32(const Args& a) {
+  dim3 grid((a.lk + Tiling<D>::ROWS - 1) / Tiling<D>::ROWS, a.bh);
+  flash_bwd_dkv_kernel<float, D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      a.mask, static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.sq, a.sk, a.sv,
+      a.sdo, a.s0, a.s1, a.heads, a.lq, a.lk, a.heads_per_mask, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const Args& a) {
+  constexpr int smem = MmaDkv<D>::SMEM;
+  const int tiles = (a.lk + MmaDkv<D>::BK - 1) / MmaDkv<D>::BK;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_mma_kernel<D><<<dim3(a.bh, tiles), kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      a.mask, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.sq, a.sk, a.sv,
+      a.sdo, a.s0, a.s1, a.heads, a.lq, a.lk, a.heads_per_mask, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const Args& a, bool dkv, int dtype) {
+  if (!dkv) return dtype == 0 ? launch_dq<float, D>(a) : launch_dq<bf16, D>(a);
+  return dtype == 0 ? launch_dkv_f32<D>(a) : launch_dkv_bf16<D>(a);
+}
+
+// cp.async reads 16-byte chunks: every row of q, k, v and do must start on one
+bool rows_16b_aligned(const void* p, Strides s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 && s.h % 8 == 0 &&
+         s.l % 8 == 0;
 }
 
 int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
@@ -327,14 +547,23 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
   if (bh <= 0 || lq <= 0 || lk <= 0 || bh > 65535) return cudaErrorInvalidValue;
   if (mask != nullptr && (mask_b <= 0 || bh % mask_b != 0)) return cudaErrorInvalidValue;
   if (out0 == nullptr || (dkv && out1 == nullptr)) return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   Args a{q, k, v, dout, lse, delta, mask, out0, out1,
          {st[0], st[1], st[2]}, {st[3], st[4], st[5]}, {st[6], st[7], st[8]},
          {st[9], st[10], st[11]}, {st[12], st[13], st[14]}, {st[15], st[16], st[17]},
          bh, heads, lq, lk, mask != nullptr ? bh / mask_b : 1, causal, scale,
          static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch_d<float>(d, a, dkv);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(d, a, dkv);
-  return cudaErrorInvalidValue;
+  if (dkv && dtype == 1 &&
+      !(rows_16b_aligned(q, a.sq) && rows_16b_aligned(k, a.sk) && rows_16b_aligned(v, a.sv) &&
+        rows_16b_aligned(dout, a.sdo)))
+    return cudaErrorMisalignedAddress;
+  switch (d) {
+    case 16: return launch<16>(a, dkv, dtype);
+    case 32: return launch<32>(a, dkv, dtype);
+    case 64: return launch<64>(a, dkv, dtype);
+    case 128: return launch<128>(a, dkv, dtype);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

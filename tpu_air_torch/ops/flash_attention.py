@@ -11,6 +11,14 @@ Counterpart of ``tpu_air/ops/flash_attention.py``.  Three kernels:
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` launched by ``_pallas_bwd``:
   dq, and dk/dv, from the saved ``(out, lse)``.
 
+In bf16 the forward and the dk/dv kernel run their products on the tensor
+cores (``mma.sync``, bf16 operands, f32 accumulation, the reference's
+precision); dq, and every kernel in f32, runs on the CUDA cores.  The bf16
+tensor-core kernels stage rows with 16-byte ``cp.async`` copies, so every
+(b, h, l) row of q, k, v and do must start on a 16-byte boundary: a bf16
+view that breaks that rule is first copied to a contiguous tensor
+(:func:`_aligned`).  The model's projections never need the copy.
+
 Both outputs of :func:`flash_attention_with_lse` are differentiable, through
 one ``torch.autograd.Function`` (the counterpart of ``_flash_pair`` and its
 custom VJP).  Without a bias the backward is blockwise: ``delta =
@@ -168,6 +176,23 @@ def _check_qkv(q, k, v, name):
             raise ValueError(f"{name}: {n} needs a contiguous last dim")
 
 
+def _rows_16b_aligned(t) -> bool:
+    """True when every (b, h, l) row of the 4-D view ``t`` starts on a
+    16-byte boundary: its data pointer and its first three strides are
+    multiples of 16 bytes."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) % step == 0 for i in range(3))
+
+
+def _aligned(t):
+    """``t``, or, for a bf16 view that the tensor-core kernels' 16-byte row
+    copies cannot read, a contiguous copy of it.  (``contiguous()`` would
+    return a contiguous view that starts off a 16-byte boundary as it is.)"""
+    if t.dtype != torch.bfloat16 or _rows_16b_aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_mask(kv_mask, bh, lk, q, name):
     if kv_mask is None:
         return None, 0
@@ -184,6 +209,7 @@ def _ptr(t):
 def _launch(q, k, v, bias, kv_mask, scale, causal):
     """q/k/v (B, H, L, D) CUDA views with D contiguous; bias 3-D or None."""
     _check_qkv(q, k, v, "flash_attention")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     bias_n = 0
@@ -243,7 +269,8 @@ def flash_attention_backward(q, k, v, kv_mask, out, lse, do, glse, scale, causal
     """dq, dk, dv of flash attention without a bias, in the input type.
 
     q/k/v/out/do: (B, H, L, D) (any strides with D contiguous; ``do`` of
-    other strides is copied) or (B*H, L, D); lse and glse (None = 0):
+    other strides is copied, as is a bf16 view whose rows are not 16-byte
+    aligned) or (B*H, L, D); lse and glse (None = 0):
     (B, H, Lq) or (B*H, Lq).  On a CUDA tensor: delta = rowsum(do*out) -
     glse in plain torch, then the dq kernel and the dk/dv kernel; on a CPU
     tensor: :func:`flash_attention_backward_reference`."""
@@ -258,6 +285,7 @@ def flash_attention_backward(q, k, v, kv_mask, out, lse, do, glse, scale, causal
                              f"{tuple(out.shape)} do not match q {tuple(q.shape)}")
         if do4.dtype != q4.dtype or do4.stride(3) != 1:
             do4 = do4.to(q4.dtype).contiguous()
+        q4, k4, v4, do4 = (_aligned(t) for t in (q4, k4, v4, do4))
         delta = (do4.float() * out4.float()).sum(-1).reshape(b * h, lq)
         if glse is not None:
             delta = delta - glse.float().reshape(b * h, lq)
@@ -358,7 +386,8 @@ def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
     """Blockwise attention, differentiable in q, k, v and bias.
 
     q/k/v: (B*H, L, D) or (B, H, L, D), float32 or bfloat16, any strides with
-    D contiguous.  bias: additive scores, leading dim 1, H or B*H (T5 passes
+    D contiguous (a bf16 view whose rows are not 16-byte aligned is copied
+    to contiguous first).  bias: additive scores, leading dim 1, H or B*H (T5 passes
     its (1, H, Lq, Lk) position bias; it is not expanded over the batch).
     kv_mask: (B, Lk), 1 = attend.  scale defaults to 1/sqrt(D); T5 passes
     1.0.  Returns the output in q's type and layout."""
