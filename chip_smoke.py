@@ -11,10 +11,15 @@ Phases, each fatal on failure:
               kernel's registers, shared memory and spills, and the card's
               name and power limit; then, from ``cuobjdump -sass``, each
               kernel's count of tensor-core (HMMA) instructions: every
-              tensor-core kernel (``*_mma_kernel``) must have some;
+              tensor-core kernel (``*_mma_kernel``) must have some, and
+              none may spill;
 2. compare  — each T5 kernel against its plain PyTorch version on the card, at
               the generation path's shapes and at edge cases (masked rows,
-              causal, ragged lengths, int8 slabs), against a stated tolerance;
+              causal, ragged lengths, int8 slabs), and the decode kernel where
+              it splits L into chunks (``SPLIT_CASES``: several chunks, whole
+              masked chunks, live keys in one chunk, an all-pad row, L no
+              multiple of the chunk, both int8 scale kinds), against a stated
+              tolerance;
 3. main     — FLAN-T5-base width (12+12 layers, d_model 768, 12 heads, vocab
               32128) in bf16 with weights from a numpy seed at T5's initializer
               scales: the ``T5GenerativePredictor`` generates greedily for 64
@@ -27,7 +32,8 @@ Phases, each fatal on failure:
               tokens must agree;
 5. timing   — device time (profiler) of each T5 kernel, its plain version and
               one PyTorch library call (``scaled_dot_product_attention``) at
-              the generation path's shapes, beside the least time the card
+              the generation path's shapes (and a cross step of 8 rows of
+              4096 keys, split over L), beside the least time the card
               could take (bytes over 3.35 TB/s, flops over 989 TFLOP/s, the
               H100 SXM data-sheet peaks);
 6. backward — the flash backward kernels (dq, dk/dv) against
@@ -59,10 +65,12 @@ The line before the last is the ``{"kernels": [...]}`` summary; the last is
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -70,6 +78,7 @@ import torch.nn.functional as F
 
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16_FLOP_S = 989e12   # H100 SXM dense bf16 tensor cores
+COLD_BYTES = 100_000_000    # slabs cycled through when timing decode: twice the 50 MB L2
 # Tolerances on |kernel - plain| / max(1, |plain|).  Both compute in f32 from
 # the same inputs and differ in summation order (f32: 1e-4); a bf16 output is
 # one rounding of that f32 value, up to 2^-7 of it apart (bf16: 2e-2).
@@ -83,11 +92,19 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SEED = 0
 # how each kernel computes its products in bf16, the type the main paths run
-DESIGN = {"flash_attention": "mma.sync bf16", "decode_attention": "cuda-core f32",
-          "flash_attention_bwd_dq": "cuda-core f32", "flash_attention_bwd_dkv": "mma.sync bf16"}
+DESIGN = {"flash_attention": "mma.sync bf16",
+          "decode_attention": "cuda-core f32, 16-byte loads, one pass, split-K, masked chunks skipped",
+          "flash_attention_bwd_dq": "mma.sync bf16", "flash_attention_bwd_dkv": "mma.sync bf16"}
 # main-path dials: W3 batch generation at the reference's max_new_tokens=128
 BATCH, PROMPT_LEN, NEW_TOKENS = 64, 512, 128
 SMALL_BATCH, RAGGED_LEN = 8, 200          # edge cases of the compare phase
+# split-K cases of the decode kernel (b, L, kind): b*h = 12 or 96 blocks
+# cannot fill the card, so L is cut into chunks; b = 1 "cross" is one all-pad
+# row, "one_chunk" has its live keys in one chunk, b = 8 "cross" has padded
+# rows whose tails are whole masked chunks, and 4133 is no multiple of a chunk
+SPLIT_CASES = ((1, 4096, "cross"), (1, 4096, "one_chunk"), (8, 4096, "cross"),
+               (8, 4096, "self"), (8, 4133, "cross"), (8, 4133, "int8_pos"),
+               (1, 4133, "int8_chan"))
 PARITY_BATCH, PARITY_NEW = 4, 32
 PREDICT_REPEATS = 3                       # timed predict runs (median reported)
 # LM dials: the 136M long-context LM of BASELINE.md, batch 1, 8192 tokens
@@ -133,6 +150,12 @@ def host_us(fn, iters: int = 50) -> float:
     t = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
     return t
+
+
+def cycled(calls):
+    """One function that makes the next of ``calls`` at each call, in turn."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
 
 
 def step_times_ms(fn, n: int):
@@ -285,9 +308,12 @@ def build() -> None:
     logs = _build.build(names)
     log(f"[build] {names} built for sm_90a in {time.perf_counter() - t0:.1f} s")
     for src, report in sorted(logs.items()):    # registers, static smem, spill stores
+        usage = ptxas_usage(report)
         log(f"[build] ptxas {src}.cu: " + "; ".join(
-            f"{fn} {regs} regs {smem} B smem {spill} B spill"
-            for fn, regs, smem, spill in ptxas_usage(report)))
+            f"{fn} {regs} regs {smem} B smem {spill} B spill" for fn, regs, smem, spill in usage))
+        spilled = [fn for fn, _, _, spill in usage if "_mma_kernel" in fn and spill]
+        if spilled:
+            raise AssertionError(f"[build] tensor-core kernels that spill: {spilled}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         log("[build] cuobjdump not found: HMMA counts not read")
@@ -353,7 +379,19 @@ def decode_inputs(rng, b, L, h, d, dtype, dev, kind):
         lens = rng.integers(L // 8, L + 1, b)
         lens[0], lens[-1] = L, 0
         kw["kv_mask"] = torch.from_numpy((np.arange(L)[None] < lens[:, None]).astype(np.float32)).to(dev)
+    if kind == "one_chunk":   # live keys inside the fourth chunk only
+        c = decode_chunk(b, h, L, dev)
+        m = np.zeros((b, L), np.float32)
+        m[:, 3 * c + 5:3 * c + 60] = 1.0
+        kw["kv_mask"] = torch.from_numpy(m).to(dev)
     return q, k, v, kw
+
+
+def decode_chunk(b, h, L, dev) -> int:
+    """The positions per block the decode kernel takes at this shape."""
+    from tpu_air_torch.ops.decode_attention import split_chunk
+
+    return split_chunk(b, h, L, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 def compare(dev) -> dict:
@@ -405,6 +443,17 @@ def compare(dev) -> dict:
             q, k, v, kw = decode_inputs(rng, B, Lk, H, D, dtype, dev, kind)
             check(f"decode {tag} {kind}", decode_attention(q, k, v, **kw),
                   decode_attention_reference(q, k, v, **kw), dtype)
+        # and where it splits L into chunks
+        for b, Lk, kind in SPLIT_CASES:
+            q, k, v, kw = decode_inputs(rng, b, Lk, H, D, dtype, dev, kind)
+            chunks = -(-Lk // decode_chunk(b, H, Lk, dev))
+            if chunks < 2:
+                raise AssertionError(f"[compare] decode b{b} L{Lk}: {chunks} chunk, no split")
+            check(f"decode {tag} {kind} b{b} L{Lk} ({chunks} chunks)",
+                  decode_attention(q, k, v, **kw), decode_attention_reference(q, k, v, **kw),
+                  dtype)
+        del q, k, v, kw
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -616,19 +665,32 @@ def timing(dev, errs: dict, launches: dict) -> list:
     torch.cuda.empty_cache()
 
     rows = {}
-    for kind, Lk in (("cross", L), ("self", NEW_TOKENS + 1)):
-        b, h, d = B, H, D
-        q, k, v, kw = decode_inputs(rng, b, Lk, h, d, dt, dev, kind)
-        q4 = q.transpose(1, 2)                                  # [b, h, 1, d]
-        k4 = k.view(b, Lk, h, d).transpose(1, 2)
-        v4 = v.view(b, Lk, h, d).transpose(1, 2)
-        if kind == "cross":
-            lib_mask = torch.where(kw["kv_mask"] > 0, 0.0, -1e20)[:, None, None, :].to(dt)
-        else:
-            lib_mask = kw["bias"][None, :, None, :].to(dt)
-        f_kernel = lambda: decode_attention(q, k, v, **kw)  # noqa: E731
-        f_plain = lambda: decode_attention_reference(q, k, v, **kw)  # noqa: E731
-        f_lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=lib_mask, scale=1.0)  # noqa: E731
+    # the two decode steps of the main path, and a cross step split over L.
+    # Each call reads another copy of the inputs, COLD_BYTES of slabs or more
+    # in all, so that the slabs come from device memory as in the decode
+    # loop, where every layer reads its own cache (back to back on one copy,
+    # a slab that fits the 50 MB L2, as the self step's does, is read from
+    # there: "warm_ms", kept for comparison with earlier timings).
+    for key, b, kind, Lk in (("cross", B, "cross", L), ("self", B, "self", NEW_TOKENS + 1),
+                             ("split", SMALL_BATCH, "cross", 4096)):
+        h, d = H, D
+        copies = max(2, -(-COLD_BYTES // (2 * b * Lk * h * d * 2)))
+        sets = [decode_inputs(rng, b, Lk, h, d, dt, dev, kind) for _ in range(copies)]
+        kernels_, plains, libs = [], [], []
+        for q_, k_, v_, kw_ in sets:
+            q4 = q_.transpose(1, 2)                             # [b, h, 1, d]
+            k4 = k_.view(b, Lk, h, d).transpose(1, 2)
+            v4 = v_.view(b, Lk, h, d).transpose(1, 2)
+            if kind == "cross":
+                lib_mask = torch.where(kw_["kv_mask"] > 0, 0.0, -1e20)[:, None, None, :].to(dt)
+            else:
+                lib_mask = kw_["bias"][None, :, None, :].to(dt)
+            kernels_.append(partial(decode_attention, q_, k_, v_, **kw_))
+            plains.append(partial(decode_attention_reference, q_, k_, v_, **kw_))
+            libs.append(partial(F.scaled_dot_product_attention, q4, k4, v4, attn_mask=lib_mask,
+                                scale=1.0))
+        f_kernel, f_plain, f_lib = cycled(kernels_), cycled(plains), cycled(libs)
+        q, k, v, kw = sets[0]
         if kind == "cross":
             keys = needed_keys(kw["kv_mask"], Lk)
             extra = b * Lk * 4                                  # the key mask
@@ -638,32 +700,46 @@ def timing(dev, errs: dict, launches: dict) -> list:
         nbytes = 2 * h * d * 2 * int(keys.sum()) + 2 * b * h * d * 2 + extra
         flops = 4 * h * d * int(keys.sum())
         b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
-        rows[kind] = {
-            "max_abs_err": errs[f"decode bf16 {kind}"], "tol": TOL[dt],
-            "ms": device_ms(f_kernel, 200), "plain_ms": device_ms(f_plain, 50),
+        chunks = -(-Lk // decode_chunk(b, h, Lk, dev))
+        rows[key] = {
+            "max_abs_err": max_err(kernels_[0](), plains[0]()) if key == "split"
+            else errs[f"decode bf16 {kind}"], "tol": TOL[dt],
+            "ms": device_ms(f_kernel, 200), "plain_ms": device_ms(f_plain, 20),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(f_lib, 200),
+            "warm_ms": device_ms(kernels_[0], 200),
+            "library_warm_ms": device_ms(libs[0], 200),
             "back_to_back_ms": time_ms(f_kernel, 200),
             "host_us_per_call": host_us(f_kernel),
             "shape": f"b{b} L{Lk} h{h} d{d} bf16, " + ("key mask" if kind == "cross"
-                                                       else "bias [h,L] with causal row"),
-            "bytes": nbytes, "flops": flops,
+                                                       else "bias [h,L] with causal row")
+            + f", {chunks} chunk{'s' if chunks > 1 else ''}",
+            "bytes": nbytes, "flops": flops, "chunks": chunks, "input_copies": copies,
         }
+        del sets, kernels_, plains, libs, f_kernel, f_plain, f_lib, q, k, v, kw
+        del q4, k4, v4, lib_mask
+        torch.cuda.empty_cache()
     decode_row = {
         "name": "decode_attention", "route": "cuda", "design": DESIGN["decode_attention"],
         "source": "tpu_air_torch/ops/csrc/decode_attention.cu",
         "replaces": "tpu_air/ops/decode_attention.py:61",
         "launches": launches["decode_attention"], **rows["cross"],
-        "self_step": rows["self"],
+        "self_step": rows["self"], "split_cross_step": rows["split"],
     }
     for r in (flash_row, decode_row):   # aliases of ms and max_abs_err
         r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
-    for r in (flash_row, decode_row, rows["self"]):
-        log(f"[timing] {r.get('name', 'decode_attention self step')} "
+    rows["self"]["label"] = "decode_attention self step"
+    rows["split"]["label"] = "decode_attention cross step split over L"
+    for r in (flash_row, decode_row, rows["self"], rows["split"]):
+        warm = ""
+        if "warm_ms" in r:
+            warm = (f"; L2 warm (one input set back to back) kernel {r['warm_ms']:.4f} ms, "
+                    f"SDPA {r['library_warm_ms']:.4f} ms")
+        log(f"[timing] {r.get('name', r.get('label'))} "
             f"({DESIGN[r.get('name', 'decode_attention')]}) {r['shape']}: kernel "
             f"{r['ms']:.4f} ms device time ({r['back_to_back_ms']:.4f} ms back to back, "
             f"host {r['host_us_per_call']:.1f} us/call), plain "
             f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}{warm}")
     return [flash_row, decode_row]
 
 
@@ -858,13 +934,17 @@ def lm_main_path(dev) -> dict:
     med = float(np.median(step_ms[1:]))
     prof = lm_step_profile(dev, cfg)
     top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1][0])[:8]
+    # the profiler slows the host's side of a step: against the unprofiled
+    # median step the same device time gives the idle share without it
+    idle_median = 1 - prof["busy_ms"] / med
     log(f"[lm] median step {med:.1f} ms over {LM_STEPS} steps = {LM_LEN / med * 1e3:.0f} "
         f"tokens/s; a profiled step: {prof['wall_ms']:.1f} ms, device busy "
-        f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.4f}); heaviest kernels "
+        f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.4f}; of the median step "
+        f"{idle_median:.4f}); heaviest kernels "
         "per step: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c:g}" for k, (t, c) in top))
     per_launch = {}
     for name, kernel in (("flash_attention", "flash_fwd_mma_kernel"),
-                         ("flash_attention_bwd_dq", "flash_bwd_dq_kernel"),
+                         ("flash_attention_bwd_dq", "flash_bwd_dq_mma_kernel"),
                          ("flash_attention_bwd_dkv", "flash_bwd_dkv_mma_kernel")):
         hits = [(t, c) for k, (t, c) in prof["kernels"].items() if kernel in k]
         if sum(c for _, c in hits) != cfg.n_layers:
@@ -875,7 +955,8 @@ def lm_main_path(dev) -> dict:
     return {"launches": launches, "launches_per_step": per_step, "losses": losses,
             "step_ms": step_ms, "step_ms_median": med, "tokens_per_s": LM_LEN / med * 1e3,
             "profiled_step_ms": prof["wall_ms"], "step_device_busy_ms": prof["busy_ms"],
-            "idle_share": prof["idle_share"], "kernel_ms_per_launch": per_launch,
+            "idle_share": prof["idle_share"], "idle_share_of_median_step": idle_median,
+            "kernel_ms_per_launch": per_launch,
             "fit_wall_s": wall}
 
 

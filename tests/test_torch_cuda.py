@@ -86,14 +86,20 @@ def test_flash_kernel_matches_plain(dev, dtype, d, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 64, 128])
-@pytest.mark.parametrize("L", [129, 512])
-@pytest.mark.parametrize("case", ["bias", "mask", "int8_pos", "int8_chan"])
-def test_decode_kernel_matches_plain(dev, dtype, d, L, case):
+@pytest.mark.parametrize("L", [129, 512, 4096])
+@pytest.mark.parametrize("b", [1, 5, 8])
+@pytest.mark.parametrize("case", ["bias", "mask", "int8_pos", "int8_chan", "one_chunk"])
+def test_decode_kernel_matches_plain(dev, dtype, d, L, b, case):
+    """With h = 3 the kernel splits L into chunks at every b here (b*h
+    blocks cannot fill the card).  The key masks: with b = 1 one all-pad
+    row (mean(V), every chunk read); else full, half, one-key and all-pad
+    rows, whose masked tails are whole chunks that are skipped; "one_chunk"
+    leaves live keys only inside one chunk (and an all-pad fourth row)."""
     from tpu_air_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+        decode_attention, decode_attention_reference, split_chunk)
 
     rng = np.random.default_rng(L + d)
-    b, h = 5, 3
+    h = 3
     q = _t(rng.standard_normal((b, 1, h, d)), dev, dtype)
     kw = {}
     if case.startswith("int8"):
@@ -107,8 +113,16 @@ def test_decode_kernel_matches_plain(dev, dtype, d, L, case):
         k = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
         v = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
     if case in ("mask", "int8_pos", "int8_chan"):
-        m = np.arange(L)[None] < np.array([L, L // 2, 1, 0, 7])[:, None]
+        lens = [0] if b == 1 else [L, L // 2, 1, 0, 7, L - 1, 3, L // 3][:b]
+        m = np.arange(L)[None] < np.array(lens)[:, None]
         kw["kv_mask"] = _t(m, dev, torch.float32)   # one fully-masked row
+    if case == "one_chunk":
+        c = split_chunk(b, h, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+        live = (L - 1) // c * c                     # the last chunk's first key
+        m = np.zeros((b, L), bool)
+        m[:, live:live + 3] = True
+        m[3:4] = False
+        kw["kv_mask"] = _t(m, dev, torch.float32)
     if case == "bias":
         causal = np.where(np.arange(L) <= L // 3, 0.0, -1e9)
         kw["bias"] = _t(rng.standard_normal((h, L)) + causal, dev, torch.float32)
@@ -163,8 +177,8 @@ def test_flash_kernel_matches_plain_at_tile_edges(dev, d, causal, L):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("L", EDGE_LENGTHS)
 def test_flash_backward_kernels_match_plain_at_tile_edges(dev, d, causal, L):
-    """dq and the bf16 tensor-core dk/dv kernel at lengths around their tile
-    edges, with a ragged key mask and a fully masked row."""
+    """The bf16 tensor-core dq and dk/dv kernels at lengths around their
+    tile edges, with a ragged key mask and a fully masked row."""
     from tpu_air_torch.ops.flash_attention import (
         flash_attention_backward, flash_attention_backward_reference,
         flash_attention_with_lse)
@@ -192,10 +206,11 @@ def test_flash_backward_kernels_match_plain_at_tile_edges(dev, d, causal, L):
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_bf16_fully_masked_row_dk_dv_are_exactly_zero(dev, d):
-    """In bf16 the tensor-core dk/dv kernel hard-zeroes masked scores: keys
-    of a fully masked batch row get dk = dv = 0 exactly, as do the keys that
-    a ragged row's mask hides, causal or not."""
+@pytest.mark.parametrize("grad", ["dq", "dk_dv"])
+def test_bf16_fully_masked_row_dk_dv_are_exactly_zero(dev, d, grad):
+    """In bf16 the tensor-core backward kernels hard-zero masked scores: a
+    fully masked batch row gets dq = 0 exactly, and its keys dk = dv = 0, as
+    do the keys that a ragged row's mask hides, causal or not."""
     from tpu_air_torch.ops.flash_attention import flash_attention_backward, flash_attention_with_lse
 
     rng = np.random.default_rng(d)
@@ -205,8 +220,13 @@ def test_bf16_fully_masked_row_dk_dv_are_exactly_zero(dev, d):
                        for _ in range(4))
         mask = _edge_mask(L, dev)
         out, lse = flash_attention_with_lse(q, k, v, kv_mask=mask, causal=causal)
-        _, dk, dv = flash_attention_backward(q, k, v, mask, out, lse, do, None, d ** -0.5, causal)
+        dq, dk, dv = flash_attention_backward(q, k, v, mask, out, lse, do, None, d ** -0.5,
+                                              causal)
         torch.cuda.synchronize()
+        if grad == "dq":
+            assert dq[2].abs().max().item() == 0.0
+            assert dq[:2].abs().max().item() > 0.0
+            continue
         for g in (dk, dv):
             assert g[2].abs().max().item() == 0.0
             assert g[1, :, L - 37:].abs().max().item() == 0.0
@@ -250,6 +270,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="int8"):
         decode_attention(qd, kd, kd, k_scale=torch.ones(2, 9, 4, device=dev),
                          v_scale=torch.ones(2, 9, 4, device=dev))
+    off = torch.zeros(2 * 9 * 64 + 1, device=dev)[1:].view(2, 9, 64)  # 4 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention(qd, off, kd)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention(qd, kd, off)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -175,6 +175,135 @@ def test_decode_fully_masked_row_is_mean_v():
     np.testing.assert_allclose(got.numpy()[1, 0], v[1].mean(0), atol=ATOL)
 
 
+# -- the decode kernel's split-K arithmetic ----------------------------------
+
+
+def _split_decode_mirror(q, k, v, bias=None, kv_mask=None, k_scale=None, v_scale=None, *,
+                         chunk):
+    """What csrc/decode_attention.cu computes, step for step in torch: per
+    (b, h) and chunk of ``chunk`` positions, the f32 softmax state (m, den,
+    acc) over the chunk's range from its first live key to its last, masked
+    keys inside it at weight 0; (-1e20, 0, 0), K/V unread, for a chunk
+    without a live key in a row that has one; every position, each at the
+    -1e20 floor, in a row without one.  Then the states merge.  q [b, h, d];
+    k/v [b, L, h*d]; scales flat.  Returns the output and the number of
+    (b, h, position) K/V reads."""
+    b, h, d = q.shape
+    L = k.shape[1]
+    kf, vf = k.reshape(b, L, h, d).float(), v.reshape(b, L, h, d).float()
+    qf = q.float()
+    k_kind = tdec._scale_kind(k_scale, b, L, h, d, "k_scale")
+    v_kind = tdec._scale_kind(v_scale, b, L, h, d, "v_scale")
+    if k_kind == tdec._CHAN:
+        qf = qf * k_scale.reshape(b, h, d)
+    floor = tdec.MASK_FLOOR
+    out, reads = torch.empty(b, h, d), 0
+    for bi in range(b):
+        live = None if kv_mask is None else kv_mask[bi] > 0
+        drop = live is not None and bool(live.any())
+        for hi in range(h):
+            states = []
+            for c0 in range(0, L, chunk):
+                idx = torch.arange(c0, min(L, c0 + chunk))
+                if drop:
+                    first_last = idx[live[idx]]
+                    if first_last.numel() == 0:          # skipped
+                        states.append((floor, 0.0, torch.zeros(d)))
+                        continue
+                    idx = torch.arange(int(first_last[0]), int(first_last[-1]) + 1)
+                reads += idx.numel()
+                s = kf[bi, idx, hi] @ qf[bi, hi]
+                if k_kind == tdec._POS:
+                    s = s * k_scale[bi, idx, hi]
+                if bias is not None:
+                    s = s + bias[hi, idx]
+                if live is not None:
+                    s = s + torch.where(live[idx], 0.0, floor)
+                    if drop:
+                        s = torch.where(live[idx], s, float("-inf"))
+                m = max(float(s.max()), floor)
+                p = torch.exp(s - m)
+                pv = p * v_scale[bi, idx, hi] if v_kind == tdec._POS else p
+                states.append((m, float(p.sum()), pv @ vf[bi, idx, hi]))
+            top = max(st[0] for st in states)
+            w = [np.exp(np.float64(st[0] - top)) for st in states]
+            den = sum(wi * st[1] for wi, st in zip(w, states))
+            acc = sum(float(wi) * st[2] for wi, st in zip(w, states))
+            o = acc / max(den, 1e-20)
+            if v_kind == tdec._CHAN:
+                o = o * v_scale.reshape(b, h, d)[bi, hi]
+            out[bi, hi] = o
+    return out.to(q.dtype), reads
+
+
+@pytest.mark.parametrize("chunk", [16, 40, 64])
+@pytest.mark.parametrize("case", ["splits", "masked_chunks", "all_pad", "one_chunk",
+                                  "int8_pos", "int8_chan"])
+def test_decode_split_mirror_matches_references(case, chunk):
+    """The split-K merge and the masked-chunk skip, mirrored in torch,
+    against the port's plain version and the JAX reference: several chunks
+    (L = 100 is no multiple of any), padded rows whose tails are whole
+    masked chunks, an all-pad row (mean(V), every chunk read), live keys in
+    one chunk only, and both int8 scale kinds.  The mirror reads K/V only
+    where the kernel does: the live range of each row, all of an all-pad
+    row."""
+    b, L, h, d = 4, 100, 3, 16
+    rng = np.random.default_rng(chunk)
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, L, h, d)).astype(np.float32)
+    v = rng.standard_normal((b, L, h, d)).astype(np.float32)
+    lens = np.array([L, 37, 1, 0 if case == "all_pad" else 70])
+    mask = (np.arange(L)[None] < lens[:, None]).astype(np.float32)
+    kw = {"kv_mask": mask}
+    if case == "splits":
+        causal = np.where(np.arange(L) <= 60, 0.0, -1e9)
+        kw = {"bias": (rng.standard_normal((h, L)) + causal).astype(np.float32)}
+    elif case == "one_chunk":
+        mask[:] = 0.0
+        mask[:, chunk + 2:chunk + 5] = 1.0
+    elif case.startswith("int8"):
+        k = rng.integers(-127, 128, (b, L, h, d)).astype(np.int8)
+        v = rng.integers(-127, 128, (b, L, h, d)).astype(np.int8)
+        shape = (b, L, h, 1) if case == "int8_pos" else (b, 1, h, d)
+        kw["k_scale"] = rng.uniform(0.001, 0.02, shape).astype(np.float32)
+        kw["v_scale"] = rng.uniform(0.001, 0.02, shape).astype(np.float32)
+    flat_s = (b, L, h) if case == "int8_pos" else (b, 1, h * d)
+    kw_t = {n: _t(a.reshape(flat_s) if n.endswith("scale") else a) for n, a in kw.items()}
+    tq, tk, tv = _t(q)[:, 0], _t(k.reshape(b, L, -1)), _t(v.reshape(b, L, -1))
+    got, reads = _split_decode_mirror(tq, tk, tv, **kw_t, chunk=chunk)
+    want = tdec.decode_attention_reference(tq, tk, tv, **kw_t)
+    want_jax = jdec.decode_attention_reference(_j(q), _j(k), _j(v),
+                                               **{n: _j(a) for n, a in kw.items()})
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_jax)[:, 0], atol=ATOL, rtol=ATOL)
+    if case == "splits":
+        assert reads == b * h * L
+    elif case == "one_chunk":
+        assert reads == b * h * 3
+    else:
+        needed = np.where(lens == 0, L, lens)       # an all-pad row reads every key
+        assert reads == h * int(needed.sum())
+    if case == "all_pad":
+        np.testing.assert_allclose(got.numpy()[3], v[3].astype(np.float32).mean(0), atol=ATOL)
+
+
+@pytest.mark.parametrize("b,h,L,chunks", [
+    (64, 12, 512, 1), (64, 12, 129, 1),        # the W3 cross and self steps
+    (48, 12, 512, 1), (32, 12, 512, 3),        # just over and under half a wave
+    (8, 12, 4096, 8), (8, 12, 4133, 9), (1, 12, 4096, 32), (1, 12, 4133, 33),
+    (5, 3, 129, 2), (1, 3, 4096, 32), (1, 12, 100, 1),
+])
+def test_decode_split_chunk(b, h, L, chunks):
+    """The kernel splits L only while b*h blocks fill less than half a wave
+    of six blocks on each of an H100's 132 SMs, up to that wave, into
+    chunks of at least 128 positions, multiples of 64, and never into an
+    empty chunk."""
+    chunk = tdec.split_chunk(b, h, L, 132)
+    assert -(-L // chunk) == chunks
+    assert chunk == L or (chunk % 64 == 0 and chunk >= tdec._MIN_CHUNK)
+    assert (chunks - 1) * chunk < L
+
+
 def test_cpu_wrappers_take_plain_versions():
     """On CPU tensors the wrappers compute the plain versions and never
     count a kernel launch; a bad scale shape is rejected like the JAX op."""

@@ -1,10 +1,10 @@
 // Flash-attention backward for Hopper (sm_90a), CUDA C++ with a plain C ABI.
 //
 // Two kernels, from the forward's saved (out, lse) statistics:
-//   flash_bwd_dq_kernel  replaces tpu_air/ops/flash_attention.py::_bwd_dq_kernel
-//                        (and _bwd_dq_nm), launched there by _pallas_bwd;
-//   flash_bwd_dkv_*      replaces tpu_air/ops/flash_attention.py::_bwd_dkv_kernel
-//                        (and _bwd_dkv_nm), launched there by _pallas_bwd.
+//   flash_bwd_dq_*   replaces tpu_air/ops/flash_attention.py::_bwd_dq_kernel
+//                    (and _bwd_dq_nm), launched there by _pallas_bwd;
+//   flash_bwd_dkv_*  replaces tpu_air/ops/flash_attention.py::_bwd_dkv_kernel
+//                    (and _bwd_dkv_nm), launched there by _pallas_bwd.
 //
 // What they compute, per (batch*head), query row i and key row j:
 //   s_ij  = (q_i . k_j) * scale + (1 - mask[b][j]) * -1e30
@@ -35,8 +35,27 @@
 // and dq/dk/dv written through (b, h, l) strides with D contiguous, so the
 // model's [b, L, h, d] projections need no transposed copy.
 //
-// dk/dv in bf16 (flash_bwd_dkv_mma_kernel) runs every product on the tensor
-// cores (mma.sync m16n8k16, f32 accumulation): one block of 4 warps per
+// In bf16 both kernels run every product on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, f32 accumulation), from the helpers of
+// mma_bf16.cuh, and each is the mirror image of the other.
+//
+// dq (flash_bwd_dq_mma_kernel): one block of 4 warps per (b*h, 64-row query
+// tile), each warp owning 16 query rows, with its dQ accumulator in f32
+// fragments (D / 2 registers a lane).  Q and dO stay in shared memory and
+// their A fragments are fetched by ldmatrix at each use: holding them in
+// registers as well (D / 2 more a lane each) would leave no room for one key
+// tile's S and dP fragments (32 registers each) at D = 128.  64-key K/V
+// tiles and the key mask row pass through a two-stage cp.async ring, tile
+// j + 1 loading while tile j multiplies.  Per tile, all in registers: S = Q
+// K^T, P = exp(S - lse) with the hard zero, dP = dO V^T, dS = P (dP -
+// delta), dQ += dS K, with K read as B through ldmatrix.trans from the
+// tile S read it from; dS is rounded to bf16 as the A operand, as the
+// Pallas kernel casts ds before its product.  Under causal masking only key
+// tiles up to the diagonal are visited, only the tile(s) that cross it mask
+// element by element, and the last query tiles (the most keys) start first.
+// The scale multiplies once, in the epilogue.
+//
+// dk/dv (flash_bwd_dkv_mma_kernel): one block of 4 warps per
 // (b*h, 64-key tile), each warp owning 16 keys, with its dK and dV
 // accumulators in f32 fragments.  K and V stay in shared memory and their
 // fragments are fetched by ldmatrix at each use, which keeps the two
@@ -51,8 +70,9 @@
 // launch in order, so under causal masking the longest (the first) start
 // first.
 //
-// dq, and dk/dv in f32, run on the CUDA cores (the tensor cores' only f32
-// product is TF32, too coarse for the f32 parity of the port): every operand
+// In f32 both run on the CUDA cores (flash_bwd_dq_kernel<float, D>,
+// flash_bwd_dkv_kernel<float, D>; the tensor cores' only f32 product is
+// TF32, too coarse for the f32 parity of the port): every operand
 // is read from shared memory as float4 (one load per four FMAs) and the
 // threads that share a row read neighbouring 16-byte words, so a warp's load
 // is one conflict-free wavefront; FMA throughput and those loads bound them.
@@ -480,6 +500,176 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D> struct MmaDq {
+  static constexpr int BQ = 64;     // query rows per block, 16 per warp
+  static constexpr int BK = 64;     // keys per step
+  static constexpr int LD = D + 8;  // padded shared row, elements
+  // Q, dO; two stages of K, V and of the key mask row
+  static constexpr int SMEM = (2 * BQ + 4 * BK) * LD * (int)sizeof(bf16) +
+                              2 * BK * (int)sizeof(float);
+};
+
+// Two blocks an SM, what the shared memory allows at D = 128 (104,960 B each).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const float* __restrict__ mask, bf16* __restrict__ dq, Strides sq,
+                        Strides sk, Strides sv, Strides sdo, Strides sdq, int heads, int lq,
+                        int lk, int heads_per_mask, float scale, int causal) {
+  using namespace mma_bf16;
+  constexpr int BQ = MmaDq<D>::BQ, BK = MmaDq<D>::BK, LD = MmaDq<D>::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
+  bf16* do_s = q_s + BQ * LD;                     // [BQ][LD]
+  bf16* k_s = do_s + BQ * LD;                     // [2][BK][LD]
+  bf16* v_s = k_s + 2 * BK * LD;                  // [2][BK][LD]
+  float* mask_s = reinterpret_cast<float*>(v_s + 2 * BK * LD);  // [2][BK]
+
+  const int bh = blockIdx.x;
+  // causal: the query tiles that see the most keys (the last ones) start first
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * BQ;
+  const int bi = bh / heads;
+  const int hi = bh % heads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this lane's query rows
+
+  const bf16* kb = k + bi * sk.b + hi * sk.h;
+  const bf16* vb = v + bi * sv.b + hi * sv.h;
+  const float* maskb = mask ? mask + (long long)(bh / heads_per_mask) * lk : nullptr;
+
+  // causal: key tiles wholly after this query tile's last row carry no weight
+  const int k_end = causal ? min(lk, q0 + BQ) : lk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  // K, V and key mask of key tile j into stage j & 1
+  auto stage_keys = [&](int j) {
+    const int k0 = j * BK, buf = j & 1;
+    stage_rows<D, BK, kThreads>(k_s + buf * BK * LD, kb, sk.l, k0, lk);
+    stage_rows<D, BK, kThreads>(v_s + buf * BK * LD, vb, sv.l, k0, lk);
+    if (maskb != nullptr && threadIdx.x < BK) {
+      const bool ok = k0 + threadIdx.x < lk;
+      cp_async4(mask_s + buf * BK + threadIdx.x, ok ? maskb + k0 + threadIdx.x : maskb, ok);
+    }
+  };
+  stage_rows<D, BQ, kThreads>(q_s, q + bi * sq.b + hi * sq.h, sq.l, q0, lq);
+  stage_rows<D, BQ, kThreads>(do_s, dout + bi * sdo.b + hi * sdo.h, sdo.l, q0, lq);
+  stage_keys(0);
+  cp_async_commit();
+
+  const float* lseb = lse + (long long)bh * lq;
+  const float* deltab = delta + (long long)bh * lq;
+  const float lse_r[2] = {row0 < lq ? lseb[row0] : 0.f, row1 < lq ? lseb[row1] : 0.f};
+  const float delta_r[2] = {row0 < lq ? deltab[row0] : 0.f, row1 < lq ? deltab[row1] : 0.f};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BK;
+    if (j + 1 < n_tiles) {  // tile j + 1 loads while tile j multiplies
+      stage_keys(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = k_s + (j & 1) * BK * LD;
+    const bf16* vs = v_s + (j & 1) * BK * LD;
+    const float* mask_t = mask_s + (j & 1) * BK;
+
+    // S = Q K^T: 16 rows x BK keys per warp; Q fragments from shared memory
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_addr(q_s, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int n2 = 0; n2 < BK / 16; ++n2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, bt_addr(ks, LD, n2 * 16, kk * 16, lane));
+        mma(s[2 * n2], a, b[0], b[1]);
+        mma(s[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    // P = exp(S * scale + mask - lse), hard-zeroed where masked; causal and
+    // ragged keys only on the tiles that reach past the diagonal or Lk
+    const bool edge = k0 + BK > lk || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      float2 madd = make_float2(0.f, 0.f);
+      if (maskb != nullptr) {
+        const float2 m2 = *reinterpret_cast<const float2*>(mask_t + n * 8 + 2 * t);
+        madd = make_float2((1.f - m2.x) * kNegInf, (1.f - m2.y) * kNegInf);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row0 : row1;
+        const int key = k0 + n * 8 + 2 * t + (e & 1);
+        const float x = s[n][e] * scale + ((e & 1) ? madd.y : madd.x);
+        bool live = x > kMaskedAtOrBelow;
+        if (edge) live = live && key < lk && !(causal && key > row);
+        s[n][e] = live ? __expf(x - lse_r[e / 2]) : 0.f;
+      }
+    }
+    // dP = dO V^T
+    float dp[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_addr(do_s, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int n2 = 0; n2 < BK / 16; ++n2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, bt_addr(vs, LD, n2 * 16, kk * 16, lane));
+        mma(dp[2 * n2], a, b[0], b[1]);
+        mma(dp[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    // dS = P (dP - delta)
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - delta_r[e / 2]);
+    // dQ += dS K: dS rounded to bf16 as the A operand, K (keys x D) as B
+    // through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, b_addr(ks, LD, kk * 16, n2 * 16, lane));
+        mma(acc[2 * n2], a, b[0], b[1]);
+        mma(acc[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next load overwrites it
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? row0 : row1;
+    if (row >= lq) continue;
+    bf16* dqp = dq + bi * sdq.b + hi * sdq.h + (long long)row * sdq.l + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta, *mask;
@@ -490,13 +680,30 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
+template <int D>
+cudaError_t launch_dq_f32(const Args& a) {
   dim3 grid((a.lq + Tiling<D>::ROWS - 1) / Tiling<D>::ROWS, a.bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, a.mask, static_cast<T*>(a.out0), a.sq,
-      a.sk, a.sv, a.sdo, a.s0, a.heads, a.lq, a.lk, a.heads_per_mask, a.scale, a.causal);
+  flash_bwd_dq_kernel<float, D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      a.mask, static_cast<float*>(a.out0), a.sq, a.sk, a.sv, a.sdo, a.s0, a.heads, a.lq,
+      a.lk, a.heads_per_mask, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const Args& a) {
+  constexpr int smem = MmaDq<D>::SMEM;
+  const int tiles = (a.lq + MmaDq<D>::BQ - 1) / MmaDq<D>::BQ;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_mma_kernel<D><<<dim3(a.bh, tiles), kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      a.mask, static_cast<bf16*>(a.out0), a.sq, a.sk, a.sv, a.sdo, a.s0, a.heads, a.lq,
+      a.lk, a.heads_per_mask, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -529,7 +736,7 @@ cudaError_t launch_dkv_bf16(const Args& a) {
 
 template <int D>
 cudaError_t launch(const Args& a, bool dkv, int dtype) {
-  if (!dkv) return dtype == 0 ? launch_dq<float, D>(a) : launch_dq<bf16, D>(a);
+  if (!dkv) return dtype == 0 ? launch_dq_f32<D>(a) : launch_dq_bf16<D>(a);
   return dtype == 0 ? launch_dkv_f32<D>(a) : launch_dkv_bf16<D>(a);
 }
 
@@ -553,7 +760,7 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
          {st[9], st[10], st[11]}, {st[12], st[13], st[14]}, {st[15], st[16], st[17]},
          bh, heads, lq, lk, mask != nullptr ? bh / mask_b : 1, causal, scale,
          static_cast<cudaStream_t>(stream)};
-  if (dkv && dtype == 1 &&
+  if (dtype == 1 &&
       !(rows_16b_aligned(q, a.sq) && rows_16b_aligned(k, a.sk) && rows_16b_aligned(v, a.sv) &&
         rows_16b_aligned(dout, a.sdo)))
     return cudaErrorMisalignedAddress;
@@ -575,8 +782,9 @@ extern "C" {
 // contiguous (B*H, lq) f32; mask (mask_b, lk) f32 (1 = attend) or null;
 // out0/out1 = dq (the dq entry; out1 unused) or dk, dv.  The 18 strides (in
 // elements) are the (b, h, l) strides of q, k, v, do, out0, out1, each a
-// (B, H, L, D) view with D contiguous.  Returns the cudaError_t of the
-// launch.
+// (B, H, L, D) view with D contiguous; in bfloat16 every row of q, k, v and
+// do must start on a 16-byte boundary (else cudaErrorMisalignedAddress).
+// Returns the cudaError_t of the launch.
 #define TPU_AIR_BWD_ENTRY(NAME, DKV)                                                   \
   int NAME(const void* q, const void* k, const void* v, const void* dout,             \
            const float* lse, const float* delta, const float* mask, void* out0,       \

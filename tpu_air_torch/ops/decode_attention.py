@@ -18,14 +18,24 @@ causal row); ``kv_mask`` ``[b, L]`` (1 = attend) adds a -1e20 floor, and
 the running max is floored there too, so a row whose every key is masked
 yields mean(V), finite.
 
+The kernel reads each needed slab byte once in 16-byte loads, in one pass
+with an online softmax, split over chunks of L when ``b*h`` alone cannot
+fill the card (:func:`split_chunk`; the partial states are merged on the
+card); with a key mask it skips the K/V bytes of every chunk whose keys are
+all masked.  The slabs must start on a 16-byte boundary, as fresh
+allocations do: the wrapper raises on one that does not and never copies
+a slab.
+
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor takes :func:`decode_attention_reference`.
-``decode_attention.launches`` counts kernel launches.
+``decode_attention.launches`` counts calls of the kernel (with its merge
+step, when it splits L).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -92,9 +102,38 @@ def decode_attention_reference(q, k, v, *, bias=None, kv_mask=None,
     return out[:, None] if squeeze else out
 
 
-# q, k, v, bias, mask, k_scale, v_scale, out; b, L, h, d, q type, int8,
-# k kind, v kind; stream
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# q, k, v, bias, mask, k_scale, v_scale, out, workspace; b, L, h, d, q type,
+# int8, k kind, v kind, chunk; stream
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# Split-K: the kernel runs one block of 128 threads per (b, h, chunk of L);
+# an SM holds seven at its register count, and one wave of _BLOCKS_PER_SM
+# an SM keeps enough bytes in flight to stream the slabs at the card's rate.
+# A grid of b*h blocks that fills half that wave or more runs unsplit (the
+# merge would cost more than the wave's tail: on an H100 the W3 cross step,
+# 768 blocks, took longer split in two); a smaller one is split up to the
+# wave, into chunks of no fewer than _MIN_CHUNK positions, a multiple of 64.
+_BLOCKS_PER_SM = 6
+_MIN_CHUNK = 128
+
+
+def split_chunk(b: int, h: int, L: int, sm_count: int) -> int:
+    """Positions each block of the decode kernel reads: ``L`` (one chunk)
+    when ``b*h`` blocks fill half a wave of ``_BLOCKS_PER_SM`` an SM or
+    more, else the chunk that brings the grid to a whole wave, at least
+    ``_MIN_CHUNK`` and rounded up to a multiple of 64.  The kernel runs
+    ``ceil(L / chunk)`` chunks per (b, h) and merges their partial softmax
+    states."""
+    want = _BLOCKS_PER_SM * sm_count
+    if 2 * b * h >= want or L <= _MIN_CHUNK:
+        return L
+    splits = min(-(-want // (b * h)), -(-L // _MIN_CHUNK))
+    chunk = -(-L // splits)
+    return min(L, -(-chunk // 64) * 64)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(q, k, v, bias, kv_mask, k_scale, v_scale):
@@ -140,13 +179,21 @@ def _launch(q, k, v, bias, kv_mask, k_scale, v_scale):
             raise TypeError(f"decode_attention: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
+        if name in ("k", "v") and t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: the {name} slab must start on a 16-byte "
+                             "boundary (the kernel reads it in 16-byte loads)")
         args.append(t.data_ptr())
     out = torch.empty(b, h, d, dtype=q.dtype, device=q.device)
+    chunk = split_chunk(b, h, L, _sm_count(q.device.index))
+    splits = -(-L // chunk)
+    work = None
+    if splits > 1:
+        work = torch.empty(b * h * splits * (d + 2), dtype=torch.float32, device=q.device)
     fn = _build.kernel_fn(_NAME, f"{_NAME}_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, out.data_ptr(), b, L, h, d, _QTYPES[q.dtype], int(kv_int8),
-                k_kind, v_kind, stream)
+        rc = fn(*args, out.data_ptr(), None if work is None else work.data_ptr(), b, L, h, d,
+                _QTYPES[q.dtype], int(kv_int8), k_kind, v_kind, chunk, stream)
     _build.check(_NAME, rc)
     decode_attention.launches += 1
     return out
@@ -173,7 +220,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bias = _bias_hl(bias)
     if q.is_cuda:
         b, L = k.shape[:2]
-        out = _launch(q.contiguous(), k.reshape(b, L, -1), v.reshape(b, L, -1), bias,
+        q = q.contiguous()
+        if q.data_ptr() % 16:        # a view off 16 bytes: the query is small, copy it
+            q = q.clone()
+        out = _launch(q, k.reshape(b, L, -1), v.reshape(b, L, -1), bias,
                       kv_mask, k_scale, v_scale)
     elif q.device.type == "cpu":
         out = decode_attention_reference(q, k, v, bias=bias, kv_mask=kv_mask,

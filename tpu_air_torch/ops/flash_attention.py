@@ -11,9 +11,9 @@ Counterpart of ``tpu_air/ops/flash_attention.py``.  Three kernels:
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` launched by ``_pallas_bwd``:
   dq, and dk/dv, from the saved ``(out, lse)``.
 
-In bf16 the forward and the dk/dv kernel run their products on the tensor
-cores (``mma.sync``, bf16 operands, f32 accumulation, the reference's
-precision); dq, and every kernel in f32, runs on the CUDA cores.  The bf16
+In bf16 all three kernels run their products on the tensor cores
+(``mma.sync``, bf16 operands, f32 accumulation, the reference's
+precision); in f32 they run on the CUDA cores.  The bf16
 tensor-core kernels stage rows with 16-byte ``cp.async`` copies, so every
 (b, h, l) row of q, k, v and do must start on a 16-byte boundary: a bf16
 view that breaks that rule is first copied to a contiguous tensor
