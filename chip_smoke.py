@@ -18,8 +18,10 @@ Phases, each fatal on failure:
               causal, ragged lengths, int8 slabs), and the decode kernel where
               it splits L into chunks (``SPLIT_CASES``: several chunks, whole
               masked chunks, live keys in one chunk, an all-pad row, L no
-              multiple of the chunk, both int8 scale kinds), against a stated
-              tolerance;
+              multiple of the chunk, both int8 scale kinds), and at W1's
+              shapes (the flash forward at the training step's, decode at
+              those of generation from the W1 checkpoint, its cross step in
+              4 chunks of 128 keys), against a stated tolerance;
 3. main     — FLAN-T5-base width (12+12 layers, d_model 768, 12 heads, vocab
               32128) in bf16 with weights from a numpy seed at T5's initializer
               scales: the ``T5GenerativePredictor`` generates greedily for 64
@@ -54,10 +56,27 @@ Phases, each fatal on failure:
               card from the same weights; losses and step-1 gradients agree;
 9. lm timing — device time of the forward, dq and dk/dv kernels at the LM
               shape beside their bound, their plain versions and SDPA's
-              forward and backward.
+              forward and backward;
+10. w1       — W1: ``T5Trainer.fit()`` fine-tunes FLAN-T5-base (full width and
+              depth, dropout 0.1, bf16 compute on f32 parameters, random
+              weights from numpy seed 0) for one epoch of 6 steps of 8 rows
+              of 512 source and 512 label tokens, with a 16-row eval split and
+              a checkpoint; per-step time and loss, tokens/s, the step's
+              device busy share and heaviest kernels, peak memory; then
+              ``T5GenerativePredictor.from_checkpoint(dtype="bfloat16")`` on
+              the best checkpoint generates 32 tokens for 8 prompts through
+              both inference kernels;
+11. w1 parity — f32, full width, depth cut to 2+2 layers, dropout 0: one
+              training step's loss and every parameter's gradient (the
+              relative-position biases' included) through the kernels and
+              through the plain versions on the card;
+12. w1 timing — the flash forward at the two W1 training shapes (encoder:
+              bias and key mask; decoder: causal, bias and key mask) beside
+              its bound, its plain version and SDPA.
 
 The counts of kernel launches are set to 0 just before each main path (T5
-generation, LM training) and read just after it.
+generation, LM training, W1 fine-tuning with its generation) and read just
+after it.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -111,6 +130,11 @@ PREDICT_REPEATS = 3                       # timed predict runs (median reported)
 LM_LEN, LM_STEPS = 8192, 4                # measured steps after one warm-up step
 LM_PARITY_LAYERS, LM_PARITY_LEN = 2, 2048  # f32 parity: full width, cut depth/length
 BWD_LEN, BWD_RAGGED_LEN = 128, 200        # edge cases of the backward compare
+# W1 dials: FLAN-T5 fine-tuning with padding="max_length" at T5's 512-token
+# model_max_length for sources and labels, per-device batch 8
+W1_BATCH, W1_LEN, W1_STEPS, W1_EVAL_ROWS = 8, 512, 6, 16
+W1_PROMPTS, W1_NEW = 8, 32                # generation from the trained checkpoint
+W1_PARITY_LAYERS, W1_PARITY_BATCH = 2, 4  # f32 parity: full width, cut depth
 
 
 def model_config():
@@ -170,9 +194,42 @@ def step_times_ms(fn, n: int):
     return np.array([a.elapsed_time(b) for a, b in zip(events, events[1:])])
 
 
+def device_kernels(prof, steps: int) -> dict:
+    """{name: (device ms, launches) per step} of the kernels and copies in a
+    profile of ``steps`` steps, without the user annotations (such as
+    ``Optimizer.step``) that the profiler also lays over them on the
+    device's timeline."""
+    return {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
+
+
+# kernel-name fragments of the classes a training step's device time splits into
+KERNEL_CLASSES = (("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+                  ("softmax", ("softmax",)),
+                  ("reduction", ("reduce_kernel",)),
+                  ("optimizer", ("multi_tensor", "adam")),
+                  ("gather/scatter", ("index", "embedding", "gather", "scatter")),
+                  ("elementwise", ("elementwise",)))
+
+
+def kernel_classes(kernels: dict) -> dict:
+    """{class: (device ms, launches)} of {kernel name: (ms, launches)}; a
+    name takes the first class one of whose fragments it holds."""
+    out: dict = {}
+    for name, (t, c) in kernels.items():
+        cls = next((k for k, frags in KERNEL_CLASSES if any(f in name.lower() for f in frags)),
+                   "other")
+        ms, n = out.get(cls, (0.0, 0.0))
+        out[cls] = (ms + t, n + c)
+    return out
+
+
 def device_busy(fn, steps: int):
     """Device time per call of ``fn`` summed over the kernels the profiler
-    saw, and the heaviest kernels: [(name, ms per call, launches per call)]."""
+    saw, the heaviest kernels: [(name, ms per call, launches per call)], and
+    the kernels and copies per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -181,12 +238,11 @@ def device_busy(fn, steps: int):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return busy, [(e.key[:60], e.self_device_time_total / 1e3 / steps, e.count / steps)
-                  for e in top]
+    kernels = device_kernels(prof, steps)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return (sum(t for t, _ in kernels.values()),
+            [(name[:60], t, c) for name, (t, c) in top],
+            sum(c for _, c in kernels.values()))
 
 
 def needed_keys(mask, L: int):
@@ -387,6 +443,22 @@ def decode_inputs(rng, b, L, h, d, dtype, dev, kind):
     return q, k, v, kw
 
 
+def w1_flash_inputs(rng, cfg, dev) -> dict:
+    """Flash inputs at the W1 training shapes (B 8, L 512, bf16): the
+    encoder's self-attention (bias [1, H, L, L], ragged source key mask)
+    and the decoder's (causal, bias, label key mask that always admits the
+    start position).  {part: (q, k, v, bias, mask, causal)}"""
+    B, H, L, D = W1_BATCH, cfg.num_heads, W1_LEN, cfg.d_kv
+    q, k, v, bias, mask = flash_inputs(rng, B, H, L, D, torch.bfloat16, dev)
+    out = {"encoder": (q, k, v, bias, mask, False)}
+    q, k, v, bias, _ = flash_inputs(rng, B, H, L, D, torch.bfloat16, dev, mask=False)
+    lens = rng.integers(16, 129, B)
+    lens[0] = L
+    dec = torch.from_numpy((np.arange(L)[None] < lens[:, None]).astype(np.float32)).to(dev)
+    out["decoder"] = (q, k, v, bias, dec, True)
+    return out
+
+
 def decode_chunk(b, h, L, dev) -> int:
     """The positions per block the decode kernel takes at this shape."""
     from tpu_air_torch.ops.decode_attention import split_chunk
@@ -434,6 +506,13 @@ def compare(dev) -> dict:
               flash_attention(q, k, v, bias, kv_mask=mask, scale=1.0),
               flash_plain(q, k, v, bias, mask), dtype)
 
+    # kernel 1 at the W1 training shapes, in the type W1 computes in
+    for part, (q, k, v, bias, mask, causal) in w1_flash_inputs(rng, cfg, dev).items():
+        check(f"flash bf16 W1 {part}", flash_attention(q, k, v, bias, kv_mask=mask, scale=1.0,
+                                                       causal=causal),
+              flash_plain(q, k, v, bias, mask, causal=causal), torch.bfloat16)
+    del q, k, v, bias, mask
+
     # kernel 2 at the decode step shapes: self (L = 128 + 1, bias with the
     # causal row) and cross (L = 512, key mask), full-width and int8
     for dtype in (torch.float32, torch.bfloat16):
@@ -452,6 +531,21 @@ def compare(dev) -> dict:
             check(f"decode {tag} {kind} b{b} L{Lk} ({chunks} chunks)",
                   decode_attention(q, k, v, **kw), decode_attention_reference(q, k, v, **kw),
                   dtype)
+        # and at the shapes of generation from the W1 checkpoint: self over
+        # W1_NEW + 1 positions, cross over the W1 prompts' own padded mask,
+        # which b 8 x h 12 splits into chunks of 128 keys
+        q, k, v, kw = decode_inputs(rng, W1_PROMPTS, W1_NEW + 1, H, D, dtype, dev, "self")
+        check(f"decode {tag} self b{W1_PROMPTS} L{W1_NEW + 1} (W1)",
+              decode_attention(q, k, v, **kw), decode_attention_reference(q, k, v, **kw), dtype)
+        q, k, v, _ = decode_inputs(rng, W1_PROMPTS, W1_LEN, H, D, dtype, dev, "none")
+        _, m = prompts(W1_PROMPTS, W1_LEN, cfg.vocab_size, SEED + 42)
+        kw = {"kv_mask": torch.from_numpy(m.astype(np.float32)).to(dev)}
+        chunks = -(-W1_LEN // decode_chunk(W1_PROMPTS, H, W1_LEN, dev))
+        if chunks != 4:
+            raise AssertionError(f"[compare] decode b{W1_PROMPTS} L{W1_LEN}: {chunks} chunks, "
+                                 f"not the 4 W1 generation runs")
+        check(f"decode {tag} cross b{W1_PROMPTS} L{W1_LEN} ({chunks} chunks, W1)",
+              decode_attention(q, k, v, **kw), decode_attention_reference(q, k, v, **kw), dtype)
         del q, k, v, kw
         torch.cuda.empty_cache()
     return errs
@@ -461,11 +555,13 @@ def compare(dev) -> dict:
 
 
 def base_model(dtype: str, dev):
-    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
+    """The W3 model, its weights cast to ``dtype`` once, as an inference load
+    casts them."""
+    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration, torch_dtype
 
     cfg = model_config()
     cfg.dtype = dtype
-    return T5ForConditionalGeneration(cfg, device=dev).init_weights(SEED)
+    return T5ForConditionalGeneration(cfg, device=dev).init_weights(SEED).to(torch_dtype(dtype))
 
 
 def prompts(n: int, L: int, vocab: int, seed: int):
@@ -548,18 +644,20 @@ def main_path(dev) -> dict:
         steps_ms = step_times_ms(lambda: model.decode(tok, cache=cache), new - 1)
         step_ms, step_p90 = float(np.median(steps_ms)), float(np.percentile(steps_ms, 90))
         cache = init_cache(model, n, new + 1, enc, tmask)
-        busy_ms, top = device_busy(lambda: model.decode(tok, cache=cache), steps=8)
+        busy_ms, top, step_kernels = device_busy(lambda: model.decode(tok, cache=cache),
+                                                 steps=8)
     log(f"[main] encode {enc_ms:.3f} ms; decode step median {step_ms:.3f} ms, p90 "
         f"{step_p90:.3f} ms over {new - 1} steps (b={n}, cache L={new + 1}, "
         f"encoder L={L})")
     log(f"[main] decode step device busy {busy_ms:.3f} ms of {step_ms:.3f} ms "
-        f"(median; idle share {1 - busy_ms / step_ms:.3f}); heaviest kernels per step: "
+        f"(median; idle share {1 - busy_ms / step_ms:.3f}), {step_kernels:g} kernels a step; "
+        "heaviest kernels per step: "
         + "; ".join(f"{k} {t:.3f} ms x{c:g}" for k, t, c in top))
     del model, predictor, cache, enc
     torch.cuda.empty_cache()
     return {"launches": launches, "tokens_per_s": emitted / wall, "encode_ms": enc_ms,
             "decode_step_ms": step_ms, "decode_step_p90_ms": step_p90,
-            "decode_step_device_busy_ms": busy_ms,
+            "decode_step_device_busy_ms": busy_ms, "decode_step_kernels": step_kernels,
             "wall_s": wall, "wall_s_runs": walls, "steps": steps}
 
 
@@ -984,9 +1082,7 @@ def lm_step_profile(dev, cfg, steps: int = 2) -> dict:
             step(ids, tgt)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
+    kernels = device_kernels(prof, steps)
     busy_ms = sum(t for t, _ in kernels.values())
     del model, opt, step
     torch.cuda.empty_cache()
@@ -1179,6 +1275,342 @@ def lm_timing(dev, kernels: list, bwd_errs: dict, lm_stats: dict) -> list:
     return kernels
 
 
+# -- phases 10-12 ----------------------------------------------------------------
+
+
+def w1_config(dtype: str = "bfloat16", layers=None, dropout: float = 0.1):
+    """FLAN-T5-base as W1 fine-tunes it: its own dropout 0.1, bf16 compute
+    on f32 parameters; ``layers`` cuts the depth (both stacks)."""
+    from tpu_air_torch.models.t5.config import T5Config
+
+    cfg = T5Config.flan_t5_base()
+    cfg.dtype, cfg.dropout_rate = dtype, dropout
+    if layers:
+        cfg.num_layers = cfg.num_decoder_layers = layers
+    return cfg
+
+
+def w1_rows(n: int, vocab: int, seed: int):
+    """Pre-tokenized W1 rows padded to W1_LEN: sources of ragged real length
+    (one full), labels of 16-128 tokens ending in EOS, the rest pad."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    pos = np.arange(W1_LEN)[None]
+    src = rng.integers(W1_LEN // 4, W1_LEN + 1, n)
+    src[0] = W1_LEN
+    lab = rng.integers(16, min(128, W1_LEN) + 1, n)
+    mask = (pos < src[:, None]).astype(np.int64)
+    ids = rng.integers(2, vocab, (n, W1_LEN)) * mask
+    labels = np.where(pos < lab[:, None] - 1, rng.integers(2, vocab, (n, W1_LEN)), 0)
+    labels[np.arange(n), lab - 1] = 1                            # EOS
+    return pd.DataFrame({"input_ids": list(ids), "attention_mask": list(mask),
+                         "labels": list(labels)})
+
+
+def w1_batch(rows, dev) -> dict:
+    return {k: torch.from_numpy(np.stack(rows[k].to_list())).to(dev, torch.long)
+            for k in ("input_ids", "attention_mask", "labels")}
+
+
+def w1_main_path(dev) -> dict:
+    """``T5Trainer.fit()`` (one epoch of W1_STEPS steps, eval, checkpoint),
+    then generation from the best checkpoint.  Each step's loss and its end
+    on the device clock are recorded by wrapping the step the loop builds
+    (``make_t5_train_step``); the loop itself syncs once, at the epoch's end."""
+    import shutil
+    import tempfile
+
+    from tpu_air_torch.models.tokenizer import ByteTokenizer
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from tpu_air_torch.predict.predictors import T5GenerativePredictor
+    from tpu_air_torch.train import (CheckpointConfig, RunConfig, T5Trainer,
+                                     TrainingArguments, t5_trainer)
+
+    def counts():
+        return {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches,
+                "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
+                "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches}
+
+    cfg = w1_config()
+    train = w1_rows(W1_BATCH * W1_STEPS, cfg.vocab_size, SEED + 40)
+    evaluation = w1_rows(W1_EVAL_ROWS, cfg.vocab_size, SEED + 41)
+    storage = tempfile.mkdtemp(prefix="chip_smoke-w1-")
+    # W1's own arguments (examples/flan_t5_batch_inference.py): AdamW, lr
+    # 2e-5, weight decay 0.01; the per-device batch and the epoch cut to size
+    args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                             per_device_train_batch_size=W1_BATCH, num_train_epochs=1,
+                             seed=SEED)
+    marks = []
+    make_step = t5_trainer.make_t5_train_step
+
+    def recording_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def rec(batch):
+            if not marks:
+                marks.append((None, torch.cuda.Event(enable_timing=True)))
+                marks[-1][1].record()
+            loss = step(batch)
+            marks.append((loss, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+            return loss
+        return rec
+
+    trainer = T5Trainer(
+        model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
+        datasets={"train": train, "evaluation": evaluation},
+        run_config=RunConfig(storage_path=storage, checkpoint_config=CheckpointConfig(
+            num_to_keep=1, checkpoint_score_attribute="eval_loss",
+            checkpoint_score_order="min")),
+        device=dev)
+    flash_attention.launches = decode_attention.launches = 0
+    flash_attention_backward.dq_launches = flash_attention_backward.dkv_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t5_trainer.make_t5_train_step = recording_step
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit()
+    finally:
+        t5_trainer.make_t5_train_step = make_step
+    fit_wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    fit_launches = counts()
+    try:
+        if result.error is not None:
+            raise AssertionError(f"[w1] fit failed: {result.error}")
+        m = result.metrics
+        if m["steps"] != W1_STEPS or len(result.metrics_history) != 1:
+            raise AssertionError(f"[w1] expected one epoch of {W1_STEPS} steps: "
+                                 f"{result.metrics_history}")
+        best = result.checkpoint
+        if best.get_metrics()["eval_loss"] != m["eval_loss"]:
+            raise AssertionError("[w1] the best checkpoint is not the min eval_loss one")
+        losses = [float(loss) for loss, _ in marks[1:]]
+        step_ms = [a.elapsed_time(b) for (_, a), (_, b) in zip(marks, marks[1:])]
+        if len(losses) != W1_STEPS or not all(np.isfinite(losses + [m["loss"], m["eval_loss"]])):
+            raise AssertionError(f"[w1] losses {losses}, metrics {m}")
+        med = float(np.median(step_ms[1:]))
+        tokens = W1_BATCH * W1_LEN
+        log(f"[w1] T5Trainer.fit: FLAN-T5-base width and depth ({cfg.d_model} wide, "
+            f"{cfg.num_layers}+{cfg.num_decoder_layers} layers, {cfg.num_heads} heads of "
+            f"{cfg.d_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), dropout {cfg.dropout_rate}, "
+            f"bf16 compute on f32 parameters ({m['params_bytes_total'] / 1e6:.1f} MB), random "
+            f"weights from numpy seed {SEED}; batch {W1_BATCH} x {W1_LEN} source / {W1_LEN} "
+            f"label tokens, AdamW lr 2e-5, one epoch of {m['steps']} steps and "
+            f"{W1_EVAL_ROWS} eval rows in {fit_wall:.1f} s")
+        log("[w1] loss per step: " + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; epoch loss {m['loss']:.4f}, eval_loss {m['eval_loss']:.4f}")
+        log("[w1] step ms (device clock, first is the warm-up): "
+            + ", ".join(f"{x:.1f}" for x in step_ms))
+        log(f"[w1] median step after the first {med:.2f} ms = {tokens / med * 1e3:.0f} trained "
+            f"tokens/s (global batch x source length); the epoch's train_tokens_per_sec "
+            f"{m['train_tokens_per_sec']:.0f} (its first step included); peak memory "
+            f"{peak_gb:.2f} GB")
+        log(f"[w1] launches in fit (train steps with dropout take the dense path; eval "
+            f"runs without dropout): {fit_launches}")
+        eval_batches = -(-W1_EVAL_ROWS // W1_BATCH)
+        attn_per_forward = cfg.num_layers + 2 * cfg.num_decoder_layers
+        if fit_launches["flash_attention"] != eval_batches * attn_per_forward or \
+                fit_launches["decode_attention"] or fit_launches["flash_attention_bwd_dq"]:
+            raise AssertionError(f"[w1] fit launches {fit_launches}")
+
+        # W3 from the trained checkpoint, cast to bf16 once at load
+        t0 = time.perf_counter()
+        predictor = T5GenerativePredictor.from_checkpoint(best, dtype="bfloat16", device=dev,
+                                                          tokenizer=ByteTokenizer)
+        load_s = time.perf_counter() - t0
+        dtypes = {p.dtype for p in predictor.model.parameters()}
+        if dtypes != {torch.bfloat16}:
+            raise AssertionError(f"[w1] from_checkpoint loaded {dtypes}")
+        ids, mask = prompts(W1_PROMPTS, W1_LEN, cfg.vocab_size, SEED + 42)
+        before = counts()
+        t0 = time.perf_counter()
+        out = predictor.predict({"input_ids": ids, "attention_mask": mask},
+                                max_new_tokens=W1_NEW)
+        gen_s = time.perf_counter() - t0
+        gen = {k: counts()[k] - before[k] for k in before}
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    steps = gen["decode_attention"] // (2 * cfg.num_decoder_layers)
+    log(f"[w1] from_checkpoint(dtype='bfloat16') in {load_s:.1f} s, parameters {dtypes}; "
+        f"predict {W1_PROMPTS} prompts x {W1_LEN} -> {W1_NEW} new tokens in {gen_s:.2f} s, "
+        f"{steps} decode steps; launches {gen}")
+    if len(out) != W1_PROMPTS or gen["flash_attention"] != cfg.num_layers or \
+            gen["decode_attention"] <= 0 or \
+            gen["decode_attention"] != steps * 2 * cfg.num_decoder_layers:
+        raise AssertionError(f"[w1] generation from the checkpoint: {len(out)} rows, {gen}")
+    launches = {k: fit_launches[k] + gen[k] for k in gen}
+    del predictor, trainer, result
+    torch.cuda.empty_cache()
+    prof = w1_step_profile(dev, cfg, args, train)
+    top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1][0])[:8]
+    classes = kernel_classes(prof["kernels"])
+    log(f"[w1] a profiled step: {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms "
+        f"(busy share {prof['busy_ms'] / prof['wall_ms']:.4f}; of the median step "
+        f"{prof['busy_ms'] / med:.4f}), {prof['launches']:.0f} kernels a step; by class: "
+        + "; ".join(f"{k} {t:.2f} ms x{c:g}" for k, (t, c) in
+                    sorted(classes.items(), key=lambda kv: -kv[1][0]))
+        + "; heaviest kernels per step: "
+        + "; ".join(f"{k[:60]} {t:.2f} ms x{c:g}" for k, (t, c) in top))
+    return {"launches": launches, "fit_launches": fit_launches, "generate_launches": gen,
+            "losses": losses, "epoch_loss": m["loss"], "eval_loss": m["eval_loss"],
+            "step_ms": step_ms, "step_ms_median": med, "tokens_per_s": tokens / med * 1e3,
+            "epoch_train_tokens_per_sec": m["train_tokens_per_sec"], "peak_memory_gb": peak_gb,
+            "fit_wall_s": fit_wall, "profiled_step_ms": prof["wall_ms"],
+            "step_device_busy_ms": prof["busy_ms"],
+            "busy_share_of_median_step": prof["busy_ms"] / med,
+            "kernels_per_step": prof["launches"],
+            "step_device_ms_by_class": {k: t for k, (t, _) in classes.items()},
+            "generate_s": gen_s, "decode_steps": steps}
+
+
+def w1_step_profile(dev, cfg, args, rows, steps: int = 2) -> dict:
+    """The step ``T5Trainer`` runs (``make_t5_train_step``, dropout on) on a
+    fresh model under the profiler; not counted.  Wall and device busy time
+    per step, and {kernel name: (device ms, launches)} per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_air_torch.models.t5.convert import jax_layouts
+    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
+    from tpu_air_torch.train.t5_trainer import _make_optimizer, make_t5_train_step
+
+    model = T5ForConditionalGeneration(cfg, device=dev).init_weights(SEED).train()
+    layouts = jax_layouts(cfg)
+    opt = _make_optimizer(args, 4, [p for _, p in model.named_parameters()],
+                          [layouts[n] for n, _ in model.named_parameters()])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    step = make_t5_train_step(model, opt, gen)
+    batch = w1_batch(rows.iloc[:W1_BATCH], dev)
+    step(batch)                                      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = device_kernels(prof, steps)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall_ms, "busy_ms": sum(t for t, _ in kernels.values()),
+            "launches": sum(c for _, c in kernels.values()), "kernels": kernels}
+
+
+def w1_parity(dev) -> dict:
+    """One f32 training step's loss and gradients, through the kernels (the
+    flash forward under ``_FlashPair``: its bias backward recomputes through
+    the plain forward, the bias-free cross-attention's runs the dq and dk/dv
+    kernels) and through the plain versions, on the card, from the same
+    weights."""
+    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from tpu_air_torch.train.t5_trainer import t5_local_sums
+
+    cfg = w1_config("float32", W1_PARITY_LAYERS, dropout=0.0)
+    batch = w1_batch(w1_rows(W1_PARITY_BATCH, cfg.vocab_size, SEED + 43), dev)
+    runs = {}
+    for path in ("kernel", "plain"):
+        model = T5ForConditionalGeneration(cfg, device=dev).init_weights(SEED).train()
+        ctx = plain_attention() if path == "plain" else contextlib.nullcontext()
+        before = (flash_attention.launches, flash_attention_backward.dq_launches,
+                  flash_attention_backward.dkv_launches)
+        with ctx:
+            total, count = t5_local_sums(model, batch)
+            loss = total / torch.clamp(count.float(), min=1.0)
+            loss.backward()
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip((flash_attention.launches,
+                                                flash_attention_backward.dq_launches,
+                                                flash_attention_backward.dkv_launches), before))
+        if any(launched) != (path == "kernel"):
+            raise AssertionError(f"[w1 parity] the {path} path launched {launched}")
+        runs[path] = (float(loss.detach()), {n: p.grad.detach().clone()
+                                    for n, p in model.named_parameters()}, launched)
+        del model, total, count, loss
+        torch.cuda.empty_cache()
+    (lk, gk, nk), (lp, gp, _) = runs["kernel"], runs["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    errs = {n: norm_err(gk[n], gp[n]) for n in gp if gp[n].norm() > 0}
+    worst = max(errs, key=errs.get)
+    biases = {n: errs[n] for n in errs if "rel_bias" in n}
+    log(f"[w1 parity] f32, {cfg.d_model} wide, depth cut to {cfg.num_layers}+"
+        f"{cfg.num_decoder_layers}, dropout 0, batch {W1_PARITY_BATCH} x {W1_LEN}: loss kernel "
+        f"{lk:.7f} plain {lp:.7f} (rel diff {loss_rel:.2e}); gradients ||err|| / ||plain|| "
+        f"max {errs[worst]:.2e} ({worst}) over {len(errs)} tensors, relative-position biases "
+        + ", ".join(f"{n} {e:.2e}" for n, e in biases.items())
+        + f"; kernel-path launches (flash, dq, dk/dv): {nk}")
+    # f32 on both paths, differing in summation order only
+    if not (loss_rel < 1e-5 and errs[worst] < 1e-4 and len(biases) == 2):
+        raise AssertionError(f"[w1 parity] loss rel {loss_rel}, grad {worst} {errs[worst]}, "
+                             f"biases {biases}")
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
+            "grad_max_norm_err": errs[worst], "grad_worst_tensor": worst,
+            "bias_grad_norm_err": biases, "kernel_path_launches": nk}
+
+
+def w1_timing(dev, kernels: list, errs: dict, w1_stats: dict) -> list:
+    """The flash forward at the two W1 training shapes beside its bound, its
+    plain version and one SDPA call with the same additive mask (bias, key
+    mask and, for the decoder, the causal triangle, built outside the timed
+    region).  The work counted is what these inputs need: the live (query,
+    key) pairs of each row."""
+    from tpu_air_torch.ops.flash_attention import flash_attention
+
+    rng = np.random.default_rng(SEED + 44)
+    cfg = model_config()
+    H, D = cfg.num_heads, cfg.d_kv
+    B, L = W1_BATCH, W1_LEN
+    dt = torch.bfloat16
+    rows = {}
+    for part, (q, k, v, bias, mask, causal) in w1_flash_inputs(rng, cfg, dev).items():
+        lens = needed_keys(mask, L)
+        if causal:   # query i of a row of length n sees min(i + 1, n) keys
+            pairs = int(sum(np.minimum(np.arange(1, L + 1), int(n)).sum() for n in lens))
+        else:
+            pairs = L * int(lens.sum())
+        # q and out, k and v of the live keys, the bias up to the longest
+        # row, the key mask and the f32 lse
+        nbytes = (2 * B * H * L * D * 2 + 2 * H * D * 2 * int(lens.sum())
+                  + H * L * int(lens.max()) * 4 + B * L * 4 + B * H * L * 4)
+        flops = 4 * H * D * pairs
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
+        lib_mask = bias + ((1.0 - mask) * -1e30)[:, None, None, :]
+        if causal:
+            lib_mask = lib_mask + torch.full((L, L), -1e30, device=dev).triu(1)
+        lib_mask = lib_mask.to(dt)
+        rows[part] = {
+            "ms": device_ms(lambda: flash_attention(q, k, v, bias, kv_mask=mask, scale=1.0,
+                                                    causal=causal), 10),
+            "plain_ms": device_ms(lambda: flash_plain(q, k, v, bias, mask, causal=causal), 5),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask, scale=1.0), 10),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "max_abs_err": errs[f"flash bf16 W1 {part}"], "tol": TOL[dt],
+            "shape": (f"B{B} H{H} L{L} D{D} bf16, bias [1,H,L,L] f32, "
+                      + ("causal, label key mask" if causal else "source key mask")),
+        }
+        r = rows[part]
+        log(f"[w1 timing] flash_attention W1 {part} {r['shape']}: kernel {r['ms']:.4f} ms "
+            f"device time, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+        del q, k, v, bias, mask, lib_mask
+        torch.cuda.empty_cache()
+    fwd = next(r for r in kernels if r["name"] == "flash_attention")
+    fwd["launches_by_path"]["w1_fit_generate"] = w1_stats["launches"]["flash_attention"]
+    fwd["launches"] += w1_stats["launches"]["flash_attention"]
+    fwd["w1_encoder"], fwd["w1_decoder"] = rows["encoder"], rows["decoder"]
+    dec = next(r for r in kernels if r["name"] == "decode_attention")
+    dec["launches_by_path"] = {"t5_generate": dec["launches"],
+                               "w1_fit_generate": w1_stats["launches"]["decode_attention"]}
+    dec["launches"] += w1_stats["launches"]["decode_attention"]
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -1205,9 +1637,13 @@ def main() -> int:
     lm_stats = lm_main_path(dev)
     lm_stats["parity"] = lm_parity(dev)
     kernels = lm_timing(dev, kernels, bwd_errs, lm_stats)
+    w1_stats = w1_main_path(dev)
+    w1_stats["parity"] = w1_parity(dev)
+    kernels = w1_timing(dev, kernels, errs, w1_stats)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0], flush=True)
-    print(json.dumps({"kernels": kernels, "main": main_stats, "lm": lm_stats}), flush=True)
+    print(json.dumps({"kernels": kernels, "main": main_stats, "lm": lm_stats, "w1": w1_stats}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -34,6 +34,9 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
     assert "tpu_air_torch.models.t5.modeling" in mods
     assert "tpu_air_torch.ops.decode_attention" in mods
     assert "tpu_air_torch.train.lm_trainer" in mods
+    for new in ("tpu_air_torch.train.t5_trainer", "tpu_air_torch.data.preprocessors",
+                "tpu_air_torch.parallel.distributed", "tpu_air_torch.models.layers"):
+        assert new in mods, new
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -269,8 +269,7 @@ def test_lm_paths_not_ported_yet_raise(what, tmp_path):
 @pytest.mark.parametrize("cls, field, value", [
     (TrainingArguments, "tensor_parallelism", 2), (TrainingArguments, "remat", True),
     (TrainingArguments, "logging_strategy", "steps"), (TrainingArguments, "disable_tqdm", False),
-    (ScalingConfig, "use_tpu", False), (ScalingConfig, "use_gpu", True),
-    (ScalingConfig, "num_chips_per_worker", 4), (ScalingConfig, "topology", "2x2"),
+    (ScalingConfig, "use_tpu", False), (ScalingConfig, "topology", "2x2"),
     (ScalingConfig, "resources_per_worker", {"CPU": 1.0}), (RunConfig, "verbose", 0),
 ])
 def test_config_fields_the_port_does_not_read_are_refused(cls, field, value):

@@ -30,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpu_air_torch.device import DeviceLike, resolve_device
+from tpu_air_torch.models.layers import Dense
 from tpu_air_torch.ops.flash_attention import flash_attention
 
 from .config import LMConfig
@@ -41,18 +42,6 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r}")
     return _DTYPES[name]
-
-
-class Dense(nn.Linear):
-    """Bias-free linear layer with an f32 weight; input and weight are cast to
-    the compute type per call, as Flax's ``nn.Dense(dtype=...)`` does."""
-
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
-        super().__init__(in_features, out_features, bias=False)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        return F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
 
 
 class RMSNorm(nn.Module):

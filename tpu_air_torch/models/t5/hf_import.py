@@ -115,7 +115,7 @@ def load_t5(path: str, dtype: str = "float32",
             device: DeviceLike = None) -> T5ForConditionalGeneration:
     """Build the model from a local HF directory on ``device`` (``cuda:0``
     by default; raises without a GPU unless ``device="cpu"``), weights cast
-    to ``dtype``."""
+    to ``dtype`` once, here (an inference load)."""
     dev = resolve_device(device)
     with open(os.path.join(path, "config.json")) as f:
         config = config_from_hf(json.load(f))
@@ -125,4 +125,4 @@ def load_t5(path: str, dtype: str = "float32",
                                config)
     model = T5ForConditionalGeneration(config, device=dev)
     model.load_state_dict(sd)
-    return model
+    return model.to(torch_dtype(dtype))

@@ -5,6 +5,14 @@ Architecture (T5 v1.1 == FLAN-T5): RMSNorm pre-norm, a bucketed relative
 position bias computed once per stack and added in every layer, NO
 attention score scaling, gated-GELU feed-forward, untied lm_head.
 
+Parameters are float32; each projection and embedding casts its weight to
+``config.dtype`` at the call, as Flax's ``nn.Dense(dtype=...)`` does, so a
+bf16 model trains on f32 master weights.  For inference the predictors cast
+the parameters once, at load, after which the per-call casts do nothing.
+Dropout (``config.dropout_rate``, in ``train()`` mode only) hits the
+attention probabilities and the feed-forward hidden layer, as in the JAX
+package, with masks drawn from the ``generator`` the caller passes.
+
 Attention runs through the port's kernels by device: on a CUDA tensor the
 encoder self-attention (and any other structured-mask call with qlen > 1
 and no active dropout) goes to the flash kernel, and every cached decode
@@ -29,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_air_torch.device import DeviceLike, resolve_device
+from tpu_air_torch.models.layers import Dense, Embed
 from tpu_air_torch.ops.decode_attention import decode_attention
 from tpu_air_torch.ops.flash_attention import flash_attention
 
@@ -46,6 +55,14 @@ def torch_dtype(name) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r}")
     return _DTYPES[name]
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """Flax's ``nn.Dropout``: keep each element with probability 1 - rate
+    and scale it by 1 / (1 - rate), in x's type.  The mask comes from
+    ``generator`` (on x's device), so a seed fixes every mask of a step."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class RMSNorm(nn.Module):
@@ -104,7 +121,10 @@ class RelativePositionBias(nn.Module):
         buckets = relative_position_bucket(
             rel, self.bidirectional, cfg.relative_attention_num_buckets,
             cfg.relative_attention_max_distance)
-        bias = self.embedding[buckets]                     # [q, k, heads]
+        # an embedding lookup, not indexing: the gradient adds q*k positions
+        # into 32 buckets, which indexing's backward (index_put_ with
+        # accumulate) serializes on the card: it led the W1 step's profile
+        bias = F.embedding(buckets, self.embedding)        # [q, k, heads]
         # rounded to the model type here, as the JAX package does: the kernels
         # then see this rounded bias widened back to f32
         return bias.permute(2, 0, 1)[None].to(torch_dtype(cfg.dtype))
@@ -164,28 +184,32 @@ class Attention(nn.Module):
         super().__init__()
         self.config = config
         inner = config.num_heads * config.d_kv
-        self.q = nn.Linear(config.d_model, inner, bias=False)
-        self.k = nn.Linear(config.d_model, inner, bias=False)
-        self.v = nn.Linear(config.d_model, inner, bias=False)
-        self.o = nn.Linear(inner, config.d_model, bias=False)
+        dt = torch_dtype(config.dtype)
+        self.q = Dense(config.d_model, inner, dt)
+        self.k = Dense(config.d_model, inner, dt)
+        self.v = Dense(config.d_model, inner, dt)
+        self.o = Dense(inner, config.d_model, dt)
 
     def _heads(self, x):
         b, L, _ = x.shape
         return x.view(b, L, self.config.num_heads, self.config.d_kv)
 
     def forward(self, hidden, kv_hidden, mask=None, position_bias=None,
-                kv_mask=None, causal=False):
+                kv_mask=None, causal=False, generator=None):
         """Uncached attention.  ``mask`` is a dense additive
         ``[*, 1|h, q, k]`` mask; ``kv_mask`` ``[b, k]`` (1 = attend) and
-        ``causal`` are the structured form the flash kernel takes."""
+        ``causal`` are the structured form the flash kernel takes.  With
+        dropout active (``train()`` and ``dropout_rate > 0``) the call takes
+        the dense path, whose probabilities it drops, as the JAX package
+        does."""
         cfg = self.config
         q = self._heads(self.q(hidden))                    # [b, q, h, d]
         k = self._heads(self.k(kv_hidden))
         v = self._heads(self.v(kv_hidden))
         b, qlen = q.shape[:2]
         klen = k.shape[1]
-        dropout = self.training and cfg.dropout_rate > 0
-        if qlen > 1 and mask is None and not dropout:
+        drop = self.training and cfg.dropout_rate > 0
+        if qlen > 1 and mask is None and not drop:
             # flash path: (b, h, L, d) views of the projections, no copies;
             # position_bias stays (1, h, q, k) and is not expanded
             ctx = flash_attention(
@@ -209,8 +233,8 @@ class Attention(nn.Module):
             if mask is not None:
                 scores = scores + mask
             probs = torch.softmax(scores.float(), dim=-1).to(dtype)
-            if dropout:
-                probs = F.dropout(probs, cfg.dropout_rate, training=True)
+            if drop:
+                probs = dropout(probs, cfg.dropout_rate, generator)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return self.o(ctx.reshape(b, qlen, -1))
 
@@ -272,20 +296,21 @@ class FeedForward(nn.Module):
         if config.act_fn not in _ACTS:
             raise ValueError(f"unsupported activation {config.act_fn!r}")
         self.act = _ACTS[config.act_fn]
+        dt = torch_dtype(config.dtype)
         if config.is_gated_act:
-            self.wi_0 = nn.Linear(config.d_model, config.d_ff, bias=False)
-            self.wi_1 = nn.Linear(config.d_model, config.d_ff, bias=False)
+            self.wi_0 = Dense(config.d_model, config.d_ff, dt)
+            self.wi_1 = Dense(config.d_model, config.d_ff, dt)
         else:
-            self.wi = nn.Linear(config.d_model, config.d_ff, bias=False)
-        self.wo = nn.Linear(config.d_ff, config.d_model, bias=False)
+            self.wi = Dense(config.d_model, config.d_ff, dt)
+        self.wo = Dense(config.d_ff, config.d_model, dt)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         if self.config.is_gated_act:
             h = self.act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = self.act(self.wi(x))
         if self.training and self.config.dropout_rate > 0:
-            h = F.dropout(h, self.config.dropout_rate, training=True)
+            h = dropout(h, self.config.dropout_rate, generator)
         return self.wo(h)
 
 
@@ -298,10 +323,11 @@ class EncoderLayer(nn.Module):
         self.ln_mlp = RMSNorm(config.d_model, config.layer_norm_epsilon, dt)
         self.mlp = FeedForward(config)
 
-    def forward(self, x, kv_mask, position_bias):
+    def forward(self, x, kv_mask, position_bias, generator=None):
         h = self.ln_self(x)
-        x = x + self.self_attn(h, h, None, position_bias, kv_mask=kv_mask)
-        return x + self.mlp(self.ln_mlp(x))
+        x = x + self.self_attn(h, h, None, position_bias, kv_mask=kv_mask,
+                               generator=generator)
+        return x + self.mlp(self.ln_mlp(x), generator)
 
 
 class DecoderLayer(nn.Module):
@@ -317,13 +343,14 @@ class DecoderLayer(nn.Module):
         self.mlp = FeedForward(config)
 
     def forward(self, x, enc, position_bias, self_kv_mask=None,
-                cross_kv_mask=None):
+                cross_kv_mask=None, generator=None):
         h = self.ln_self(x)
         x = x + self.self_attn(h, h, None, position_bias, kv_mask=self_kv_mask,
-                               causal=True)
+                               causal=True, generator=generator)
         h = self.ln_cross(x)
-        x = x + self.cross_attn(h, enc, None, None, kv_mask=cross_kv_mask)
-        return x + self.mlp(self.ln_mlp(x))
+        x = x + self.cross_attn(h, enc, None, None, kv_mask=cross_kv_mask,
+                                generator=generator)
+        return x + self.mlp(self.ln_mlp(x), generator)
 
     def step(self, x, self_cache: LayerCache, cross_cache: LayerCache, pos,
              bias_hl, enc_mask):
@@ -341,12 +368,12 @@ class Encoder(nn.Module):
         self.final_ln = RMSNorm(config.d_model, config.layer_norm_epsilon,
                                 torch_dtype(config.dtype))
 
-    def forward(self, embeds, attention_mask):
+    def forward(self, embeds, attention_mask, generator=None):
         positions = torch.arange(embeds.shape[1], device=embeds.device)
         bias = self.rel_bias(positions, positions)
         x = embeds
         for layer in self.layers:
-            x = layer(x, attention_mask, bias)
+            x = layer(x, attention_mask, bias, generator)
         return self.final_ln(x)
 
 
@@ -360,12 +387,13 @@ class Decoder(nn.Module):
         self.final_ln = RMSNorm(config.d_model, config.layer_norm_epsilon,
                                 torch_dtype(config.dtype))
 
-    def forward(self, embeds, enc, enc_mask, dec_mask=None):
+    def forward(self, embeds, enc, enc_mask, dec_mask=None, generator=None):
         positions = torch.arange(embeds.shape[1], device=embeds.device)
         bias = self.rel_bias(positions, positions)
         x = embeds
         for layer in self.layers:
-            x = layer(x, enc, bias, self_kv_mask=dec_mask, cross_kv_mask=enc_mask)
+            x = layer(x, enc, bias, self_kv_mask=dec_mask, cross_kv_mask=enc_mask,
+                      generator=generator)
         return self.final_ln(x)
 
     def step_bias(self, pos: int, klen: int, device) -> torch.Tensor:
@@ -390,21 +418,21 @@ class Decoder(nn.Module):
 
 class T5ForConditionalGeneration(nn.Module):
     """Encoder-decoder LM head model.  Built on ``device`` (``cuda:0`` by
-    default; raises without a GPU unless ``device="cpu"``), with weights in
-    ``config.dtype``; the weights are placeholders until loaded or set by
-    :meth:`init_weights`."""
+    default; raises without a GPU unless ``device="cpu"``) with f32 weights
+    that compute in ``config.dtype``; the weights are placeholders until
+    loaded or set by :meth:`init_weights`.  Built in ``eval()`` mode."""
 
     def __init__(self, config: T5Config, device: DeviceLike = None):
         super().__init__()
         self.config = config
         dev = resolve_device(device)
+        dt = torch_dtype(config.dtype)
         with torch.device(dev):
-            self.shared = nn.Embedding(config.vocab_size, config.d_model)
+            self.shared = Embed(config.vocab_size, config.d_model, dt)
             self.encoder = Encoder(config)
             self.decoder = Decoder(config)
             if not config.tie_word_embeddings:
-                self.lm_head = nn.Linear(config.d_model, config.vocab_size, bias=False)
-        self.to(torch_dtype(config.dtype))
+                self.lm_head = Dense(config.d_model, config.vocab_size, dt)
         self.eval()
 
     @property
@@ -444,8 +472,8 @@ class T5ForConditionalGeneration(nn.Module):
             p.copy_(torch.from_numpy(w))
         return self
 
-    def encode(self, input_ids, attention_mask):
-        return self.encoder(self.shared(input_ids), attention_mask)
+    def encode(self, input_ids, attention_mask, generator=None):
+        return self.encoder(self.shared(input_ids), attention_mask, generator)
 
     def _head(self, hidden):
         cfg = self.config
@@ -460,7 +488,8 @@ class T5ForConditionalGeneration(nn.Module):
                 for layer in self.decoder.layers]
 
     def decode(self, decoder_input_ids, encoder_hidden=None, encoder_mask=None,
-               decoder_attention_mask=None, cache: Optional[DecodeCache] = None):
+               decoder_attention_mask=None, cache: Optional[DecodeCache] = None,
+               generator=None):
         """Decoder + LM head.  With ``cache``, one cached step of
         ``decoder_input_ids`` ``[b, 1]`` (the cache advances by one);
         without, a teacher-forced pass over the whole sequence."""
@@ -469,14 +498,17 @@ class T5ForConditionalGeneration(nn.Module):
             hidden = self.decoder.step(embeds, cache)
         else:
             hidden = self.decoder(embeds, encoder_hidden, encoder_mask,
-                                  dec_mask=decoder_attention_mask)
+                                  dec_mask=decoder_attention_mask, generator=generator)
         return self._head(hidden)
 
     def forward(self, input_ids, attention_mask, decoder_input_ids,
-                decoder_attention_mask=None):
-        enc = self.encode(input_ids, attention_mask)
+                decoder_attention_mask=None, generator=None):
+        """Logits of a teacher-forced pass.  ``generator`` draws the dropout
+        masks in ``train()`` mode (the JAX package's ``rngs={"dropout"}``)."""
+        enc = self.encode(input_ids, attention_mask, generator)
         return self.decode(decoder_input_ids, enc, attention_mask,
-                           decoder_attention_mask=decoder_attention_mask)
+                           decoder_attention_mask=decoder_attention_mask,
+                           generator=generator)
 
 
 # -- training-loss helpers ---------------------------------------------------
@@ -490,12 +522,21 @@ def shift_right(labels: torch.Tensor, decoder_start_token_id: int,
     return torch.where(shifted == -100, torch.full_like(shifted, pad_token_id), shifted)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       pad_token_id: int):
-    """Mean CE over non-pad label positions.  Returns (loss, num_tokens)."""
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
+                      pad_token_id: int):
+    """Summed CE over non-pad label positions and their count (f32 and
+    int64 device scalars): a data-parallel step divides the sum of every
+    rank by the count over all of them."""
     mask = (labels != pad_token_id) & (labels != -100)
     safe = torch.where(mask, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
-    ntok = torch.clamp(mask.sum(), min=1)
-    return (nll * mask).sum() / ntok, ntok
+    return (nll * mask).sum(), mask.sum()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       pad_token_id: int):
+    """Mean CE over non-pad label positions.  Returns (loss, num_tokens)."""
+    total, count = cross_entropy_sum(logits, labels, pad_token_id)
+    ntok = torch.clamp(count, min=1)
+    return total / ntok, ntok

@@ -1,1 +1,2 @@
-"""tpu_air_torch.parallel — training steps across devices (one card so far)."""
+"""tpu_air_torch.parallel — training steps across devices: the one-card LM
+step and data parallelism over worker processes."""

@@ -3,7 +3,8 @@
 * ``T5GenerativePredictor`` — batched text generation from a T5 model, the
   counterpart of ``tpu_air.predict.predictors.T5GenerativePredictor``: runs
   :func:`tpu_air_torch.models.t5.generate.generate` on the model's device
-  and decodes to a ``generated_output`` column.
+  and decodes to a ``generated_output`` column.  Its constructors cast the
+  weights to the inference type once, at load.
 """
 
 from __future__ import annotations
@@ -28,6 +29,20 @@ class T5GenerativePredictor(Predictor):
             model.load_state_dict(state_dict)
         self.model = model
         self.tokenizer = tokenizer
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint, dtype: Optional[str] = "bfloat16",
+                        device: DeviceLike = None,
+                        tokenizer=None) -> "T5GenerativePredictor":
+        """Build from a training checkpoint: the model from its config and
+        parameters on ``device`` (``cuda:0`` by default), cast to ``dtype``
+        once, here (``"bfloat16"``, the reference's half-precision load;
+        None keeps f32); the checkpoint's tokenizer (``tokenizer``, a class,
+        loads it with that class; an instance replaces it) and preprocessor."""
+        model = checkpoint.get_model(dtype=dtype, device=device)
+        if tokenizer is None or isinstance(tokenizer, type):
+            tokenizer = checkpoint.get_tokenizer(tokenizer)
+        return cls(model, tokenizer=tokenizer, preprocessor=checkpoint.get_preprocessor())
 
     @classmethod
     def from_pretrained(cls, path: str, dtype: str = "bfloat16",

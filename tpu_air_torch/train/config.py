@@ -12,20 +12,31 @@ from typing import Optional
 class ScalingConfig:
     """How many devices a run uses.
 
-    ``num_workers`` is the data-parallel degree; ``model_parallel`` the
-    tensor-parallel and ``sequence_parallel`` the sequence-parallel degree
-    inside each worker.  The port trains on one card so far: the trainers
-    raise for any degree above 1 and name the ROADMAP item that ports it.
-    The JAX package's device-placement fields (``use_tpu``, ``use_gpu``,
-    ``num_chips_per_worker``, ``topology``, ``resources_per_worker``) are
-    left out: nothing in the port reads them yet.
+    ``num_workers`` is the data-parallel degree: that many worker processes,
+    on the CPU (``gloo``) or one card each (``nccl``, rank r on ``cuda:r``);
+    1 trains in the calling process.  ``use_gpu`` picks the device when the
+    trainer is given none (``False``: the CPU) and must agree with it when
+    it is.  ``num_chips_per_worker`` is 1: a worker over several cards needs
+    tensor parallelism.  ``model_parallel`` is the tensor-parallel and
+    ``sequence_parallel`` the sequence-parallel degree inside each worker;
+    the trainers raise for either above 1 and name the ROADMAP item that
+    ports it.  The JAX package's ``use_tpu``, ``topology`` and
+    ``resources_per_worker`` are left out: nothing in the port reads them.
     """
 
     num_workers: int = 1
+    use_gpu: Optional[bool] = None
+    num_chips_per_worker: int = 1
     model_parallel: Optional[int] = None
     sequence_parallel: Optional[int] = None
 
     def __post_init__(self):
+        if self.num_workers < 1:
+            raise ValueError("num_workers must be >= 1")
+        if self.num_chips_per_worker != 1:
+            raise NotImplementedError(
+                f"num_chips_per_worker={self.num_chips_per_worker}: a worker over several "
+                "cards needs tensor parallelism, not ported yet (ROADMAP Queue 1 item 9)")
         # validate BEFORE the `or 1` defaulting: an explicit 0 must raise
         if self.model_parallel is not None and self.model_parallel < 1:
             raise ValueError("model_parallel must be >= 1")

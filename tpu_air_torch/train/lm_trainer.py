@@ -6,8 +6,9 @@ port's counterpart of ``tpu_air/train/lm_trainer.py``, its one-card path).
 (causal flash attention, forward and backward through the port's kernels on
 a CUDA device; the chunked lm-head CE), AdamW as ``_make_optimizer`` builds
 it, and a per-epoch report with a checkpoint.  A sequence split over several
-cards (ROADMAP Queue 1 item 8), tensor parallelism (item 9) and data
-parallelism over several cards (item 3) raise.
+cards (ROADMAP Queue 1 item 8), tensor parallelism (item 9), data
+parallelism over several workers (item 8) and Adafactor, whose factoring
+needs the JAX package's parameter layouts (item 8), raise.
 
 Datasets: rows with an ``input_ids`` column (fixed-length token lists).
 Targets are the global next-token shift, computed on the host.
@@ -49,8 +50,12 @@ def lm_train_loop(config: Dict[str, Any]) -> None:
             "(ROADMAP Queue 1 item 9)")
     if dp > 1:
         raise NotImplementedError(
-            f"LMTrainer: num_workers={dp}: data parallelism over several cards is "
-            "not ported yet (ROADMAP Queue 1 item 3)")
+            f"LMTrainer: num_workers={dp}: the LM step's data parallelism is not "
+            "ported yet (ROADMAP Queue 1 item 8)")
+    if args.optimizer == "adafactor":
+        raise NotImplementedError(
+            "LMTrainer: optimizer='adafactor' needs the LM's JAX parameter layouts "
+            "for its factoring, not ported yet (ROADMAP Queue 1 item 8)")
     device = resolve_device(config.get("_device"))
     pad = model_config.pad_token_id
 

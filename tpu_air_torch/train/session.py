@@ -4,7 +4,9 @@ of ``tpu_air/train/session.py``).
 The training loop calls ``session.report(metrics, checkpoint)`` once per
 epoch; the session records the history (also appended to
 ``progress.jsonl``), retains checkpoints under the run directory by
-``CheckpointConfig`` and tracks the best and the latest one.  Fault-plan
+``CheckpointConfig`` and tracks the best and the latest one.  In a run of
+several workers every rank has a session; rank 0's writes the progress
+file and retains the checkpoints.  Fault-plan
 hooks, tracing spans, metric sinks and weight publishing wait for the
 slices that port them.
 """
@@ -30,6 +32,7 @@ class Session:
         datasets: Optional[Dict[str, Any]] = None,
         config: Optional[Dict[str, Any]] = None,
         world_size: int = 1,
+        world_rank: int = 0,
     ):
         self.run_dir = run_dir
         self.checkpoint_config = checkpoint_config or CheckpointConfig()
@@ -40,6 +43,7 @@ class Session:
         self.datasets = datasets or {}
         self.config = config or {}
         self.world_size = world_size
+        self.world_rank = world_rank
         self.history: List[Dict[str, Any]] = []
         self.checkpoints: List[Tuple[str, Dict[str, Any]]] = []  # (dir, metrics)
         self._iter = 0
@@ -54,6 +58,8 @@ class Session:
         rec.setdefault("training_iteration", self._iter)
         rec.setdefault("_timestamp", time.time())
         self.history.append(rec)
+        if self.world_rank != 0:
+            return
         with open(os.path.join(self.run_dir, "progress.jsonl"), "a") as f:
             f.write(json.dumps(rec, default=float) + "\n")
         if checkpoint is not None:
@@ -141,3 +147,7 @@ def get_config() -> Dict[str, Any]:
 
 def get_world_size() -> int:
     return get_session().world_size
+
+
+def get_world_rank() -> int:
+    return get_session().world_rank

@@ -1,29 +1,44 @@
-"""The pieces of ``tpu_air/train/t5_trainer.py`` the LM loop uses:
-``TrainingArguments``, ``collate`` and ``_make_optimizer``.  T5 training
-itself is the next slice of the port.
+"""T5Trainer — FLAN-T5 fine-tuning (W1), the port's counterpart of
+``tpu_air/train/t5_trainer.py``.
+
+``T5Trainer(...).fit()`` runs :func:`t5_train_loop` in each worker:
+teacher-forced T5 with bf16 compute on f32 parameters, dropout masks from a
+seeded ``torch.Generator``, the mean CE over the global batch's non-pad
+labels, the optimizer below, a per-epoch eval and a checkpoint with the
+tokenizer and preprocessor.  With ``ScalingConfig(num_workers=N)`` each of
+N worker processes takes its contiguous rows of every global batch, as the
+JAX package's ``P("data")`` sharding hands them to device r, and the loss
+divides by the global token count (``parallel/distributed.py``).
 
 ``_make_optimizer`` reproduces the JAX package's optax chain,
-``clip_by_global_norm(max_grad_norm)`` then ``adamw(schedule, b1=0.9,
-b2=0.999, eps=1e-8, weight_decay)`` with the decay on every parameter, as
-``torch.optim.AdamW`` plus the same clipping and schedule evaluated at the
-0-based update count.
+``clip_by_global_norm(max_grad_norm)`` then either ``adamw(schedule,
+b1=0.9, b2=0.999, eps=1e-8, weight_decay)`` with the decay on every
+parameter (``torch.optim.AdamW``) or ``adafactor(schedule)`` with optax's
+defaults (written out here), the schedule evaluated at the 0-based update
+count.  The LM loop borrows ``TrainingArguments``, ``collate`` and
+``_make_optimizer``.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .checkpoint import Checkpoint
+from .trainer import BaseTrainer
+
 
 @dataclass
 class TrainingArguments:
-    """The fields of the JAX package's TrainingArguments that the LM loop
-    reads.  Its tensor-parallel, remat, logging and tqdm fields are left out:
-    nothing in the port reads them yet."""
+    """The fields of the JAX package's TrainingArguments that the port's
+    loops read.  Its tensor-parallel, remat, logging and tqdm fields are left
+    out: nothing reads them (the JAX loop reads none of the last three
+    either)."""
 
     learning_rate: float = 2e-5
     per_device_train_batch_size: int = 2
@@ -88,19 +103,116 @@ def _make_schedule(args: TrainingArguments, total_steps: int) -> Callable[[int],
                           else decay(count - args.warmup_steps))
 
 
+class _Adafactor:
+    """``optax.adafactor(learning_rate)`` with optax 0.2.6's defaults, the
+    update rule of each parameter written out: a second moment factored
+    into row and column means over the two largest dims when the smaller of
+    them is at least ``MIN_DIM_TO_FACTOR``, else kept whole, decayed at
+    1 - (t+1)^-0.8 with ``EPS`` added to the squared gradient; the update
+    clipped to RMS 1, times the learning rate, times the parameter's RMS
+    (at least 1e-3); no momentum, no weight decay.
+
+    The factoring decision reads each parameter in the JAX package's
+    layout (``layouts``: (transposed, shape) per parameter, None for the
+    port's own): T5's q/k/v/o kernels are [d_model, h, d_kv] there, whose
+    second-largest dim (d_kv) is under 128, so optax keeps their second
+    moment whole."""
+
+    MIN_DIM_TO_FACTOR = 128
+    DECAY = 0.8
+    EPS = 1e-30
+    CLIP = 1.0
+    MIN_SCALE = 1e-3
+
+    def __init__(self, params: Sequence[torch.nn.Parameter],
+                 layouts: Optional[Sequence[Optional[Tuple[bool, Tuple[int, ...]]]]] = None):
+        self.params = list(params)
+        self.layouts = list(layouts) if layouts is not None else [None] * len(self.params)
+        if len(self.layouts) != len(self.params):
+            raise ValueError(f"{len(self.layouts)} layouts for {len(self.params)} parameters")
+        self.state: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(self.params)
+        self.count = 0
+
+    @staticmethod
+    def _factored_dims(shape) -> Optional[Tuple[int, int]]:
+        """optax's ``_factored_dims``: the two largest axes, or None."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < _Adafactor.MIN_DIM_TO_FACTOR:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    @staticmethod
+    def _rms(x: torch.Tensor) -> torch.Tensor:
+        return x.square().mean().sqrt()
+
+    @torch.no_grad()
+    def step(self, lr: float) -> None:
+        # optax computes the decay in f32 from the 0-based count
+        t = torch.tensor(self.count + 1, dtype=torch.float32)
+        decay = float(1.0 - t ** -self.DECAY)
+        for i, (p, layout) in enumerate(zip(self.params, self.layouts)):
+            if p.grad is None:
+                continue
+            transposed, shape = layout if layout is not None else (False, tuple(p.shape))
+
+            def logical(x):
+                return (x.t() if transposed else x).reshape(shape)
+
+            g = logical(p.grad.float())
+            g2 = g.square() + self.EPS
+            dims = self._factored_dims(shape)
+            st = self.state[i]
+            if dims is not None:
+                d1, d0 = dims
+                if st is None:
+                    st = self.state[i] = {"v_row": torch.zeros_like(g2.mean(d0)),
+                                          "v_col": torch.zeros_like(g2.mean(d1))}
+                v_row = st["v_row"].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
+                v_col = st["v_col"].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt()
+                u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+            else:
+                if st is None:
+                    st = self.state[i] = {"v": torch.zeros_like(g2)}
+                v = st["v"].mul_(decay).add_(g2, alpha=1.0 - decay)
+                u = g * v.rsqrt()
+            u = u / torch.clamp(self._rms(u) / self.CLIP, min=1.0)
+            u = u * lr
+            scale = self._rms(p.detach().float())
+            u = u * torch.where(scale <= self.MIN_SCALE,
+                                torch.full_like(scale, self.MIN_SCALE), scale)
+            if transposed:
+                u = u.reshape(p.shape[::-1]).t()
+            p.sub_(u.reshape(p.shape).to(p.dtype))
+        self.count += 1
+
+
 class _Optimizer:
-    """AdamW with optax's global-norm clipping and a per-update schedule.
-    ``step()`` applies one update from the parameters' ``.grad`` and clears
-    them."""
+    """AdamW or Adafactor with optax's global-norm clipping and a per-update
+    schedule.  ``step()`` applies one update from the parameters' ``.grad``
+    and clears them."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], args: TrainingArguments,
-                 total_steps: int):
-        self.params = [p for p in params if p.requires_grad]
+                 total_steps: int, layouts=None):
+        params = list(params)
+        keep = [i for i, p in enumerate(params) if p.requires_grad]
+        self.params = [params[i] for i in keep]
         self.schedule = _make_schedule(args, total_steps)
         self.max_grad_norm = args.max_grad_norm
         self.count = 0
-        self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=(0.9, 0.999),
-                                       eps=1e-8, weight_decay=args.weight_decay)
+        self.adafactor = self.adamw = None
+        if args.optimizer == "adafactor":
+            self.adafactor = _Adafactor(
+                self.params, None if layouts is None else [layouts[i] for i in keep])
+        elif args.optimizer == "adamw":
+            self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0),
+                                           betas=(0.9, 0.999), eps=1e-8,
+                                           weight_decay=args.weight_decay)
+        else:
+            raise ValueError(f"optimizer must be 'adamw' or 'adafactor', not {args.optimizer!r}")
 
     @torch.no_grad()
     def step(self) -> None:
@@ -115,16 +227,255 @@ class _Optimizer:
             mul = torch.where(clip, torch.full_like(norm, self.max_grad_norm), one)
             for g in grads:
                 g.div_(div).mul_(mul)
-        for group in self.adamw.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.adamw.step()
-        self.adamw.zero_grad(set_to_none=True)
+        lr = self.schedule(self.count)
+        if self.adafactor is not None:
+            self.adafactor.step(lr)
+        else:
+            for group in self.adamw.param_groups:
+                group["lr"] = lr
+            self.adamw.step()
+        for p in self.params:
+            p.grad = None
         self.count += 1
 
 
 def _make_optimizer(args: TrainingArguments, total_steps: int,
-                    params: Iterable[torch.nn.Parameter]) -> _Optimizer:
-    if args.optimizer == "adafactor":
+                    params: Iterable[torch.nn.Parameter], layouts=None) -> _Optimizer:
+    """The optimizer of ``args`` over ``params``; ``layouts`` (one per
+    parameter, see :class:`_Adafactor`) matter to Adafactor only."""
+    return _Optimizer(params, args, total_steps, layouts)
+
+
+def _tensors(batch: Dict[str, np.ndarray], rows: slice, device) -> Dict[str, torch.Tensor]:
+    """This worker's rows on its device.  A CUDA upload goes from pinned
+    memory without blocking: from pageable memory torch waits for the
+    stream, so every step would wait for the previous one's device work."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(v[rows]).long()
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def _pad_rows(batch: Dict[str, np.ndarray], rows: int, pad_id: int) -> Dict[str, np.ndarray]:
+    """A partial eval batch topped up with pad rows: ids and labels all
+    ``pad_id`` (so they add no tokens), attention masks all 0.  The JAX
+    loop fills the masks with ``pad_id`` too, which is the same for T5's
+    pad id 0."""
+    return {k: np.concatenate([v, np.full((rows - len(v),) + v.shape[1:],
+                                          0 if k == "attention_mask" else pad_id, v.dtype)])
+            for k, v in batch.items()}
+
+
+def t5_local_sums(model, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator] = None):
+    """Summed CE over this worker's non-pad labels and their count (device
+    scalars): teacher forcing with ``shift_right`` inputs and a decoder key
+    mask that always admits the start position, as the JAX loop builds
+    them.  ``generator`` draws the dropout masks in ``train()`` mode."""
+    from tpu_air_torch.models.t5.modeling import cross_entropy_sum, shift_right
+
+    cfg = model.config
+    labels = batch["labels"]
+    dec_in = shift_right(labels, cfg.decoder_start_token_id, cfg.pad_token_id)
+    dec_mask = (dec_in != cfg.pad_token_id).long()
+    dec_mask[:, 0] = 1
+    logits = model(batch["input_ids"], batch["attention_mask"], dec_in,
+                   decoder_attention_mask=dec_mask, generator=generator)
+    return cross_entropy_sum(logits, labels, cfg.pad_token_id)
+
+
+def make_t5_train_step(model, optimizer, generator: Optional[torch.Generator] = None):
+    """``step(batch) -> loss`` (a detached device scalar, the global batch's
+    mean CE): this worker's sum over the count of all workers, its gradient
+    summed over them (not DDP's mean of per-worker means), one
+    ``optimizer.step()``.  ``optimizer`` is what ``_make_optimizer``
+    returns."""
+    from tpu_air_torch.parallel.distributed import all_reduce_grads, all_reduce_sum
+
+    params = optimizer.params
+
+    def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        total, count = t5_local_sums(model, batch, generator)
+        n = all_reduce_sum(count.float())
+        loss = total / torch.clamp(n, min=1.0)
+        loss.backward()
+        all_reduce_grads(params)
+        optimizer.step()
+        return all_reduce_sum(loss.detach())
+
+    return step
+
+
+def t5_train_loop(config: Dict[str, Any]) -> None:
+    """The training function of each worker (``config`` as
+    ``T5Trainer._train_loop_config`` builds it).  Uses the session API for
+    data, rank and reports."""
+    from tpu_air_torch.device import resolve_device
+    from tpu_air_torch.models.t5.config import T5Config
+    from tpu_air_torch.models.t5.convert import jax_layouts
+    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
+    from tpu_air_torch.parallel.distributed import all_reduce_sum
+
+    from . import session
+
+    args: TrainingArguments = config.get("training_args") or TrainingArguments(
+        **{k: v for k, v in config.items() if k in TrainingArguments.__dataclass_fields__})
+    # Tune-style overrides arrive as plain keys of the config
+    for k in ("learning_rate", "num_train_epochs", "weight_decay"):
+        if k in config:
+            setattr(args, k, config[k])
+    if "epochs" in config:
+        args.num_train_epochs = config["epochs"]
+
+    model_config: T5Config = config["model_config"]
+    tokenizer = config.get("tokenizer")
+    preprocessor = config.get("_preprocessor")
+    sc = config.get("_scaling_config")
+    mp = getattr(sc, "model_parallel", None) or 1
+    if mp > 1:
         raise NotImplementedError(
-            "optimizer='adafactor' is ported with T5 training (ROADMAP Queue 1 item 3)")
-    return _Optimizer(params, args, total_steps)
+            f"T5Trainer: model_parallel={mp}: tensor parallelism is not ported yet "
+            "(ROADMAP Queue 1 item 9)")
+    dp, rank = session.get_world_size(), session.get_world_rank()
+    device = resolve_device(config.get("_device"))
+    pad_id = model_config.pad_token_id
+
+    train_ds = session.get_dataset_shard("train")
+    eval_ds = session.get_dataset_shard("evaluation")
+    if eval_ds is None:
+        eval_ds = session.get_dataset_shard("eval")
+    if train_ds is None:
+        raise ValueError("T5Trainer requires a 'train' dataset")
+    per_device = args.per_device_train_batch_size
+    global_bs = per_device * dp
+    keys = ["input_ids", "attention_mask", "labels"]
+    sample = next(train_ds.iter_batches(batch_size=2, batch_format="pandas"))
+    seq_len = collate(sample, keys)["input_ids"].shape[1]
+
+    model = T5ForConditionalGeneration(model_config, device=device)
+    resume_dir = config.get("resume_from_checkpoint")
+    pretrained = config.get("pretrained_params")
+    if resume_dir:
+        model.load_state_dict(Checkpoint.from_directory(resume_dir).get_params())
+    elif pretrained is not None:
+        model.load_state_dict(pretrained)
+    else:
+        model.init_weights(args.seed)     # numpy-seeded: Flax's init is not reproducible here
+    model.train()
+
+    steps_per_epoch = max(1, train_ds.count() // global_bs)
+    if args.max_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
+    layouts = jax_layouts(model_config)
+    opt = _make_optimizer(args, steps_per_epoch * args.num_train_epochs,
+                          [p for _, p in model.named_parameters()],
+                          [layouts[n] for n, _ in model.named_parameters()])
+    # every rank holds the whole model (no tensor parallelism)
+    params_bytes = int(sum(p.numel() * p.element_size() for p in opt.params))
+    # the JAX loop's PRNGKey(seed + 1); each rank draws the masks of its rows
+    generator = torch.Generator(device=device)
+    generator.manual_seed(args.seed + 1 + rank)
+    train_step = make_t5_train_step(model, opt, generator)
+
+    mine = slice(rank * per_device, (rank + 1) * per_device)
+    for epoch in range(int(args.num_train_epochs)):
+        t0 = time.time()
+        tokens, nsteps, losses = 0, 0, []
+        for batch_df in train_ds.iter_batches(batch_size=global_bs, batch_format="pandas",
+                                              drop_last=True):
+            if len(batch_df) < global_bs:
+                continue
+            batch = _tensors(collate(batch_df, keys, seq_len), mine, device)
+            losses.append(train_step(batch))    # a device scalar: no host sync per step
+            tokens += global_bs * seq_len
+            nsteps += 1
+            if args.max_steps_per_epoch and nsteps >= args.max_steps_per_epoch:
+                break
+        # one host sync, which also waits for the epoch's device work
+        train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+        dt = time.time() - t0
+        metrics: Dict[str, Any] = {
+            "epoch": epoch + 1,
+            "loss": train_loss,
+            "steps": nsteps,
+            "train_tokens_per_sec": tokens / dt if dt > 0 else 0.0,
+            "train_tokens_per_sec_per_chip": (tokens / dt / dp) if dt > 0 else 0.0,
+            "mesh_data": dp,
+            "mesh_model": 1,
+            "mesh_num_hosts": 1,
+            "params_bytes_total": params_bytes,
+            "params_bytes_per_device": params_bytes,
+        }
+
+        if eval_ds is not None and args.evaluation_strategy == "epoch":
+            ebs = args.per_device_eval_batch_size * dp
+            eval_rows = slice(rank * args.per_device_eval_batch_size,
+                              (rank + 1) * args.per_device_eval_batch_size)
+            parts = []
+            model.eval()
+            with torch.no_grad():
+                for batch_df in eval_ds.iter_batches(batch_size=ebs, batch_format="pandas",
+                                                     drop_last=False):
+                    batch = _pad_rows(collate(batch_df, keys, seq_len), ebs, pad_id)
+                    total, count = t5_local_sums(model, _tensors(batch, eval_rows, device))
+                    sums = all_reduce_sum(torch.stack([total, count.float()]))
+                    # the JAX eval step's ntok is at least 1 per global batch
+                    parts.append(torch.stack([sums[0], torch.clamp(sums[1], min=1.0)]))
+            model.train()
+            if parts:
+                tot, cnt = torch.stack(parts).double().sum(0).tolist()   # one host sync
+                metrics["eval_loss"] = tot / max(cnt, 1.0)
+
+        ckpt = None
+        if args.save_strategy == "epoch" and rank == 0:
+            ckpt = Checkpoint.from_model(model_config=model_config, params=model.state_dict(),
+                                         tokenizer=tokenizer, preprocessor=preprocessor,
+                                         metrics=metrics)
+        session.report(metrics, checkpoint=ckpt)
+
+
+class T5Trainer(BaseTrainer):
+    """FLAN-T5 fine-tuning through the Trainer API (the JAX package's
+    ``T5Trainer``): ``model_config`` or ``model_name`` (``flan-t5-base`` by
+    default), ``training_args``, and optionally the ``tokenizer`` and
+    ``pretrained_params`` (a state dict of the port's model) the
+    checkpoints carry and training starts from."""
+
+    _name_prefix = "T5Trainer"
+
+    def __init__(
+        self,
+        *,
+        model_config=None,
+        model_name: Optional[str] = None,
+        training_args: Optional[TrainingArguments] = None,
+        tokenizer=None,
+        pretrained_params=None,
+        trainer_init_config: Optional[Dict[str, Any]] = None,
+        **kwargs,
+    ):
+        super().__init__(**kwargs)
+        if model_config is None:
+            from tpu_air_torch.models.t5.config import T5Config
+
+            model_config = T5Config.from_name(model_name or "flan-t5-base")
+        self.model_config = model_config
+        self.training_args = training_args or TrainingArguments()
+        self.tokenizer = tokenizer
+        self.pretrained_params = pretrained_params
+        self.trainer_init_config = trainer_init_config or {}
+
+    def _training_fn(self):
+        return t5_train_loop
+
+    def _train_loop_config(self) -> Dict[str, Any]:
+        cfg = dict(self.trainer_init_config)
+        cfg["model_config"] = self.model_config
+        cfg["training_args"] = self.training_args
+        cfg["tokenizer"] = self.tokenizer
+        if self.pretrained_params is not None:
+            cfg["pretrained_params"] = self.pretrained_params
+        return cfg
