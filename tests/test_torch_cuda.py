@@ -7,7 +7,8 @@ repo's conftest imports the JAX package, which the card machine may lack).
 Tolerances, on |kernel - plain| / max(1, |plain|): the kernels and the plain
 versions both compute in f32 from the same inputs and differ only in
 summation order (f32: 1e-4); a bf16 output is one rounding of that f32
-value, up to 2^-7 of it apart (bf16: 2e-2).
+value, up to 2^-7 of it apart (bf16: 2e-2); an f16 one up to 2^-10 (f16:
+5e-3, where P and dS are rounded to f16 inside the kernels as well).
 """
 
 import numpy as np
@@ -16,7 +17,8 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
+HALF = [torch.bfloat16, torch.float16]
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +39,7 @@ def _t(a, dev, dtype):
     return torch.as_tensor(a).to(device=dev, dtype=dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("case", ["bias_h_mask", "bias_bh", "bias_1_causal",
                                   "mask_causal", "plain_ragged"])
@@ -84,7 +86,7 @@ def test_flash_kernel_matches_plain(dev, dtype, d, case):
     assert (lse[live] - want_lse[live]).abs().max().item() < 1e-3
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("L", [129, 512, 4096])
 @pytest.mark.parametrize("b", [1, 5, 8])
@@ -148,16 +150,18 @@ def _edge_mask(L, dev):
 EDGE_LENGTHS = [1, 63, 64, 65, 129, 200]
 
 
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("L", EDGE_LENGTHS)
-def test_flash_kernel_matches_plain_at_tile_edges(dev, d, causal, L):
-    """The bf16 tensor-core forward at lengths around its tile edges, with a
-    ragged key mask and a fully masked row (whose output is the mean of V)."""
+def test_flash_kernel_matches_plain_at_tile_edges(dev, d, causal, L, dtype):
+    """The bf16 and f16 tensor-core forward at lengths around its tile
+    edges, with a ragged key mask and a fully masked row (whose output is
+    the mean of V)."""
     from tpu_air_torch.ops.flash_attention import flash_attention_reference, flash_attention_with_lse
 
     rng = np.random.default_rng(L + d + 1000 * causal)
-    b, h, dtype = 3, 2, torch.bfloat16
+    b, h = 3, 2
     q, k, v = (_t(rng.standard_normal((b, L, h, d)), dev, dtype).transpose(1, 2)
                for _ in range(3))
     mask = _edge_mask(L, dev)
@@ -173,18 +177,19 @@ def test_flash_kernel_matches_plain_at_tile_edges(dev, d, causal, L):
     assert (lse[live] - want_lse[live]).abs().max().item() < 1e-3
 
 
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("L", EDGE_LENGTHS)
-def test_flash_backward_kernels_match_plain_at_tile_edges(dev, d, causal, L):
-    """The bf16 tensor-core dq and dk/dv kernels at lengths around their
-    tile edges, with a ragged key mask and a fully masked row."""
+def test_flash_backward_kernels_match_plain_at_tile_edges(dev, d, causal, L, dtype):
+    """The bf16 and f16 tensor-core dq and dk/dv kernels at lengths around
+    their tile edges, with a ragged key mask and a fully masked row."""
     from tpu_air_torch.ops.flash_attention import (
         flash_attention_backward, flash_attention_backward_reference,
         flash_attention_with_lse)
 
     rng = np.random.default_rng(L + d + 1000 * causal)
-    b, h, dtype = 3, 2, torch.bfloat16
+    b, h = 3, 2
     q, k, v, do = (_t(rng.standard_normal((b, L, h, d)), dev, dtype).transpose(1, 2)
                    for _ in range(4))
     mask = _edge_mask(L, dev)
@@ -205,10 +210,11 @@ def test_flash_backward_kernels_match_plain_at_tile_edges(dev, d, causal, L):
         assert g[2].abs().max().item() == 0.0
 
 
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("grad", ["dq", "dk_dv"])
-def test_bf16_fully_masked_row_dk_dv_are_exactly_zero(dev, d, grad):
-    """In bf16 the tensor-core backward kernels hard-zero masked scores: a
+def test_bf16_fully_masked_row_dk_dv_are_exactly_zero(dev, d, grad, dtype):
+    """In bf16 and f16 the tensor-core backward kernels hard-zero masked scores: a
     fully masked batch row gets dq = 0 exactly, and its keys dk = dv = 0, as
     do the keys that a ragged row's mask hides, causal or not."""
     from tpu_air_torch.ops.flash_attention import flash_attention_backward, flash_attention_with_lse
@@ -216,7 +222,7 @@ def test_bf16_fully_masked_row_dk_dv_are_exactly_zero(dev, d, grad):
     rng = np.random.default_rng(d)
     b, h, L = 3, 2, 200
     for causal in (False, True):
-        q, k, v, do = (_t(rng.standard_normal((b, L, h, d)), dev, torch.bfloat16).transpose(1, 2)
+        q, k, v, do = (_t(rng.standard_normal((b, L, h, d)), dev, dtype).transpose(1, 2)
                        for _ in range(4))
         mask = _edge_mask(L, dev)
         out, lse = flash_attention_with_lse(q, k, v, kv_mask=mask, causal=causal)
@@ -262,9 +268,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(2, 4, 8, 24, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
-    q16 = torch.zeros(2, 4, 8, 16, device=dev, dtype=torch.float16)
+    q64 = torch.zeros(2, 4, 8, 16, device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
-        flash_attention(q16, q16, q16)
+        flash_attention(q64, q64, q64)
+    kd64 = torch.zeros(2, 9, 64, device=dev, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        decode_attention(torch.zeros(2, 1, 4, 16, device=dev, dtype=torch.float64), kd64, kd64)
     qd = torch.zeros(2, 1, 4, 16, device=dev)
     kd = torch.zeros(2, 9, 64, device=dev)
     with pytest.raises(ValueError, match="int8"):
@@ -277,7 +286,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         decode_attention(qd, kd, off)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("case", ["plain", "mask", "ragged_mask"])
@@ -325,13 +334,13 @@ def test_flash_backward_kernels_match_plain(dev, dtype, d, causal, case):
             assert g[2].abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_backward_kernels_match_plain_at_lm_shape(dev, dtype):
     """The long-context LM's shape (B*H 8, L 8192, D 128, causal).  Most of
     its gradients are far below 1, where the bound above would be absolute and
     as large as the values, so each tensor is held to ||kernel - plain|| /
     ||plain||: 1e-4 in f32; in bf16 1e-2, above the 2^-7 that one ulp of
-    every element would give."""
+    every element would give; in f16 2e-3, above its 2^-10."""
     from tpu_air_torch.ops.flash_attention import (
         flash_attention_backward, flash_attention_backward_reference,
         flash_attention_with_lse)
@@ -351,7 +360,7 @@ def test_flash_backward_kernels_match_plain_at_lm_shape(dev, dtype):
     for g, w in zip(got, want):
         w = w.float()
         rel = ((flat(g).float() - w).norm() / w.norm()).item()
-        assert rel < {torch.float32: 1e-4, torch.bfloat16: 1e-2}[dtype], rel
+        assert rel < {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}[dtype], rel
 
 
 def test_flash_autograd_launches_both_backward_kernels(dev):
@@ -380,8 +389,64 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head dim"):
         call(torch.zeros(2, 4, 8, 24, device=dev))
     with pytest.raises(TypeError):
-        call(torch.zeros(2, 4, 8, 16, device=dev, dtype=torch.float16))
+        call(torch.zeros(2, 4, 8, 16, device=dev, dtype=torch.float64))
     with pytest.raises(ValueError, match="do not match"):
         call(torch.zeros(2, 4, 8, 16, device=dev), torch.zeros(2, 3, 8, 16, device=dev))
     with pytest.raises(ValueError, match="kv_mask"):
         call(torch.zeros(2, 4, 8, 16, device=dev), mask=torch.ones(2, 9, device=dev))
+
+
+def test_batch_predictor_scores_in_a_leased_actor_on_the_card(dev, tmp_path):
+    """W3 in small: one scoring actor leases the card, loads a JAX-format
+    checkpoint in float16 on cuda:0 (from its lease), and generates the same
+    outputs as the in-process predictor, through both inference kernels."""
+    import pandas as pd
+
+    import tpu_air_torch
+    from tpu_air_torch.data import from_pandas
+    from tpu_air_torch.models.t5.config import T5Config
+    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
+    from tpu_air_torch.predict import BatchPredictor, T5GenerativePredictor
+    from tpu_air_torch.train import Checkpoint
+
+    class Probe(T5GenerativePredictor):
+        def _predict_numpy(self, data, **kw):
+            from tpu_air_torch.ops.decode_attention import decode_attention
+            from tpu_air_torch.ops.flash_attention import flash_attention
+
+            before = flash_attention.launches, decode_attention.launches
+            out = super()._predict_numpy(data, **kw)
+            return out.assign(device=str(self.model.device),
+                              flash=flash_attention.launches - before[0],
+                              decode=decode_attention.launches - before[1])
+
+    class IdTokenizer:                  # random weights: decode to the ids themselves
+        def batch_decode(self, seqs, skip_special_tokens=True):
+            return [" ".join(map(str, row)) for row in seqs]
+
+    cfg = T5Config.tiny(vocab_size=384)
+    model = T5ForConditionalGeneration(cfg, device="cpu").init_weights(0)
+    path = str(tmp_path / "ckpt")
+    Checkpoint.from_model(model_config=cfg, params=model.state_dict(), format="jax", path=path)
+    rng = np.random.default_rng(0)
+    lens = np.array([16, 9, 0, 12])
+    mask = (np.arange(16)[None] < lens[:, None]).astype(np.int64)
+    df = pd.DataFrame({"input_ids": list(rng.integers(3, 384, (4, 16)) * mask),
+                       "attention_mask": list(mask), "idx": range(4)})
+    tpu_air_torch.init(num_cpus=2)
+    try:
+        out = BatchPredictor.from_checkpoint(
+            Checkpoint.from_directory(path), Probe, tokenizer=IdTokenizer(),
+            dtype="float16").predict(
+            from_pandas(df), feature_columns=["input_ids", "attention_mask"],
+            keep_columns=["idx"], batch_size=4, num_gpus_per_worker=1,
+            max_new_tokens=6).to_pandas()
+    finally:
+        tpu_air_torch.shutdown()
+    want = T5GenerativePredictor.from_checkpoint(
+        Checkpoint.from_directory(path), dtype="float16", tokenizer=IdTokenizer()).predict(
+        df[["input_ids", "attention_mask"]], max_new_tokens=6)
+    assert set(out["device"]) == {"cuda:0"}
+    assert (out["flash"] == cfg.num_layers).all() and (out["decode"] > 0).all()
+    assert out.sort_values("idx")["generated_output"].tolist() == \
+        want["generated_output"].tolist()

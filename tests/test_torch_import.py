@@ -35,7 +35,12 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
     assert "tpu_air_torch.ops.decode_attention" in mods
     assert "tpu_air_torch.train.lm_trainer" in mods
     for new in ("tpu_air_torch.train.t5_trainer", "tpu_air_torch.data.preprocessors",
-                "tpu_air_torch.parallel.distributed", "tpu_air_torch.models.layers"):
+                "tpu_air_torch.parallel.distributed", "tpu_air_torch.models.layers",
+                "tpu_air_torch.core.runtime", "tpu_air_torch.core.object_store",
+                "tpu_air_torch.core.worker_preload", "tpu_air_torch.faults.plan",
+                "tpu_air_torch.observability.tracing", "tpu_air_torch.data.dataset",
+                "tpu_air_torch.data.io", "tpu_air_torch.predict.batch_predictor",
+                "tpu_air_torch.train.flax_msgpack"):
         assert new in mods, new
     code = (
         "import importlib, sys\n"
@@ -52,6 +57,9 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
 
 
 def test_no_file_of_the_port_imports_jax_or_tpu_air():
+    """A static scan of every file, the copied core included; the lazy
+    imports inside functions count too."""
+    assert os.path.exists(os.path.join(PKG, "core", "runtime.py"))
     offenders = []
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -112,3 +120,65 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert model.device == torch.device("cpu")
     assert CausalLM(LMConfig.tiny(), device="cpu").device == torch.device("cpu")
     assert LMTrainer(model_config=LMConfig.tiny(), device="cpu").device == torch.device("cpu")
+
+
+def test_loading_a_jax_checkpoint_imports_nothing_of_jax(tmp_path):
+    """In a fresh interpreter, a JAX-format checkpoint (written by the port,
+    with a preprocessor that names the JAX package's copied classes) loads
+    and predicts without JAX, flax or tpu_air in sys.modules; a preprocessor
+    naming an uncopied tpu_air module is refused without importing it."""
+    import pickle
+
+    from tpu_air_torch.data.preprocessors import BatchMapper
+    from tpu_air_torch.models.t5.config import T5Config
+    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
+    from tpu_air_torch.train import Checkpoint
+
+    cfg = T5Config.tiny(vocab_size=384)
+    model = T5ForConditionalGeneration(cfg, device="cpu").init_weights(0)
+    path = str(tmp_path / "ckpt")
+    Checkpoint.from_model(model_config=cfg, params=model.state_dict(), format="jax", path=path)
+    # a pickle naming the JAX package's classes (protocol 2 names a class by
+    # a newline-ended module path, so the path can be swapped in the bytes)
+    blob = pickle.dumps(BatchMapper(len), protocol=2)
+    assert b"tpu_air_torch.data.preprocessors\n" in blob
+    with open(os.path.join(path, "preprocessor.pkl"), "wb") as f:
+        f.write(blob.replace(b"tpu_air_torch.data.preprocessors", b"tpu_air.data.preprocessors"))
+    with open(str(tmp_path / "bad.pkl"), "wb") as f:
+        f.write(blob.replace(b"tpu_air_torch.data.preprocessors", b"tpu_air.data.block"))
+    code = (
+        "import sys, pandas as pd, numpy as np\n"
+        "from tpu_air_torch.train import Checkpoint\n"
+        "from tpu_air_torch.train.checkpoint import _load_pickle\n"
+        "from tpu_air_torch.predict import T5GenerativePredictor\n"
+        f"c = Checkpoint.from_directory({path!r})\n"
+        "pp = c.get_preprocessor()\n"
+        "assert type(pp).__module__ == 'tpu_air_torch.data.preprocessors', type(pp)\n"
+        "p = T5GenerativePredictor(c.get_model(device='cpu'))\n"
+        "out = p.predict({'input_ids': np.ones((2, 5), np.int64)}, max_new_tokens=3)\n"
+        "assert len(out) == 2\n"
+        "try:\n"
+        f"    _load_pickle({str(tmp_path / 'bad.pkl')!r})\n"
+        "    raise SystemExit('not refused')\n"
+        "except Exception as e:\n"
+        "    assert 'tpu_air.data.block' in str(e), e\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(repr(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_core_lint_is_clean():
+    """airlint's backend-neutral families (CC concurrency, RT actor runtime,
+    CS crash safety, FI fault injection) find nothing unsuppressed in the
+    port; the JAX (JX) and Pallas (PL) families do not apply to it."""
+    import json
+
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "airlint.py"), "--json",
+                          "--rules", "CC,RT,CS,FI", os.path.join(ROOT, "tpu_air_torch")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    report = json.loads(out.stdout)
+    assert report["files_analyzed"] >= 50
+    assert report["findings"] == [], report["findings"]

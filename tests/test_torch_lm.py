@@ -313,3 +313,21 @@ def test_checkpoint_dict_and_directory_round_trip(tmp_path):
         assert ckpt.get_metrics() == {"loss": loss}
     assert model_ckpt.get_model_config() == cfg
     assert set(model_ckpt.to_dict()) == {"model_config", "params", "metrics"}
+
+
+def test_lm_f16_builds_and_matches_jax(jax_params):
+    """LMConfig(dtype="float16") builds and runs in the port: its logits
+    against the JAX LM's in f16 on the same weights (f16 activations over
+    two layers: a few f16 ulps at |logit| <= 4), greedy next tokens equal."""
+    ids = _rows(2, seed=7)
+    jmodel = jlm.CausalLM(jlm.LMConfig(**TINY, dtype="float16"))
+    want = np.asarray(jmodel.apply({"params": jax_params}, jnp.asarray(ids)), np.float32)
+    model = tlm.CausalLM(tlm.LMConfig(**TINY, dtype="float16"), device="cpu")
+    model.load_state_dict(tlm.params_from_jax(jax_params))
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids).long())
+    assert model.layers[0].attn.q(torch.zeros(1, TINY["d_model"])).dtype == torch.float16
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=1e-2)
+    agree = (got.argmax(-1) == want.argmax(-1)).mean()
+    assert agree == 1.0, agree

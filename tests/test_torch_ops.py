@@ -437,3 +437,75 @@ def test_flash_bias_grads_recompute_through_reference():
         assert t.grad.shape == t.shape
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=1e-4, rtol=1e-4,
                                    err_msg=name)
+
+
+# -- float16 (the reference's W3 load type) ----------------------------------
+# Outputs in f16 from the same f16 inputs.  Both sides compute in f32; the
+# Pallas kernels round p (and ds) to f16 before their products, the plain
+# versions do not, and each output is one f16 rounding of its f32 value.
+# Values here are O(1), where one f16 ulp is at most 2^-10 * 2 = 2e-3.
+F16_TOL = 4e-3
+
+
+def _f16(a):
+    return None if a is None else a.astype(np.float16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f16_matches_pallas(causal):
+    """The plain forward in f16 against the Pallas kernel in f16
+    (interpret mode), bias and key mask with a fully masked row."""
+    q, k, v, bias, mask = _flash_inputs("H", seed=3)
+    got, lse = tflash.flash_attention_reference(_t(_f16(q)), _t(_f16(k)), _t(_f16(v)),
+                                                _t(bias), _t(mask), 1.0, causal)
+    assert got.dtype == torch.float16 and lse.dtype == torch.float32
+    want = jflash.flash_attention(_j(_f16(q)), _j(_f16(k)), _j(_f16(v)), _j(bias),
+                                  kv_mask=_j(mask), scale=1.0, causal=causal,
+                                  block_q=32, block_k=32, interpret=True)
+    assert want.dtype == jnp.float16
+    live = np.repeat(mask.max(1) > 0, 4)
+    np.testing.assert_allclose(got.float().numpy()[live],
+                               np.asarray(want, np.float32)[live], atol=F16_TOL, rtol=F16_TOL)
+    assert torch.isfinite(got.float()).all()      # the fully masked row: mean(V), finite
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_f16_matches_pallas_bwd(causal):
+    """The plain backward in f16 against both Pallas backward kernels in f16
+    (interpret mode) from the same saved (out, lse); the fully masked row's
+    gradients are exactly zero in both."""
+    q, k, v, do, glse, mask = _bwd_inputs(seed=4)
+    q, k, v, do = (_f16(a) for a in (q, k, v, do))
+    scale = 0.25
+    out, lse = tflash.flash_attention_reference(_t(q), _t(k), _t(v), None, _t(mask),
+                                                scale, causal)
+    got = tflash.flash_attention_backward_reference(
+        _t(q), _t(k), _t(v), _t(mask), out, lse, _t(do), _t(glse), scale, causal)
+    addmask = (1.0 - _j(mask)) * jflash._NEG_INF
+    want = jflash._pallas_bwd(_j(q), _j(k), _j(v), addmask, jnp.asarray(out.numpy()),
+                              jnp.asarray(lse.numpy()), _j(do), _j(glse), scale, causal,
+                              32, 32, True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float16
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   atol=F16_TOL, rtol=F16_TOL, err_msg=name)
+        assert np.abs(g.float().numpy()[4:]).max() == 0.0, name
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_decode_f16_matches_jax(with_mask):
+    """The plain decode step in f16 against the Pallas kernel in f16
+    (interpret mode), with the decode self step's bias."""
+    q, k, v, bias, mask = _dk_inputs(seed=5)
+    q, k, v = _f16(q), _f16(k), _f16(v)
+    kw_t, kw_j = {"bias": _t(bias)}, {"bias": _j(bias)}
+    if with_mask:
+        mask[1] = 0.0                                  # an all-pad row
+        kw_t["kv_mask"], kw_j["kv_mask"] = _t(mask), _j(mask)
+    b, L = k.shape[:2]
+    got = tdec.decode_attention_reference(_t(q), _t(k.reshape(b, L, -1)),
+                                          _t(v.reshape(b, L, -1)), **kw_t)
+    want = jdec.decode_attention(_j(q), _j(k), _j(v), block_k=32, interpret=True, **kw_j)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=F16_TOL, rtol=F16_TOL)

@@ -349,3 +349,72 @@ def test_int8_cache_contents_match_jax(pair):
                 # f32 projections summed in another order may land on the
                 # other side of a .5 rounding edge: one step, rarely
                 assert diff.max() <= 1 and (diff == 0).mean() > 0.995, (part, diff.max())
+
+
+@pytest.fixture(scope="module")
+def f16_pair(pair):
+    """The same weights, both models computing in float16 (the reference's
+    W3 load type), f32 parameters cast per call."""
+    jmodel, params, model = pair
+    jm = JT5(dataclasses.replace(jmodel.config, dtype="float16"))
+    m = T5ForConditionalGeneration(dataclasses.replace(model.config, dtype="float16"),
+                                   device="cpu")
+    m.load_state_dict(model.state_dict())
+    return jm, params, m
+
+
+def test_f16_logits_and_greedy_tokens_match_jax(f16_pair):
+    """float16 T5 tiny: logits within 3e-2 of the JAX package's (f16
+    activations through 2+2 layers, rounded at different points: a few f16
+    ulps at the logits' |x| <= 8), greedy tokens identical, on a batch with
+    an all-pad row.  On that row the two differ, and it is padding: the JAX
+    package's dense -1e9 mask becomes -inf in f16 and its f32 softmax of an
+    all -inf row is NaN, where the port's kernels keep their f32 floors and
+    give finite values; generation never reads the row (born finished)."""
+    jmodel, params, model = f16_pair
+    ids, mask = _batch(2, n=5)
+    ids[3], mask[3] = 0, 0
+    dec = np.random.default_rng(1).integers(2, 384, (5, 7)).astype(np.int32)
+    want = np.asarray(jmodel.apply({"params": params}, ids, mask, dec)).astype(np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                    torch.from_numpy(dec).long())
+    assert got.dtype == torch.float16
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    live = mask.sum(1) > 0
+    assert np.isnan(want[~live]).all() and np.isfinite(want[live]).all()
+    np.testing.assert_allclose(got[live], want[live], atol=3e-2, rtol=1e-2)
+    want_toks = np.asarray(jgenerate(jmodel, params, ids, mask, max_new_tokens=8))
+    got_toks = generate(model, ids, mask, max_new_tokens=8).numpy()
+    np.testing.assert_array_equal(got_toks, want_toks)
+    assert (got_toks[3] == 0).all()
+
+
+def test_f16_rmsnorm_and_position_bias_round_like_jax():
+    """In f16 as in bf16: RMSNorm computes in f32 and casts after the
+    weight, the position bias is cast to f16 where the table is read."""
+    from tpu_air.models.t5.modeling import RelativePositionBias as JBias
+    from tpu_air.models.t5.modeling import RMSNorm as JNorm
+    from tpu_air_torch.models.t5.modeling import RelativePositionBias, RMSNorm
+
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((3, 5, 64)) * 3).astype(np.float16)
+    w = rng.standard_normal(64).astype(np.float32)
+    want = JNorm(1e-6, jnp.float16).apply({"params": {"weight": w}}, jnp.asarray(x))
+    norm = RMSNorm(64, 1e-6, torch.float16)
+    norm.weight.data = torch.from_numpy(w)
+    with torch.no_grad():
+        got = norm(torch.from_numpy(x))
+    assert got.dtype == torch.float16 and want.dtype == jnp.float16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    jcfg = dataclasses.replace(JConfig.tiny(), dtype="float16")
+    table = rng.standard_normal((32, 4)).astype(np.float32)
+    pos = jnp.arange(40)
+    want = JBias(jcfg, True).apply({"params": {"embedding": table}}, pos, pos)
+    rb = RelativePositionBias(T5Config.from_dict(jcfg.to_dict()), True)
+    rb.embedding.data = torch.from_numpy(table)
+    with torch.no_grad():
+        got = rb(torch.arange(40), torch.arange(40))
+    assert got.dtype == torch.float16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))

@@ -1,3 +1,21 @@
-"""tpu_air_torch.data — the data layer of the port (its preprocessors so
-far; datasets and ``map_batches`` over the runtime come with the
-``BatchPredictor`` slice)."""
+"""tpu_air_torch.data — the port's datasets over its object store's blocks,
+and its preprocessors (copied from ``tpu_air.data``)."""
+
+from . import preprocessors
+from .dataset import ActorPoolStrategy, Dataset, GroupedData
+from .io import from_arrow, from_huggingface, from_items, from_numpy, from_pandas
+from .preprocessors import BatchMapper, Preprocessor
+
+__all__ = [
+    "ActorPoolStrategy",
+    "BatchMapper",
+    "Dataset",
+    "GroupedData",
+    "Preprocessor",
+    "from_arrow",
+    "from_huggingface",
+    "from_items",
+    "from_numpy",
+    "from_pandas",
+    "preprocessors",
+]

@@ -1,9 +1,11 @@
 """Device choice for the port's entry points.
 
 The port runs on the card.  An entry point that is given no device takes
-``cuda:0``; where there is no CUDA device it raises rather than carry on on
-the CPU, which would run the plain versions in place of the kernels.  A
-caller that wants the CPU (the tests) says so with ``device="cpu"``.
+``cuda:<first leased id>`` inside an actor of the port's runtime that holds
+a chip lease (``num_chips``), and ``cuda:0`` anywhere else; where there is
+no CUDA device it raises rather than carry on on the CPU, which would run
+the plain versions in place of the kernels.  A caller that wants the CPU
+(the tests) says so with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,14 +18,20 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``cuda:0`` unless the caller names a device; raises when CUDA is
-    absent and none was named."""
+    """The named device; else ``cuda:<first leased id>`` in a leased actor
+    and ``cuda:0`` elsewhere.  Raises when CUDA is absent and no device was
+    named."""
     if device is not None:
         return torch.device(device)
+    from tpu_air_torch.core.runtime import current_worker
+
+    worker = current_worker()
+    lease = worker.chip_ids if worker is not None else []
     if not torch.cuda.is_available():
+        where = f"this actor leased devices {lease} but " if lease else ""
         raise RuntimeError(
-            "tpu_air_torch runs on a CUDA device and none is available; "
+            f"tpu_air_torch runs on a CUDA device and {where}none is available; "
             "pass device='cpu' to run the plain PyTorch versions of its "
             "kernels on the CPU"
         )
-    return torch.device("cuda", 0)
+    return torch.device("cuda", lease[0] if lease else 0)

@@ -35,7 +35,8 @@ from tpu_air_torch.ops.flash_attention import flash_attention
 
 from .config import LMConfig
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -32,7 +32,8 @@ class T5Config:
     pad_token_id: int = 0
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
-    # activation dtype; weights are cast to it when the model is built
+    # compute dtype: parameters stay f32 and each projection casts its
+    # weight to it at the call; the predictors cast the parameters once, at load
     dtype: str = "float32"
     # Attention dispatch knobs of the JAX package.  The port does NOT read
     # them: on a CUDA tensor every eligible call runs the hand kernels, on a

@@ -12,7 +12,8 @@ takes plain numpy, so it imports nothing of JAX.  Layouts:
   ``[vocab, d_model]`` as they are; RMSNorm weights as they are.
 
 One rule (``_layout``) holds them: ``params_from_jax`` applies it to every
-parameter of the port's model, and ``jax_layouts`` reports it.
+parameter of the port's model, ``params_to_jax`` inverts it, and
+``jax_layouts`` reports it.
 """
 
 from __future__ import annotations
@@ -75,3 +76,20 @@ def params_from_jax(params: Dict[str, Any], config: T5Config) -> Dict[str, torch
             w = w.reshape(shape[::-1]).T
         sd[name] = torch.from_numpy(np.array(w, dtype=np.float32, order="C"))
     return sd
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor], config: T5Config) -> Dict[str, Any]:
+    """The port's state dict -> the Flax param tree (f32 numpy leaves) that
+    the JAX package's ``T5ForConditionalGeneration`` applies."""
+    tree: Dict[str, Any] = {}
+    for name, shape in _shapes(config).items():
+        transposed, kernel_shape = _layout(name, shape, config)
+        w = state_dict[name].detach().to("cpu", torch.float32).numpy()
+        if transposed:          # [out, in] -> [in..., out...]
+            w = w.T.reshape(kernel_shape)
+        *path, leaf = _flax_path(name, transposed)
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(w)
+    return tree

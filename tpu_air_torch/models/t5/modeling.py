@@ -46,7 +46,8 @@ from .config import T5Config
 NEG_INF = -1e9
 
 # the types the port's kernels take
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 def torch_dtype(name) -> torch.dtype:

@@ -86,6 +86,9 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     compiled here; a source already built is absent."""
     names = list(names)
     with _lock:
+        # airlint: disable=CC003 — nvcc runs under the lock on purpose: a
+        # second thread that wants the same library waits for this build
+        # instead of starting its own; nothing else takes the lock
         started = {n: _start(n) for n in names}
         logs, errors = {}, []
         for n, s in started.items():

@@ -20,7 +20,7 @@
 // does about 4 flops per cached element, far below the card's ~295 flops
 // per byte, so the design reads each needed slab byte once with as many
 // bytes in flight as the SMs can hold:
-// - 16-byte loads: a lane reads 4 f32, 8 bf16 or 16 int8 of one position's
+// - 16-byte loads: a lane reads 4 f32, 8 bf16, 8 f16 or 16 int8 of one position's
 //   head slice, the D / (16 / sizeof) lanes of a group cover the slice, and
 //   a warp covers 32 / that many positions per load instruction.
 // - One pass: each group keeps an f32 online softmax (m, den, acc) over its
@@ -43,6 +43,7 @@
 // checks; the C entry refuses others with cudaErrorMisalignedAddress).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -58,11 +59,15 @@ constexpr int kUnroll = 2;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 enum ScaleKind { kNone = 0, kPerPosition = 1, kPerChannel = 2 };
@@ -71,15 +76,19 @@ __device__ __forceinline__ uint4 load16(const void* p, bool ok) {
   return ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
 }
 
-// The 16 loaded bytes as floats: 4 f32, 8 bf16 (the high half of an f32) or
-// 16 int8; element i lies at the i-th lowest address.
-__device__ __forceinline__ void unpack(const uint4& w, float (&x)[4]) {
+// The 16 loaded bytes as floats: 4 f32, 8 bf16 (the high half of an f32), 8
+// f16 or 16 int8; element i lies at the i-th lowest address.
+template <typename TKV>
+__device__ __forceinline__ void unpack(const uint4& w, float (&x)[16 / sizeof(TKV)]);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& w, float (&x)[4]) {
   x[0] = __uint_as_float(w.x);
   x[1] = __uint_as_float(w.y);
   x[2] = __uint_as_float(w.z);
   x[3] = __uint_as_float(w.w);
 }
-__device__ __forceinline__ void unpack(const uint4& w, float (&x)[8]) {
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& w, float (&x)[8]) {
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -87,7 +96,17 @@ __device__ __forceinline__ void unpack(const uint4& w, float (&x)[8]) {
     x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
 }
-__device__ __forceinline__ void unpack(const uint4& w, float (&x)[16]) {
+template <>
+__device__ __forceinline__ void unpack<__half>(const uint4& w, float (&x)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __half2float(__ushort_as_half(static_cast<unsigned short>(u[i] & 0xffffu)));
+    x[2 * i + 1] = __half2float(__ushort_as_half(static_cast<unsigned short>(u[i] >> 16)));
+  }
+}
+template <>
+__device__ __forceinline__ void unpack<int8_t>(const uint4& w, float (&x)[16]) {
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -227,7 +246,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       float x[EPL];
-      unpack(kw[u], x);
+      unpack<TKV>(kw[u], x);
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < EPL; ++i) dot = fmaf(qv[i], x[i], dot);
@@ -246,7 +265,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       den += p;
       const float pv = p * vs[u];  // the per-position V scale after den
       float y[EPL];
-      unpack(vw[u], y);
+      unpack<TKV>(vw[u], y);
 #pragma unroll
       for (int i = 0; i < EPL; ++i) acc[i] = fmaf(pv, y[i], acc[i]);
     }
@@ -343,7 +362,7 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 extern "C" {
 
-// q_dtype: 0 = float32, 1 = bfloat16 (also the output type).  kv_int8: 0 =
+// q_dtype: 0 = float32, 1 = bfloat16, 2 = float16 (also the output type).  kv_int8: 0 =
 // slabs in q's type, 1 = int8 slabs.  k_kind / v_kind: 0 none, 1 per-position
 // scale [b, L, h], 2 per-channel scale [b, 1, h*d] (f32).  bias [h, L] f32 and
 // mask [b, L] f32 (1 = attend) may be null.  All arrays contiguous on the
@@ -368,6 +387,8 @@ int decode_attention_fwd(const void* q, const void* k, const void* v,
   if (q_dtype == 0 && kv_int8) return dispatch_d<float, int8_t>(d, a);
   if (q_dtype == 1 && !kv_int8) return dispatch_d<__nv_bfloat16, __nv_bfloat16>(d, a);
   if (q_dtype == 1 && kv_int8) return dispatch_d<__nv_bfloat16, int8_t>(d, a);
+  if (q_dtype == 2 && !kv_int8) return dispatch_d<__half, __half>(d, a);
+  if (q_dtype == 2 && kv_int8) return dispatch_d<__half, int8_t>(d, a);
   return cudaErrorInvalidValue;
 }
 

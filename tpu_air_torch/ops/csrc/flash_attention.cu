@@ -18,7 +18,9 @@
 // bias: ~170 MB and ~52 GFLOP).  Only the tensor cores come near either
 // bound: the CUDA cores peak at 67 TFLOP/s in f32.
 //
-// bf16 (flash_fwd_mma_kernel), the FlashAttention-2 form on mma.sync: one
+// bf16 and f16 (flash_fwd_mma_kernel<T, D>, one template over the 16-bit
+// type: only the mma.sync form and the rounding differ), the
+// FlashAttention-2 form on mma.sync: one
 // block of 4 warps per (b*h, 64-row query tile), each warp owning 16 query
 // rows whose Q fragments it loads once into registers.  64-key K/V tiles
 // pass through a two-stage cp.async ring in dynamic shared memory (padded
@@ -29,7 +31,7 @@
 // so their latency hides behind the previous tile's products; the bias is
 // read from the (1|H|B*H, Lq, Lk) array, which L2 keeps for the other batch
 // elements, and is never expanded over the batch.  The online softmax takes
-// each row's max and sum across the 4 lanes that hold it.  P is rounded to bf16 in registers
+// each row's max and sum across the 4 lanes that hold it.  P is rounded to T in registers
 // and is directly the A operand of O += P V (V through ldmatrix.trans): P
 // never touches shared memory.  This is the reference's precision: the
 // Pallas kernel casts p to v's type before its product and accumulates in
@@ -46,9 +48,10 @@
 //
 // q/k/v/out are read and written through (b, h, l) strides with D
 // contiguous, so the [b, L, h, d] projection layout needs no transposed
-// copy; the bf16 path needs every row 16-byte aligned (the wrapper checks).
+// copy; the 16-bit path needs every row 16-byte aligned (the wrapper checks).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -57,6 +60,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
@@ -202,7 +206,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulation)
+// bf16 and f16: tensor cores (mma.sync m16n8k16, f32 accumulation)
 // ---------------------------------------------------------------------------
 
 template <int D> struct MmaFwd {
@@ -212,7 +216,7 @@ template <int D> struct MmaFwd {
   static constexpr int LDB = BK + 8;            // padded bias row, floats (see below)
   // Q, two stages of K, V and of the key mask row; with a bias, two stages of
   // its (BQ, BK) tile
-  static constexpr int SMEM = (BQ + 4 * BK) * LD * (int)sizeof(bf16) + 2 * BK * (int)sizeof(float);
+  static constexpr int SMEM = (BQ + 4 * BK) * LD * 2 + 2 * BK * (int)sizeof(float);
   static constexpr int SMEM_BIAS = SMEM + 2 * BQ * LDB * (int)sizeof(float);
 };
 
@@ -244,11 +248,11 @@ __device__ __forceinline__ void stage_bias(float* tile, const float* bias, int q
 
 // Two blocks an SM: that also keeps ptxas from capping the D = 32 instance at
 // 128 registers, where it would spill.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const float* __restrict__ bias,
-                     const float* __restrict__ mask, bf16* __restrict__ out,
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     const float* __restrict__ mask, T* __restrict__ out,
                      float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
                      Strides so, int heads, int lq, int lk, int bias_n,
                      int heads_per_mask, float scale, int causal) {
@@ -256,9 +260,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int BQ = MmaFwd<D>::BQ, BK = MmaFwd<D>::BK, LD = MmaFwd<D>::LD;
   constexpr int LDB = MmaFwd<D>::LDB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + BQ * LD;  // [2][BK][LD]
-  bf16* v_s = k_s + 2 * BK * LD;
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + BQ * LD;  // [2][BK][LD]
+  T* v_s = k_s + 2 * BK * LD;
   float* mask_s = reinterpret_cast<float*>(v_s + 2 * BK * LD);  // [2][BK]
   // [2][BQ][LDB]: with rows of 72 floats a warp's float2 fragment read (8
   // rows x 32 bytes) takes the 2 wavefronts its 256 bytes need, no more
@@ -274,9 +278,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane / 4, t = lane % 4;
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
 
-  const bf16* qb = q + bi * sq.b + hi * sq.h;
-  const bf16* kb = k + bi * sk.b + hi * sk.h;
-  const bf16* vb = v + bi * sv.b + hi * sv.h;
+  const T* qb = q + bi * sq.b + hi * sq.h;
+  const T* kb = k + bi * sk.b + hi * sk.h;
+  const T* vb = v + bi * sv.b + hi * sv.h;
   const float* biasb =
       bias ? bias + (long long)(bias_n == 1 ? 0 : bh % bias_n) * lq * lk : nullptr;
   const float* maskb = mask ? mask + (long long)(bh / heads_per_mask) * lk : nullptr;
@@ -321,8 +325,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], a_addr(q_s, LD, warp * 16, kk * 16, lane));
     }
-    const bf16* ks = k_s + (j & 1) * BK * LD;
-    const bf16* vs = v_s + (j & 1) * BK * LD;
+    const T* ks = k_s + (j & 1) * BK * LD;
+    const T* vs = v_s + (j & 1) * BK * LD;
     const float* mask_t = mask_s + (j & 1) * BK;
     const float* bias_t = bias_s + (j & 1) * BQ * LDB + (warp * 16 + g) * LDB + 2 * t;
 
@@ -336,8 +340,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n2 = 0; n2 < BK / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4(b, bt_addr(ks, LD, n2 * 16, kk * 16, lane));
-        mma(s[2 * n2], qf[kk], b[0], b[1]);
-        mma(s[2 * n2 + 1], qf[kk], b[2], b[3]);
+        mma<T>(s[2 * n2], qf[kk], b[0], b[1]);
+        mma<T>(s[2 * n2 + 1], qf[kk], b[2], b[3]);
       }
     }
 
@@ -395,17 +399,17 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       o[n][3] *= alpha[1];
     }
 
-    // O += P V, P rounded to bf16 in registers
+    // O += P V, P rounded to T in registers
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t a[4];
-      to_a(a, s[2 * kk], s[2 * kk + 1]);
+      to_a<T>(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int n2 = 0; n2 < D / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, b_addr(vs, LD, kk * 16, n2 * 16, lane));
-        mma(o[2 * n2], a, b[0], b[1]);
-        mma(o[2 * n2 + 1], a, b[2], b[3]);
+        mma<T>(o[2 * n2], a, b[0], b[1]);
+        mma<T>(o[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();  // this stage is consumed before the next load overwrites it
@@ -419,11 +423,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float safe_l = l == 0.f ? 1.f : l;
     const int row = i == 0 ? row0 : row1;
     if (row < lq) {
-      bf16* ob = out + bi * so.b + hi * so.h + (long long)row * so.l + 2 * t;
+      T* ob = out + bi * so.b + hi * so.h + (long long)row * so.l + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(ob + n * 8) =
-            __floats2bfloat162_rn(o[n][2 * i] / safe_l, o[n][2 * i + 1] / safe_l);
+        store2(ob + n * 8, o[n][2 * i] / safe_l, o[n][2 * i + 1] / safe_l);
       if (t == 0) lse[(long long)bh * lq + row] = m_run[i] + logf(safe_l);
     }
   }
@@ -455,18 +458,18 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const Args& a) {
+template <typename T, int D>
+cudaError_t launch_mma(const Args& a) {
   const int smem = a.bias != nullptr ? MmaFwd<D>::SMEM_BIAS : MmaFwd<D>::SMEM;
   const int tiles = (a.lq + MmaFwd<D>::BQ - 1) / MmaFwd<D>::BQ;
   if (tiles > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          MmaFwd<D>::SMEM_BIAS);
   if (err != cudaSuccess) return err;
-  flash_fwd_mma_kernel<D><<<dim3(a.bh, tiles), kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), a.bias, a.mask, static_cast<bf16*>(a.out), a.lse,
+  flash_fwd_mma_kernel<T, D><<<dim3(a.bh, tiles), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.bias, a.mask, static_cast<T*>(a.out), a.lse,
       a.sq, a.sk, a.sv, a.so, a.heads, a.lq, a.lk, a.bias_n, a.heads_per_mask, a.scale,
       a.causal);
   return cudaGetLastError();
@@ -482,10 +485,10 @@ bool rows_16b_aligned(const void* p, Strides s) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Pointers to device memory; bias
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Pointers to device memory; bias
 // (bias_n, lq, lk) f32 and mask (B, lk) f32 (1 = attend) may be null.  The
 // q/k/v/out strides (in elements) describe (B, H, L, D) views with D
-// contiguous; for bfloat16 the q/k/v pointers and strides must be multiples
+// contiguous; for bfloat16 and float16 the q/k/v pointers and strides must be multiples
 // of 16 bytes.  lse is a contiguous (B*H, lq) f32 array.  Returns the
 // cudaError_t of the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -514,14 +517,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
       default: return cudaErrorInvalidValue;
     }
   }
-  if (dtype == 1) {
+  if (dtype == 1 || dtype == 2) {
     if (!rows_16b_aligned(q, a.sq) || !rows_16b_aligned(k, a.sk) || !rows_16b_aligned(v, a.sv))
       return cudaErrorMisalignedAddress;
     switch (d) {
-      case 16: return launch_bf16<16>(a);
-      case 32: return launch_bf16<32>(a);
-      case 64: return launch_bf16<64>(a);
-      case 128: return launch_bf16<128>(a);
+      case 16: return dtype == 1 ? launch_mma<bf16, 16>(a) : launch_mma<f16, 16>(a);
+      case 32: return dtype == 1 ? launch_mma<bf16, 32>(a) : launch_mma<f16, 32>(a);
+      case 64: return dtype == 1 ? launch_mma<bf16, 64>(a) : launch_mma<f16, 64>(a);
+      case 128: return dtype == 1 ? launch_mma<bf16, 128>(a) : launch_mma<f16, 128>(a);
       default: return cudaErrorInvalidValue;
     }
   }

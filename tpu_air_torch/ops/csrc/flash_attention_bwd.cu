@@ -35,9 +35,11 @@
 // and dq/dk/dv written through (b, h, l) strides with D contiguous, so the
 // model's [b, L, h, d] projections need no transposed copy.
 //
-// In bf16 both kernels run every product on the tensor cores (mma.sync
-// m16n8k16, bf16 operands, f32 accumulation), from the helpers of
-// mma_bf16.cuh, and each is the mirror image of the other.
+// In bf16 and f16 both kernels run every product on the tensor cores
+// (mma.sync m16n8k16, 16-bit operands, f32 accumulation), from the helpers
+// of mma_bf16.cuh, and each is the mirror image of the other.  Each is one
+// template over the 16-bit type T: the two instances differ only in the
+// mma.sync form and in the rounding of P and dS (to T).
 //
 // dq (flash_bwd_dq_mma_kernel): one block of 4 warps per (b*h, 64-row query
 // tile), each warp owning 16 query rows, with its dQ accumulator in f32
@@ -49,7 +51,7 @@
 // j + 1 loading while tile j multiplies.  Per tile, all in registers: S = Q
 // K^T, P = exp(S - lse) with the hard zero, dP = dO V^T, dS = P (dP -
 // delta), dQ += dS K, with K read as B through ldmatrix.trans from the
-// tile S read it from; dS is rounded to bf16 as the A operand, as the
+// tile S read it from; dS is rounded to T as the A operand, as the
 // Pallas kernel casts ds before its product.  Under causal masking only key
 // tiles up to the diagonal are visited, only the tile(s) that cross it mask
 // element by element, and the last query tiles (the most keys) start first.
@@ -65,7 +67,7 @@
 // two-stage cp.async ring, tile i + 1 loading while tile i multiplies.  Per
 // tile, all in registers: S^T = K Q^T, P^T = exp(S^T - lse) with the hard
 // zero, dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T
-// Q; P^T and dS^T are rounded to bf16 as the A operand of the next product,
+// Q; P^T and dS^T are rounded to T as the A operand of the next product,
 // as the Pallas kernel casts p and ds before its products.  Key tiles
 // launch in order, so under causal masking the longest (the first) start
 // first.
@@ -78,6 +80,7 @@
 // is one conflict-free wavefront; FMA throughput and those loads bound them.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -86,6 +89,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskedAtOrBelow = 0.5f * kNegInf;  // _bwd_p's hard-zero line
@@ -320,26 +324,26 @@ template <int D> struct MmaDkv {
   static constexpr int BQ = D >= 128 ? 32 : 64;  // query rows per step
   static constexpr int LD = D + 8;               // padded shared row, elements
   // K, V; two stages of Q, dO; two stages of lse, delta; the key mask row
-  static constexpr int SMEM = (2 * BK + 4 * BQ) * LD * (int)sizeof(bf16) +
+  static constexpr int SMEM = (2 * BK + 4 * BQ) * LD * 2 +
                               (4 * BQ + BK) * (int)sizeof(float);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         const float* __restrict__ mask, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                         const float* __restrict__ mask, T* __restrict__ dk,
+                         T* __restrict__ dv, Strides sq, Strides sk, Strides sv,
                          Strides sdo, Strides sdk, Strides sdv, int heads, int lq, int lk,
                          int heads_per_mask, float scale, int causal) {
   using namespace mma_bf16;
   constexpr int BK = MmaDkv<D>::BK, BQ = MmaDkv<D>::BQ, LD = MmaDkv<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [BK][LD]
-  bf16* v_s = k_s + BK * LD;                      // [BK][LD]
-  bf16* q_s = v_s + BK * LD;                      // [2][BQ][LD]
-  bf16* do_s = q_s + 2 * BQ * LD;                 // [2][BQ][LD]
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // [BK][LD]
+  T* v_s = k_s + BK * LD;                      // [BK][LD]
+  T* q_s = v_s + BK * LD;                      // [2][BQ][LD]
+  T* do_s = q_s + 2 * BQ * LD;                 // [2][BQ][LD]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * BQ * LD);  // [2][BQ]
   float* delta_s = lse_s + 2 * BQ;                              // [2][BQ]
   float* madd_s = delta_s + 2 * BQ;  // [BK] the additive key mask of this block's keys
@@ -352,8 +356,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane / 4, t = lane % 4;
   const int row0 = warp * 16 + g;  // this lane's keys: k0 + row0 and k0 + row0 + 8
 
-  const bf16* qb = q + bi * sq.b + hi * sq.h;
-  const bf16* dob = dout + bi * sdo.b + hi * sdo.h;
+  const T* qb = q + bi * sq.b + hi * sq.h;
+  const T* dob = dout + bi * sdo.b + hi * sdo.h;
   const float* lseb = lse + (long long)bh * lq;
   const float* deltab = delta + (long long)bh * lq;
   if (threadIdx.x < BK) {  // read after the first __syncthreads below
@@ -398,8 +402,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* qt = q_s + buf * BQ * LD;
-    const bf16* do_t = do_s + buf * BQ * LD;
+    const T* qt = q_s + buf * BQ * LD;
+    const T* do_t = do_s + buf * BQ * LD;
     const float* lset = lse_s + buf * BQ;
     const float* deltat = delta_s + buf * BQ;
 
@@ -415,8 +419,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n2 = 0; n2 < BQ / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4(b, bt_addr(qt, LD, n2 * 16, kk * 16, lane));
-        mma(s[2 * n2], a, b[0], b[1]);
-        mma(s[2 * n2 + 1], a, b[2], b[3]);
+        mma<T>(s[2 * n2], a, b[0], b[1]);
+        mma<T>(s[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     // P^T = exp(S^T - lse), hard-zeroed where masked, causal or ragged
@@ -437,13 +441,13 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t a[4];
-      to_a(a, s[2 * kk], s[2 * kk + 1]);
+      to_a<T>(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int n2 = 0; n2 < D / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, b_addr(do_t, LD, kk * 16, n2 * 16, lane));
-        mma(dv_acc[2 * n2], a, b[0], b[1]);
-        mma(dv_acc[2 * n2 + 1], a, b[2], b[3]);
+        mma<T>(dv_acc[2 * n2], a, b[0], b[1]);
+        mma<T>(dv_acc[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     // dP^T = V dO^T
@@ -458,8 +462,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n2 = 0; n2 < BQ / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4(b, bt_addr(do_t, LD, n2 * 16, kk * 16, lane));
-        mma(dp[2 * n2], a, b[0], b[1]);
-        mma(dp[2 * n2 + 1], a, b[2], b[3]);
+        mma<T>(dp[2 * n2], a, b[0], b[1]);
+        mma<T>(dp[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     // dS^T = P^T (dP^T - delta)
@@ -471,13 +475,13 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t a[4];
-      to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+      to_a<T>(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int n2 = 0; n2 < D / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, b_addr(qt, LD, kk * 16, n2 * 16, lane));
-        mma(dk_acc[2 * n2], a, b[0], b[1]);
-        mma(dk_acc[2 * n2 + 1], a, b[2], b[3]);
+        mma<T>(dk_acc[2 * n2], a, b[0], b[1]);
+        mma<T>(dk_acc[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();  // this stage is consumed before the next load overwrites it
@@ -488,14 +492,12 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + row0 + 8 * i;
     if (key >= lk) continue;
-    bf16* dkp = dk + bi * sdk.b + hi * sdk.h + (long long)key * sdk.l + 2 * t;
-    bf16* dvp = dv + bi * sdv.b + hi * sdv.h + (long long)key * sdv.l + 2 * t;
+    T* dkp = dk + bi * sdk.b + hi * sdk.h + (long long)key * sdk.l + 2 * t;
+    T* dvp = dv + bi * sdv.b + hi * sdv.h + (long long)key * sdv.l + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + n * 8) =
-          __floats2bfloat162_rn(dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + n * 8) =
-          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      store2(dkp + n * 8, dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
+      store2(dvp + n * 8, dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }
@@ -505,26 +507,26 @@ template <int D> struct MmaDq {
   static constexpr int BK = 64;     // keys per step
   static constexpr int LD = D + 8;  // padded shared row, elements
   // Q, dO; two stages of K, V and of the key mask row
-  static constexpr int SMEM = (2 * BQ + 4 * BK) * LD * (int)sizeof(bf16) +
+  static constexpr int SMEM = (2 * BQ + 4 * BK) * LD * 2 +
                               2 * BK * (int)sizeof(float);
 };
 
 // Two blocks an SM, what the shared memory allows at D = 128 (104,960 B each).
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        const float* __restrict__ mask, bf16* __restrict__ dq, Strides sq,
+                        const float* __restrict__ mask, T* __restrict__ dq, Strides sq,
                         Strides sk, Strides sv, Strides sdo, Strides sdq, int heads, int lq,
                         int lk, int heads_per_mask, float scale, int causal) {
   using namespace mma_bf16;
   constexpr int BQ = MmaDq<D>::BQ, BK = MmaDq<D>::BK, LD = MmaDq<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* do_s = q_s + BQ * LD;                     // [BQ][LD]
-  bf16* k_s = do_s + BQ * LD;                     // [2][BK][LD]
-  bf16* v_s = k_s + 2 * BK * LD;                  // [2][BK][LD]
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
+  T* do_s = q_s + BQ * LD;                     // [BQ][LD]
+  T* k_s = do_s + BQ * LD;                     // [2][BK][LD]
+  T* v_s = k_s + 2 * BK * LD;                  // [2][BK][LD]
   float* mask_s = reinterpret_cast<float*>(v_s + 2 * BK * LD);  // [2][BK]
 
   const int bh = blockIdx.x;
@@ -537,8 +539,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane / 4, t = lane % 4;
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this lane's query rows
 
-  const bf16* kb = k + bi * sk.b + hi * sk.h;
-  const bf16* vb = v + bi * sv.b + hi * sv.h;
+  const T* kb = k + bi * sk.b + hi * sk.h;
+  const T* vb = v + bi * sv.b + hi * sv.h;
   const float* maskb = mask ? mask + (long long)(bh / heads_per_mask) * lk : nullptr;
 
   // causal: key tiles wholly after this query tile's last row carry no weight
@@ -579,8 +581,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* ks = k_s + (j & 1) * BK * LD;
-    const bf16* vs = v_s + (j & 1) * BK * LD;
+    const T* ks = k_s + (j & 1) * BK * LD;
+    const T* vs = v_s + (j & 1) * BK * LD;
     const float* mask_t = mask_s + (j & 1) * BK;
 
     // S = Q K^T: 16 rows x BK keys per warp; Q fragments from shared memory
@@ -595,8 +597,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n2 = 0; n2 < BK / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4(b, bt_addr(ks, LD, n2 * 16, kk * 16, lane));
-        mma(s[2 * n2], a, b[0], b[1]);
-        mma(s[2 * n2 + 1], a, b[2], b[3]);
+        mma<T>(s[2 * n2], a, b[0], b[1]);
+        mma<T>(s[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     // P = exp(S * scale + mask - lse), hard-zeroed where masked; causal and
@@ -631,8 +633,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n2 = 0; n2 < BK / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4(b, bt_addr(vs, LD, n2 * 16, kk * 16, lane));
-        mma(dp[2 * n2], a, b[0], b[1]);
-        mma(dp[2 * n2 + 1], a, b[2], b[3]);
+        mma<T>(dp[2 * n2], a, b[0], b[1]);
+        mma<T>(dp[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     // dS = P (dP - delta)
@@ -640,18 +642,18 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - delta_r[e / 2]);
-    // dQ += dS K: dS rounded to bf16 as the A operand, K (keys x D) as B
+    // dQ += dS K: dS rounded to T as the A operand, K (keys x D) as B
     // through ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t a[4];
-      to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+      to_a<T>(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int n2 = 0; n2 < D / 16; ++n2) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, b_addr(ks, LD, kk * 16, n2 * 16, lane));
-        mma(acc[2 * n2], a, b[0], b[1]);
-        mma(acc[2 * n2 + 1], a, b[2], b[3]);
+        mma<T>(acc[2 * n2], a, b[0], b[1]);
+        mma<T>(acc[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();  // this stage is consumed before the next load overwrites it
@@ -662,11 +664,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int row = i == 0 ? row0 : row1;
     if (row >= lq) continue;
-    bf16* dqp = dq + bi * sdq.b + hi * sdq.h + (long long)row * sdq.l + 2 * t;
+    T* dqp = dq + bi * sdq.b + hi * sdq.h + (long long)row * sdq.l + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dqp + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+      store2(dqp + n * 8, acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
 }
 
@@ -691,18 +692,18 @@ cudaError_t launch_dq_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq_bf16(const Args& a) {
+template <typename T, int D>
+cudaError_t launch_dq_mma(const Args& a) {
   constexpr int smem = MmaDq<D>::SMEM;
   const int tiles = (a.lq + MmaDq<D>::BQ - 1) / MmaDq<D>::BQ;
   if (tiles > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_mma_kernel<D><<<dim3(a.bh, tiles), kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      a.mask, static_cast<bf16*>(a.out0), a.sq, a.sk, a.sv, a.sdo, a.s0, a.heads, a.lq,
+  flash_bwd_dq_mma_kernel<T, D><<<dim3(a.bh, tiles), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
+      a.mask, static_cast<T*>(a.out0), a.sq, a.sk, a.sv, a.sdo, a.s0, a.heads, a.lq,
       a.lk, a.heads_per_mask, a.scale, a.causal);
   return cudaGetLastError();
 }
@@ -718,26 +719,27 @@ cudaError_t launch_dkv_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv_bf16(const Args& a) {
+template <typename T, int D>
+cudaError_t launch_dkv_mma(const Args& a) {
   constexpr int smem = MmaDkv<D>::SMEM;
   const int tiles = (a.lk + MmaDkv<D>::BK - 1) / MmaDkv<D>::BK;
   if (tiles > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_mma_kernel<D><<<dim3(a.bh, tiles), kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      a.mask, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.sq, a.sk, a.sv,
+  flash_bwd_dkv_mma_kernel<T, D><<<dim3(a.bh, tiles), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
+      a.mask, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.sq, a.sk, a.sv,
       a.sdo, a.s0, a.s1, a.heads, a.lq, a.lk, a.heads_per_mask, a.scale, a.causal);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const Args& a, bool dkv, int dtype) {
-  if (!dkv) return dtype == 0 ? launch_dq_f32<D>(a) : launch_dq_bf16<D>(a);
-  return dtype == 0 ? launch_dkv_f32<D>(a) : launch_dkv_bf16<D>(a);
+  if (dtype == 0) return dkv ? launch_dkv_f32<D>(a) : launch_dq_f32<D>(a);
+  if (dtype == 1) return dkv ? launch_dkv_mma<bf16, D>(a) : launch_dq_mma<bf16, D>(a);
+  return dkv ? launch_dkv_mma<f16, D>(a) : launch_dq_mma<f16, D>(a);
 }
 
 // cp.async reads 16-byte chunks: every row of q, k, v and do must start on one
@@ -754,13 +756,13 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
   if (bh <= 0 || lq <= 0 || lk <= 0 || bh > 65535) return cudaErrorInvalidValue;
   if (mask != nullptr && (mask_b <= 0 || bh % mask_b != 0)) return cudaErrorInvalidValue;
   if (out0 == nullptr || (dkv && out1 == nullptr)) return cudaErrorInvalidValue;
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
   Args a{q, k, v, dout, lse, delta, mask, out0, out1,
          {st[0], st[1], st[2]}, {st[3], st[4], st[5]}, {st[6], st[7], st[8]},
          {st[9], st[10], st[11]}, {st[12], st[13], st[14]}, {st[15], st[16], st[17]},
          bh, heads, lq, lk, mask != nullptr ? bh / mask_b : 1, causal, scale,
          static_cast<cudaStream_t>(stream)};
-  if (dtype == 1 &&
+  if (dtype != 0 &&
       !(rows_16b_aligned(q, a.sq) && rows_16b_aligned(k, a.sk) && rows_16b_aligned(v, a.sv) &&
         rows_16b_aligned(dout, a.sdo)))
     return cudaErrorMisalignedAddress;
@@ -777,12 +779,13 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// Both entries take the same arguments.  dtype: 0 = float32, 1 = bfloat16.
+// Both entries take the same arguments.  dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16.
 // Pointers to device memory: q, k, v, do in the input type; lse and delta
 // contiguous (B*H, lq) f32; mask (mask_b, lk) f32 (1 = attend) or null;
 // out0/out1 = dq (the dq entry; out1 unused) or dk, dv.  The 18 strides (in
 // elements) are the (b, h, l) strides of q, k, v, do, out0, out1, each a
-// (B, H, L, D) view with D contiguous; in bfloat16 every row of q, k, v and
+// (B, H, L, D) view with D contiguous; in bfloat16 and float16 every row of q, k, v and
 // do must start on a 16-byte boundary (else cudaErrorMisalignedAddress).
 // Returns the cudaError_t of the launch.
 #define TPU_AIR_BWD_ENTRY(NAME, DKV)                                                   \

@@ -44,7 +44,7 @@ from . import _build
 
 MASK_FLOOR = -1e20
 _NAME = "decode_attention"
-_QTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_QTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
 _NONE, _POS, _CHAN = 0, 1, 2
 
@@ -140,7 +140,7 @@ def _launch(q, k, v, bias, kv_mask, k_scale, v_scale):
     b, h, d = q.shape
     L = k.shape[1]
     if q.dtype not in _QTYPES:
-        raise TypeError(f"decode_attention takes a float32 or bfloat16 query, "
+        raise TypeError(f"decode_attention takes a float32, bfloat16 or float16 query, "
                         f"got {q.dtype}")
     kv_int8 = k.dtype == torch.int8
     if k.dtype != v.dtype or (not kv_int8 and k.dtype != q.dtype):

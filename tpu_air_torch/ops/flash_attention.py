@@ -11,11 +11,11 @@ Counterpart of ``tpu_air/ops/flash_attention.py``.  Three kernels:
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` launched by ``_pallas_bwd``:
   dq, and dk/dv, from the saved ``(out, lse)``.
 
-In bf16 all three kernels run their products on the tensor cores
-(``mma.sync``, bf16 operands, f32 accumulation, the reference's
-precision); in f32 they run on the CUDA cores.  The bf16
+In bf16 and f16 all three kernels run their products on the tensor cores
+(``mma.sync``, 16-bit operands, f32 accumulation, the reference's
+precision); in f32 they run on the CUDA cores.  The 16-bit
 tensor-core kernels stage rows with 16-byte ``cp.async`` copies, so every
-(b, h, l) row of q, k, v and do must start on a 16-byte boundary: a bf16
+(b, h, l) row of q, k, v and do must start on a 16-byte boundary: a 16-bit
 view that breaks that rule is first copied to a contiguous tensor
 (:func:`_aligned`).  The model's projections never need the copy.
 
@@ -62,7 +62,7 @@ from . import _build
 NEG_INF = -1e30
 _NAME = "flash_attention"
 _BWD_NAME = "flash_attention_bwd"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
 # q, k, v, bias, mask, out, lse; (b, h, l) strides of q, k, v, out; batch,
 # heads, lq, lk, d, dtype, bias_n, mask_b; scale; causal; stream
@@ -162,7 +162,7 @@ def _check_qkv(q, k, v, name):
     b, h, _, d = q.shape
     lk = k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of "
+        raise TypeError(f"{name} takes float32, bfloat16 or float16 q/k/v of "
                         f"one type, got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
@@ -185,10 +185,10 @@ def _rows_16b_aligned(t) -> bool:
 
 
 def _aligned(t):
-    """``t``, or, for a bf16 view that the tensor-core kernels' 16-byte row
+    """``t``, or, for a 16-bit view that the tensor-core kernels' 16-byte row
     copies cannot read, a contiguous copy of it.  (``contiguous()`` would
     return a contiguous view that starts off a 16-byte boundary as it is.)"""
-    if t.dtype != torch.bfloat16 or _rows_16b_aligned(t):
+    if t.dtype == torch.float32 or _rows_16b_aligned(t):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -269,7 +269,7 @@ def flash_attention_backward(q, k, v, kv_mask, out, lse, do, glse, scale, causal
     """dq, dk, dv of flash attention without a bias, in the input type.
 
     q/k/v/out/do: (B, H, L, D) (any strides with D contiguous; ``do`` of
-    other strides is copied, as is a bf16 view whose rows are not 16-byte
+    other strides is copied, as is a 16-bit view whose rows are not 16-byte
     aligned) or (B*H, L, D); lse and glse (None = 0):
     (B, H, Lq) or (B*H, Lq).  On a CUDA tensor: delta = rowsum(do*out) -
     glse in plain torch, then the dq kernel and the dk/dv kernel; on a CPU
@@ -385,8 +385,8 @@ def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
                     scale: Optional[float] = None, causal: bool = False):
     """Blockwise attention, differentiable in q, k, v and bias.
 
-    q/k/v: (B*H, L, D) or (B, H, L, D), float32 or bfloat16, any strides with
-    D contiguous (a bf16 view whose rows are not 16-byte aligned is copied
+    q/k/v: (B*H, L, D) or (B, H, L, D), float32, bfloat16 or float16, any
+    strides with D contiguous (a 16-bit view whose rows are not 16-byte aligned is copied
     to contiguous first).  bias: additive scores, leading dim 1, H or B*H (T5 passes
     its (1, H, Lq, Lk) position bias; it is not expanded over the batch).
     kv_mask: (B, Lk), 1 = attend.  scale defaults to 1/sqrt(D); T5 passes

@@ -2,8 +2,8 @@
 counterpart of ``tpu_air/train/trainer.py``).
 
 The JAX package runs each attempt in a trial actor holding a chip lease.
-The port has no core runtime yet (ROADMAP Queue 1 item 1), so ``fit()``
-runs each attempt in the calling process on the trainer's device, or, with
+The port's trial runner over its runtime comes with Tune (ROADMAP Queue 1
+item 4), so ``fit()`` runs each attempt in the calling process on the trainer's device, or, with
 ``ScalingConfig(num_workers=N > 1)``, in N spawned worker processes joined
 in one ``torch.distributed`` group (``parallel/distributed.py``), whose
 rank 0 reports and checkpoints.  The attempt loop is that of
