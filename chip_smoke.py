@@ -91,12 +91,27 @@ Phases, each fatal on failure:
               must equal the in-process predictor's row for row; wall time,
               generated tokens/s, the share of the wall outside the actor's
               predict, f16 finiteness, and how many tokens the kernel-free
-              plain path in f16 matches (not asserted).
+              plain path in f16 matches (not asserted);
+16. w2       — W2 as the reference runs it: ``tune.Tuner(T5Trainer(...))``
+              over FLAN-T5-base (full width and depth, dropout 0.1, bf16 on
+              f32 parameters, random weights from numpy seed 0 in every
+              trial, W1's batch of 8 x 512/512), the reference's search space
+              (lr, epochs, weight decay) under ``trainer_init_config``, 4
+              samples, ``ASHAScheduler(max_t=16)`` on eval_loss, seed 0; each
+              trial trains in its own actor on the leased card (cut: an epoch
+              is 2 steps, evaluation 8 rows) and reports, from inside the
+              actor, its device (must be cuda:0), the card's free memory at
+              its start and its launches (flash forward in every epoch's
+              eval); the sweep's wall time and trained tokens/s; the best
+              result (a checkpoint, the least finite eval_loss) generates 32
+              tokens for 8 prompts in bf16 through the kernels, equal to the
+              plain versions' tokens on the card.
 
 The counts of kernel launches are set to 0 just before each main path (T5
-generation, LM training, W1 fine-tuning with its generation) and read just
-after it; the W3 batch path's are counted in its scoring actor, a fresh
-process, around the batch it scores.
+generation, LM training, W1 fine-tuning with its generation, W2's
+generation) and read just after it; the W3 batch path's are counted in its
+scoring actor, a fresh process, around the batch it scores, and W2's
+trials' in each trial's actor, around its training function.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -161,6 +176,12 @@ BWD_LEN, BWD_RAGGED_LEN = 128, 200        # edge cases of the backward compare
 W1_BATCH, W1_LEN, W1_STEPS, W1_EVAL_ROWS = 8, 512, 6, 16
 W1_PROMPTS, W1_NEW = 8, 32                # generation from the trained checkpoint
 W1_PARITY_LAYERS, W1_PARITY_BATCH = 2, 4  # f32 parity: full width, cut depth
+# W2 dials: the reference's sweep (Model_finetuning...ipynb cc-51-59) over W1,
+# 4 trials of 1 worker under ASHA(max_t=16) on eval_loss, its search space as
+# it is; cut: an epoch is 2 steps of W1_BATCH rows (16 rows), evaluation 8 rows
+W2_SPACE = {"learning_rate": [2e-5, 2e-4, 2e-3, 2e-2], "epochs": [2, 4, 8, 16],
+            "weight_decay": [0.01, 0.1, 1, 10]}
+W2_SAMPLES, W2_MAX_T, W2_STEPS, W2_EVAL_ROWS = 4, 16, 2, 8
 
 
 def model_config():
@@ -2096,6 +2117,200 @@ def batch_path(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 16 ----------------------------------------------------------------------
+
+
+def w2_probe_loop(config):
+    """W2's trial function: ``t5_train_loop`` as ``T5Trainer`` runs it, and
+    what the trial actor saw, written beside its checkpoints
+    (``w2_probe.json``): the device the loop resolved, the card's free
+    memory at the trial's start, the kernels' launches in the actor, its
+    peak memory and wall seconds."""
+    from tpu_air_torch.device import resolve_device
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from tpu_air_torch.train import session
+    from tpu_air_torch.train.t5_trainer import t5_train_loop
+
+    def counts():
+        return {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches,
+                "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
+                "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches}
+
+    t0 = time.perf_counter()
+    dev = resolve_device(config.get("_device"))
+    free, total = torch.cuda.mem_get_info(dev)
+    probe = {"device": str(dev), "pid": os.getpid(), "lease": os.environ.get("TPU_AIR_CHIP_IDS"),
+             "free_gb_at_start": free / 1e9, "total_gb": total / 1e9}
+    before = counts()
+    try:
+        t5_train_loop(config)
+    finally:
+        probe["launches"] = {k: n - before[k] for k, n in counts().items()}
+        probe["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        probe["wall_s"] = time.perf_counter() - t0
+        with open(os.path.join(session.get_session().run_dir, "w2_probe.json"), "w") as f:
+            json.dump(probe, f)
+
+
+def w2_path(dev) -> dict:
+    """W2 as the reference runs it: ``Tuner(T5Trainer(...))`` over
+    FLAN-T5-base (full width and depth, dropout 0.1, bf16 compute on f32
+    parameters, random weights from numpy seed 0 in every trial, AdamW, W1's
+    batch of 8 x 512/512), the reference's search space under
+    ``trainer_init_config``, 4 samples, ``ASHAScheduler(max_t=16)`` on
+    eval_loss, seed 0; each trial leases the card in its own actor
+    (``ScalingConfig(num_workers=1, use_gpu=True)``) and keeps its best
+    checkpoint.  Cut: an epoch is 2 steps (16 rows), evaluation 8 rows.
+    Then generation from the sweep's best checkpoint in bf16, through the
+    kernels and through the plain versions on the card."""
+    import shutil
+    import tempfile
+
+    import tpu_air_torch
+    from tpu_air_torch import tune
+    from tpu_air_torch.models.tokenizer import ByteTokenizer
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention
+    from tpu_air_torch.predict.predictors import T5GenerativePredictor
+    from tpu_air_torch.train import (CheckpointConfig, RunConfig, ScalingConfig, T5Trainer,
+                                     TrainingArguments)
+
+    class ProbingT5Trainer(T5Trainer):
+        def _training_fn(self):
+            return w2_probe_loop
+
+    cfg = w1_config()
+    train = w1_rows(W1_BATCH * W2_STEPS, cfg.vocab_size, SEED + 50)
+    evaluation = w1_rows(W2_EVAL_ROWS, cfg.vocab_size, SEED + 51)
+    storage = tempfile.mkdtemp(prefix="chip_smoke-w2-")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    try:
+        # W1's arguments; the sweep overrides lr, epochs and weight decay
+        args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                                 per_device_train_batch_size=W1_BATCH, num_train_epochs=4,
+                                 seed=SEED)
+        trainer = ProbingT5Trainer(
+            model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
+            datasets={"train": train, "evaluation": evaluation},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=storage, checkpoint_config=CheckpointConfig(
+                num_to_keep=1, checkpoint_score_attribute="eval_loss",
+                checkpoint_score_order="min")))
+        tuner = tune.Tuner(
+            trainer,
+            param_space={"trainer_init_config": {k: tune.choice(v) for k, v in W2_SPACE.items()}},
+            tune_config=tune.TuneConfig(metric="eval_loss", mode="min", num_samples=W2_SAMPLES,
+                                        seed=SEED, scheduler=tune.ASHAScheduler(max_t=W2_MAX_T)))
+        t0 = time.perf_counter()
+        tpu_air_torch.init()
+        init_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            grid = tuner.fit()
+            sweep_s = time.perf_counter() - t0
+        finally:
+            tpu_air_torch.shutdown()
+        log(f"[w2] Tuner(T5Trainer) over FLAN-T5-base ({cfg.d_model} wide, {cfg.num_layers}+"
+            f"{cfg.num_decoder_layers} layers, dropout {cfg.dropout_rate}, bf16 on f32, numpy "
+            f"seed {SEED} weights), batch {W1_BATCH} x {W1_LEN}/{W1_LEN}, epochs of {W2_STEPS} "
+            f"steps and {W2_EVAL_ROWS} eval rows; space {W2_SPACE}, {W2_SAMPLES} samples, "
+            f"ASHA(max_t={W2_MAX_T}) on eval_loss, seed {SEED}: {len(grid)} trials, "
+            f"{grid.num_errors} errors, sweep wall {sweep_s:.1f} s (runtime init {init_s:.1f} s "
+            f"before it); the driver's card memory before it: {free / 1e9:.2f} of "
+            f"{total / 1e9:.2f} GB free")
+        if grid.num_errors or len(grid) != W2_SAMPLES:
+            raise AssertionError(f"[w2] trial errors: {grid.errors}")
+        trials, steps, trial_launches = [], 0, {}
+        for i, r in enumerate(grid):
+            with open(os.path.join(r.path, "w2_probe.json")) as f:
+                probe = json.load(f)
+            hist = r.metrics_history
+            sampled = {k: r.config[k] for k in W2_SPACE}
+            evals = [m["eval_loss"] for m in hist]
+            steps += sum(m["steps"] for m in hist)
+            for k, n in probe["launches"].items():
+                trial_launches[k] = trial_launches.get(k, 0) + n
+            trials.append({"config": sampled, "epochs_ran": len(hist), "eval_loss": evals,
+                           "loss": [m["loss"] for m in hist], **probe})
+            log(f"[w2] trial {i}: {sampled}, ran {len(hist)} of {sampled['epochs']} epochs, "
+                f"eval_loss " + ", ".join(f"{x:.4f}" for x in evals)
+                + f"; in its actor (pid {probe['pid']}, lease {probe['lease']}): device "
+                f"{probe['device']}, card memory free at its start {probe['free_gb_at_start']:.2f}"
+                f" of {probe['total_gb']:.2f} GB, peak {probe['peak_gb']:.2f} GB, wall "
+                f"{probe['wall_s']:.1f} s, launches {probe['launches']}")
+            # train steps (dropout 0.1) take the dense path; each epoch's eval
+            # is one batch of the encoder's and the decoder's two attentions
+            per_epoch = -(-W2_EVAL_ROWS // W1_BATCH) * (cfg.num_layers + 2 * cfg.num_decoder_layers)
+            if probe["device"] != "cuda:0" or probe["lease"] != "0":
+                raise AssertionError(f"[w2] trial {i} trained on {probe['device']}")
+            if probe["launches"]["flash_attention"] <= 0 or \
+                    probe["launches"]["flash_attention"] != per_epoch * len(hist) or \
+                    probe["launches"]["decode_attention"] or \
+                    probe["launches"]["flash_attention_bwd_dq"]:
+                raise AssertionError(f"[w2] trial {i} launches {probe['launches']}")
+            if len(hist) > min(sampled["epochs"], W2_MAX_T) or \
+                    [m["steps"] for m in hist] != [W2_STEPS] * len(hist):
+                raise AssertionError(f"[w2] trial {i} history {hist}")
+        tokens = steps * W1_BATCH * W1_LEN
+        log(f"[w2] {steps} train steps over all trials, {tokens} trained tokens (global batch x "
+            f"source length) in the sweep's {sweep_s:.1f} s = {tokens / sweep_s:.1f} trained "
+            f"tokens/s of sweep wall; trial actors' launches {trial_launches}")
+
+        best = grid.get_best_result()
+        done = [r.metrics["eval_loss"] for r in grid if r.error is None]
+        finite = [x for x in done if np.isfinite(x)]
+        if best.checkpoint is None or not np.isfinite(best.metrics["eval_loss"]) or \
+                best.metrics["eval_loss"] != min(finite):
+            raise AssertionError(f"[w2] best {best.metrics.get('eval_loss')} of {done}, "
+                                 f"checkpoint {best.checkpoint}")
+        t0 = time.perf_counter()
+        predictor = T5GenerativePredictor.from_checkpoint(best.checkpoint, dtype="bfloat16",
+                                                          device=dev, tokenizer=IdTokenizer())
+        load_s = time.perf_counter() - t0
+        ids, mask = prompts(W1_PROMPTS, W1_LEN, cfg.vocab_size, SEED + 52)
+        batch = {"input_ids": ids, "attention_mask": mask}
+        flash_attention.launches = decode_attention.launches = 0
+        t0 = time.perf_counter()
+        out = predictor.predict(batch, max_new_tokens=W1_NEW)["generated_output"].tolist()
+        gen_s = time.perf_counter() - t0
+        gen = {"flash_attention": flash_attention.launches,
+               "decode_attention": decode_attention.launches}
+        with plain_attention():
+            plain = predictor.predict(batch, max_new_tokens=W1_NEW)["generated_output"].tolist()
+        if (flash_attention.launches, decode_attention.launches) != tuple(gen.values()):
+            raise AssertionError("[w2] the plain path launched kernels")
+        dsteps = gen["decode_attention"] // (2 * cfg.num_decoder_layers)
+        toks = np.stack([np.array(r.split(), dtype=np.int64) for r in out])
+        log(f"[w2] best trial {best.config['learning_rate']}/{best.config['epochs']}/"
+            f"{best.config['weight_decay']} (lr/epochs/wd): eval_loss "
+            f"{best.metrics['eval_loss']:.4f}, checkpoint from_checkpoint(dtype='bfloat16') in "
+            f"{load_s:.1f} s; predict {W1_PROMPTS} prompts x {W1_LEN} -> {W1_NEW} new tokens in "
+            f"{gen_s:.2f} s, {dsteps} decode steps, {emitted_tokens(out, cfg)} tokens up to each "
+            f"row's first EOS, launches {gen}; tokens equal to the plain path's on the card: "
+            f"{out == plain}")
+        if gen["flash_attention"] != cfg.num_layers or gen["decode_attention"] <= 0 or \
+                gen["decode_attention"] != dsteps * 2 * cfg.num_decoder_layers:
+            raise AssertionError(f"[w2] generation launches {gen}")
+        if toks.shape != (W1_PROMPTS, W1_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"[w2] generated {toks.shape} ids out of range")
+        if out != plain:
+            raise AssertionError("[w2] the kernel and plain paths generate different tokens")
+        del predictor
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    return {"sweep_wall_s": sweep_s, "runtime_init_s": init_s, "train_steps": steps,
+            "trained_tokens": tokens, "trained_tokens_per_s": tokens / sweep_s,
+            "trials": trials, "best": {k: best.config[k] for k in W2_SPACE},
+            "best_eval_loss": best.metrics["eval_loss"], "generate_s": gen_s,
+            "decode_steps": dsteps, "emitted_tokens": emitted_tokens(out, cfg),
+            "launches": {"w2_trial_actors": trial_launches, "w2_generate": gen}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -2138,12 +2353,18 @@ def main() -> int:
         n = batch_stats["launches"].get(r["name"], 0)
         r.setdefault("launches_by_path", {})["w3_batch_actor"] = n
         r["launches"] += n
+    w2_stats = w2_path(dev)
+    for r in kernels:       # W2: its trials' launches (in their actors) and its generation's
+        for where in ("w2_trial_actors", "w2_generate"):
+            n = w2_stats["launches"][where].get(r["name"], 0)
+            r["launches_by_path"][where] = n
+            r["launches"] += n
     stop_processes()
     log("[processes] every process this run started has exited")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"kernels": kernels, "main": main_stats, "lm": lm_stats, "w1": w1_stats,
-                      "batch": batch_stats}), flush=True)
+                      "batch": batch_stats, "w2": w2_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -450,3 +450,65 @@ def test_batch_predictor_scores_in_a_leased_actor_on_the_card(dev, tmp_path):
     assert (out["flash"] == cfg.num_layers).all() and (out["decode"] > 0).all()
     assert out.sort_values("idx")["generated_output"].tolist() == \
         want["generated_output"].tolist()
+
+
+def test_tune_trials_train_on_the_leased_card(dev, tmp_path):
+    """W2 in small: a 2-trial sweep over a tiny T5Trainer given no device.
+    Each trial's actor leases the card, trains on cuda:0 (its lease) and
+    launches the flash forward in its evaluation; it reports both from
+    inside the actor."""
+    import json
+    import os
+
+    import pandas as pd
+
+    import tpu_air_torch
+    from tpu_air_torch import tune
+    from tpu_air_torch.models.t5.config import T5Config
+    from tpu_air_torch.train import RunConfig, T5Trainer, TrainingArguments
+
+    def probe_loop(config):
+        from tpu_air_torch.device import resolve_device
+        from tpu_air_torch.ops.flash_attention import flash_attention
+        from tpu_air_torch.train import session
+        from tpu_air_torch.train.t5_trainer import t5_train_loop
+
+        before = flash_attention.launches
+        try:
+            t5_train_loop(config)
+        finally:
+            probe = {"device": str(resolve_device(config.get("_device"))),
+                     "allocated": torch.cuda.max_memory_allocated(),
+                     "flash": flash_attention.launches - before}
+            with open(os.path.join(session.get_session().run_dir, "probe.json"), "w") as f:
+                json.dump(probe, f)
+
+    class ProbingT5Trainer(T5Trainer):
+        def _training_fn(self):
+            return probe_loop
+
+    rng = np.random.default_rng(0)
+    mask = (np.arange(32)[None] < rng.integers(8, 33, (4, 1))).astype(np.int64)
+    rows = pd.DataFrame({"input_ids": list(rng.integers(2, 384, (4, 32)) * mask),
+                         "attention_mask": list(mask),
+                         "labels": list(rng.integers(2, 384, (4, 32)) * mask)})
+    trainer = ProbingT5Trainer(
+        model_config=T5Config.tiny(vocab_size=384),
+        training_args=TrainingArguments(per_device_train_batch_size=2, num_train_epochs=2),
+        datasets={"train": rows, "evaluation": rows},
+        run_config=RunConfig(storage_path=str(tmp_path)))
+    tpu_air_torch.init(num_cpus=2)
+    try:
+        grid = tune.Tuner(
+            trainer, param_space={"trainer_init_config": {
+                "learning_rate": tune.grid_search([1e-3, 1e-5])}},
+            tune_config=tune.TuneConfig(metric="eval_loss", mode="min")).fit()
+    finally:
+        tpu_air_torch.shutdown()
+    assert len(grid) == 2 and grid.num_errors == 0, grid.errors
+    for r in grid:
+        with open(os.path.join(r.path, "probe.json")) as f:
+            probe = json.load(f)
+        assert probe["device"] == "cuda:0" and probe["allocated"] > 0
+        assert probe["flash"] > 0
+        assert len(r.metrics_history) == 2

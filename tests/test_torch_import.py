@@ -40,7 +40,11 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
                 "tpu_air_torch.core.worker_preload", "tpu_air_torch.faults.plan",
                 "tpu_air_torch.observability.tracing", "tpu_air_torch.data.dataset",
                 "tpu_air_torch.data.io", "tpu_air_torch.predict.batch_predictor",
-                "tpu_air_torch.train.flax_msgpack"):
+                "tpu_air_torch.train.flax_msgpack", "tpu_air_torch.tune",
+                "tpu_air_torch.tune.tuner", "tpu_air_torch.tune.schedulers",
+                "tpu_air_torch.tune.search", "tpu_air_torch.tune.result_grid",
+                "tpu_air_torch.train.gbdt_trainer", "tpu_air_torch.train.hist_gbdt",
+                "tpu_air_torch.parallel.collectives"):
         assert new in mods, new
     code = (
         "import importlib, sys\n"

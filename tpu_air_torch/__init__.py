@@ -15,8 +15,9 @@ tpu_air.  The runtime's API sits at the top level, as in tpu_air::
     tpu_air_torch.shutdown()
 
 Subpackages mirror tpu_air's layout (``core``, ``data``, ``models.t5``,
-``models.lm``, ``ops``, ``parallel``, ``predict``, ``train``) and are
-imported explicitly; importing this package builds nothing.
+``models.lm``, ``ops``, ``parallel``, ``predict``, ``train``, ``tune``) and
+are imported on first use (``tpu_air_torch.tune``) or explicitly; importing
+this package builds nothing.
 """
 
 from tpu_air_torch.core import (
@@ -37,6 +38,19 @@ from tpu_air_torch.core import (
 )
 
 __version__ = "0.1.0"
+
+_LAZY_SUBMODULES = ("data", "models", "ops", "parallel", "predict", "train", "tune")
+
+
+def __getattr__(name):
+    if name in _LAZY_SUBMODULES:
+        import importlib
+
+        module = importlib.import_module(f"tpu_air_torch.{name}")
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module 'tpu_air_torch' has no attribute '{name}'")
+
 
 __all__ = [
     "ActorDiedError",

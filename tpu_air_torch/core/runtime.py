@@ -1068,10 +1068,11 @@ class Runtime:
             st.dead = True
             if st.name:
                 self.named_actors.pop(st.name, None)
-            self._release(st.resources)
+            resources, chips = st.resources, st.chip_ids
             st.resources = {}
-            self.free_chips.extend(st.chip_ids)
             st.chip_ids = []
+            if not chips:
+                self._release(resources)
             worker = st.worker
             worker.alive = False
             self.workers.pop(worker.worker_id, None)
@@ -1082,6 +1083,17 @@ class Runtime:
         worker.proc.join(timeout=2)
         if worker.proc.is_alive():
             worker.proc.terminate()
+        if chips:
+            # a card's lease returns only once the process that holds its
+            # CUDA context has exited: the next actor placed on the card
+            # must not share it with a context still being torn down
+            worker.proc.join(timeout=10)
+            if worker.proc.is_alive():
+                _kill_quietly(worker.proc)
+                worker.proc.join(timeout=10)
+            with self.lock:
+                self._release(resources)
+                self.free_chips.extend(chips)
         self._schedule()  # freed chips/cpus may place queued actors
 
     # -- object plane ---------------------------------------------------------

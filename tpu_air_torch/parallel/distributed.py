@@ -105,7 +105,15 @@ def run_workers(fn: Callable[..., Dict[str, Any]], args: tuple, num_workers: int
     group; return each rank's result (a dict; ``{"error": ...}`` for a
     rank that raised, or that was stopped when another failed).  ``fn`` and
     ``args`` are pickled (``cloudpickled`` for objects plain pickle
-    refuses, such as a preprocessor wrapping a lambda)."""
+    refuses, such as a preprocessor wrapping a lambda).  A daemonic
+    process (an actor of the port's runtime, a Tune trial's among them) may
+    not start processes, so there it raises."""
+    import multiprocessing
+
+    if multiprocessing.current_process().daemon:
+        raise NotImplementedError(
+            f"{num_workers} worker processes from an actor of the runtime (a Tune trial): "
+            "a daemonic process may not start processes (ROADMAP Queue 1 item 12)")
     check_devices(num_workers, device)
     if cloudpickled:
         import cloudpickle

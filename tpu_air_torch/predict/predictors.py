@@ -5,6 +5,9 @@
   :func:`tpu_air_torch.models.t5.generate.generate` on the model's device
   and decodes to a ``generated_output`` column.  Its constructors cast the
   weights to the inference type once, at load.
+* ``GBDTPredictor`` — the ``XGBoostPredictor`` analog over the host-side
+  estimator ``GBDTTrainer`` checkpoints (``HistGBDT`` or sklearn), copied
+  from the JAX package: numpy, no card.
 """
 
 from __future__ import annotations
@@ -90,3 +93,34 @@ class T5GenerativePredictor(Predictor):
         else:
             texts = [" ".join(map(str, row)) for row in seqs]
         return pd.DataFrame({"generated_output": texts})
+
+
+class GBDTPredictor(Predictor):
+    """XGBoostPredictor analog: host-side GBDT scoring (Introduction…ipynb:cc-57)."""
+
+    def __init__(self, model, preprocessor=None):
+        super().__init__(preprocessor)
+        self.model = model
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint, **_: Any) -> "GBDTPredictor":
+        model = checkpoint.get_model(device="cpu")
+        if isinstance(model, torch.nn.Module):  # a T5 / LM checkpoint
+            raise TypeError("checkpoint does not contain a GBDT/sklearn model")
+        return cls(model, checkpoint.get_preprocessor())
+
+    def _predict_pandas(self, data: pd.DataFrame, **_: Any) -> pd.DataFrame:
+        X = data.to_numpy(dtype=np.float32)
+        if hasattr(self.model, "predict_proba"):
+            preds = self.model.predict_proba(X)[:, 1]
+        else:
+            preds = self.model.predict(X)
+        return pd.DataFrame({"predictions": preds})
+
+
+class SklearnPredictor(GBDTPredictor):
+    """Alias family for generic sklearn estimators stored in checkpoints."""
+
+
+#: Drop-in alias matching the reference import name (Introduction…ipynb:cc-57)
+XGBoostPredictor = GBDTPredictor

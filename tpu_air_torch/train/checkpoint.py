@@ -13,6 +13,7 @@ is backed by a dict or by a directory::
       tokenizer/           # the tokenizer's save_pretrained
       preprocessor.pkl     # the fitted preprocessor (cloudpickle)
       metrics.json
+      extras.pkl           # a GBDT/sklearn estimator and its extras (cloudpickle)
       data.pkl             # a dict checkpoint written to a directory
 
 Both directions with the JAX package: a ``jax_model`` directory that
@@ -20,10 +21,11 @@ Both directions with the JAX package: a ``jax_model`` directory that
 ``params.msgpack`` through :mod:`tpu_air_torch.train.flax_msgpack` and the
 models' ``params_from_jax``, no flax needed), and ``from_model(...,
 format="jax")`` writes one that the JAX package loads.  Pickled files
-(``preprocessor.pkl``, ``data.pkl``) are read with :class:`PortUnpickler`,
-which maps the JAX package's preprocessor and tokenizer classes to the
-port's copies and refuses any other ``tpu_air`` module, so loading never
-imports the JAX package.  What cannot be read raises, naming it.
+(``preprocessor.pkl``, ``extras.pkl``, ``data.pkl``) are read with
+:class:`PortUnpickler`, which maps the JAX package's preprocessor,
+tokenizer and histogram-GBDT classes to the port's copies and refuses any
+other ``tpu_air`` module, so loading never imports the JAX package.  What
+cannot be read raises, naming it.
 
 Loading morphs the type: ``get_params(dtype=...)`` and
 ``get_model(dtype=..., device=...)`` cast once, at load.
@@ -47,6 +49,7 @@ from tpu_air_torch.device import DeviceLike
 _COPIED_MODULES = {
     "tpu_air.data.preprocessors": "tpu_air_torch.data.preprocessors",
     "tpu_air.models.tokenizer": "tpu_air_torch.models.tokenizer",
+    "tpu_air.train.hist_gbdt": "tpu_air_torch.train.hist_gbdt",
 }
 _KINDS = ("torch_model", "jax_model", "dict")
 
@@ -120,10 +123,14 @@ class Checkpoint:
     @classmethod
     def from_model(cls, model_config=None, params=None, tokenizer=None,
                    preprocessor=None, metrics: Optional[Dict[str, Any]] = None,
-                   path: Optional[str] = None, format: str = "torch") -> "Checkpoint":
+                   path: Optional[str] = None, format: str = "torch",
+                   sklearn_model=None, extras: Optional[Dict[str, Any]] = None,
+                   ) -> "Checkpoint":
         """Write a model's config and state dict (``params``), its
         tokenizer and its preprocessor into a directory checkpoint (a new
-        temporary directory unless ``path`` is given).  ``format="jax"``
+        temporary directory unless ``path`` is given).  A GBDT or sklearn
+        estimator (``sklearn_model``) goes into ``extras.pkl`` with
+        ``extras``, as the JAX package lays it out.  ``format="jax"``
         writes the JAX package's layout (``kind`` ``jax_model``, the
         parameters as a Flax tree in ``params.msgpack``), which
         ``tpu_air.train.checkpoint.Checkpoint`` loads; it needs
@@ -157,6 +164,13 @@ class Checkpoint:
         if metrics:
             with open(os.path.join(path, "metrics.json"), "w") as f:
                 json.dump(metrics, f, default=float)
+        if sklearn_model is not None:
+            extras = {"sklearn_model": sklearn_model, **(extras or {})}
+        if extras:
+            import cloudpickle
+
+            with open(os.path.join(path, "extras.pkl"), "wb") as f:
+                cloudpickle.dump(extras, f)
         return cls(path=path)
 
     # -- dict/directory interop -------------------------------------------
@@ -167,7 +181,8 @@ class Checkpoint:
         for name, loader in (("model_config", self.get_model_config),
                              ("params", self.get_params),
                              ("preprocessor", self.get_preprocessor),
-                             ("metrics", self.get_metrics)):
+                             ("metrics", self.get_metrics),
+                             ("extras", self._load_extras)):
             try:
                 v = loader()
             except (FileNotFoundError, KeyError):
@@ -298,7 +313,14 @@ class Checkpoint:
         """The model rebuilt from the config and parameters, on ``device``
         (``cuda:0`` by default).  With ``dtype`` the config computes in it
         and the parameters are cast to it once, here (the inference load);
-        without, the parameters stay f32."""
+        without, the parameters stay f32.  A GBDT or sklearn checkpoint
+        gives its estimator."""
+        dd = self._dict_backed()
+        if dd is not None and "model" in dd:
+            return dd["model"]
+        extras = self._load_extras()
+        if isinstance(extras, dict) and "sklearn_model" in extras:
+            return extras["sklearn_model"]
         config = self.get_model_config()
         if dtype:
             config.dtype = dtype
@@ -342,6 +364,15 @@ class Checkpoint:
                 return json.load(f)
         except (FileNotFoundError, KeyError):
             return {}
+
+    def _load_extras(self):
+        dd = self._dict_backed()
+        if dd is not None:
+            return dd.get("extras")
+        try:
+            return _load_pickle(self._dir_file("extras.pkl"))
+        except (FileNotFoundError, KeyError):
+            return None
 
     def __repr__(self):
         src = self._path if self._path else f"dict[{list((self._data or {}).keys())}]"

@@ -20,8 +20,9 @@ class ScalingConfig:
     tensor parallelism.  ``model_parallel`` is the tensor-parallel and
     ``sequence_parallel`` the sequence-parallel degree inside each worker;
     the trainers raise for either above 1 and name the ROADMAP item that
-    ports it.  The JAX package's ``use_tpu``, ``topology`` and
-    ``resources_per_worker`` are left out: nothing in the port reads them.
+    ports it.  ``total_chips`` is the lease a Tune trial holds.  The JAX
+    package's ``use_tpu``, ``topology`` and ``resources_per_worker`` are
+    left out: nothing in the port reads them.
     """
 
     num_workers: int = 1
@@ -44,6 +45,12 @@ class ScalingConfig:
             raise ValueError("sequence_parallel must be >= 1")
         self.model_parallel = self.model_parallel or 1
         self.sequence_parallel = self.sequence_parallel or 1
+
+    @property
+    def total_chips(self) -> int:
+        """The cards a trial leases: ``num_workers x num_chips_per_worker``,
+        or 0 with ``use_gpu=False``."""
+        return 0 if self.use_gpu is False else self.num_workers * self.num_chips_per_worker
 
 
 @dataclass

@@ -1,0 +1,419 @@
+"""GBDT trainer — the XGBoostTrainer capability (W8, Introduction…ipynb:cc-32),
+the port's copy of ``tpu_air/train/gbdt_trainer.py``: numpy on the host, no
+card.
+
+The reference trains XGBoost (C++ + rabit allreduce) via
+``XGBoostTrainer(label_column, num_boost_round, params, datasets,
+preprocessor)``.  Per SURVEY.md §2B, GBDTs are out of the TPU north-star
+scope but a required workshop capability, kept as host-CPU training behind
+the same Trainer API.  This environment has no xgboost wheel, so the
+default backend is the in-repo histogram booster (``hist_gbdt.HistGBDT``)
+with RABIT SEMANTICS for distributed training: per-node gradient/hessian
+histograms are allreduced over the collectives facade and every rank grows
+the bit-identical tree — not a bagging approximation.  The config surface
+accepts the XGBoost param names the reference passes (objective,
+tree_method, eta, max_depth, min_child_weight, lambda) and reports the
+reference's metric names (``train-logloss``/``train-error``/
+``valid-error``, Introduction…ipynb:cc-40).  ``params={"backend":
+"sklearn"}`` keeps the sklearn warm-start estimator (single-process only).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from .checkpoint import Checkpoint
+from .hist_gbdt import CollectivesComm, HistGBDT
+from .trainer import BaseTrainer
+
+
+def _logloss(y, p):
+    eps = 1e-7
+    p = np.clip(p, eps, 1 - eps)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def _hist_model(params: Dict[str, Any], objective: str) -> HistGBDT:
+    return HistGBDT(
+        objective=objective,
+        eta=float(params.get("eta", 0.3)),
+        max_depth=int(params.get("max_depth", 6)),
+        min_child_weight=float(params.get("min_child_weight", 1.0)),
+        reg_lambda=float(params.get("lambda", 1.0)),
+        max_bins=int(params.get("max_bin", 256)),
+    )
+
+
+def _hist_metrics_from_sums(merged: Dict[str, float], is_classif: bool,
+                            i: int) -> Dict[str, Any]:
+    metrics: Dict[str, Any] = {"iteration": i}
+    if is_classif:
+        metrics["train-logloss"] = float(merged["ll_sum"] / merged["n"])
+        metrics["train-error"] = float(merged["err_sum"] / merged["n"])
+    else:
+        metrics["train-rmse"] = float(np.sqrt(merged["se_sum"] / merged["n"]))
+    return metrics
+
+
+def _valid_metrics(model, Xv, yv, is_classif: bool) -> Dict[str, float]:
+    """Validation metrics in the reference's names, shared by the single-
+    process and distributed paths."""
+    if Xv is None:
+        return {}
+    if is_classif:
+        pv = model.predict_proba(Xv)[:, 1]
+        return {
+            "valid-error": float(np.mean((pv > 0.5) != yv)),
+            "valid-logloss": _logloss(yv, pv),
+        }
+    pv = model.predict(Xv)
+    return {"valid-rmse": float(np.sqrt(np.mean((pv - yv) ** 2)))}
+
+
+def _sk_params(params: Dict[str, Any], num_boost_round: int) -> Dict[str, Any]:
+    sk: Dict[str, Any] = {
+        "n_estimators": num_boost_round,
+        "learning_rate": float(params.get("eta", 0.3)),
+        "max_depth": int(params.get("max_depth", 6)),
+        "random_state": int(params.get("seed", 0)),
+    }
+    if "min_child_weight" in params:
+        sk["min_samples_leaf"] = max(1, int(params["min_child_weight"]))
+    return sk
+
+
+def _df_to_xy(df, label_column):
+    y = df[label_column].to_numpy()
+    X = df.drop(columns=[label_column]).to_numpy(dtype=np.float64)
+    return X, y
+
+
+def gbdt_train_loop(config: Dict[str, Any]) -> None:
+    from . import session
+
+    params = dict(config.get("params", {}))
+    label_column = config["label_column"]
+    num_boost_round = int(config.get("num_boost_round", 10))
+    objective = params.get("objective", "binary:logistic")
+    is_classif = "logistic" in objective or "binary" in objective
+
+    world = int(getattr(config.get("_scaling_config"), "num_workers", 1) or 1)
+    if world > 1:
+        if params.get("backend", "hist") == "sklearn":
+            raise ValueError(
+                'params={"backend": "sklearn"} supports single-process '
+                "training only — distributed GBDT always uses the "
+                "histogram-allreduce backend (rabit semantics)"
+            )
+        _distributed_gbdt_loop(
+            config, world, label_column, num_boost_round, objective, is_classif
+        )
+        return
+
+    train_ds = session.get_dataset_shard("train")
+    valid_ds = session.get_dataset_shard("valid")
+    if valid_ds is None:
+        valid_ds = session.get_dataset_shard("evaluation")
+    df = train_ds.to_pandas()
+    y = df[label_column].to_numpy()
+    X = df.drop(columns=[label_column]).to_numpy(dtype=np.float64)
+    Xv = yv = None
+    if valid_ds is not None:
+        vdf = valid_ds.to_pandas()
+        yv = vdf[label_column].to_numpy()
+        Xv = vdf.drop(columns=[label_column]).to_numpy(dtype=np.float64)
+
+    if params.get("backend", "hist") != "sklearn":
+        _hist_single_loop(
+            config, params, label_column, num_boost_round, objective,
+            is_classif, df, X, y, Xv, yv,
+        )
+        return
+
+    from sklearn.ensemble import GradientBoostingClassifier, GradientBoostingRegressor
+
+    sk_params = _sk_params(params, num_boost_round)
+    cls = GradientBoostingClassifier if is_classif else GradientBoostingRegressor
+    # warm_start: each loop turn grows the ensemble by ONE round and reports
+    # before fitting the next — an ASHA stop (session.report raises StopTrial)
+    # therefore genuinely saves the remaining rounds' compute, matching
+    # xgboost's per-iteration eval/prune contract (Introduction…ipynb:cc-40).
+    model = cls(**sk_params, warm_start=True)
+
+    preprocessor = config.get("_preprocessor")
+    feature_columns = [c for c in df.columns if c != label_column]
+
+    def ckpt(metrics):
+        return Checkpoint.from_model(
+            preprocessor=preprocessor,
+            metrics=metrics,
+            sklearn_model=model,
+            extras={
+                "label_column": label_column,
+                "feature_columns": feature_columns,
+                "objective": objective,
+                "rounds_fit": int(model.n_estimators),
+            },
+        )
+
+    for i in range(1, num_boost_round + 1):
+        model.n_estimators = i
+        model.fit(X, y)
+        if is_classif:
+            p = model.predict_proba(X)[:, 1]
+            metrics = {
+                "train-logloss": _logloss(y, p),
+                "train-error": float(np.mean((p > 0.5) != y)),
+                "iteration": i,
+            }
+            if Xv is not None:
+                pv = model.predict_proba(Xv)[:, 1]
+                metrics["valid-error"] = float(np.mean((pv > 0.5) != yv))
+                metrics["valid-logloss"] = _logloss(yv, pv)
+        else:
+            pred = model.predict(X)
+            metrics = {
+                "train-rmse": float(np.sqrt(np.mean((pred - y) ** 2))),
+                "iteration": i,
+            }
+            if Xv is not None:
+                pv = model.predict(Xv)
+                metrics["valid-rmse"] = float(np.sqrt(np.mean((pv - yv) ** 2)))
+        # checkpoint at a bounded stride (plus the final round) so an
+        # ASHA-stopped trial hands a recent ensemble to ResultGrid without
+        # retaining O(num_boost_round) full-model snapshots per trial
+        stride = max(1, num_boost_round // 20)
+        want_ckpt = (i % stride == 0) or (i == num_boost_round)
+        session.report(metrics, checkpoint=ckpt(metrics) if want_ckpt else None)
+
+
+def _hist_single_loop(config, params, label_column, num_boost_round,
+                      objective, is_classif, df, X, y, Xv, yv) -> None:
+    """Single-process histogram boosting — the world_size=1 case of the SAME
+    algorithm the distributed path runs, so metrics agree in kind across
+    num_workers."""
+    from . import session
+
+    model = _hist_model(params, objective)
+    model.setup(X, y)
+    preprocessor = config.get("_preprocessor")
+    feature_columns = [c for c in df.columns if c != label_column]
+
+    def ckpt(metrics, i):
+        return Checkpoint.from_model(
+            preprocessor=preprocessor,
+            metrics=metrics,
+            sklearn_model=model.scoring_copy(),
+            extras={
+                "label_column": label_column,
+                "feature_columns": feature_columns,
+                "objective": objective,
+                "rounds_fit": int(i),
+                "backend": "hist",
+            },
+        )
+
+    for i in range(1, num_boost_round + 1):
+        model.fit_one_round()
+        metrics = _hist_metrics_from_sums(
+            model.local_metric_sums(), is_classif, i
+        )
+        metrics.update(_valid_metrics(model, Xv, yv, is_classif))
+        stride = max(1, num_boost_round // 20)
+        want_ckpt = (i % stride == 0) or (i == num_boost_round)
+        session.report(metrics, checkpoint=ckpt(metrics, i) if want_ckpt else None)
+
+
+def _make_gbdt_worker_cls():
+    """Actor class for one distributed-GBDT worker (built lazily so module
+    import never requires a live runtime)."""
+    import tpu_air_torch
+
+    @tpu_air_torch.remote
+    class _GBDTWorker:
+        """One rank of a distributed GBDT fit — the rabit-worker analog
+        (Introduction…ipynb:cc-32: XGBoostTrainer with 5 workers).
+
+        Holds ONLY its row shard; per round, per tree depth, the
+        (node, feature, bin) gradient/hessian histograms are allreduced
+        over the collectives facade (SURVEY.md §2D) and every rank grows
+        the bit-identical tree from the merged statistics — true
+        distributed BOOSTING, not bagging."""
+
+        def __init__(self, rank, world_size, shard, valid_ds, label_column,
+                     params, objective, is_classif, run_name):
+            self.rank = rank
+            self.world = world_size
+            self.is_classif = is_classif
+            self.comm = CollectivesComm(rank, world_size, run_name)
+            X, y = _df_to_xy(shard.to_pandas(), label_column)
+            self.Xv = self.yv = None
+            if valid_ds is not None:
+                self.Xv, self.yv = _df_to_xy(valid_ds.to_pandas(), label_column)
+            self.model = _hist_model(params, objective)
+            # merged bin edges: an allgather — every rank ends with the
+            # identical binning
+            self.model.setup(X, y, comm=self.comm)
+
+        def fit_round(self, i: int):
+            self.model.fit_one_round()
+            sums = self.model.local_metric_sums()
+            keys = sorted(sums)
+            merged_arr = self.comm.allreduce_sum(
+                np.array([sums[k] for k in keys]), f"metrics-{i}"
+            )
+            # the round's collective store keys ride along in the return so
+            # the trial loop can delete them without another (blockable)
+            # actor round-trip; every rank reports the same names
+            used = self.comm.drain_store_keys()
+            if self.rank != 0:
+                return {"metrics": None, "used_keys": used}
+            merged = dict(zip(keys, merged_arr))
+            metrics = _hist_metrics_from_sums(merged, self.is_classif, i)
+            # every rank's model is identical — rank 0 scores validation
+            metrics.update(
+                _valid_metrics(self.model, self.Xv, self.yv, self.is_classif)
+            )
+            return {"metrics": metrics, "used_keys": used}
+
+        def get_model(self):
+            return self.model.scoring_copy()
+
+        def get_signature(self):
+            return self.model.signature()
+
+    return _GBDTWorker
+
+
+def _distributed_gbdt_loop(config, world, label_column, num_boost_round,
+                           objective, is_classif) -> None:
+    """ScalingConfig(num_workers=N) path: N worker actors, each seeing ONLY
+    its row shard, growing IDENTICAL trees from allreduce-merged histograms
+    (rabit semantics — VERDICT r3 weak #4; reference trains 5 rabit
+    workers).  Rank identity is asserted at every checkpoint round, so
+    divergence is a hard training error, not silent skew."""
+    import tpu_air_torch
+
+    from . import session
+
+    params = dict(config.get("params", {}))
+
+    train_ds = session.get_dataset_shard("train")
+    valid_ds = session.get_dataset_shard("valid")
+    if valid_ds is None:
+        valid_ds = session.get_dataset_shard("evaluation")
+    # equal=False: every row trains somewhere — equal shards would silently
+    # drop total % world rows that the single-process path does see
+    shards = train_ds.split(world, equal=False)
+
+    sample_df = next(train_ds.iter_batches(batch_size=1, batch_format="pandas"))
+    feature_columns = [c for c in sample_df.columns if c != label_column]
+    preprocessor = config.get("_preprocessor")
+    # rendezvous namespace must be unique per run (NOT id(config): forkserver
+    # children have near-deterministic heaps, so ids collide across runs and
+    # a collision would replay a dead run's allreduce payloads)
+    import secrets
+
+    run_name = f"gbdt-{secrets.token_hex(8)}"
+
+    worker_cls = _make_gbdt_worker_cls().options(num_cpus=0)
+    workers = [
+        worker_cls.remote(
+            r, world, shards[r],
+            valid_ds if r == 0 else None,  # only rank 0 scores validation
+            label_column, params, objective, is_classif, run_name,
+        )
+        for r in range(world)
+    ]
+
+    def ckpt(metrics, i):
+        # every rank holds the identical booster — assert it (cheap hash),
+        # then ship rank 0's
+        sigs = tpu_air_torch.get([w.get_signature.remote() for w in workers])
+        if len(set(sigs)) != 1:
+            raise RuntimeError(
+                "distributed GBDT ranks diverged — allreduced histograms "
+                "should make every rank's booster bit-identical"
+            )
+        metrics["ranks_identical"] = True
+        model = tpu_air_torch.get(workers[0].get_model.remote())
+        return Checkpoint.from_model(
+            preprocessor=preprocessor,
+            metrics=metrics,
+            sklearn_model=model,
+            extras={
+                "label_column": label_column,
+                "feature_columns": feature_columns,
+                "objective": objective,
+                "rounds_fit": int(i),
+                "num_workers": world,
+                "backend": "hist",
+            },
+        )
+
+    from tpu_air_torch.core import runtime as _rt
+
+    store = _rt.current_worker().store if _rt.current_worker() else _rt.get_runtime().store
+
+    def delete_keys(keys):
+        # all ranks have returned from the round's collectives (the futures
+        # resolved), so the rendezvous keys can be deleted — otherwise they
+        # accumulate for the driver's lifetime.  On a crashed-rank round no
+        # keys are returned; that one round's payloads leak (bounded) rather
+        # than stalling the error path behind another actor round-trip.
+        for key in set(keys):
+            try:
+                store.delete(key)
+            except Exception:  # noqa: BLE001 — best-effort cleanup; key may already be gone
+                pass
+
+    try:
+        for i in range(1, num_boost_round + 1):
+            outs = tpu_air_torch.get([w.fit_round.remote(i) for w in workers])
+            delete_keys([k for o in outs for k in o["used_keys"]])
+            metrics = outs[0]["metrics"]
+            stride = max(1, num_boost_round // 20)
+            want_ckpt = (i % stride == 0) or (i == num_boost_round)
+            session.report(metrics, checkpoint=ckpt(metrics, i) if want_ckpt else None)
+    finally:
+        for w in workers:
+            tpu_air_torch.kill(w)
+
+
+class GBDTTrainer(BaseTrainer):
+    """``label_column``, XGBoost-named ``params`` and ``num_boost_round``;
+    one report (and, at a stride, a checkpoint) per boosting round."""
+
+    _name_prefix = "GBDTTrainer"
+    # host numpy: no device to place, and num_workers > 1 runs worker actors
+    _needs_device = False
+    _spawns_workers = False
+
+    def __init__(
+        self,
+        *,
+        label_column: str,
+        params: Optional[Dict[str, Any]] = None,
+        num_boost_round: int = 10,
+        **kwargs,
+    ):
+        super().__init__(**kwargs)
+        self.label_column = label_column
+        self.params = params or {}
+        self.num_boost_round = num_boost_round
+
+    def _training_fn(self):
+        return gbdt_train_loop
+
+    def _train_loop_config(self) -> Dict[str, Any]:
+        return {
+            "label_column": self.label_column,
+            "params": self.params,
+            "num_boost_round": self.num_boost_round,
+        }
+
+
+#: Drop-in alias matching the reference import name (Introduction…ipynb:cc-32)
+XGBoostTrainer = GBDTTrainer

@@ -6,7 +6,9 @@ epoch; the session records the history (also appended to
 ``progress.jsonl``), retains checkpoints under the run directory by
 ``CheckpointConfig`` and tracks the best and the latest one.  In a run of
 several workers every rank has a session; rank 0's writes the progress
-file and retains the checkpoints.  Fault-plan
+file and retains the checkpoints.  In a Tune trial the session's
+``decision_cb`` hands each report to the driver and ``report`` raises
+:class:`StopTrial` when the scheduler stops the trial.  Fault-plan
 hooks, tracing spans, metric sinks and weight publishing wait for the
 slices that port them.
 """
@@ -18,10 +20,14 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .checkpoint import Checkpoint
 from .config import CheckpointConfig
+
+
+class StopTrial(Exception):
+    """Raised inside the training loop when the scheduler stops this trial."""
 
 
 class Session:
@@ -33,6 +39,7 @@ class Session:
         config: Optional[Dict[str, Any]] = None,
         world_size: int = 1,
         world_rank: int = 0,
+        decision_cb: Optional[Callable[[Dict[str, Any], int], bool]] = None,
     ):
         self.run_dir = run_dir
         self.checkpoint_config = checkpoint_config or CheckpointConfig()
@@ -44,6 +51,7 @@ class Session:
         self.config = config or {}
         self.world_size = world_size
         self.world_rank = world_rank
+        self.decision_cb = decision_cb
         self.history: List[Dict[str, Any]] = []
         self.checkpoints: List[Tuple[str, Dict[str, Any]]] = []  # (dir, metrics)
         self._iter = 0
@@ -64,6 +72,11 @@ class Session:
             f.write(json.dumps(rec, default=float) + "\n")
         if checkpoint is not None:
             self._retain(checkpoint, rec)
+        # the stream's sequence number is the session's own counter: user
+        # metrics may set training_iteration, but the Tune driver drains
+        # report-1, report-2, ... in order
+        if self.decision_cb is not None and not self.decision_cb(rec, self._iter):
+            raise StopTrial(f"trial stopped by scheduler at iteration {self._iter}")
 
     # -- retention (CheckpointConfig semantics) -----------------------------
     def _retain(self, checkpoint: Checkpoint, metrics: Dict[str, Any]):

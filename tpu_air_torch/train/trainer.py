@@ -1,16 +1,29 @@
 """Trainers: ``fit()`` with retries from the latest checkpoint (the port's
 counterpart of ``tpu_air/train/trainer.py``).
 
-The JAX package runs each attempt in a trial actor holding a chip lease.
-The port's trial runner over its runtime comes with Tune (ROADMAP Queue 1
-item 4), so ``fit()`` runs each attempt in the calling process on the trainer's device, or, with
-``ScalingConfig(num_workers=N > 1)``, in N spawned worker processes joined
-in one ``torch.distributed`` group (``parallel/distributed.py``), whose
-rank 0 reports and checkpoints.  The attempt loop is that of
-``_run_actor_attempts``: an attempt whose training function raises (on any
-rank) is retried, up to ``FailureConfig.max_failures`` times, resuming from
-the newest checkpoint that attempt retained.  A ``preprocessor`` is fitted
-on the train dataset and applied to every dataset before the first attempt.
+An attempt runs one of two ways:
+
+* ``BaseTrainer.fit()`` runs it in the calling process on the trainer's
+  device, or, with ``ScalingConfig(num_workers=N > 1)``, in N spawned
+  worker processes joined in one ``torch.distributed`` group
+  (``parallel/distributed.py``), whose rank 0 reports and checkpoints.
+  The JAX package runs ``fit()``'s attempts in a trial actor that holds a
+  chip lease; the port keeps them in process (ROADMAP Queue 1 item 13),
+  which the W1 loop and its gloo workers rely on.
+* Tune runs each attempt of a trial in a :class:`_TrialRunner`, an actor of
+  the port's runtime that leases ``ScalingConfig.total_chips`` cards; a
+  training function given no device takes ``cuda:<first leased id>``
+  there.  Each report streams to the driver through the object store and
+  the scheduler's decision comes back the same way; a stopped trial ends
+  with ``StopTrial``, which is a clean stop, not an error.  A trial actor
+  is a daemonic process, which may not start processes, so a trial cannot
+  spawn ``num_workers > 1`` workers (ROADMAP Queue 1 item 12).
+
+The attempt loop is that of ``_run_actor_attempts``: an attempt whose
+training function raises (on any rank) is retried, up to
+``FailureConfig.max_failures`` times, resuming from the newest checkpoint
+that attempt retained.  A ``preprocessor`` is fitted on the train dataset
+and applied to every dataset before the first attempt.
 """
 
 from __future__ import annotations
@@ -18,14 +31,17 @@ from __future__ import annotations
 import os
 import time
 import traceback
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
+
+from tpu_air_torch.core.remote import remote
 from tpu_air_torch.device import DeviceLike, resolve_device
 
 from .checkpoint import Checkpoint
 from .config import CheckpointConfig, RunConfig, ScalingConfig
 from .result import Result
-from .session import Session, _set_active
+from .session import Session, StopTrial, _set_active
 
 
 def _default_storage() -> str:
@@ -56,6 +72,19 @@ class _BroadcastDataset:
         for i in range(0, max(end, 0), batch_size):
             yield self._df.iloc[i : i + batch_size]
 
+    def split(self, n: int, *, equal: bool = True) -> List["_BroadcastDataset"]:
+        """``n`` contiguous shards, sized as the data layer's
+        ``Dataset.split`` sizes them: ``equal`` drops the remainder rows,
+        otherwise the first shards are one row shorter."""
+        total = len(self._df)
+        if equal:
+            sizes = [total // n] * n
+        else:
+            sizes = [(total + i) // n for i in range(n)]
+        offs = np.cumsum([0] + sizes)
+        return [_BroadcastDataset(self._df.iloc[int(offs[i]) : int(offs[i + 1])])
+                for i in range(n)]
+
     def map_batches(self, fn, batch_format: str = "pandas",
                     batch_size: Optional[int] = None) -> "_BroadcastDataset":
         """A new dataset of ``fn`` applied to each batch of ``batch_size``
@@ -78,19 +107,38 @@ class _BroadcastDataset:
         return _BroadcastDataset(pd.concat(outs, ignore_index=True) if outs else self._df)
 
 
+def _scan_latest_checkpoint(run_dir: str):
+    """Newest ``checkpoint_*`` directory under ``run_dir`` as the
+    ``(path, metrics)`` pair the session would have reported: what a retry
+    resumes from when the trial actor crashed and took the session's list
+    with it (the iteration-numbered names sort in time order)."""
+    try:
+        dirs = sorted(
+            d for d in os.listdir(run_dir)
+            if d.startswith("checkpoint_") and os.path.isdir(os.path.join(run_dir, d)))
+    except OSError:
+        return None
+    if not dirs:
+        return None
+    return (os.path.join(run_dir, dirs[-1]), {})
+
+
 def _run_trial(training_fn: Callable[[Dict[str, Any]], None], config: Dict[str, Any],
                run_dir: str, datasets: Dict[str, Any],
                checkpoint_config: CheckpointConfig, world_size: int = 1,
-               world_rank: int = 0) -> Dict[str, Any]:
+               world_rank: int = 0, decision_cb=None) -> Dict[str, Any]:
     """One attempt in this process (one rank of it with several workers):
-    the body of the JAX package's ``_TrialRunner.run``."""
+    the body of the JAX package's ``_TrialRunner.run``.  A ``StopTrial``
+    from the scheduler ends it clean (``"stopped": True``)."""
     session = Session(run_dir=run_dir, checkpoint_config=checkpoint_config,
                       datasets=datasets, config=config, world_size=world_size,
-                      world_rank=world_rank)
+                      world_rank=world_rank, decision_cb=decision_cb)
     _set_active(session)
-    out: Dict[str, Any] = {"error": None}
+    out: Dict[str, Any] = {"error": None, "stopped": False}
     try:
         training_fn(config)
+    except StopTrial:
+        out["stopped"] = True
     except Exception as e:  # noqa: BLE001 - trial boundary: recorded, retried by fit()
         out["error"] = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
     finally:
@@ -100,6 +148,36 @@ def _run_trial(training_fn: Callable[[Dict[str, Any]], None], config: Dict[str, 
     out["best_checkpoint"] = session.best_checkpoint()
     out["latest_checkpoint"] = session.latest_checkpoint()
     return out
+
+
+@remote
+class _TrialRunner:
+    """Actor hosting one attempt of a Tune trial on its chip lease."""
+
+    def run(self, training_fn: Callable[[Dict[str, Any]], None], config: Dict[str, Any],
+            run_dir: str, datasets: Dict[str, Any], checkpoint_config: CheckpointConfig,
+            world_size: int, trial_id: str) -> Dict[str, Any]:
+        from tpu_air_torch.core import runtime as _rt
+
+        store = _rt.current_worker().store
+
+        def decision_cb(rec, seq):
+            # Stream the report to the driver, then wait briefly for the
+            # scheduler's ack so a prune lands BEFORE the next epoch spends
+            # compute.  If the driver is slow the trial goes on and the
+            # `{trial}-stop` marker catches it at a later report.
+            store.put(rec, f"{trial_id}-report-{seq}")
+            try:
+                ok = bool(store.get(f"{trial_id}-ack-{seq}", timeout=5.0))
+                store.delete(f"{trial_id}-ack-{seq}")
+                if not ok:
+                    return False
+            except TimeoutError:
+                pass
+            return not store.contains(f"{trial_id}-stop")
+
+        return _run_trial(training_fn, config, run_dir, datasets, checkpoint_config,
+                          world_size, decision_cb=decision_cb)
 
 
 def _worker_trial(rank: int, world_size: int, device, training_fn, config, run_dir,
@@ -136,9 +214,17 @@ class BaseTrainer:
     fitted on ``datasets["train"]`` and applied to every dataset.
     ``device``: where the training function runs (``cuda:0`` by default,
     which raises without CUDA; ``"cpu"`` runs the kernels' plain versions;
-    ``ScalingConfig(use_gpu=False)`` asks for the CPU too)."""
+    ``ScalingConfig(use_gpu=False)`` asks for the CPU too).  A Tune trial
+    takes the device named here, or, when none was, its leased card."""
 
     _name_prefix = "Trainer"
+    # num_workers > 1 spawns worker processes (parallel/distributed.py),
+    # which a trial actor may not start
+    _spawns_workers = True
+    # the training function builds a model on self.device, resolved here so
+    # that a missing card raises at construction; a trainer that places
+    # nothing itself passes the named device (or None) on to its function
+    _needs_device = True
 
     def __init__(
         self,
@@ -160,8 +246,10 @@ class BaseTrainer:
         use_gpu = self.scaling_config.use_gpu
         if device is None and use_gpu is False:
             device = "cpu"
-        self.device = resolve_device(device)
-        if use_gpu is not None and use_gpu != (self.device.type == "cuda"):
+        self._named_device = device
+        self.device = resolve_device(device) if self._needs_device else None
+        if self.device is not None and use_gpu is not None and \
+                use_gpu != (self.device.type == "cuda"):
             raise ValueError(f"ScalingConfig(use_gpu={use_gpu}) and device {self.device} "
                              "disagree")
 
@@ -193,7 +281,7 @@ class BaseTrainer:
         config = dict(self._train_loop_config())
         config["_preprocessor"] = self.preprocessor
         config["_scaling_config"] = self.scaling_config
-        config["_device"] = self.device
+        config["_device"] = self.device if self._needs_device else self._named_device
         return self._run_attempts(config, run_dir, datasets)
 
     def _run_attempts(self, config: Dict[str, Any], run_dir: str,
@@ -207,9 +295,10 @@ class BaseTrainer:
                 config["resume_from_checkpoint"] = (
                     resume.to_directory() if isinstance(resume, Checkpoint) else resume
                 )
-            if workers > 1:
+            if workers > 1 and self._spawns_workers:
                 out = _run_workers_trial(self._training_fn(), config, run_dir, datasets,
-                                         rc.checkpoint_config, workers, self.device)
+                                         rc.checkpoint_config, workers,
+                                         self.device or resolve_device(self._named_device))
             else:
                 out = _run_trial(self._training_fn(), config, run_dir, datasets,
                                  rc.checkpoint_config)
@@ -244,3 +333,33 @@ def _as_dataset(ds):
     if ds is None or hasattr(ds, "iter_batches"):
         return ds
     return _BroadcastDataset(ds)
+
+
+class TorchTrainer(BaseTrainer):
+    """Generic function trainer (the JAX package's ``JaxTrainer``, the
+    reference's ``TorchTrainer(train_loop_per_worker)``): runs
+    ``train_loop_per_worker(config)``, which uses
+    ``tpu_air_torch.train.session`` (report / get_dataset_shard /
+    get_config).  A function trainable handed to Tune is wrapped in one.
+    It places nothing itself: the function gets the named device, or None,
+    in ``config["_device"]`` and resolves it where it runs."""
+
+    _name_prefix = "TorchTrainer"
+    _needs_device = False
+
+    def __init__(
+        self,
+        train_loop_per_worker: Callable[[Dict[str, Any]], None],
+        *,
+        train_loop_config: Optional[Dict[str, Any]] = None,
+        **kwargs,
+    ):
+        super().__init__(**kwargs)
+        self.train_loop_per_worker = train_loop_per_worker
+        self.train_loop_config = train_loop_config or {}
+
+    def _training_fn(self):
+        return self.train_loop_per_worker
+
+    def _train_loop_config(self):
+        return dict(self.train_loop_config)
