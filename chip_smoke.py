@@ -105,13 +105,42 @@ Phases, each fatal on failure:
               eval); the sweep's wall time and trained tokens/s; the best
               result (a checkpoint, the least finite eval_loss) generates 32
               tokens for 8 prompts in bf16 through the kernels, equal to the
-              plain versions' tokens on the card.
+              plain versions' tokens on the card;
+17. w7       — W7 as the reference runs it: SegFormer at MiT-b0's published
+              width (150 labels, f32, random weights from numpy seed 0 at HF's
+              initializer scales) in the JAX package's checkpoint format; 64
+              ragged ADE-like images (384-683 x 512-683), processor size 512,
+              batches of 16, through the reference's five architectures:
+              sequential in process, tasks that reload the predictor from an
+              object-store reference, two actors with a ``wait`` loop,
+              ``ActorPool.map_unordered`` over them, and
+              ``BatchPredictor.predict(ds, batch_size=16,
+              num_gpus_per_worker=1)``; each prints its wall, images/s, device
+              (the card for all five) and the pixels its masks differ from the
+              sequential run's (at most 0.01%; every mask its image's size);
+              the sequential yardstick runs under the TF32 flags the workers
+              report.  Also the forward ms of a batch of 16, the device's idle
+              share over one in-process predict, peak memory;
+18. w6       — W6: ``SegformerTrainer`` over MiT-b0 (dropout and drop-path
+              0.1, f32, numpy seed 0), AdamW lr 1e-4, batch 8, one epoch of
+              6 steps, the port's ``images_preprocessor`` (size 512,
+              ``do_reduce_labels``) over 48 train and 16 eval images, one
+              worker on the card: each step's time and loss, images/s, a
+              profiled step's idle share and heaviest kernels, peak memory,
+              eval_loss; every loss finite and the batch norm's running stats
+              moved; the best checkpoint's ``SemanticSegmentationPredictor``
+              predicts the 16 eval images on the card;
+19. w6 parity — one f32 step at MiT-b0 width, depths cut to 1, batch 2 at
+              128^2, dropout 0, TF32 off, on the card and on the CPU from the
+              same weights: loss, every gradient and the running stats.
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
 generation) and read just after it; the W3 batch path's are counted in its
 scoring actor, a fresh process, around the batch it scores, and W2's
-trials' in each trial's actor, around its training function.
+trials' in each trial's actor, around its training function.  The SegFormer
+phases launch none of the four kernels (no Pallas kernel lies on that path),
+which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -182,6 +211,13 @@ W1_PARITY_LAYERS, W1_PARITY_BATCH = 2, 4  # f32 parity: full width, cut depth
 W2_SPACE = {"learning_rate": [2e-5, 2e-4, 2e-3, 2e-2], "epochs": [2, 4, 8, 16],
             "weight_decay": [0.01, 0.1, 1, 10]}
 W2_SAMPLES, W2_MAX_T, W2_STEPS, W2_EVAL_ROWS = 4, 16, 2, 8
+# SegFormer dials: MiT-b0 at its published width, ADE20K's 150 labels.  W7:
+# the reference's batch inference (64 ragged images, processor size 512,
+# batches of 16, 2 actors); W6: its fine-tuning, batch 8, one 6-step epoch
+# over 48 train and 16 eval images; parity: depths cut to 1, batch 2 at 128^2
+SEG_IMAGES, SEG_SIZE, SEG_BATCH, SEG_ACTORS = 64, 512, 16, 2
+W6_BATCH, W6_STEPS, W6_TRAIN, W6_EVAL = 8, 6, 48, 16
+W6_PARITY_BATCH, W6_PARITY_HW = 2, 128
 
 
 def model_config():
@@ -2311,6 +2347,524 @@ def w2_path(dev) -> dict:
             "launches": {"w2_trial_actors": trial_launches, "w2_generate": gen}}
 
 
+# -- phases 17-19: SegFormer (W7, W6) ------------------------------------------------
+
+
+def seg_config(depths=None, dropout: bool = True):
+    """MiT-b0 at its published width, ADE20K's 150 labels, f32; depth cut to
+    ``depths`` and dropout and drop-path off where asked."""
+    from tpu_air_torch.models.segformer import SegformerConfig
+
+    cfg = SegformerConfig.mit_b0(num_labels=150)
+    if depths is not None:
+        cfg.depths = list(depths)
+    if not dropout:
+        cfg.classifier_dropout_prob = cfg.drop_path_rate = 0.0
+    return cfg
+
+
+def seg_images(n: int, seed: int, labels: bool = False):
+    """Synthetic ADE-like uint8 images of ragged sizes (heights 384-683,
+    widths 512-683, as ADE20K's validation images run), and with
+    ``labels`` their annotations: 0-150 (0 = unlabeled) in blocks of 32
+    pixels."""
+    rng = np.random.default_rng(seed)
+    images, annotations = [], []
+    for _ in range(n):
+        h, w = int(rng.integers(384, 684)), int(rng.integers(512, 684))
+        images.append(rng.integers(0, 256, size=(h, w, 3)).astype(np.uint8))
+        if labels:
+            blocks = rng.integers(0, 151, size=(h // 32 + 1, w // 32 + 1)).astype(np.uint8)
+            annotations.append(np.kron(blocks, np.ones((32, 32), np.uint8))[:h, :w])
+    return (images, annotations) if labels else images
+
+
+def kernel_counts() -> dict:
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    return {"flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches,
+            "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
+            "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches}
+
+
+def tf32_flags() -> str:
+    # backends through getattr: this function travels to the runtime's
+    # workers by value (this script is __main__), and cloudpickle takes an
+    # attribute chain torch.backends.<name> for a submodule to import and
+    # pickles sys.modules' entry for it, which torch.backends.cudnn and
+    # torch.backends.cuda replace with objects that do not pickle
+    backends = getattr(torch, "backends")
+    return f"{backends.cuda.matmul.allow_tf32},{backends.cudnn.allow_tf32}"
+
+
+def probing_seg_predictor(device=None):
+    """``SemanticSegmentationPredictor`` that adds to each scored batch the
+    model's device and its process's TF32 flags ("matmul,cuDNN"): what a
+    worker reports back.  Masks travel as uint8 (150 labels).  Loaded with
+    no device, it lands where the predictor puts it (``device`` names one
+    for a rehearsal on the CPU)."""
+    from tpu_air_torch.predict.predictors import SemanticSegmentationPredictor
+
+    class ProbingSegPredictor(SemanticSegmentationPredictor):
+        @classmethod
+        def from_checkpoint(cls, checkpoint, **kwargs):
+            kwargs.setdefault("device", device)
+            return super().from_checkpoint(checkpoint, **kwargs)
+
+        def _predict_pandas(self, data, **kwargs):
+            out = super()._predict_pandas(data, **kwargs)
+            return out.assign(predicted_mask=[m.astype(np.uint8) for m in out["predicted_mask"]],
+                              device=str(self.model.device), tf32=tf32_flags())
+
+    return ProbingSegPredictor
+
+
+def profile_once(fn) -> tuple:
+    """(wall ms, {kernel: (device ms, launches)}) of one call of ``fn``
+    under the profiler.  The profiler can lose kernel records on this
+    machine (``complete_profile``), so the device time it sums is a floor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, device_kernels(prof, 1)
+
+
+def predict_parts(predictor, batch) -> dict:
+    """The steps of ``SemanticSegmentationPredictor._predict_pandas`` on one
+    batch, each timed on the host clock and ended by a sync: the host's
+    pre-processing, the copy to the card, the forward, and the
+    post-processing (resize and argmax on the card, the masks' copies)."""
+    from tpu_air_torch.models.segformer.image_processor import _to_numpy_image
+
+    fe, dev = predictor.feature_extractor, predictor.model.device
+    marks = [("start", time.perf_counter())]
+    images = [_to_numpy_image(im) for im in batch]
+    px = fe(images)["pixel_values"]
+    marks.append(("pre-processing", time.perf_counter()))
+    x = torch.from_numpy(px)
+    x = (x.pin_memory() if dev.type == "cuda" else x).to(dev, non_blocking=True)
+    torch.cuda.synchronize(dev)
+    marks.append(("pin and copy", time.perf_counter()))
+    with torch.inference_mode():
+        logits = predictor.model(x)
+        torch.cuda.synchronize(dev)
+        marks.append(("forward", time.perf_counter()))
+        fe.post_process_semantic_segmentation(logits, [im.shape[:2] for im in images])
+    marks.append(("post-processing", time.perf_counter()))
+    return {b[0]: (b[1] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])}
+
+
+def w7_path(dev) -> dict:
+    """W7 as the reference runs it (Scaling_batch_inference.ipynb cc-60, 78,
+    91-98, 105-115, 124-129): MiT-b0 width, 150 labels, random weights from
+    numpy seed 0 at HF's initializer scales, written in the JAX package's
+    checkpoint format (``params.msgpack``, batch-norm stats in
+    ``extras.pkl``); 64 ragged ADE-like images, processor size 512, batches
+    of 16, through five architectures: sequential in process; tasks that
+    reload the predictor from an object-store reference; two actors with a
+    ``wait`` loop; ``ActorPool.map_unordered`` over them; and
+    ``BatchPredictor.predict(ds, batch_size=16, num_gpus_per_worker=1)``.
+    Tasks and actors lease half the card each.  Every mask must have its
+    image's size and agree with the sequential run's on 99.99% of pixels.
+    The sequential yardstick runs under the TF32 flags the workers report
+    (a fresh process's: cuDNN's TF32 on, matmul's off), not this script's."""
+    import shutil
+    import tempfile
+
+    import pandas as pd
+
+    import tpu_air_torch
+    from tpu_air_torch.data import from_items
+    from tpu_air_torch.models.segformer.modeling import SegformerForSemanticSegmentation
+    from tpu_air_torch.predict import BatchPredictor
+    from tpu_air_torch.train import Checkpoint
+
+    cfg = seg_config()
+    probe_cls = probing_seg_predictor()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-w7-")
+    try:
+        model = SegformerForSemanticSegmentation(cfg, device="cpu").init_weights(SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        path = os.path.join(tmp, "ckpt")
+        Checkpoint.from_model(model_config=cfg, params=model.state_dict(), format="jax",
+                              path=path)
+        del model
+        images = seg_images(SEG_IMAGES, SEED + 60)
+        batches = [images[i:i + SEG_BATCH] for i in range(0, len(images), SEG_BATCH)]
+        pixels = sum(im.shape[0] * im.shape[1] for im in images)
+
+        def run_batch(predictor, batch):
+            out = predictor.predict(pd.DataFrame({"image": list(batch)}))
+            return list(out["predicted_mask"]), sorted(set(out["device"])), out["tf32"].iloc[0]
+
+        # 1. sequential, in this process, under a fresh process's flags
+        mine = tf32_flags()
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+        fresh = tf32_flags()
+        before = kernel_counts()
+        try:
+            predictor = probe_cls.from_checkpoint(Checkpoint.from_directory(path), device=dev)
+            run_batch(predictor, batches[0])                 # warm-up: cuDNN's picks
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            seq = [run_batch(predictor, b) for b in batches]
+            seq_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            seq_masks = [m for masks, _, _ in seq for m in masks]
+            x = torch.from_numpy(predictor.feature_extractor(batches[0])["pixel_values"]).to(dev)
+            # back-to-back forwards on the device clock (``device_ms`` cannot
+            # queue them behind a sleep: 5 forwards overflow the launch queue)
+            with torch.inference_mode():
+                fwd_ms = time_ms(lambda: predictor.model(x), 5, warmup=1)
+            df0 = pd.DataFrame({"image": batches[0]})
+            predict_ms, kernels = profile_once(lambda: predictor.predict(df0))
+            busy_ms = sum(t for t, _ in kernels.values())
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+            split = predict_parts(predictor, batches[0])
+            del predictor, x
+            torch.cuda.empty_cache()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = mine.startswith("True")
+            torch.backends.cudnn.allow_tf32 = mine.endswith("True")
+        in_process = {k: n - before[k] for k, n in kernel_counts().items()}
+        for m, im in zip(seq_masks, images):
+            if m.shape != im.shape[:2]:
+                raise AssertionError(f"[w7] a {m.shape} mask for a {im.shape[:2]} image")
+        log(f"[w7] MiT-b0 ({cfg.hidden_sizes} wide, depths {cfg.depths}, {n_params / 1e6:.2f}M "
+            f"parameters), {cfg.num_labels} labels, f32, weights from numpy seed {SEED} at HF's "
+            f"initializer scales in the JAX package's checkpoint format; {SEG_IMAGES} ragged "
+            f"ADE-like images ({pixels / 1e6:.2f} Mpixel), processor size {SEG_SIZE}, batches "
+            f"of {SEG_BATCH}; yardstick TF32 flags (matmul, cuDNN) {fresh}, this script's "
+            f"{mine}")
+        log(f"[w7] 1 sequential: {seq_s:.3f} s = {SEG_IMAGES / seq_s:.2f} images/s on "
+            f"{seq[0][1]}; forward of a batch of {SEG_BATCH} at {SEG_SIZE}^2 {fwd_ms:.2f} ms "
+            f"(device clock, back to back); one in-process predict of {SEG_BATCH} images "
+            f"{predict_ms:.1f} ms wall, device busy {busy_ms:.1f} ms in "
+            f"{sum(c for _, c in kernels.values()):.0f} kernels and copies (profiler: a "
+            f"floor), idle share {1 - busy_ms / predict_ms:.4f}; by the forward's device time "
+            f"alone {1 - fwd_ms / predict_ms:.4f}; peak memory {peak_gb:.2f} GB; heaviest: "
+            + "; ".join(f"{k[:50]} {t:.2f} ms x{c:g}" for k, (t, c) in top))
+        log("[w7] one predict's parts, host clock with a sync after each: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()))
+        if any(in_process.values()):
+            raise AssertionError(f"[w7] SegFormer launched the attention kernels: {in_process}")
+
+        results = {"sequential": {"wall_s": seq_s, "devices": seq[0][1], "tf32": fresh,
+                                  "differing_pixels": 0}}
+
+        def record(name, wall, masks, devices, flags):
+            diff = sum(int((a != b).sum()) for a, b in zip(masks, seq_masks))
+            shapes = all(m.shape == im.shape[:2] for m, im in zip(masks, images))
+            results[name] = {"wall_s": wall, "devices": devices, "tf32": flags,
+                             "differing_pixels": diff}
+            log(f"[w7] {name}: {wall:.3f} s = {SEG_IMAGES / wall:.2f} images/s on {devices}, "
+                f"TF32 flags {flags}; {diff} of {pixels} pixels differ from the sequential "
+                f"masks ({1 - diff / pixels:.6f} agree); every mask its image's size: {shapes}")
+            if devices != [str(dev)] or len(masks) != SEG_IMAGES or not shapes or \
+                    diff > 1e-4 * pixels or flags != fresh:
+                raise AssertionError(f"[w7] {name}: {results[name]}")
+
+        share = 1.0 / SEG_ACTORS
+        t0 = time.perf_counter()
+        tpu_air_torch.init()
+        init_s = time.perf_counter() - t0
+        try:
+            # 2. stateless tasks: the predictor re-enters from the object store
+            ckpt_ref = tpu_air_torch.put(Checkpoint.from_directory(path))
+
+            @tpu_air_torch.remote(num_chips=share)
+            def inference_task(ckpt, batch):
+                return run_batch(probe_cls.from_checkpoint(ckpt), batch)
+
+            t0 = time.perf_counter()
+            outs = tpu_air_torch.get([inference_task.remote(ckpt_ref, b) for b in batches])
+            record("tasks", time.perf_counter() - t0, [m for o in outs for m in o[0]],
+                   sorted({d for o in outs for d in o[1]}), outs[0][2])
+
+            # 3. two actors and a wait loop (cc-105-115)
+            @tpu_air_torch.remote(num_chips=share)
+            class PredictionActor:
+                def __init__(self, ckpt):
+                    self.predictor = probe_cls.from_checkpoint(ckpt)
+
+                def predict(self, i, batch):
+                    return i, run_batch(self.predictor, batch)
+
+            actors = [PredictionActor.remote(Checkpoint.from_directory(path))
+                      for _ in range(SEG_ACTORS)]
+            tpu_air_torch.get([a.predict.remote(0, batches[0]) for a in actors])   # warm
+            t0 = time.perf_counter()
+            idle, in_flight, done = list(actors), {}, {}
+            work = list(enumerate(batches))
+            while work or in_flight:
+                while idle and work:
+                    a = idle.pop()
+                    in_flight[a.predict.remote(*work.pop())] = a
+                ready, _ = tpu_air_torch.wait(list(in_flight), num_returns=1)
+                for r in ready:
+                    i, out = tpu_air_torch.get(r)
+                    done[i] = out
+                    idle.append(in_flight.pop(r))
+            outs = [done[i] for i in range(len(batches))]
+            record("actors + wait", time.perf_counter() - t0, [m for o in outs for m in o[0]],
+                   sorted({d for o in outs for d in o[1]}), outs[0][2])
+
+            # 4. ActorPool.map_unordered over the same actors (cc-124-129)
+            t0 = time.perf_counter()
+            pool = tpu_air_torch.ActorPool(actors)
+            done = dict(pool.map_unordered(lambda a, ib: a.predict.remote(*ib),
+                                           list(enumerate(batches))))
+            outs = [done[i] for i in range(len(batches))]
+            record("ActorPool", time.perf_counter() - t0, [m for o in outs for m in o[0]],
+                   sorted({d for o in outs for d in o[1]}), outs[0][2])
+            for a in actors:
+                tpu_air_torch.kill(a)
+
+            # 5. BatchPredictor (cc-76-78), one scoring actor on the whole card
+            t0 = time.perf_counter()
+            ds = from_items([{"image": im, "idx": i} for i, im in enumerate(images)],
+                            parallelism=len(batches))
+            bp = BatchPredictor.from_checkpoint(Checkpoint.from_directory(path), probe_cls)
+            out = bp.predict(ds, batch_size=SEG_BATCH, num_gpus_per_worker=1,
+                             keep_columns=["idx"]).to_pandas()
+            wall = time.perf_counter() - t0
+            out = out.sort_values("idx")
+            if out["idx"].tolist() != list(range(SEG_IMAGES)):
+                raise AssertionError("[w7] BatchPredictor lost or duplicated rows")
+            record("BatchPredictor", wall, list(out["predicted_mask"]),
+                   sorted(set(out["device"])), out["tf32"].iloc[0])
+        finally:
+            tpu_air_torch.shutdown()
+        log(f"[w7] runtime init {init_s:.1f} s before architectures 2-5")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"architectures": results, "images": SEG_IMAGES, "pixels": pixels,
+            "images_per_s": {k: SEG_IMAGES / v["wall_s"] for k, v in results.items()},
+            "forward_ms_batch16": fwd_ms, "predict_ms_batch16": predict_ms,
+            "predict_device_busy_ms": busy_ms, "predict_idle_share": 1 - busy_ms / predict_ms,
+            "predict_idle_share_by_forward": 1 - fwd_ms / predict_ms, "predict_parts_ms": split,
+            "peak_memory_gb": peak_gb,
+            "runtime_init_s": init_s, "launches": in_process}
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` of this checkout, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def w6_path(dev) -> dict:
+    """W6 on the card: ``SegformerTrainer`` over MiT-b0 (150 labels, dropout
+    and drop-path 0.1 as published, f32, random weights from numpy seed 0),
+    AdamW lr 1e-4 and weight decay 0, batch 8, one epoch of 6 steps, keep-1
+    checkpoint by min loss, on ``ScalingConfig(num_workers=1,
+    use_gpu=True)``; the port's ``images_preprocessor`` (size 512,
+    ``do_reduce_labels``) over 48 train and 16 eval synthetic images.  Each
+    step's loss and device-clock time come from wrapping the step the loop
+    builds; then a profiled step, and prediction from the best checkpoint."""
+    import shutil
+    import tempfile
+
+    import pandas as pd
+
+    from tpu_air_torch.models.segformer import SegformerImageProcessor
+    from tpu_air_torch.models.segformer.modeling import SegformerForSemanticSegmentation
+    from tpu_air_torch.predict import SemanticSegmentationPredictor
+    from tpu_air_torch.train import (CheckpointConfig, RunConfig, ScalingConfig,
+                                     SegformerTrainer, TrainingArguments, segformer_trainer)
+
+    images_preprocessor = example_module("torch_segformer_finetune").images_preprocessor
+    cfg = seg_config()
+    train_imgs, train_ann = seg_images(W6_TRAIN, SEED + 70, labels=True)
+    eval_imgs, eval_ann = seg_images(W6_EVAL, SEED + 71, labels=True)
+    args = TrainingArguments(learning_rate=1e-4, weight_decay=0.0,
+                             per_device_train_batch_size=W6_BATCH, num_train_epochs=1,
+                             max_steps_per_epoch=W6_STEPS, seed=SEED)
+    storage = tempfile.mkdtemp(prefix="chip_smoke-w6-")
+    marks = []
+    make_step = segformer_trainer.make_segformer_train_step
+
+    def recording_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def rec(px, labels):
+            if not marks:
+                marks.append((None, torch.cuda.Event(enable_timing=True)))
+                marks[-1][1].record()
+            loss = step(px, labels)
+            marks.append((loss, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+            return loss
+        return rec
+
+    trainer = SegformerTrainer(
+        model_config=cfg, training_args=args,
+        feature_extractor=SegformerImageProcessor(size=SEG_SIZE),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        datasets={"train": pd.DataFrame({"image": train_imgs, "annotation": train_ann}),
+                  "evaluation": pd.DataFrame({"image": eval_imgs, "annotation": eval_ann})},
+        preprocessor=images_preprocessor(SEG_SIZE),
+        run_config=RunConfig(storage_path=storage, checkpoint_config=CheckpointConfig(
+            num_to_keep=1, checkpoint_score_attribute="loss", checkpoint_score_order="min")))
+    before = kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    segformer_trainer.make_segformer_train_step = recording_step
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit()
+    finally:
+        segformer_trainer.make_segformer_train_step = make_step
+    fit_wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    try:
+        if result.error is not None:
+            raise AssertionError(f"[w6] fit failed: {result.error}")
+        m = result.metrics
+        losses = [float(loss) for loss, _ in marks[1:]]
+        step_ms = [a.elapsed_time(b) for (_, a), (_, b) in zip(marks, marks[1:])]
+        if m["steps"] != W6_STEPS or len(losses) != W6_STEPS or \
+                not all(np.isfinite(losses + [m["loss"], m["eval_loss"]])):
+            raise AssertionError(f"[w6] losses {losses}, metrics {m}")
+        med = float(np.median(step_ms[1:]))
+        best = result.checkpoint
+        sd = best.get_params()
+        bn_mean = sd["decode_head.batch_norm.running_mean"]
+        bn_var = sd["decode_head.batch_norm.running_var"]
+        moved = (float(bn_mean.abs().max()), float((bn_var - 1).abs().max()))
+        if min(moved) <= 0:
+            raise AssertionError(f"[w6] the batch norm's running stats did not move: {moved}")
+        log(f"[w6] SegformerTrainer.fit: MiT-b0 ({cfg.hidden_sizes} wide, depths {cfg.depths}), "
+            f"{cfg.num_labels} labels, f32, dropout {cfg.classifier_dropout_prob}, drop-path "
+            f"{cfg.drop_path_rate}, numpy seed {SEED} weights; images_preprocessor size "
+            f"{SEG_SIZE} over {W6_TRAIN} train / {W6_EVAL} eval ragged images; batch "
+            f"{W6_BATCH}, AdamW lr 1e-4, wd 0, one epoch of {m['steps']} steps in "
+            f"{fit_wall:.1f} s (preprocessing, eval and checkpoint included)")
+        log("[w6] loss per step: " + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; epoch loss {m['loss']:.4f}, eval_loss {m['eval_loss']:.4f}; batch norm's "
+            f"running mean moved up to {moved[0]:.4f}, variance {moved[1]:.4f}")
+        log("[w6] step ms (device clock, first is the warm-up): "
+            + ", ".join(f"{x:.1f}" for x in step_ms))
+        log(f"[w6] median step after the first {med:.2f} ms = {W6_BATCH / med * 1e3:.2f} "
+            f"trained images/s; the epoch's train_images_per_sec "
+            f"{m['train_images_per_sec']:.2f} (its first step included); peak memory "
+            f"{peak_gb:.2f} GB")
+
+        # the best checkpoint predicts the eval images on the card
+        t0 = time.perf_counter()
+        predictor = SemanticSegmentationPredictor.from_checkpoint(best)
+        masks = predictor.predict(pd.DataFrame({"image": eval_imgs}))["predicted_mask"]
+        pred_s = time.perf_counter() - t0
+        shapes = all(np.asarray(k).shape == im.shape[:2] for k, im in zip(masks, eval_imgs))
+        classes = sorted({int(c) for k in masks for c in np.unique(k)})
+        log(f"[w6] from the best checkpoint (loss {best.get_metrics()['loss']:.4f}): "
+            f"SemanticSegmentationPredictor on {predictor.model.device} predicted {len(masks)} "
+            f"masks in {pred_s:.2f} s (load included), each its image's size: {shapes}; "
+            f"{len(classes)} classes in them")
+        if predictor.model.device != dev or len(masks) != W6_EVAL or not shapes or \
+                not all(0 <= c < cfg.num_labels for c in classes):
+            raise AssertionError("[w6] prediction from the checkpoint")
+        del predictor, result, trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    launches = {k: n - before[k] for k, n in kernel_counts().items()}
+    if any(launches.values()):
+        raise AssertionError(f"[w6] SegFormer launched the attention kernels: {launches}")
+
+    # a profiled step on a fresh model (not counted)
+    from tpu_air_torch.train.segformer_trainer import _make_optimizer
+
+    model = SegformerForSemanticSegmentation(cfg, device=dev).init_weights(SEED).train()
+    step = make_step(model, _make_optimizer(args, 4, model.parameters()),
+                     torch.Generator(device=dev).manual_seed(SEED + 1))
+    proc = SegformerImageProcessor(size=SEG_SIZE, do_reduce_labels=True)
+    feats = proc(train_imgs[:W6_BATCH], segmentation_maps=train_ann[:W6_BATCH])
+    px = torch.from_numpy(feats["pixel_values"]).to(dev)
+    lbl = torch.from_numpy(feats["labels"]).to(dev)
+    step(px, lbl)
+    prof_ms, kernels = profile_once(lambda: step(px, lbl))
+    busy = sum(t for t, _ in kernels.values())
+    classes = kernel_classes(kernels)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[w6] a profiled step: {prof_ms:.1f} ms wall, device busy {busy:.1f} ms (profiler: a "
+        f"floor), idle share {1 - busy / prof_ms:.4f} (of the median step: "
+        f"{1 - busy / med:.4f}), {sum(c for _, c in kernels.values()):.0f} kernels; by class: "
+        + "; ".join(f"{k} {t:.2f} ms x{c:g}" for k, (t, c) in
+                    sorted(classes.items(), key=lambda kv: -kv[1][0]))
+        + "; heaviest: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c:g}" for k, (t, c) in top))
+    del model, step, px, lbl
+    torch.cuda.empty_cache()
+    return {"losses": losses, "epoch_loss": m["loss"], "eval_loss": m["eval_loss"],
+            "step_ms": step_ms, "step_ms_median": med, "images_per_s": W6_BATCH / med * 1e3,
+            "epoch_train_images_per_sec": m["train_images_per_sec"], "peak_memory_gb": peak_gb,
+            "fit_wall_s": fit_wall, "bn_moved": moved, "profiled_step_ms": prof_ms,
+            "step_device_busy_ms": busy, "step_idle_share": 1 - busy / prof_ms,
+            "step_device_ms_by_class": {k: t for k, (t, _) in classes.items()},
+            "predict_s": pred_s, "launches": launches}
+
+
+def w6_parity(dev) -> dict:
+    """One f32 training step at MiT-b0 width, depths cut to [1, 1, 1, 1],
+    dropout and drop-path 0, batch 2 at 128^2, on the card and on the CPU
+    from the same weights, TF32 off: the loss, every gradient and the batch
+    norm's running stats.  Bounds: loss 1e-5 relative; each gradient
+    ||card - cpu|| <= 1e-3 ||cpu|| + 1e-6 of the largest gradient norm
+    (cuDNN's and oneDNN's f32 convolution algorithms sum in other orders,
+    some through transforms; the linear_c biases' gradients are 0 in exact
+    arithmetic, the batch norm's mean cancelling them, so they are rounding
+    noise on both); running stats 1e-5."""
+    from tpu_air_torch.models.segformer.modeling import (SegformerForSemanticSegmentation,
+                                                         segmentation_loss)
+
+    cfg = seg_config(depths=[1, 1, 1, 1], dropout=False)
+    rng = np.random.default_rng(SEED + 80)
+    px = torch.from_numpy(rng.standard_normal((W6_PARITY_BATCH, W6_PARITY_HW, W6_PARITY_HW, 3),
+                                              dtype=np.float32))
+    labels = rng.integers(0, cfg.num_labels, (W6_PARITY_BATCH, W6_PARITY_HW, W6_PARITY_HW))
+    labels[:, :16] = 255
+    labels = torch.from_numpy(labels)
+    runs = {}
+    for where in ("cpu", str(dev)):
+        model = SegformerForSemanticSegmentation(cfg, device=where).init_weights(SEED).train()
+        loss = segmentation_loss(model(px.to(where)), labels.to(where))
+        loss.backward()
+        runs[where] = (float(loss.detach()),
+                       {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                       {n: b.detach().cpu() for n, b in model.named_buffers()})
+        del model, loss
+    (lc, gc, bc), (lg, gg, bg) = runs["cpu"], runs[str(dev)]
+    loss_rel = abs(lg - lc) / abs(lc)
+    biggest = max(float(g.norm()) for g in gc.values())
+    errs = {n: float((gg[n] - gc[n]).norm()) / (float(gc[n].norm()) + 1e-3 * biggest)
+            for n in gc}
+    worst = max(errs, key=errs.get)
+    stats_err = max(float((bg[n] - bc[n]).abs().max()) for n in bc)
+    log(f"[w6 parity] f32, MiT-b0 width, depths {cfg.depths}, dropout 0, batch "
+        f"{W6_PARITY_BATCH} x {W6_PARITY_HW}^2, TF32 off: loss card {lg:.7f} cpu {lc:.7f} (rel "
+        f"diff {loss_rel:.2e}); gradients ||card - cpu|| / (||cpu|| + 1e-3 max) max "
+        f"{errs[worst]:.2e} ({worst}) over {len(errs)} tensors; running stats max abs diff "
+        f"{stats_err:.2e}")
+    if not (loss_rel < 1e-5 and errs[worst] < 1e-3 and stats_err < 1e-5):
+        raise AssertionError(f"[w6 parity] loss rel {loss_rel}, grad {worst} {errs[worst]}, "
+                             f"stats {stats_err}")
+    return {"loss_card": lg, "loss_cpu": lc, "loss_rel_diff": loss_rel,
+            "grad_max_err": errs[worst], "grad_worst_tensor": worst, "stats_max_err": stats_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -2359,12 +2913,19 @@ def main() -> int:
             n = w2_stats["launches"][where].get(r["name"], 0)
             r["launches_by_path"][where] = n
             r["launches"] += n
+    w7_stats = w7_path(dev)
+    w6_stats = w6_path(dev)
+    w6_stats["parity"] = w6_parity(dev)
+    for r in kernels:       # SegFormer runs no attention kernel (both phases check it)
+        r["launches_by_path"]["w7_in_process"] = w7_stats["launches"][r["name"]]
+        r["launches_by_path"]["w6_fit"] = w6_stats["launches"][r["name"]]
     stop_processes()
     log("[processes] every process this run started has exited")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"kernels": kernels, "main": main_stats, "lm": lm_stats, "w1": w1_stats,
-                      "batch": batch_stats, "w2": w2_stats}), flush=True)
+                      "batch": batch_stats, "w2": w2_stats, "w7": w7_stats, "w6": w6_stats}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -512,3 +512,48 @@ def test_tune_trials_train_on_the_leased_card(dev, tmp_path):
         assert probe["device"] == "cuda:0" and probe["allocated"] > 0
         assert probe["flash"] > 0
         assert len(r.metrics_history) == 2
+
+
+def test_segformer_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
+    """W7 in small: a tiny SegFormer's JAX-format checkpoint (batch-norm
+    stats in its extras) loads onto cuda:0 by default; its masks equal the
+    CPU predictor's except where an image's top two logits lie within 1e-4
+    (f32 on both, TF32 off: the card and the CPU sum in other orders); and a
+    train-mode step on the card moves the batch norm's running stats as it
+    does on the CPU (1e-5)."""
+    import pandas as pd
+
+    from tpu_air_torch.models.segformer import SegformerConfig
+    from tpu_air_torch.models.segformer.image_processor import _resize
+    from tpu_air_torch.models.segformer.modeling import SegformerForSemanticSegmentation
+    from tpu_air_torch.predict import SemanticSegmentationPredictor
+    from tpu_air_torch.train import Checkpoint
+
+    cfg = SegformerConfig.tiny()
+    model = SegformerForSemanticSegmentation(cfg, device="cpu").init_weights(0)
+    path = str(tmp_path / "ckpt")
+    Checkpoint.from_model(model_config=cfg, params=model.state_dict(), format="jax", path=path)
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, size=(h, w, 3)).astype(np.uint8)
+              for h, w in ((96, 128), (120, 100), (64, 64))]
+    df = pd.DataFrame({"image": images})
+    card = SemanticSegmentationPredictor.from_checkpoint(Checkpoint.from_directory(path))
+    assert card.model.device == torch.device("cuda", 0)
+    cpu = SemanticSegmentationPredictor.from_checkpoint(Checkpoint.from_directory(path),
+                                                        device="cpu")
+    got = card.predict(df)["predicted_mask"]
+    want = cpu.predict(df)["predicted_mask"]
+    px = cpu.feature_extractor(images)["pixel_values"]
+    with torch.no_grad():
+        logits = cpu.model(torch.from_numpy(px)).numpy()
+    for g, w, lg, im in zip(got, want, logits, images):
+        assert g.shape == w.shape == im.shape[:2]
+        up = np.sort(_resize(lg, *im.shape[:2], nearest=False), axis=-1)
+        assert ((g == w) | (up[..., -1] - up[..., -2] < 1e-4)).all()
+    x = torch.from_numpy(px)
+    stats = []
+    for m in (card.model, cpu.model):
+        m.train()
+        m(x.to(m.device))
+        stats.append(m.decode_head.batch_norm.running_var.cpu())
+    assert torch.allclose(stats[0], stats[1], atol=1e-5, rtol=0)

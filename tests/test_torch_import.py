@@ -44,7 +44,13 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
                 "tpu_air_torch.tune.tuner", "tpu_air_torch.tune.schedulers",
                 "tpu_air_torch.tune.search", "tpu_air_torch.tune.result_grid",
                 "tpu_air_torch.train.gbdt_trainer", "tpu_air_torch.train.hist_gbdt",
-                "tpu_air_torch.parallel.collectives"):
+                "tpu_air_torch.parallel.collectives", "tpu_air_torch.models.segformer",
+                "tpu_air_torch.models.segformer.config",
+                "tpu_air_torch.models.segformer.image_processor",
+                "tpu_air_torch.models.segformer.modeling",
+                "tpu_air_torch.models.segformer.convert",
+                "tpu_air_torch.models.segformer.hf_import",
+                "tpu_air_torch.train.segformer_trainer", "tpu_air_torch.predict.predictors"):
         assert new in mods, new
     code = (
         "import importlib, sys\n"
@@ -96,14 +102,19 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert any(n.startswith("tpu_air_torch") for n in names)
 
 
-def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from tpu_air_torch.device import resolve_device
     from tpu_air_torch.models.lm import CausalLM, LMConfig
+    from tpu_air_torch.models.segformer import (SegformerConfig,
+                                                SegformerForImageClassification,
+                                                SegformerForSemanticSegmentation,
+                                                load_segformer_from_hf)
     from tpu_air_torch.models.t5.config import T5Config
     from tpu_air_torch.models.t5.hf_import import load_t5
     from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
-    from tpu_air_torch.predict.predictors import T5GenerativePredictor
-    from tpu_air_torch.train import LMTrainer
+    from tpu_air_torch.predict.predictors import (SemanticSegmentationPredictor,
+                                                  T5GenerativePredictor, TorchPredictor)
+    from tpu_air_torch.train import Checkpoint, LMTrainer, SegformerTrainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -119,6 +130,25 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         load_t5(asset)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T5GenerativePredictor.from_pretrained(asset)
+    seg = SegformerConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SegformerForSemanticSegmentation(seg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SegformerForImageClassification(seg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SegformerTrainer(model_config=seg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_segformer_from_hf(str(tmp_path / "no_such_model"))
+    cpu_model = SegformerForSemanticSegmentation(seg, device="cpu").init_weights(0)
+    ckpt = Checkpoint.from_model(model_config=seg, params=cpu_model.state_dict(),
+                                 path=str(tmp_path / "seg"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SemanticSegmentationPredictor.from_checkpoint(ckpt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchPredictor.from_checkpoint(ckpt, apply_fn=lambda p, **f: p)
+    assert SemanticSegmentationPredictor.from_checkpoint(
+        ckpt, device="cpu").model.device == torch.device("cpu")
+    assert SegformerTrainer(model_config=seg, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     model = T5ForConditionalGeneration(T5Config.tiny(), device="cpu")
     assert model.device == torch.device("cpu")

@@ -15,9 +15,9 @@ tpu_air.  The runtime's API sits at the top level, as in tpu_air::
     tpu_air_torch.shutdown()
 
 Subpackages mirror tpu_air's layout (``core``, ``data``, ``models.t5``,
-``models.lm``, ``ops``, ``parallel``, ``predict``, ``train``, ``tune``) and
-are imported on first use (``tpu_air_torch.tune``) or explicitly; importing
-this package builds nothing.
+``models.lm``, ``models.segformer``, ``ops``, ``parallel``, ``predict``,
+``train``, ``tune``) and are imported on first use (``tpu_air_torch.tune``)
+or explicitly; importing this package builds nothing.
 """
 
 from tpu_air_torch.core import (

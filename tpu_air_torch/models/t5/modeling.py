@@ -37,33 +37,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_air_torch.device import DeviceLike, resolve_device
-from tpu_air_torch.models.layers import Dense, Embed
+from tpu_air_torch.models.layers import Dense, Embed, dropout, torch_dtype  # noqa: F401
 from tpu_air_torch.ops.decode_attention import decode_attention
 from tpu_air_torch.ops.flash_attention import flash_attention
 
 from .config import T5Config
 
 NEG_INF = -1e9
-
-# the types the port's kernels take
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
-
-
-def torch_dtype(name) -> torch.dtype:
-    if isinstance(name, torch.dtype):
-        return name
-    if name not in _DTYPES:
-        raise ValueError(f"unsupported dtype {name!r}")
-    return _DTYPES[name]
-
-
-def dropout(x, rate: float, generator: Optional[torch.Generator]):
-    """Flax's ``nn.Dropout``: keep each element with probability 1 - rate
-    and scale it by 1 / (1 - rate), in x's type.  The mask comes from
-    ``generator`` (on x's device), so a seed fixes every mask of a step."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class RMSNorm(nn.Module):

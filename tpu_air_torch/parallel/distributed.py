@@ -14,6 +14,9 @@ all-reduces its token count and then the gradients of
 ``local_sum / global_count`` with a SUM (:func:`all_reduce_grads`), which
 is the JAX step's gradient of the global mean; averaging per-rank means, as
 plain DDP does, differs whenever the ranks hold different token counts.
+Statistics of the global batch inside the model (SegFormer's batch norm)
+sum over the workers with :func:`cross_replica_sum`, which is
+differentiable: its backward sums the cotangents over the workers too.
 """
 
 from __future__ import annotations
@@ -41,6 +44,35 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     if world()[1] > 1:
         dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return t
+
+
+def cross_replica_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the workers as a differentiable op (``t`` itself
+    with one): the backward sums the cotangents over the workers too, so a
+    statistic of the global batch (a batch norm's moments) gets the
+    gradient of every worker's loss.  ``torch.nn.SyncBatchNorm`` refuses
+    CPU tensors, so a gloo group cannot use it."""
+    if world()[1] == 1:
+        return t
+    return _CrossReplicaSum.apply(t)
+
+
+class _CrossReplicaSum(torch.autograd.Function):
+    """A SUM all-reduce whose backward is a SUM all-reduce of the cotangent
+    (what ``torch.distributed.nn.functional.all_reduce`` does, without its
+    deprecation)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM)
+        return g
 
 
 def all_reduce_grads(params: Sequence[torch.nn.Parameter]) -> None:

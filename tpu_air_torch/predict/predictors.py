@@ -5,6 +5,14 @@
   :func:`tpu_air_torch.models.t5.generate.generate` on the model's device
   and decodes to a ``generated_output`` column.  Its constructors cast the
   weights to the inference type once, at load.
+* ``TorchPredictor`` — the generic forward pass ``apply_fn(params,
+  **features)`` (the JAX package's ``JaxPredictor``, under the reference's
+  name), with the checkpoint's state dict and the features on the device.
+* ``SemanticSegmentationPredictor`` — SegFormer batch inference (W7), the
+  counterpart of ``tpu_air.predict.predictors.SemanticSegmentationPredictor``:
+  feature-extract on the host, the forward on the model's device under
+  ``torch.inference_mode()``, ``post_process_semantic_segmentation`` on
+  the logits where they lie, per-image class maps at each image's size.
 * ``GBDTPredictor`` — the ``XGBoostPredictor`` analog over the host-side
   estimator ``GBDTTrainer`` checkpoints (``HistGBDT`` or sklearn), copied
   from the JAX package: numpy, no card.
@@ -12,13 +20,13 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import pandas as pd
 import torch
 
-from tpu_air_torch.device import DeviceLike
+from tpu_air_torch.device import DeviceLike, resolve_device
 from tpu_air_torch.predict.predictor import Predictor
 
 
@@ -93,6 +101,106 @@ class T5GenerativePredictor(Predictor):
         else:
             texts = [" ".join(map(str, row)) for row in seqs]
         return pd.DataFrame({"generated_output": texts})
+
+
+class TorchPredictor(Predictor):
+    """Generic forward-pass predictor: ``apply_fn(params, **features)``,
+    where ``params`` is a state dict on the predictor's device and each
+    feature a tensor there; the output comes back as a numpy column."""
+
+    def __init__(self, apply_fn: Callable, params: Mapping[str, torch.Tensor],
+                 preprocessor=None, output_column: str = "predictions",
+                 device: DeviceLike = None):
+        super().__init__(preprocessor)
+        self.device = resolve_device(device)
+        self.apply_fn = apply_fn
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.output_column = output_column
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint, *, apply_fn: Callable, dtype=None,
+                        device: DeviceLike = None) -> "TorchPredictor":
+        """The checkpoint's state dict (floating tensors cast to ``dtype``
+        once, here) on ``device`` (``cuda:0`` by default) and its fitted
+        preprocessor."""
+        return cls(apply_fn, checkpoint.get_params(dtype=dtype), checkpoint.get_preprocessor(),
+                   device=device)
+
+    def _predict_numpy(self, data: Dict[str, np.ndarray], **kwargs) -> pd.DataFrame:
+        feats = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in data.items()}
+        with torch.inference_mode():
+            out = self.apply_fn(self.params, **feats, **kwargs)
+        out = out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+        if out.ndim > 1 and out.shape[-1] == 1:
+            out = out[..., 0]
+        col = list(out) if out.ndim > 1 else out
+        return pd.DataFrame({self.output_column: col})
+
+
+class SemanticSegmentationPredictor(Predictor):
+    """SegFormer batch-inference predictor (the reference's custom
+    ``SemanticSegmentationPredictor`` analog,
+    Scaling_batch_inference.ipynb:cc-73): feature-extract → forward →
+    ``post_process_semantic_segmentation`` → per-image class maps.
+
+    Pre-processing runs on the host; the forward runs NHWC on the model's
+    device under ``torch.inference_mode()``, and the logits are resized to
+    each image's size and reduced to class ids there, so only the int32
+    maps cross back to the host."""
+
+    def __init__(self, model, feature_extractor=None, preprocessor=None,
+                 output_column: str = "predicted_mask"):
+        super().__init__(preprocessor)
+        if feature_extractor is None:
+            from tpu_air_torch.models.segformer import SegformerImageProcessor
+
+            feature_extractor = SegformerImageProcessor()
+        self.model = model.eval()
+        self.feature_extractor = feature_extractor
+        self.output_column = output_column
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint, *, feature_extractor=None, dtype: Optional[str] = None,
+                        device: DeviceLike = None) -> "SemanticSegmentationPredictor":
+        """The model from the checkpoint's config, parameters and batch-norm
+        stats on ``device`` (``cuda:0``, or the leased card in an actor, by
+        default), cast to ``dtype`` once, here; the feature extractor given,
+        else the one in the checkpoint's extras, else a default one."""
+        model = checkpoint.get_model(dtype=dtype, device=device)
+        if feature_extractor is None:
+            feature_extractor = (checkpoint._load_extras() or {}).get("feature_extractor")
+        # NB: deliberately does NOT attach the checkpoint's train-time
+        # preprocessor — the reference's segmentation predictor consumes raw
+        # images and applies its feature extractor inside _predict_pandas
+        # (Scaling_batch_inference.ipynb:cc-73); the fitted-preprocessor
+        # auto-apply contract belongs to the tabular/text predictors.
+        return cls(model, feature_extractor=feature_extractor)
+
+    def _predict_pandas(self, data: pd.DataFrame, **_: Any) -> pd.DataFrame:
+        from tpu_air_torch.models.segformer.image_processor import (
+            _to_numpy_image,
+            collate_pixel_batch,
+        )
+
+        if "pixel_values" in data.columns:
+            px = collate_pixel_batch(data["pixel_values"])
+            sizes = [tuple(px.shape[1:3])] * len(px)
+        else:
+            col = "image" if "image" in data.columns else data.columns[0]
+            # normalize layout first — raw CHW arrays would otherwise yield
+            # (channels, height) target sizes
+            images = [_to_numpy_image(im) for im in data[col]]
+            sizes = [im.shape[:2] for im in images]
+            px = self.feature_extractor(images)["pixel_values"]
+        device = self.model.device
+        x = torch.from_numpy(np.ascontiguousarray(px, np.float32))   # a fresh stack: writable
+        if device.type == "cuda":
+            x = x.pin_memory()
+        with torch.inference_mode():
+            logits = self.model(x.to(device, non_blocking=True))
+            maps = self.feature_extractor.post_process_semantic_segmentation(
+                logits, target_sizes=sizes)
+        return pd.DataFrame({self.output_column: maps})
 
 
 class GBDTPredictor(Predictor):

@@ -1,6 +1,7 @@
 """tpu_air_torch.train — the Trainer API (counterpart of tpu_air.train):
-FLAN-T5 fine-tuning and the long-context LM trainer on the card, the
-function trainer, the host-side GBDT trainer and the session API."""
+FLAN-T5 fine-tuning, SegFormer fine-tuning and the long-context LM trainer
+on the card, the function trainer, the host-side GBDT trainer and the
+session API."""
 
 from . import session
 from .checkpoint import Checkpoint
@@ -8,6 +9,7 @@ from .config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig
 from .gbdt_trainer import GBDTTrainer, XGBoostTrainer
 from .lm_trainer import LMTrainer, lm_train_loop
 from .result import Result
+from .segformer_trainer import SegformerTrainer, segformer_train_loop
 from .session import StopTrial, get_dataset_shard, get_session, report
 from .t5_trainer import T5Trainer, TrainingArguments, t5_train_loop
 from .trainer import BaseTrainer, TorchTrainer
@@ -22,6 +24,7 @@ __all__ = [
     "Result",
     "RunConfig",
     "ScalingConfig",
+    "SegformerTrainer",
     "StopTrial",
     "T5Trainer",
     "TorchTrainer",
@@ -31,6 +34,7 @@ __all__ = [
     "get_session",
     "lm_train_loop",
     "report",
+    "segformer_train_loop",
     "session",
     "t5_train_loop",
 ]

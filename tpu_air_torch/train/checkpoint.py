@@ -7,13 +7,14 @@ is backed by a dict or by a directory::
 
     checkpoint/
       kind.json            # {"kind": "torch_model" | "jax_model" | "dict"}
-      model_config.json    # LMConfig / T5Config, tagged by "model_type"
+      model_config.json    # LMConfig / T5Config / SegformerConfig, tagged by "model_type"
       params.pt            # torch_model: the model's state dict (torch.save, f32)
       params.msgpack       # jax_model: the Flax param tree (flax's msgpack)
       tokenizer/           # the tokenizer's save_pretrained
       preprocessor.pkl     # the fitted preprocessor (cloudpickle)
       metrics.json
-      extras.pkl           # a GBDT/sklearn estimator and its extras (cloudpickle)
+      extras.pkl           # a GBDT/sklearn estimator and its extras (cloudpickle);
+                           # a jax_model SegFormer's batch-norm stats ("batch_stats")
       data.pkl             # a dict checkpoint written to a directory
 
 Both directions with the JAX package: a ``jax_model`` directory that
@@ -23,9 +24,15 @@ models' ``params_from_jax``, no flax needed), and ``from_model(...,
 format="jax")`` writes one that the JAX package loads.  Pickled files
 (``preprocessor.pkl``, ``extras.pkl``, ``data.pkl``) are read with
 :class:`PortUnpickler`, which maps the JAX package's preprocessor,
-tokenizer and histogram-GBDT classes to the port's copies and refuses any
-other ``tpu_air`` module, so loading never imports the JAX package.  What
-cannot be read raises, naming it.
+tokenizer, histogram-GBDT and SegFormer image-processor and config classes
+to the port's copies and refuses any other ``tpu_air`` module, so loading
+never imports the JAX package.  What cannot be read raises, naming it.
+
+A SegFormer's batch-norm running stats are buffers of the port's model, in
+its state dict; in the JAX layout they are the ``batch_stats`` collection,
+which the JAX package keeps in ``extras.pkl`` beside ``params.msgpack``.
+So a ``jax_model`` SegFormer checkpoint is read from both files, and
+``from_model(..., format="jax")`` writes the stats there.
 
 Loading morphs the type: ``get_params(dtype=...)`` and
 ``get_model(dtype=..., device=...)`` cast once, at load.
@@ -38,7 +45,7 @@ import os
 import pickle
 import shutil
 import tempfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -48,6 +55,8 @@ from tpu_air_torch.device import DeviceLike
 # The JAX package's modules the port has copied, by the module of the copy.
 _COPIED_MODULES = {
     "tpu_air.data.preprocessors": "tpu_air_torch.data.preprocessors",
+    "tpu_air.models.segformer.config": "tpu_air_torch.models.segformer.config",
+    "tpu_air.models.segformer.image_processor": "tpu_air_torch.models.segformer.image_processor",
     "tpu_air.models.tokenizer": "tpu_air_torch.models.tokenizer",
     "tpu_air.train.hist_gbdt": "tpu_air_torch.train.hist_gbdt",
 }
@@ -85,21 +94,34 @@ def _load_pickle(path: str):
 
 def _model_class(config):
     from tpu_air_torch.models.lm import CausalLM, LMConfig
+    from tpu_air_torch.models.segformer import (SegformerConfig,
+                                                SegformerForSemanticSegmentation)
     from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
 
+    if isinstance(config, SegformerConfig):
+        return SegformerForSemanticSegmentation
     return CausalLM if isinstance(config, LMConfig) else T5ForConditionalGeneration
 
 
-def _params_to_jax(params: Dict[str, torch.Tensor], config) -> Dict[str, Any]:
+def _params_to_jax(params: Dict[str, torch.Tensor], config
+                   ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(the Flax param tree, what goes into ``extras.pkl`` beside it: a
+    SegFormer's ``batch_stats``)."""
     from tpu_air_torch.models.lm import LMConfig
+    from tpu_air_torch.models.segformer import SegformerConfig
 
     if isinstance(config, LMConfig):
         from tpu_air_torch.models.lm.convert import params_to_jax
 
-        return params_to_jax(params)
+        return params_to_jax(params), {}
+    if isinstance(config, SegformerConfig):
+        from tpu_air_torch.models.segformer.convert import params_to_jax
+
+        tree, batch_stats = params_to_jax(params, config)
+        return tree, {"batch_stats": batch_stats}
     from tpu_air_torch.models.t5.convert import params_to_jax
 
-    return params_to_jax(params, config)
+    return params_to_jax(params, config), {}
 
 
 class Checkpoint:
@@ -132,7 +154,8 @@ class Checkpoint:
         estimator (``sklearn_model``) goes into ``extras.pkl`` with
         ``extras``, as the JAX package lays it out.  ``format="jax"``
         writes the JAX package's layout (``kind`` ``jax_model``, the
-        parameters as a Flax tree in ``params.msgpack``), which
+        parameters as a Flax tree in ``params.msgpack``, a SegFormer's
+        batch-norm stats as ``extras["batch_stats"]``), which
         ``tpu_air.train.checkpoint.Checkpoint`` loads; it needs
         ``model_config`` to lay the parameters out."""
         if format not in ("torch", "jax"):
@@ -149,8 +172,11 @@ class Checkpoint:
         if params is not None and format == "jax":
             from tpu_air_torch.train import flax_msgpack
 
+            tree, beside = _params_to_jax(params, model_config)
             with open(os.path.join(path, "params.msgpack"), "wb") as f:
-                f.write(flax_msgpack.dumps(_params_to_jax(params, model_config)))
+                f.write(flax_msgpack.dumps(tree))
+            if beside:
+                extras = {**(extras or {}), **beside}
         elif params is not None:
             cpu = {k: v.detach().to("cpu") for k, v in params.items()}
             torch.save(cpu, os.path.join(path, "params.pt"))
@@ -240,6 +266,10 @@ class Checkpoint:
             return dd["model_config"]
         with open(self._dir_file("model_config.json")) as f:
             d = json.load(f)
+        if d.get("model_type") == "segformer" or "hidden_sizes" in d:
+            from tpu_air_torch.models.segformer import SegformerConfig
+
+            return SegformerConfig.from_dict(d)
         if d.get("model_type") == "causal_lm":
             from tpu_air_torch.models.lm import LMConfig
 
@@ -270,7 +300,7 @@ class Checkpoint:
                     params = self._params_from_msgpack(path)
         if params is None or dtype is None:
             return params
-        from tpu_air_torch.models.t5.modeling import torch_dtype
+        from tpu_air_torch.models.layers import torch_dtype
 
         dt = torch_dtype(dtype)
         return {k: v.to(dt) if v.is_floating_point() else v for k, v in params.items()}
@@ -278,8 +308,10 @@ class Checkpoint:
     def _params_from_msgpack(self, path: str) -> Dict[str, torch.Tensor]:
         """The JAX package's ``params.msgpack`` as the port's state dict,
         checked name by name and shape by shape against the model that
-        ``model_config.json`` describes."""
+        ``model_config.json`` describes; a SegFormer's batch-norm stats come
+        from ``extras.pkl``."""
         from tpu_air_torch.models.lm import LMConfig
+        from tpu_air_torch.models.segformer import SegformerConfig
         from tpu_air_torch.train import flax_msgpack
 
         config = self.get_model_config()
@@ -290,6 +322,14 @@ class Checkpoint:
                 from tpu_air_torch.models.lm.convert import params_from_jax
 
                 params = params_from_jax(tree)
+            elif isinstance(config, SegformerConfig):
+                from tpu_air_torch.models.segformer.convert import params_from_jax
+
+                stats = (self._load_extras() or {}).get("batch_stats")
+                if not stats:
+                    raise KeyError("extras.pkl holds no batch_stats (the batch norm's "
+                                   "running stats)")
+                params = params_from_jax(tree, stats, config)
             else:
                 from tpu_air_torch.models.t5.convert import params_from_jax
 
@@ -324,7 +364,7 @@ class Checkpoint:
         config = self.get_model_config()
         if dtype:
             config.dtype = dtype
-        from tpu_air_torch.models.t5.modeling import torch_dtype
+        from tpu_air_torch.models.layers import torch_dtype
 
         params = self.get_params()
         if params is None:
