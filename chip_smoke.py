@@ -132,13 +132,39 @@ Phases, each fatal on failure:
               predicts the 16 eval images on the card;
 19. w6 parity — one f32 step at MiT-b0 width, depths cut to 1, batch 2 at
               128^2, dropout 0, TF32 off, on the card and on the CPU from the
-              same weights: loss, every gradient and the running stats.
+              same weights: loss, every gradient and the running stats;
+20. w8       — W8 as the reference runs it, through
+              ``examples/torch_xgboost_e2e.py``'s functions: 2000 seeded
+              taxi-shaped rows, ``GBDTTrainer`` (binary:logistic, 50 rounds)
+              over a MinMaxScaler, ``Tuner`` with 3 samples, then
+              ``serve.run(PredictorDeployment.options(name="XGBoostService",
+              num_replicas=2, route_prefix="/rayair").bind(GBDTPredictor,
+              best_ckpt, http_adapter=pandas_read_json))`` on the host; 64
+              single-row POSTs and one POST of the 64 rows, equal to the
+              in-process ``GBDTPredictor.predict``; requests/s, p50/p99
+              latency;
+21. serve t5 — the ``[batch]`` phase's FLAN-T5-base checkpoint in bf16
+              through the serve plane, one replica leasing the card at a
+              time: (a) ``PredictorDeployment`` over
+              ``T5GenerativePredictor``, 8 prompts in one POST, equal to the
+              in-process predictor; (b) ``EngineDeployment`` over the T5
+              window engine (``max_batch=8, max_input_len=512,
+              max_new_tokens=64``): 16 ragged prompts (64-512 tokens) as two
+              blocking POSTs of 8, then as submit/poll streams from 4 client
+              threads, every answer token-identical to greedy decoding with
+              ``make_t5_prefill_fn``/``make_t5_decode_step_fn`` in process at
+              the window's shape; the replica reports its device (the card),
+              its launches of both kernels and the engine's TTFT and
+              decode-step times; (c) f32, depth cut to 2+2: the same two
+              POSTs through ``EngineDeployment`` with the kernels and with
+              the plain versions in the replica give equal tokens.
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
 generation) and read just after it; the W3 batch path's are counted in its
 scoring actor, a fresh process, around the batch it scores, and W2's
-trials' in each trial's actor, around its training function.  The SegFormer
+trials' in each trial's actor, around its training function, and the serve
+replicas' in each replica (a fresh process) over its whole life.  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -152,9 +178,11 @@ import ctypes
 import itertools
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -218,6 +246,16 @@ W2_SAMPLES, W2_MAX_T, W2_STEPS, W2_EVAL_ROWS = 4, 16, 2, 8
 SEG_IMAGES, SEG_SIZE, SEG_BATCH, SEG_ACTORS = 64, 512, 16, 2
 W6_BATCH, W6_STEPS, W6_TRAIN, W6_EVAL = 8, 6, 48, 16
 W6_PARITY_BATCH, W6_PARITY_HW = 2, 128
+# W8 dials: the reference's tabular arc (Introduction_to_Ray_AI_Runtime.ipynb
+# cc-21-74): 2000 taxi-shaped rows, 50 boosting rounds, 3 Tune samples, then
+# 64 single-row POSTs and one POST of the 64 rows to two replicas
+W8_ROWS, W8_ROUNDS, W8_SAMPLES, W8_POSTS = 2000, 50, 3, 64
+# serve dials: FLAN-T5-base through PredictorDeployment (8 prompts of 512
+# tokens, 32 new) and through EngineDeployment's window engine (16 ragged
+# prompts of 64-512 tokens, 4 client threads); parity at depth 2+2 in f32
+SERVE_BATCH, SERVE_NEW = 8, 32
+SERVE_CFG = {"max_batch": 8, "max_input_len": 512, "max_new_tokens": 64}
+SERVE_PROMPTS, SERVE_CLIENTS, SERVE_PARITY_LAYERS = 16, 4, 2
 
 
 def model_config():
@@ -2013,144 +2051,146 @@ def emitted_tokens(texts, cfg) -> int:
     return n
 
 
-def batch_path(dev) -> dict:
+def write_w3_checkpoint(dev, path: str) -> float:
+    """FLAN-T5-base width and depth, random weights from numpy seed 0,
+    written at ``path`` as the JAX package's checkpoint; its
+    ``params.msgpack`` MB."""
+    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
+    from tpu_air_torch.train import Checkpoint
+
+    cfg = model_config()
+    model = T5ForConditionalGeneration(cfg, device=dev).init_weights(SEED)
+    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    Checkpoint.from_model(model_config=cfg, params=params, format="jax", path=path)
+    return os.path.getsize(os.path.join(path, "params.msgpack")) / 1e6
+
+
+def batch_path(dev, path: str) -> dict:
     """W3 as the reference runs it: FLAN-T5-base width and depth, random
     weights from numpy seed 0, written as the JAX package's checkpoint
-    (``params.msgpack``), then ``tpu_air_torch.init()`` and
-    ``BatchPredictor.from_checkpoint(..., dtype="float16").predict(ds,
-    num_gpus_per_worker=1, batch_size=64, max_new_tokens=128)``: one
+    (``params.msgpack``) at ``path`` (phase 21 serves it again), then
+    ``tpu_air_torch.init()`` and ``BatchPredictor.from_checkpoint(...,
+    dtype="float16").predict(ds, num_gpus_per_worker=1, batch_size=64,
+    max_new_tokens=128)``: one
     scoring actor leases the card and generates for 64 prompts of 512
     tokens (ragged, one all-pad row).  Its outputs must equal, row for row,
     those of the in-process predictor on the same checkpoint."""
-    import shutil
-    import tempfile
-
     import pandas as pd
 
     import tpu_air_torch
     from tpu_air_torch.data import from_pandas
-    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
     from tpu_air_torch.predict import BatchPredictor, T5GenerativePredictor
     from tpu_air_torch.train import Checkpoint
 
     cfg = model_config()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke-w3-")
+    t0 = time.perf_counter()
+    mb = write_w3_checkpoint(dev, path)
+    log(f"[batch] FLAN-T5-base width, {cfg.num_layers}+{cfg.num_decoder_layers} layers, "
+        f"weights from numpy seed {SEED}, written in the JAX package's format "
+        f"(params.msgpack {mb:.1f} MB) in {time.perf_counter() - t0:.1f} s")
+    n, L, new = BATCH, PROMPT_LEN, NEW_TOKENS
+    ids, mask = prompts(n, L, cfg.vocab_size, SEED + 5)
+    df = pd.DataFrame({"input_ids": list(ids), "attention_mask": list(mask),
+                       "idx": np.arange(n)})
+    feats = ["input_ids", "attention_mask"]
+
+    t0 = time.perf_counter()
+    tpu_air_torch.init()
+    init_s = time.perf_counter() - t0
     try:
+        bp = BatchPredictor.from_checkpoint(Checkpoint.from_directory(path),
+                                            counting_predictor(), tokenizer=IdTokenizer(),
+                                            dtype="float16")
         t0 = time.perf_counter()
-        model = T5ForConditionalGeneration(cfg, device=dev).init_weights(SEED)
-        params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-        del model
-        torch.cuda.empty_cache()
-        path = os.path.join(tmp, "ckpt")
-        Checkpoint.from_model(model_config=cfg, params=params, format="jax", path=path)
-        del params
-        mb = os.path.getsize(os.path.join(path, "params.msgpack")) / 1e6
-        log(f"[batch] FLAN-T5-base width, {cfg.num_layers}+{cfg.num_decoder_layers} layers, "
-            f"weights from numpy seed {SEED}, written in the JAX package's format "
-            f"(params.msgpack {mb:.1f} MB) in {time.perf_counter() - t0:.1f} s")
-        n, L, new = BATCH, PROMPT_LEN, NEW_TOKENS
-        ids, mask = prompts(n, L, cfg.vocab_size, SEED + 5)
-        df = pd.DataFrame({"input_ids": list(ids), "attention_mask": list(mask),
-                           "idx": np.arange(n)})
-        feats = ["input_ids", "attention_mask"]
-
-        t0 = time.perf_counter()
-        tpu_air_torch.init()
-        init_s = time.perf_counter() - t0
-        try:
-            bp = BatchPredictor.from_checkpoint(Checkpoint.from_directory(path),
-                                                counting_predictor(), tokenizer=IdTokenizer(),
-                                                dtype="float16")
-            t0 = time.perf_counter()
-            out = bp.predict(from_pandas(df), num_gpus_per_worker=1, batch_size=n,
-                             max_new_tokens=new, feature_columns=feats,
-                             keep_columns=["idx"]).to_pandas()
-            wall = time.perf_counter() - t0
-        finally:
-            tpu_air_torch.shutdown()
-        out = out.sort_values("idx").reset_index(drop=True)
-        actor_s = float(out["actor_predict_s"].unique().sum())
-        load_s = float(out["actor_load_s"].unique().sum())
-        flash_n = int(out["flash_launches"].unique().sum())
-        decode_n = int(out["decode_launches"].unique().sum())
-        steps = decode_n // (2 * cfg.num_decoder_layers)
-        devices = sorted(set(out["device"]))
-        emitted = emitted_tokens(out["generated_output"], cfg)
-        log(f"[batch] BatchPredictor.predict: {n} prompts x {L} tokens -> {new} new tokens "
-            f"in one leased scoring actor on {devices}, f16: wall {wall:.3f} s (runtime "
-            f"init {init_s:.3f} s before it), {emitted / wall:.1f} generated tokens/s; the "
-            f"actor's predict {actor_s:.3f} s, share of the wall outside it (pool start-up, "
-            f"object store, data path) {1 - actor_s / wall:.3f}; of that, the actor's "
-            f"from_checkpoint (1 GB msgpack read and converted, model built, cast to f16) "
-            f"{load_s:.3f} s")
-        log(f"[batch] the actor's launches: flash {flash_n}, decode {decode_n} ({steps} decode "
-            f"steps; expect flash = {cfg.num_layers}, decode = 2 x {cfg.num_decoder_layers} "
-            "per step)")
-        if devices != ["cuda:0"]:
-            raise AssertionError(f"[batch] the scoring actor's model is on {devices}")
-        if flash_n != cfg.num_layers or steps <= 0 or \
-                decode_n != steps * 2 * cfg.num_decoder_layers or steps > new:
-            raise AssertionError(f"[batch] launches flash {flash_n}, decode {decode_n}")
-        if out["idx"].tolist() != list(range(n)):
-            raise AssertionError("[batch] rows lost or duplicated")
-
-        # the same rows through the in-process predictor of the same checkpoint
-        ref = T5GenerativePredictor.from_checkpoint(Checkpoint.from_directory(path),
-                                                    dtype="float16", device=dev,
-                                                    tokenizer=IdTokenizer())
-        want = ref.predict(df[feats], max_new_tokens=new)["generated_output"].tolist()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = ref.predict(df[feats], max_new_tokens=new)["generated_output"].tolist()
-        torch.cuda.synchronize()
-        inproc_s = time.perf_counter() - t0
-        same = out["generated_output"].tolist() == want
-        log(f"[batch] in-process T5GenerativePredictor on the same checkpoint, f16: "
-            f"{inproc_s:.3f} s warm ({emitted_tokens(again, cfg) / inproc_s:.1f} generated "
-            f"tokens/s); outputs identical to the batch path row for row: {same}")
-        if not same or again != want:
-            raise AssertionError("[batch] the batch path and the in-process predictor differ")
-        toks = np.stack([np.array(r.split(), dtype=np.int64) for r in want])
-        if toks.shape != (n, new) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"[batch] generated {toks.shape} ids out of range")
-        if (toks[-1] != cfg.pad_token_id).any():
-            raise AssertionError("[batch] the all-pad row did not stay finished")
-
-        # f16 at full width with random weights: does it stay finite?
-        tids, tmask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
-        with torch.no_grad():
-            enc = ref.model.encode(tids, tmask)
-            logits = ref.model(tids, tmask, torch.zeros(n, 1, dtype=torch.long, device=dev))
-        live = tmask.sum(1) > 0
-        finite = {"encoder": bool(torch.isfinite(enc).all()),
-                  "first_step_logits_live_rows": bool(torch.isfinite(logits[live]).all()),
-                  "encoder_max_abs": float(enc.float().abs().max())}
-        # and the kernel-free plain path in f16 on the card (not asserted: at
-        # full width, random weights and f16 a near-tie may flip a token)
-        with plain_attention():
-            plain = ref.predict(df[feats], max_new_tokens=new)["generated_output"].tolist()
-        ptoks = np.stack([np.array(r.split(), dtype=np.int64) for r in plain])
-        match = int((ptoks == toks).sum())
-        # a greedy row that flips once goes its own way after: where do they first differ
-        first = [int(np.flatnonzero(a != b)[0]) for a, b in zip(toks, ptoks) if (a != b).any()]
-        log(f"[batch] f16 finite: {finite}; kernel path vs plain path in f16: {match} of "
-            f"{toks.size} tokens equal, {int((ptoks == toks).all(1).sum())} of {n} rows; "
-            f"first differing step of the others: min {min(first, default=-1)}, median "
-            f"{int(np.median(first)) if first else -1}")
-        del ref, enc, logits
-        torch.cuda.empty_cache()
-        return {"wall_s": wall, "init_s": init_s, "tokens_per_s": emitted / wall,
-                "actor_predict_s": actor_s, "outside_actor_share": 1 - actor_s / wall,
-                "actor_load_s": load_s,
-                "launches": {"flash_attention": flash_n, "decode_attention": decode_n},
-                "steps": steps, "device": devices[0], "identical_to_in_process": same,
-                "in_process_s": inproc_s,
-                "in_process_tokens_per_s": emitted_tokens(again, cfg) / inproc_s,
-                "params_msgpack_mb": mb, "finite": finite,
-                "plain_tokens_equal": match, "tokens": int(toks.size),
-                "plain_first_diff_steps": first}
+        out = bp.predict(from_pandas(df), num_gpus_per_worker=1, batch_size=n,
+                         max_new_tokens=new, feature_columns=feats,
+                         keep_columns=["idx"]).to_pandas()
+        wall = time.perf_counter() - t0
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        tpu_air_torch.shutdown()
+    out = out.sort_values("idx").reset_index(drop=True)
+    actor_s = float(out["actor_predict_s"].unique().sum())
+    load_s = float(out["actor_load_s"].unique().sum())
+    flash_n = int(out["flash_launches"].unique().sum())
+    decode_n = int(out["decode_launches"].unique().sum())
+    steps = decode_n // (2 * cfg.num_decoder_layers)
+    devices = sorted(set(out["device"]))
+    emitted = emitted_tokens(out["generated_output"], cfg)
+    log(f"[batch] BatchPredictor.predict: {n} prompts x {L} tokens -> {new} new tokens "
+        f"in one leased scoring actor on {devices}, f16: wall {wall:.3f} s (runtime "
+        f"init {init_s:.3f} s before it), {emitted / wall:.1f} generated tokens/s; the "
+        f"actor's predict {actor_s:.3f} s, share of the wall outside it (pool start-up, "
+        f"object store, data path) {1 - actor_s / wall:.3f}; of that, the actor's "
+        f"from_checkpoint (1 GB msgpack read and converted, model built, cast to f16) "
+        f"{load_s:.3f} s")
+    log(f"[batch] the actor's launches: flash {flash_n}, decode {decode_n} ({steps} decode "
+        f"steps; expect flash = {cfg.num_layers}, decode = 2 x {cfg.num_decoder_layers} "
+        "per step)")
+    if devices != ["cuda:0"]:
+        raise AssertionError(f"[batch] the scoring actor's model is on {devices}")
+    if flash_n != cfg.num_layers or steps <= 0 or \
+            decode_n != steps * 2 * cfg.num_decoder_layers or steps > new:
+        raise AssertionError(f"[batch] launches flash {flash_n}, decode {decode_n}")
+    if out["idx"].tolist() != list(range(n)):
+        raise AssertionError("[batch] rows lost or duplicated")
+
+    # the same rows through the in-process predictor of the same checkpoint
+    ref = T5GenerativePredictor.from_checkpoint(Checkpoint.from_directory(path),
+                                                dtype="float16", device=dev,
+                                                tokenizer=IdTokenizer())
+    want = ref.predict(df[feats], max_new_tokens=new)["generated_output"].tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = ref.predict(df[feats], max_new_tokens=new)["generated_output"].tolist()
+    torch.cuda.synchronize()
+    inproc_s = time.perf_counter() - t0
+    same = out["generated_output"].tolist() == want
+    log(f"[batch] in-process T5GenerativePredictor on the same checkpoint, f16: "
+        f"{inproc_s:.3f} s warm ({emitted_tokens(again, cfg) / inproc_s:.1f} generated "
+        f"tokens/s); outputs identical to the batch path row for row: {same}")
+    if not same or again != want:
+        raise AssertionError("[batch] the batch path and the in-process predictor differ")
+    toks = np.stack([np.array(r.split(), dtype=np.int64) for r in want])
+    if toks.shape != (n, new) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"[batch] generated {toks.shape} ids out of range")
+    if (toks[-1] != cfg.pad_token_id).any():
+        raise AssertionError("[batch] the all-pad row did not stay finished")
+
+    # f16 at full width with random weights: does it stay finite?
+    tids, tmask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    with torch.no_grad():
+        enc = ref.model.encode(tids, tmask)
+        logits = ref.model(tids, tmask, torch.zeros(n, 1, dtype=torch.long, device=dev))
+    live = tmask.sum(1) > 0
+    finite = {"encoder": bool(torch.isfinite(enc).all()),
+              "first_step_logits_live_rows": bool(torch.isfinite(logits[live]).all()),
+              "encoder_max_abs": float(enc.float().abs().max())}
+    # and the kernel-free plain path in f16 on the card (not asserted: at
+    # full width, random weights and f16 a near-tie may flip a token)
+    with plain_attention():
+        plain = ref.predict(df[feats], max_new_tokens=new)["generated_output"].tolist()
+    ptoks = np.stack([np.array(r.split(), dtype=np.int64) for r in plain])
+    match = int((ptoks == toks).sum())
+    # a greedy row that flips once goes its own way after: where do they first differ
+    first = [int(np.flatnonzero(a != b)[0]) for a, b in zip(toks, ptoks) if (a != b).any()]
+    log(f"[batch] f16 finite: {finite}; kernel path vs plain path in f16: {match} of "
+        f"{toks.size} tokens equal, {int((ptoks == toks).all(1).sum())} of {n} rows; "
+        f"first differing step of the others: min {min(first, default=-1)}, median "
+        f"{int(np.median(first)) if first else -1}")
+    del ref, enc, logits
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "init_s": init_s, "tokens_per_s": emitted / wall,
+            "actor_predict_s": actor_s, "outside_actor_share": 1 - actor_s / wall,
+            "actor_load_s": load_s,
+            "launches": {"flash_attention": flash_n, "decode_attention": decode_n},
+            "steps": steps, "device": devices[0], "identical_to_in_process": same,
+            "in_process_s": inproc_s,
+            "in_process_tokens_per_s": emitted_tokens(again, cfg) / inproc_s,
+            "params_msgpack_mb": mb, "finite": finite,
+            "plain_tokens_equal": match, "tokens": int(toks.size),
+            "plain_first_diff_steps": first}
 
 
 # -- phase 16 ----------------------------------------------------------------------
@@ -2865,6 +2905,383 @@ def w6_parity(dev) -> dict:
             "grad_max_err": errs[worst], "grad_worst_tensor": worst, "stats_max_err": stats_err}
 
 
+# -- phases 20 and 21 ------------------------------------------------------------
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface for the serve proxy."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def post_json(port: int, path: str, payload, headers=None, timeout: float = 600.0):
+    """(body, headers) of a JSON POST to the serve proxy on this host."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read()), dict(resp.headers)
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def w8_path(port: int) -> dict:
+    """W8 as the reference runs it, through ``examples/torch_xgboost_e2e.py``:
+    seeded taxi-shaped rows, ``GBDTTrainer`` (binary:logistic, 50 rounds)
+    over a MinMaxScaler, ``Tuner`` with 3 samples, then ``serve.run(
+    PredictorDeployment.options(name="XGBoostService", num_replicas=2,
+    route_prefix="/rayair").bind(GBDTPredictor, best_ckpt,
+    http_adapter=pandas_read_json))`` on the host; single-row POSTs, then one
+    POST of all the rows.  The answers must equal the in-process
+    ``GBDTPredictor.predict`` on the same rows, as the adapter parses them."""
+    from tpu_air_torch import serve
+    from tpu_air_torch.predict import GBDTPredictor
+    from tpu_air_torch.serve import pandas_read_json
+
+    ex = example_module("torch_xgboost_e2e")
+    t0 = time.perf_counter()
+    result, best, valid_ds = ex.train_and_tune(ex.make_taxi_like(W8_ROWS),
+                                               num_boost_round=W8_ROUNDS,
+                                               num_samples=W8_SAMPLES)
+    fit_s = time.perf_counter() - t0
+    records = valid_ds.drop_columns(["is_big_tip"]).to_pandas().head(W8_POSTS) \
+        .to_dict(orient="records")
+    want = GBDTPredictor.from_checkpoint(best.checkpoint).predict(
+        pandas_read_json(json.dumps(records).encode()))["predictions"].tolist()
+    try:
+        t0 = time.perf_counter()
+        ex.serve_best(best.checkpoint, port)
+        start_s = time.perf_counter() - t0
+        single, lat = [], []
+        for r in records:
+            t0 = time.perf_counter()
+            single += [o["predictions"] for o in ex.post_rows(port, [r])]
+            lat.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        batch = [o["predictions"] for o in ex.post_rows(port, records)]
+        batch_s = time.perf_counter() - t0
+    finally:
+        serve.shutdown()
+    lat_ms = np.array(lat) * 1e3
+    log(f"[w8] {W8_ROWS} taxi-shaped rows, GBDTTrainer {W8_ROUNDS} rounds + Tuner "
+        f"{W8_SAMPLES} samples in {fit_s:.3f} s (best {best.config['params']}, "
+        f"valid-logloss {best.metrics['valid-logloss']:.4f}); serve.run of 2 replicas "
+        f"{start_s:.3f} s; {len(records)} single-row POSTs: {len(records) / lat_ms.sum() * 1e3:.1f} "
+        f"requests/s, latency p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
+        f"{np.percentile(lat_ms, 99):.3f} ms; one POST of {len(records)} rows "
+        f"{batch_s * 1e3:.3f} ms; equal to the in-process predictor: "
+        f"{single == want and batch == want}; card: {card_line()}")
+    if single != want or batch != want:
+        raise AssertionError(f"[w8] HTTP answers differ from the in-process predictor:\n"
+                             f"{single}\n{batch}\n{want}")
+    return {"fit_s": fit_s, "serve_start_s": start_s,
+            "requests_per_s": len(records) / lat_ms.sum() * 1e3,
+            "latency_p50_ms": float(np.percentile(lat_ms, 50)),
+            "latency_p99_ms": float(np.percentile(lat_ms, 99)),
+            "batch_post_ms": batch_s * 1e3, "rows": len(records),
+            "best_config": best.config["params"], "equal_to_in_process": True}
+
+
+def gained(before: dict, after: dict) -> dict:
+    """Count and p50/p95/p99 of the samples an ``EngineMetrics`` histogram
+    summary gained between two snapshots, interpolated inside the buckets
+    as the histogram's own quantiles are."""
+    from tpu_air_torch.observability.perf import bucket_upper
+
+    old = before.get("buckets") or {}
+    diff = {int(k): int(v) - int(old.get(k, 0)) for k, v in (after.get("buckets") or {}).items()}
+    n = sum(diff.values())
+    out = {"count": n}
+    for name, q in (("p50", 0.50), ("p95", 0.95), ("p99", 0.99)):
+        cum = 0
+        for idx in sorted(i for i in diff if diff[i] > 0):
+            cum += diff[idx]
+            if cum >= q * n:
+                lo, hi = bucket_upper(idx - 1), bucket_upper(idx)
+                out[name] = lo + (q * n - (cum - diff[idx])) / diff[idx] * (hi - lo)
+                break
+    return out
+
+
+def serve_prompts(n: int, vocab: int, seed: int) -> list:
+    """``n`` prompts of 64-512 tokens (an eighth of ``max_input_len`` to all
+    of it) from a seed."""
+    rng = np.random.default_rng(seed)
+    li = SERVE_CFG["max_input_len"]
+    return [rng.integers(2, vocab, int(n_tok)).tolist()
+            for n_tok in rng.integers(li // 8, li + 1, n)]
+
+
+def window_tokens(model, prompts_: list) -> list:
+    """Greedy decoding with ``make_t5_prefill_fn`` / ``make_t5_decode_step_fn``
+    over the engine's window batches (``max_batch`` rows of
+    ``max_input_len`` tokens, all-pad filler), in process, EOS inclusive:
+    what every engine stream must equal."""
+    from tpu_air_torch.models.t5.generate import make_t5_decode_step_fn, make_t5_prefill_fn
+
+    cfg = model.config
+    b, li, new = SERVE_CFG["max_batch"], SERVE_CFG["max_input_len"], SERVE_CFG["max_new_tokens"]
+    prefill, step = make_t5_prefill_fn(model, new + 1), make_t5_decode_step_fn(model)
+    out = []
+    for w in range(0, len(prompts_), b):
+        chunk = prompts_[w:w + b]
+        ids = np.full((b, li), cfg.pad_token_id, np.int64)
+        mask = np.zeros((b, li), np.int64)
+        for r, p in enumerate(chunk):
+            ids[r, :len(p)], mask[r, :len(p)] = p, 1
+        tok, cache, _ = prefill(torch.from_numpy(ids).to(model.device),
+                                torch.from_numpy(mask).to(model.device))
+        toks = [tok]
+        for _ in range(new - 1):
+            cache, tok = step(cache, tok)
+            toks.append(tok)
+        for row in torch.stack(toks, 1).cpu().tolist()[:len(chunk)]:
+            out.append(row[:row.index(cfg.eos_token_id) + 1] if cfg.eos_token_id in row else row)
+    return out
+
+
+def engine_streams(port: int, route: str, prompts_: list, clients: int) -> list:
+    """Each prompt as a submit/poll stream over HTTP from ``clients`` client
+    threads: each thread submits its share of the prompts, then polls its
+    streams in turn every 10 ms until all are done, each poll pinned to the
+    replica that took the submit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def client(share):
+        streams = []
+        for prompt in share:
+            sub, headers = post_json(port, route, {
+                "action": "submit", "prompt": prompt,
+                "max_new_tokens": SERVE_CFG["max_new_tokens"]})
+            streams.append((sub["request_id"],
+                            {"x-tpu-air-replica": headers["x-tpu-air-replica"]}, []))
+        done = [False] * len(streams)
+        while not all(done):
+            for i, (rid, pin, toks) in enumerate(streams):
+                if done[i]:
+                    continue
+                res, _ = post_json(port, route, {"action": "poll", "request_id": rid,
+                                                 "cursor": len(toks)}, headers=pin)
+                toks += res["tokens"]
+                done[i] = res["done"]
+            time.sleep(0.01)
+        return [toks for _, _, toks in streams]
+
+    shares = [list(range(c, len(prompts_), clients)) for c in range(clients)]
+    with ThreadPoolExecutor(clients) as pool:
+        results = list(pool.map(lambda idx: client([prompts_[i] for i in idx]), shares))
+    out = [None] * len(prompts_)
+    for idx, toks in zip(shares, results):
+        for i, t in zip(idx, toks):
+            out[i] = t
+    return out
+
+
+def plain_engine_server():
+    """``EngineDeployment``'s replica class with the model's attention routed
+    through the plain versions inside the replica, on its leased card."""
+    from tpu_air_torch.serve.engine_deployment import _EngineServer
+
+    class PlainEngineServer(_EngineServer):
+        def _ensure_engine(self):
+            from tpu_air_torch.models.t5 import modeling
+            from tpu_air_torch.ops.decode_attention import decode_attention_reference
+
+            def flash(q, k, v, bias=None, *, kv_mask=None, scale=None, causal=False):
+                return flash_plain(q, k, v, bias, kv_mask, causal)
+
+            modeling.flash_attention, modeling.decode_attention = flash, decode_attention_reference
+            return super()._ensure_engine()
+
+    return PlainEngineServer
+
+
+def serve_t5_path(dev, ckpt_path: str, port: int) -> dict:
+    """FLAN-T5-base (the ``[batch]`` phase's checkpoint, bf16) through the
+    serve plane, one replica leasing the card at a time: (a)
+    ``PredictorDeployment`` over ``T5GenerativePredictor``, 8 prompts in one
+    POST, equal to the in-process predictor; (b) ``EngineDeployment`` with a
+    ``T5EngineConfig(max_batch=8, max_input_len=512, max_new_tokens=64)``:
+    16 ragged prompts as two blocking POSTs of 8, then as submit/poll streams
+    from 4 client threads; every answer equal to in-process greedy decoding
+    at the window's shape.  The replicas report their device and launches."""
+    from tpu_air_torch import serve
+    from tpu_air_torch.engine import T5EngineConfig
+    from tpu_air_torch.predict import T5GenerativePredictor
+    from tpu_air_torch.serve import EngineDeployment, PredictorDeployment, pandas_read_json
+    from tpu_air_torch.train import Checkpoint
+
+    ckpt = Checkpoint.from_directory(ckpt_path)
+    t0 = time.perf_counter()
+    model = base_model("bfloat16", dev)
+    cfg = model.config
+    build_s = time.perf_counter() - t0
+    out = {}
+
+    # (a) PredictorDeployment
+    ids, mask = prompts(SERVE_BATCH, PROMPT_LEN, cfg.vocab_size, SEED + 9)
+    rows = [{"input_ids": i.tolist(), "attention_mask": m.tolist()} for i, m in zip(ids, mask)]
+    want = T5GenerativePredictor(model, tokenizer=IdTokenizer()).predict(
+        {"input_ids": ids, "attention_mask": mask}, max_new_tokens=SERVE_NEW)
+    try:
+        t0 = time.perf_counter()
+        serve.run(PredictorDeployment.options(name="T5Service", route_prefix="/t5",
+                                              num_chips=1)
+                  .bind(counting_predictor(), ckpt, http_adapter=pandas_read_json,
+                        dtype="bfloat16", tokenizer=IdTokenizer(),
+                        predict_kwargs={"max_new_tokens": SERVE_NEW}), port=port)
+        start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, _ = post_json(port, "/t5", rows)
+        post_s = time.perf_counter() - t0
+    finally:
+        serve.shutdown()
+    same = [r["generated_output"] for r in got] == want["generated_output"].tolist()
+    devices = sorted({r["device"] for r in got})
+    flash_n, decode_n = got[0]["flash_launches"], got[0]["decode_launches"]
+    log(f"[serve t5] (a) PredictorDeployment, 1 replica leasing the card: serve.run "
+        f"{start_s:.3f} s (the replica's from_checkpoint {got[0]['actor_load_s']:.3f} s); one "
+        f"POST of {SERVE_BATCH} prompts x {PROMPT_LEN} -> {SERVE_NEW} tokens {post_s:.3f} s (the "
+        f"replica's predict {got[0]['actor_predict_s']:.3f} s); replica device {devices}, "
+        f"launches flash {flash_n}, decode {decode_n}; equal to in process: {same}")
+    if not same or devices != [str(dev)] or flash_n <= 0 or decode_n <= 0:
+        raise AssertionError(f"[serve t5] (a) same {same}, devices {devices}, "
+                             f"launches {flash_n}/{decode_n}")
+    out["predictor"] = {"serve_start_s": start_s, "post_s": post_s, "device": devices[0],
+                        "replica_load_s": got[0]["actor_load_s"],
+                        "replica_predict_s": got[0]["actor_predict_s"],
+                        "launches": {"flash_attention": flash_n, "decode_attention": decode_n}}
+
+    # (b) EngineDeployment over the T5 window engine
+    ps = serve_prompts(SERVE_PROMPTS, cfg.vocab_size, SEED + 10)
+    t0 = time.perf_counter()
+    want = window_tokens(model, ps)
+    offline_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    b = SERVE_CFG["max_batch"]
+    try:
+        t0 = time.perf_counter()
+        h = serve.run(EngineDeployment.options(name="t5-engine", route_prefix="/t5engine",
+                                               num_chips=1)
+                      .bind(ckpt, T5EngineConfig(**SERVE_CFG), dtype="bfloat16"), port=port)
+        post_json(port, "/t5engine", {"prompts": [ps[0][:64]], "max_new_tokens": 2})
+        start_s = time.perf_counter() - t0            # replica, model load, first window
+        import tpu_air_torch
+
+        snap_w = tpu_air_torch.get(h.method("stats")())
+        t0 = time.perf_counter()
+        blocking = []
+        for w in range(0, len(ps), b):
+            res, _ = post_json(port, "/t5engine", {"prompts": ps[w:w + b]})
+            blocking += [r["tokens"] for r in res["results"]]
+        blocking_s = time.perf_counter() - t0
+        snap_b = tpu_air_torch.get(h.method("stats")())
+        t0 = time.perf_counter()
+        streamed = engine_streams(port, "/t5engine", ps, SERVE_CLIENTS)
+        stream_s = time.perf_counter() - t0
+        snap = tpu_air_torch.get(h.method("stats")())
+    finally:
+        serve.shutdown()
+    n_tok = sum(map(len, blocking))
+    same_b, same_s = blocking == want, streamed == blocking
+    launches = snap["kernel_launches"]
+    # the blocking POSTs' and the streams' own samples (the warm-up's first
+    # window, which loads the kernels and warms cuBLAS, is left out)
+    ttft_b, step_b = (gained(snap_w[k], snap_b[k]) for k in ("ttft_s", "step_latency_s"))
+    ttft, step = (gained(snap_b[k], snap[k]) for k in ("ttft_s", "step_latency_s"))
+    log(f"[serve t5] (b) EngineDeployment, T5EngineConfig({SERVE_CFG}), bf16, 1 replica "
+        f"leasing the card: serve.run + model load + a 1-prompt warm-up {start_s:.3f} s; "
+        f"{len(ps)} prompts of 64-512 tokens: two blocking POSTs of {b} {blocking_s:.3f} s "
+        f"({n_tok} tokens, {n_tok / blocking_s:.1f} generated tokens/s over HTTP); the same as "
+        f"streams from {SERVE_CLIENTS} client threads {stream_s:.3f} s "
+        f"({n_tok / stream_s:.1f} tokens/s); card: {card_line()}")
+    log(f"[serve t5] (b) read inside the replica: device {snap['device']}, launches {launches}; "
+        f"the blocking POSTs: TTFT p50 {ttft_b['p50'] * 1e3:.3f} ms, "
+        f"p99 {ttft_b['p99'] * 1e3:.3f} ms over {ttft_b['count']} requests, decode step p50 "
+        f"{step_b['p50'] * 1e3:.3f} ms, p95 {step_b['p95'] * 1e3:.3f} ms over "
+        f"{step_b['count']} steps of {b} rows; the streams: TTFT p50 "
+        f"{ttft['p50'] * 1e3:.3f} ms, p99 {ttft['p99'] * 1e3:.3f} ms over {ttft['count']}, "
+        f"decode step p50 {step['p50'] * 1e3:.3f} ms, p95 {step['p95'] * 1e3:.3f} ms over "
+        f"{step['count']} steps; blocking equal to in-process window decoding "
+        f"({offline_s:.3f} s): {same_b}; streams equal to blocking: {same_s}")
+    if snap["device"] != str(dev) or launches["flash_attention"] <= 0 or \
+            launches["decode_attention"] <= 0:
+        raise AssertionError(f"[serve t5] (b) replica device {snap['device']}, launches {launches}")
+    if not same_b:
+        raise AssertionError(f"[serve t5] (b) blocking answers differ from in-process decoding:"
+                             f"\n{blocking}\n{want}")
+    if not same_s:
+        raise AssertionError(f"[serve t5] (b) streams differ from the blocking answers:"
+                             f"\n{streamed}\n{blocking}")
+    out["engine"] = {"serve_start_s": start_s, "blocking_s": blocking_s, "stream_s": stream_s,
+                     "tokens": n_tok, "blocking_tokens_per_s": n_tok / blocking_s,
+                     "stream_tokens_per_s": n_tok / stream_s, "device": snap["device"],
+                     "launches": launches, "blocking_ttft_s": ttft_b, "blocking_step_s": step_b,
+                     "stream_ttft_s": ttft, "stream_step_s": step,
+                     "in_process_build_s": build_s}
+    return out
+
+
+def serve_t5_parity(dev, work: str, port: int) -> dict:
+    """f32, full width, depth cut to 2+2, random weights from numpy seed 0:
+    the two blocking POSTs of (b) through ``EngineDeployment`` with the
+    kernels, then with the plain versions in the replica, on the card; the
+    tokens must be equal."""
+    import dataclasses
+
+    from tpu_air_torch import get, serve
+    from tpu_air_torch.engine import T5EngineConfig
+    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
+    from tpu_air_torch.serve import EngineDeployment
+    from tpu_air_torch.train import Checkpoint
+
+    cfg = model_config()
+    cfg.num_layers = cfg.num_decoder_layers = SERVE_PARITY_LAYERS
+    model = T5ForConditionalGeneration(cfg, device=dev).init_weights(SEED)
+    ckpt = Checkpoint.from_model(model_config=cfg, path=os.path.join(work, "serve_parity"),
+                                 params={k: v.cpu() for k, v in model.state_dict().items()})
+    del model
+    ps = serve_prompts(SERVE_PROMPTS, cfg.vocab_size, SEED + 11)
+    b = SERVE_CFG["max_batch"]
+    out = {}
+    for path, cls in (("kernel", EngineDeployment.func_or_class),
+                      ("plain", plain_engine_server())):
+        d = dataclasses.replace(EngineDeployment, func_or_class=cls)
+        try:
+            h = serve.run(d.options(name=f"t5-{path}", route_prefix="/parity", num_chips=1)
+                          .bind(ckpt, T5EngineConfig(**SERVE_CFG), dtype="float32"), port=port)
+            toks = []
+            for w in range(0, len(ps), b):
+                res, _ = post_json(port, "/parity", {"prompts": ps[w:w + b]})
+                toks += [r["tokens"] for r in res["results"]]
+            snap = get(h.method("stats")())
+        finally:
+            serve.shutdown()
+        launched = snap["kernel_launches"]
+        if (min(launched.values()) > 0) != (path == "kernel") or \
+                (path == "plain" and any(launched.values())):
+            raise AssertionError(f"[serve parity] the {path} replica launched {launched}")
+        out[path] = toks
+    same = out["kernel"] == out["plain"]
+    log(f"[serve parity] f32, {cfg.num_layers}+{cfg.num_decoder_layers} layers, {len(ps)} "
+        f"prompts through EngineDeployment, kernels against the plain versions in the "
+        f"replica on the card: tokens identical = {same}")
+    if not same:
+        raise AssertionError(f"[serve parity] tokens differ:\n{out['kernel']}\n{out['plain']}")
+    return {"tokens_identical": same, "tokens": sum(map(len, out["kernel"]))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -2879,9 +3296,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    work = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        return run_phases(dev, work, t_start)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(dev, work: str, t_start: float) -> int:
+    import tpu_air_torch
+    from tpu_air_torch import serve
+
+    smi = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
 
@@ -2902,7 +3328,7 @@ def main() -> int:
     kernels = f16_timing(dev, kernels, errs16, errs16)
     # last: once its scoring actor has used the card, this process's
     # profiler lost kernel records (complete_profile)
-    batch_stats = batch_path(dev)
+    batch_stats = batch_path(dev, os.path.join(work, "w3_ckpt"))
     for r in kernels:       # the W3 batch path's launches, counted in its scoring actor
         n = batch_stats["launches"].get(r["name"], 0)
         r.setdefault("launches_by_path", {})["w3_batch_actor"] = n
@@ -2919,12 +3345,30 @@ def main() -> int:
     for r in kernels:       # SegFormer runs no attention kernel (both phases check it)
         r["launches_by_path"]["w7_in_process"] = w7_stats["launches"][r["name"]]
         r["launches_by_path"]["w6_fit"] = w6_stats["launches"][r["name"]]
+    t_serve = time.perf_counter()
+    tpu_air_torch.init()
+    try:
+        port = free_port()
+        w8_stats = w8_path(port)
+        serve_stats = serve_t5_path(dev, os.path.join(work, "w3_ckpt"), port)
+        serve_stats["parity"] = serve_t5_parity(dev, work, port)
+    finally:
+        serve.shutdown()
+        tpu_air_torch.shutdown()
+    log(f"[serve] phases 20-21 (runtime start and stop included) "
+        f"{time.perf_counter() - t_serve:.1f} s")
+    for r in kernels:       # the serve path's launches, counted in its replicas
+        for where in ("predictor", "engine"):
+            n = serve_stats[where]["launches"].get(r["name"], 0)
+            r["launches_by_path"][f"serve_t5_{where}_replica"] = n
+            r["launches"] += n
     stop_processes()
     log("[processes] every process this run started has exited")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(smi.splitlines()[0], flush=True)
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "main": main_stats, "lm": lm_stats, "w1": w1_stats,
-                      "batch": batch_stats, "w2": w2_stats, "w7": w7_stats, "w6": w6_stats}),
+                      "batch": batch_stats, "w2": w2_stats, "w7": w7_stats, "w6": w6_stats,
+                      "w8": w8_stats, "serve_t5": serve_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

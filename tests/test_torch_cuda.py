@@ -557,3 +557,60 @@ def test_segformer_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
         m(x.to(m.device))
         stats.append(m.decode_head.batch_norm.running_var.cpu())
     assert torch.allclose(stats[0], stats[1], atol=1e-5, rtol=0)
+
+
+def _engine_streams(model, prompts, cfg):
+    from tpu_air_torch.engine import T5Engine
+
+    with T5Engine(model, cfg, name="card-engine") as engine:
+        return engine.generate(prompts, timeout=120.0)
+
+
+def test_t5_engine_streams_on_the_card_kernels_match_plain(dev, monkeypatch):
+    """The T5 window engine on cuda:0 (tiny T5, f32, TF32 off): its thread
+    launches both inference kernels; its streams equal those of the same
+    engine with the plain versions in the model, and greedy decoding with
+    the two entry points over the same window batches on the CPU."""
+    from tpu_air_torch.engine import T5EngineConfig
+    from tpu_air_torch.models.t5 import modeling
+    from tpu_air_torch.models.t5.config import T5Config
+    from tpu_air_torch.models.t5.generate import generate
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    cfg = T5Config.tiny()
+    model = modeling.T5ForConditionalGeneration(cfg, device=dev).init_weights(0)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab_size, int(n)).tolist() for n in rng.integers(3, 33, 5)]
+    ecfg = T5EngineConfig(max_batch=2, max_input_len=32, max_new_tokens=8)
+    before = flash_attention.launches, decode_attention.launches
+    got = _engine_streams(model, prompts, ecfg)
+    assert flash_attention.launches - before[0] == 3 * cfg.num_layers       # 3 windows
+    assert decode_attention.launches > before[1]
+
+    def plain_flash(q, k, v, bias=None, *, kv_mask=None, scale=None, causal=False):
+        b, h, lq, d = q.shape
+        flat = [x.reshape(b * h, x.shape[2], d) for x in (q, k, v)]
+        out = flash_attention_reference(*flat, None if bias is None else bias[0], kv_mask,
+                                        1.0, causal)[0]
+        return out.reshape(b, h, lq, d)
+
+    monkeypatch.setattr(modeling, "flash_attention", plain_flash)
+    monkeypatch.setattr(modeling, "decode_attention", decode_attention_reference)
+    before = flash_attention.launches, decode_attention.launches
+    assert _engine_streams(model, prompts, ecfg) == got
+    assert (flash_attention.launches, decode_attention.launches) == before
+    monkeypatch.undo()
+
+    cpu = modeling.T5ForConditionalGeneration(cfg, device="cpu").init_weights(0)
+    want = []
+    for w in range(0, len(prompts), 2):
+        ids = np.full((2, 32), cfg.pad_token_id, np.int64)
+        mask = np.zeros((2, 32), np.int64)
+        for r, p in enumerate(prompts[w:w + 2]):
+            ids[r, :len(p)], mask[r, :len(p)] = p, 1
+        rows = generate(cpu, ids, mask, max_new_tokens=8, early_stop=False).tolist()
+        for row in rows[:len(prompts[w:w + 2])]:
+            eos = cfg.eos_token_id
+            want.append(row[:row.index(eos) + 1] if eos in row else row)
+    assert got == want

@@ -1,12 +1,16 @@
 """The port's W1 -> W3 example through the jobs CLI: the job twin
 ``examples/torch_flan_t5_job.yml`` submitted as tests/test_examples_job.py
-submits the JAX package's, at the example's CPU smoke dials."""
+submits the JAX package's, at the example's CPU smoke dials; and the port's
+W8 example, ``examples/torch_xgboost_e2e.py``, on a serve port of its own."""
 
 import os
+
+import pytest
 
 from tpu_air.job import jobs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = 8353
 
 
 def test_torch_flan_t5_job_submit_end_to_end(tmp_path, monkeypatch):
@@ -40,3 +44,19 @@ def test_example_without_a_card_refuses_unless_device_cpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode != 0
     assert "num_chips=" in proc.stderr and "train rows" not in proc.stdout
+
+
+@pytest.mark.slow
+def test_torch_xgboost_e2e_example():
+    """W8 on the port: train, tune (3 samples), batch predict, serve and POST."""
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples", "torch_xgboost_e2e.py"),
+         "--rows", "400", "--port", str(PORT), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=400,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "HTTP prediction: [{'predictions'" in proc.stdout
+    assert "batch predictions: 120 rows" in proc.stdout

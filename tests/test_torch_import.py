@@ -50,7 +50,16 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
                 "tpu_air_torch.models.segformer.modeling",
                 "tpu_air_torch.models.segformer.convert",
                 "tpu_air_torch.models.segformer.hf_import",
-                "tpu_air_torch.train.segformer_trainer", "tpu_air_torch.predict.predictors"):
+                "tpu_air_torch.train.segformer_trainer", "tpu_air_torch.predict.predictors",
+                "tpu_air_torch.engine", "tpu_air_torch.engine.t5_engine",
+                "tpu_air_torch.engine.scheduler", "tpu_air_torch.engine.metrics",
+                "tpu_air_torch.engine.types", "tpu_air_torch.serve",
+                "tpu_air_torch.serve.proxy", "tpu_air_torch.serve.deployment",
+                "tpu_air_torch.serve.engine_deployment", "tpu_air_torch.serve.admission",
+                "tpu_air_torch.serve.autoscaler", "tpu_air_torch.serve.supervisor",
+                "tpu_air_torch.serve.predictor_deployment",
+                "tpu_air_torch.serve.http_adapters", "tpu_air_torch.faults.retry",
+                "tpu_air_torch.utils.metrics", "tpu_air_torch.observability.perf"):
         assert new in mods, new
     code = (
         "import importlib, sys\n"
@@ -148,6 +157,16 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_pa
         TorchPredictor.from_checkpoint(ckpt, apply_fn=lambda p, **f: p)
     assert SemanticSegmentationPredictor.from_checkpoint(
         ckpt, device="cpu").model.device == torch.device("cpu")
+    # a T5 engine replica builds its model where the lease says, never on
+    # the CPU by itself
+    from tpu_air_torch.engine import T5EngineConfig
+    from tpu_air_torch.serve import EngineDeployment
+
+    t5 = T5ForConditionalGeneration(T5Config.tiny(), device="cpu").init_weights(0)
+    t5_ckpt = Checkpoint.from_model(model_config=T5Config.tiny(), params=t5.state_dict(),
+                                    path=str(tmp_path / "t5"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EngineDeployment.func_or_class(t5_ckpt, T5EngineConfig())._ensure_engine()
     assert SegformerTrainer(model_config=seg, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     model = T5ForConditionalGeneration(T5Config.tiny(), device="cpu")

@@ -1,6 +1,6 @@
 """Persistent preprocessors, copied from ``tpu_air/data/preprocessors.py``
-(``Preprocessor`` and ``BatchMapper``; the port imports nothing of
-``tpu_air``).
+(``Preprocessor``, ``BatchMapper`` and W8's ``MinMaxScaler``; the port
+imports nothing of ``tpu_air``).
 
 The contract: a preprocessor is fitted during training, saved inside the
 checkpoint, and applied again to every batch at predict time, so it pickles
@@ -12,7 +12,7 @@ helpers become plain pandas.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional
 
 import pandas as pd
 
@@ -90,3 +90,25 @@ class BatchMapper(Preprocessor):
 
     def _transform_pandas(self, df):
         return self.fn(df)
+
+
+class MinMaxScaler(Preprocessor):
+    """Scale columns to [0, 1] by fitted min/max (Introduction…ipynb:cc-20)."""
+
+    def __init__(self, columns: List[str]):
+        super().__init__()
+        self.columns = columns
+        self.stats_: Dict[str, tuple] = {}
+
+    def _fit(self, dataset):
+        df = dataset.to_pandas()
+        self.stats_ = {
+            c: (float(df[c].min()), float(df[c].max())) for c in self.columns
+        }
+
+    def _transform_pandas(self, df):
+        for c in self.columns:
+            lo, hi = self.stats_[c]
+            span = hi - lo
+            df[c] = 0.0 if span == 0 else (df[c] - lo) / span
+        return df

@@ -20,6 +20,8 @@ site                  actions
                       before any byte lands)
 ``actor.call``        ``delay``, ``kill`` (crash the target actor)
 ``runtime.task``      ``delay``
+``proxy.request``     ``delay``, ``kill`` (crash a serving replica)
+``proxy.poll``        ``delay``, ``kill`` (crash the pinned replica)
 ====================  ==========================================
 """
 
@@ -41,6 +43,7 @@ __all__ = [
     "hit",
     "install",
     "perturb",
+    "stats",
 ]
 
 # its own variable: a JAX package plan in the same environ is not the port's
@@ -105,6 +108,7 @@ class FaultPlan:
 _lock = threading.Lock()
 _plan: Optional[FaultPlan] = None
 _hits: Dict[int, int] = {}    # spec index -> eligible-hit count
+_fired: Dict[str, int] = {}   # "site:action" -> times fired
 
 
 def enabled() -> bool:
@@ -120,6 +124,7 @@ def install(plan: FaultPlan) -> None:
     with _lock:
         _plan = plan
         _hits.clear()
+        _fired.clear()
     os.environ[_ENV_FLAG] = plan.to_json()
 
 
@@ -128,6 +133,7 @@ def clear() -> None:
     with _lock:
         _plan = None
         _hits.clear()
+        _fired.clear()
     os.environ.pop(_ENV_FLAG, None)
 
 
@@ -139,6 +145,7 @@ def _sync_from_env() -> None:
     with _lock:
         _plan = FaultPlan.from_json(raw) if raw else None
         _hits.clear()
+        _fired.clear()
 
 
 def hit(site: str, key: str = "") -> Optional[FaultSpec]:
@@ -157,6 +164,8 @@ def hit(site: str, key: str = "") -> Optional[FaultSpec]:
             n = _hits.get(i, 0) + 1
             _hits[i] = n
             if spec.at <= n < spec.at + spec.count:
+                tag = f"{spec.site}:{spec.action}"
+                _fired[tag] = _fired.get(tag, 0) + 1
                 return spec
     return None
 
@@ -180,6 +189,18 @@ def perturb(site: str, key: str = "") -> Optional[FaultSpec]:
     elif spec.action == "error":
         raise FaultInjectedError(f"airfault: injected error at {site}")
     return spec
+
+
+def stats() -> Dict[str, object]:
+    """What has fired in THIS process (the serve proxy's ``/-/stats``
+    ``recovery.faults`` entry)."""
+    with _lock:
+        return {
+            "installed": _plan is not None,
+            "seed": _plan.seed if _plan is not None else None,
+            "faults_injected": sum(_fired.values()),
+            "fired": dict(_fired),
+        }
 
 
 _sync_from_env()

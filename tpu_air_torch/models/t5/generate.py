@@ -102,3 +102,51 @@ def generate(model: T5ForConditionalGeneration, input_ids, attention_mask=None,
         toks[:, step] = nxt
         tok = nxt[:, None]
     return toks[:n]
+
+
+# -- the engine's entry points ------------------------------------------------
+#
+# ``generate`` keeps the prefill (encode, cache build, first token) and the
+# per-token step inside one call.  These expose the two phases on their own
+# so an online engine (``tpu_air_torch.engine.T5Engine``) can admit and retire
+# between steps.  The cache carries one position for the whole batch and the
+# cross-attention K/V of every row, so the pair is batch-synchronized: every
+# row sits at the same decode position.  Each call enters
+# ``torch.inference_mode()`` itself: grad mode is per thread, and the engine
+# decodes in a thread of its own.
+
+
+def make_t5_prefill_fn(model: T5ForConditionalGeneration, max_decode_len: int):
+    """``fn(input_ids, attention_mask) -> (first_tok, cache, enc_hidden)``:
+    encode the prompts (int64 ``[b, L]`` on the model's device), build the
+    decode cache of ``max_decode_len`` positions (zeroed self slabs, the
+    cross K/V of the encoder output) and run the first decode step from
+    ``decoder_start_token_id``; ``first_tok`` is the greedy int64 ``[b]``."""
+    cfg = model.config
+
+    def prefill(input_ids: torch.Tensor, attention_mask: torch.Tensor):
+        with torch.inference_mode():
+            enc = model.encode(input_ids, attention_mask)
+            b = input_ids.shape[0]
+            cache = init_cache(model, b, max_decode_len, enc, attention_mask)
+            tok0 = torch.full((b, 1), cfg.decoder_start_token_id, dtype=torch.long,
+                              device=input_ids.device)
+            logits = model.decode(tok0, cache=cache)
+            return torch.argmax(logits[:, -1, :], dim=-1), cache, enc
+
+    return prefill
+
+
+def make_t5_decode_step_fn(model: T5ForConditionalGeneration):
+    """``fn(cache, tok) -> (cache, next_tok)``: one greedy cached step of the
+    int64 ``[b]`` tokens.  The JAX package donates the cache and returns a
+    new one; here the step writes the self-attention slabs in place and
+    returns the same :class:`DecodeCache`, one position further on (it holds
+    the encoder's K/V and mask, so the encoder output is not passed again)."""
+
+    def step(cache: DecodeCache, tok: torch.Tensor):
+        with torch.inference_mode():
+            logits = model.decode(tok[:, None], cache=cache)
+            return cache, torch.argmax(logits[:, -1, :], dim=-1)
+
+    return step

@@ -7,20 +7,22 @@ W3C-style trace and span ids, a process-local lock-protected ring buffer
 workers: ``core/remote.py`` captures the active context into each task or
 actor-method payload, ``core/runtime.py`` opens a worker-side span around
 the call and ships the finished spans back to the driver's recorder on the
-``done`` control message.
+``done`` control message; the serve proxy opens a root span per HTTP request
+(honoring an inbound W3C ``traceparent`` header) and returns the trace id
+in a response header.
 
 Zero cost when off (the default): :func:`span` returns the singleton
 :data:`_NOOP` without allocating.  Enable with ``TPU_AIR_TRACE=1`` in the
-environment (workers inherit it) or :func:`enable`.  The HTTP
-``traceparent`` helpers, retroactive spans and the dashboard's trace
-listing of the JAX package serve its serving and dashboard layers, which
-the port has not copied.
+environment (workers inherit it) or :func:`enable`.  The retroactive spans
+and the dashboard's trace listing of the JAX package serve its LM engine
+and dashboard, which the port has not copied.
 """
 
 from __future__ import annotations
 
 import contextvars
 import os
+import re
 import secrets
 import threading
 import time
@@ -38,6 +40,8 @@ __all__ = [
     "disable",
     "enable",
     "enabled",
+    "extract_traceparent",
+    "format_traceparent",
     "new_span_id",
     "new_trace_id",
     "now_ns",
@@ -116,6 +120,30 @@ class SpanContext:
         if not trace_id or not span_id:
             return None
         return cls(trace_id, span_id)
+
+
+_TRACEPARENT = re.compile(
+    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$"
+)
+
+
+def format_traceparent(ctx: SpanContext) -> str:
+    """W3C ``traceparent`` header value (version 00, sampled)."""
+    return f"00-{ctx.trace_id}-{ctx.span_id}-01"
+
+
+def extract_traceparent(header: Optional[str]) -> Optional[SpanContext]:
+    """Parse a ``traceparent`` header; None on absence or malformation
+    (a bad inbound header must never fail the request)."""
+    if not header:
+        return None
+    m = _TRACEPARENT.match(header.strip().lower())
+    if m is None or m.group(1) == "ff":
+        return None
+    trace_id, span_id = m.group(2), m.group(3)
+    if trace_id == "0" * 32 or span_id == "0" * 16:
+        return None
+    return SpanContext(trace_id, span_id)
 
 
 _current: contextvars.ContextVar[Optional[SpanContext]] = contextvars.ContextVar(

@@ -58,7 +58,7 @@ class CheckpointConfig:
     """Score-based checkpoint retention: keep ``num_to_keep`` checkpoints,
     ranked by ``checkpoint_score_attribute`` (most recent when unset).
     ``publish_weights_to`` (the live-serving handoff) waits for the port's
-    serve plane; a session given it raises."""
+    live-weight plane (ROADMAP Queue 1 item 6b); a session given it raises."""
 
     num_to_keep: Optional[int] = None
     checkpoint_score_attribute: Optional[str] = None

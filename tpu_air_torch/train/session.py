@@ -46,7 +46,8 @@ class Session:
         if self.checkpoint_config.publish_weights_to:
             raise NotImplementedError(
                 "CheckpointConfig.publish_weights_to: publishing to a WeightStore "
-                "waits for the port's serve plane (ROADMAP Queue 1 item 6)")
+                "waits for the port's live-weight plane, serve/weights.py "
+                "(ROADMAP Queue 1 item 6b)")
         self.datasets = datasets or {}
         self.config = config or {}
         self.world_size = world_size
