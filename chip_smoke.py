@@ -48,7 +48,8 @@ Phases, each fatal on failure:
               each tensor to its own norm (``NORM_TOL``);
 7. lm       — ``LMTrainer.fit()`` on the 136M long-context LM (d_model 1024,
               8 layers, 8 heads of 128, vocab 32000; bf16, batch 1, 8192
-              tokens, synthetic seeded tokens): one warm-up step, then
+              tokens, synthetic seeded tokens; its checkpoint is kept for
+              phase 22): one warm-up step, then
               measured steps; launches per step (8 forward, 8 dq, 8 dk/dv),
               each step's loss, step time, tokens/s and the step's device idle
               share;
@@ -157,14 +158,42 @@ Phases, each fatal on failure:
               its launches of both kernels and the engine's TTFT and
               decode-step times; (c) f32, depth cut to 2+2: the same two
               POSTs through ``EngineDeployment`` with the kernels and with
-              the plain versions in the replica give equal tokens.
+              the plain versions in the replica give equal tokens;
+22. lm serve — the ``[lm]`` phase's checkpoint (the 136M LM at full width:
+              d_model 1024, 8 layers, 8 heads of 128, vocab 32000) loaded in
+              bf16 and served, every 1-token step through the decode
+              kernel, prefill dense as in the JAX package: (a)
+              ``LMGenerativePredictor.from_checkpoint(dtype="bfloat16")``,
+              16 seeded prompts x 512 tokens -> 128 new, greedy, no EOS:
+              decode launches must be 8 x 127 and flash launches 0; wall,
+              tokens/s, the decode step's median and p90; (b)
+              ``InferenceEngine(EngineConfig(num_slots=16, slot_len=1024,
+              page_len=16, max_new_tokens=64, eos_token_id=None))``, paged,
+              32 prompts of 64-512 tokens (8 behind one 256-token prefix)
+              as a burst and trickled 4 in flight: the two runs' tokens must
+              be identical per prompt; TTFT, decode step, tokens/s, prefix
+              hits, copy-on-write copies, peak pool pages, the profiled
+              decode step's idle share; (c) the slab engine, burst: tokens
+              agreeing with (b) and with per-prompt offline ``generate``,
+              printed; (d) ``EngineDeployment`` over the checkpoint, one
+              replica leasing the card: 16 of the prompts as two blocking
+              POSTs of 8 and as submit/poll streams from 4 client threads,
+              every answer equal to (b)'s; the replica's device, launches,
+              TTFT and step times; (e) f32, full width, depth cut to 2:
+              offline ``generate``, the slab and the paged engine through
+              the kernel and through ``decode_attention_reference``, all
+              six token streams equal; (f) the decode kernel timed at the
+              engine's shape (b 16, L 1024, 8 x 128, bf16, per-row mask)
+              beside its bound, its plain version and SDPA.  Cuts: 32 engine
+              prompts and 64 new tokens (the phase runs in about 90 s).
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
-generation) and read just after it; the W3 batch path's are counted in its
-scoring actor, a fresh process, around the batch it scores, and W2's
-trials' in each trial's actor, around its training function, and the serve
-replicas' in each replica (a fresh process) over its whole life.  The SegFormer
+generation, each of phase 22's in-process paths) and read just after it;
+the W3 batch path's are counted in its scoring actor, a fresh process,
+around the batch it scores, and W2's trials' in each trial's actor, around
+its training function, and the serve replicas' in each replica (a fresh
+process) over its whole life.  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -256,6 +285,18 @@ W8_ROWS, W8_ROUNDS, W8_SAMPLES, W8_POSTS = 2000, 50, 3, 64
 SERVE_BATCH, SERVE_NEW = 8, 32
 SERVE_CFG = {"max_batch": 8, "max_input_len": 512, "max_new_tokens": 64}
 SERVE_PROMPTS, SERVE_CLIENTS, SERVE_PARITY_LAYERS = 16, 4, 2
+# LM serving dials (phase 22), over the [lm] phase's 136M checkpoint in bf16:
+# (a) LMGenerativePredictor, 16 prompts of 512 tokens -> 128 new, greedy, no
+# EOS; (b) the paged engine, 16 slots of 1024 positions in pages of 16, 64 new
+# tokens, 32 prompts of 64-512 tokens (8 behind one 256-token prefix), as a
+# burst and trickled 4 in flight; (c) the slab engine, burst; (d) 16 of the
+# prompts served; (e) f32 at full width, depth cut to 2: 8 prompts, 32 new
+LM_GEN_PROMPTS, LM_GEN_LEN, LM_GEN_NEW = 16, 512, 128
+LM_ENGINE = {"num_slots": 16, "slot_len": 1024, "page_len": 16, "max_new_tokens": 64,
+             "eos_token_id": None}
+LM_ENGINE_PROMPTS, LM_PREFIX_LEN, LM_PREFIX_PROMPTS, LM_TRICKLE = 32, 256, 8, 4
+LM_PROMPT_LENS = (64, 512)
+LM_SERVED, LM_SERVE_PARITY_LAYERS, LM_SERVE_PARITY_PROMPTS, LM_SERVE_PARITY_NEW = 16, 2, 8, 32
 
 
 def model_config():
@@ -1236,10 +1277,10 @@ def lm_rows(n: int, L: int, seed: int) -> np.ndarray:
     return (2 + (np.arange(L)[None] + phase) % 17).astype(np.int32)
 
 
-def lm_main_path(dev) -> dict:
+def lm_main_path(dev, storage: str) -> dict:
+    """Phase 7.  The run's directory (``storage``) is kept: phase 22 serves
+    its checkpoint, and ``main`` removes the work directory at the end."""
     import pandas as pd
-    import shutil
-    import tempfile
 
     from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
     from tpu_air_torch.train import (CheckpointConfig, LMTrainer, RunConfig,
@@ -1249,7 +1290,7 @@ def lm_main_path(dev) -> dict:
     steps = 1 + LM_STEPS
     # one row, one step per epoch: each epoch's report is one step's loss and time
     rows = pd.DataFrame({"input_ids": list(lm_rows(1, LM_LEN, SEED + 20))})
-    storage = tempfile.mkdtemp(prefix="chip_smoke-lm-")
+    os.makedirs(storage, exist_ok=True)
     args = TrainingArguments(learning_rate=3e-4, per_device_train_batch_size=1,
                              num_train_epochs=steps, seed=SEED, evaluation_strategy="no")
     trainer = LMTrainer(model_config=cfg, training_args=args, datasets={"train": rows},
@@ -1266,15 +1307,12 @@ def lm_main_path(dev) -> dict:
     launches = {"flash_attention": flash_attention.launches,
                 "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
                 "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches}
-    try:
-        if result.error is not None:
-            raise AssertionError(f"[lm] fit failed: {result.error}")
-        hist = result.metrics_history
-        if len(hist) != steps or any(m["steps"] != 1 for m in hist):
-            raise AssertionError(f"[lm] expected {steps} one-step epochs: {hist}")
-        ckpt_keys = len(result.checkpoint.get_params())
-    finally:
-        shutil.rmtree(storage, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"[lm] fit failed: {result.error}")
+    hist = result.metrics_history
+    if len(hist) != steps or any(m["steps"] != 1 for m in hist):
+        raise AssertionError(f"[lm] expected {steps} one-step epochs: {hist}")
+    ckpt_keys = len(result.checkpoint.get_params())
     losses = [m["loss"] for m in hist]
     step_ms = [LM_LEN / m["train_tokens_per_sec"] * 1e3 for m in hist]
     per_step = {k: n / steps for k, n in launches.items()}
@@ -1315,7 +1353,7 @@ def lm_main_path(dev) -> dict:
             "profiled_step_ms": prof["wall_ms"], "step_device_busy_ms": prof["busy_ms"],
             "idle_share": prof["idle_share"], "idle_share_of_median_step": idle_median,
             "kernel_ms_per_launch": per_launch,
-            "fit_wall_s": wall}
+            "fit_wall_s": wall, "checkpoint_dir": result.checkpoint.path}
 
 
 def lm_step_profile(dev, cfg, steps: int = 2) -> dict:
@@ -3050,7 +3088,8 @@ def window_tokens(model, prompts_: list) -> list:
     return out
 
 
-def engine_streams(port: int, route: str, prompts_: list, clients: int) -> list:
+def engine_streams(port: int, route: str, prompts_: list, clients: int,
+                   max_new: int = SERVE_CFG["max_new_tokens"]) -> list:
     """Each prompt as a submit/poll stream over HTTP from ``clients`` client
     threads: each thread submits its share of the prompts, then polls its
     streams in turn every 10 ms until all are done, each poll pinned to the
@@ -3061,8 +3100,7 @@ def engine_streams(port: int, route: str, prompts_: list, clients: int) -> list:
         streams = []
         for prompt in share:
             sub, headers = post_json(port, route, {
-                "action": "submit", "prompt": prompt,
-                "max_new_tokens": SERVE_CFG["max_new_tokens"]})
+                "action": "submit", "prompt": prompt, "max_new_tokens": max_new})
             streams.append((sub["request_id"],
                             {"x-tpu-air-replica": headers["x-tpu-air-replica"]}, []))
         done = [False] * len(streams)
@@ -3282,6 +3320,410 @@ def serve_t5_parity(dev, work: str, port: int) -> dict:
     return {"tokens_identical": same, "tokens": sum(map(len, out["kernel"]))}
 
 
+# -- phase 22 --------------------------------------------------------------------
+
+
+def lm_serve_prompts(n: int, vocab: int, seed: int) -> list:
+    """``n`` prompts of 64-512 seeded tokens in [1, vocab) (no pad token).
+    Every fourth of the first ``4 * LM_PREFIX_PROMPTS`` starts with one
+    shared 256-token prefix, and one of those is the prefix cut 6 tokens
+    short, so that it ends inside a shared page (a copy-on-write when it
+    finds the page cached)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, vocab, LM_PREFIX_LEN).tolist()
+    out = []
+    for i, n_tok in enumerate(rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, n)):
+        if i % 4 == 0 and i < 4 * LM_PREFIX_PROMPTS:
+            if i == 4:
+                out.append(prefix[:LM_PREFIX_LEN - 6])
+                continue
+            n_tok = max(int(n_tok), LM_PREFIX_LEN + 16)
+            out.append(prefix + rng.integers(1, vocab, n_tok - LM_PREFIX_LEN).tolist())
+        else:
+            out.append(rng.integers(1, vocab, int(n_tok)).tolist())
+    return out
+
+
+def lm_engine_run(model, prompts_: list, kv_mode: str, schedule: str,
+                  engine_cfg: dict = None) -> dict:
+    """One manual-step ``InferenceEngine`` run over ``prompts_``: all at
+    once (``burst``) or ``LM_TRICKLE`` in flight, the next submitted as one
+    finishes (``trickle``).  Tokens, each request's TTFT on the host clock
+    (at step granularity), the wall, steps, the pool's peak pages, and the
+    engine's metrics and pool stats."""
+    from tpu_air_torch.engine import EngineConfig, InferenceEngine
+
+    engine = InferenceEngine(model, EngineConfig(kv_mode=kv_mode, **(engine_cfg or LM_ENGINE)),
+                             auto_start=False, name=f"lm-{kv_mode}-{schedule}")
+    n = len(prompts_)
+    streams, t_sub, ttft = [None] * n, [0.0] * n, [None] * n
+    pending, inflight = list(range(n)), set()
+    limit = n if schedule == "burst" else LM_TRICKLE
+    peak = steps = 0
+    t0 = time.perf_counter()
+    while pending or inflight:
+        while pending and len(inflight) < limit:
+            i = pending.pop(0)
+            t_sub[i] = time.perf_counter()
+            streams[i] = engine.submit(prompts_[i])
+            inflight.add(i)
+        engine.step()
+        steps += 1
+        now = time.perf_counter()
+        for i in list(inflight):
+            if ttft[i] is None and streams[i].tokens_so_far():
+                ttft[i] = now - t_sub[i]
+            if streams[i].done:
+                inflight.discard(i)
+        if engine.paged:
+            peak = max(peak, engine.pool.allocator.used_count())
+    wall = time.perf_counter() - t0
+    out = {"tokens": [s.result(0) for s in streams], "ttft_s": ttft, "wall_s": wall,
+           "steps": steps, "peak_pages": peak, "metrics": engine.metrics.snapshot(),
+           "pool": engine.pool.stats() if engine.paged else None}
+    engine.close()
+    return out
+
+
+def lm_decode_idle_share(model, prompts_: list) -> dict:
+    """The paged engine's decode step under the profiler: the shortest
+    prompts, one a slot, prefilled (all their chunks in one step, which
+    changes no decode step's shape), then 16 engine steps in which every
+    slot decodes (the step's ``.cpu()`` included).  The profiler can lose
+    kernel records (``complete_profile``), so the busy time it sums is a
+    floor and the idle share a ceiling."""
+    from tpu_air_torch.engine import EngineConfig, InferenceEngine
+
+    engine = InferenceEngine(model, EngineConfig(**{**LM_ENGINE,
+                                                    "prefill_chunks_per_step": 1 << 10}),
+                             auto_start=False, name="lm-profiled")
+    for p in sorted(prompts_, key=len)[:LM_ENGINE["num_slots"]]:
+        engine.submit(p)
+    while any(s.prefilling for s in engine.slots.active_slots()) or engine.scheduler.depth():
+        engine.step()
+    wall_ms, kernels = profile_once(lambda: [engine.step() for _ in range(16)])
+    busy = sum(t for t, _ in kernels.values())
+    engine.close()
+    return {"wall_ms_per_step": wall_ms / 16, "busy_ms_per_step": busy / 16,
+            "idle_share": 1 - busy / wall_ms}
+
+
+def lm_serve_path(dev, ckpt_dir: str, port: int) -> dict:
+    """Phase 22 (a)-(e): the ``[lm]`` phase's 136M checkpoint served (see
+    the module docstring).  The counts of the decode kernel's launches are
+    set to 0 before each of (a), (b), (c) and (e)'s kernel runs and read
+    after it; (d)'s are counted in its replica."""
+    from tpu_air_torch import get, serve
+    from tpu_air_torch.engine import EngineConfig
+    from tpu_air_torch.models.lm import generate
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention
+    from tpu_air_torch.predict import LMGenerativePredictor
+    from tpu_air_torch.serve import EngineDeployment
+    from tpu_air_torch.train import Checkpoint
+
+    t_phase = time.perf_counter()
+    ckpt = Checkpoint.from_directory(ckpt_dir)
+    out = {"launches": {}, "part_s": {}}
+
+    def part_done(name, t_start):
+        out["part_s"][name] = time.perf_counter() - t_start
+        return time.perf_counter()
+
+    # (a) offline: LMGenerativePredictor, greedy, no EOS
+    t0 = time.perf_counter()
+    pred = LMGenerativePredictor.from_checkpoint(ckpt, dtype="bfloat16")
+    load_s = time.perf_counter() - t0
+    model, cfg = pred.model, pred.model.config
+    if model.device != dev or next(model.parameters()).dtype != torch.bfloat16:
+        raise AssertionError(f"[lm serve] (a) model on {model.device}, "
+                             f"{next(model.parameters()).dtype}")
+    n, L, new = LM_GEN_PROMPTS, LM_GEN_LEN, LM_GEN_NEW
+    batch = {"input_ids": np.random.default_rng(SEED + 41).integers(1, cfg.vocab_size, (n, L))}
+    pred.predict(batch, max_new_tokens=2)               # warm-up at the same shapes
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pred.predict(batch, max_new_tokens=new)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    toks = np.stack([np.array(s.split(), dtype=np.int64) for s in res["generated_output"]])
+    if toks.shape != (n, new) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"[lm serve] (a) generated {toks.shape}, ids "
+                             f"{toks.min()}..{toks.max()}")
+    want = cfg.n_layers * (new - 1)
+    if launches != {"flash_attention": 0, "decode_attention": want}:
+        raise AssertionError(f"[lm serve] (a) launches {launches}, expect decode "
+                             f"{cfg.n_layers} x {new - 1} = {want} and no flash")
+    from tpu_air_torch.models.lm import head_weight, init_cache
+
+    with torch.inference_mode():
+        cache = init_cache(model, n, L + new + 8)
+        ids = torch.from_numpy(batch["input_ids"]).to(dev)
+        model(ids, return_hidden=True, decode=True, cache=cache)
+        head_w = head_weight(model).float()
+        tok = ids[:, -1:]
+        pos = torch.full((n, 1), L, device=dev)
+
+        def one_step():
+            h = model(tok, pos, return_hidden=True, decode=True, cache=cache)
+            return torch.argmax(h[:, -1].float() @ head_w, dim=-1)
+
+        one_step()
+        steps_ms = step_times_ms(one_step, new - 1)
+    step_ms, step_p90 = float(np.median(steps_ms)), float(np.percentile(steps_ms, 90))
+    log(f"[lm serve] (a) LMGenerativePredictor.from_checkpoint(dtype=\"bfloat16\") of the "
+        f"[lm] checkpoint ({cfg.d_model} wide, {cfg.n_layers} layers, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}) {load_s:.3f} s; predict: {n} prompts x {L} "
+        f"tokens -> {new} new, greedy, no EOS: {wall:.3f} s, {n * new / wall:.1f} generated "
+        f"tokens/s; launches {launches} (decode = {cfg.n_layers} x {new - 1}); decode step "
+        f"median {step_ms:.3f} ms, p90 {step_p90:.3f} ms over {new - 1} steps (b={n}, "
+        f"cache L={L + new + 8}); card: {card_line()}")
+    out["offline"] = {"load_s": load_s, "wall_s": wall, "tokens_per_s": n * new / wall,
+                      "launches": launches, "decode_step_ms": step_ms,
+                      "decode_step_p90_ms": step_p90}
+    out["launches"]["lm_generate"] = launches["decode_attention"]
+    del pred, cache
+    torch.cuda.empty_cache()
+    t_part = part_done("a", t_phase)
+
+    # (b) the paged engine in process, burst then trickle
+    ps = lm_serve_prompts(LM_ENGINE_PROMPTS, cfg.vocab_size, SEED + 42)
+    decode_attention.launches = 0
+    runs = {sched: lm_engine_run(model, ps, "paged", sched) for sched in ("burst", "trickle")}
+    paged_launches = decode_attention.launches
+    same = runs["burst"]["tokens"] == runs["trickle"]["tokens"]
+    idle = lm_decode_idle_share(model, ps)
+    for sched, r in runs.items():
+        ttft = np.array(r["ttft_s"]) * 1e3
+        step = r["metrics"]["step_latency_s"]
+        n_tok = sum(map(len, r["tokens"]))
+        log(f"[lm serve] (b) paged InferenceEngine({LM_ENGINE}), {sched}: {len(ps)} prompts "
+            f"of {LM_PROMPT_LENS[0]}-{LM_PROMPT_LENS[1]} tokens ({LM_PREFIX_PROMPTS} behind a "
+            f"{LM_PREFIX_LEN}-token prefix) in "
+            f"{r['wall_s']:.3f} s over {r['steps']} steps, {n_tok / r['wall_s']:.1f} generated "
+            f"tokens/s; TTFT p50 {np.percentile(ttft, 50):.3f} ms, p99 "
+            f"{np.percentile(ttft, 99):.3f} ms (host clock at step ends); decode step p50 "
+            f"{step['p50'] * 1e3:.3f} ms, p95 {step['p95'] * 1e3:.3f} ms over {step['count']} "
+            f"steps (the engine's histogram); prefix hits {r['pool']['prefix_hits']}, "
+            f"copy-on-write copies {r['pool']['cow_copies']}, peak pool pages "
+            f"{r['peak_pages']} of {r['pool']['pages_total']}")
+    log(f"[lm serve] (b) burst and trickle tokens identical per prompt: {same}; decode "
+        f"launches over both runs {paged_launches} ({cfg.n_layers} a step); the decode step "
+        f"under the profiler ({LM_ENGINE['num_slots']} slots decoding): "
+        f"{idle['wall_ms_per_step']:.3f} ms a step, "
+        f"device busy {idle['busy_ms_per_step']:.3f} ms, idle share {idle['idle_share']:.4f}")
+    if not same:
+        bad = [i for i, (a, b) in enumerate(zip(runs["burst"]["tokens"], runs["trickle"]["tokens"]))
+               if a != b]
+        raise AssertionError(f"[lm serve] (b) burst and trickle differ at prompts {bad}")
+    if paged_launches != cfg.n_layers * (runs["burst"]["metrics"]["step_latency_s"]["count"]
+                                         + runs["trickle"]["metrics"]["step_latency_s"]["count"]):
+        raise AssertionError(f"[lm serve] (b) decode launches {paged_launches}")
+    out["paged"] = {sched: {k: v for k, v in r.items() if k != "tokens"}
+                    for sched, r in runs.items()}
+    out["paged"]["identical"] = same
+    out["paged"]["profiled_step"] = idle
+    out["launches"]["lm_engine_paged"] = paged_launches
+    t_part = part_done("b", t_part)
+
+    # (c) the slab engine, burst; agreement with (b) and offline generate
+    decode_attention.launches = 0
+    slab = lm_engine_run(model, ps, "slab", "burst")
+    out["launches"]["lm_engine_slab"] = decode_attention.launches
+    offline = [generate(model, [p], max_new_tokens=LM_ENGINE["max_new_tokens"])[0].tolist()
+               for p in ps]
+
+    def agree(a, b):
+        return sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+    total = sum(map(len, slab["tokens"]))
+    agree_b, agree_off = agree(slab["tokens"], runs["burst"]["tokens"]), agree(slab["tokens"], offline)
+    agree_b_off = agree(runs["burst"]["tokens"], offline)
+    log(f"[lm serve] (c) slab InferenceEngine, burst: {slab['wall_s']:.3f} s over "
+        f"{slab['steps']} steps, {total / slab['wall_s']:.1f} generated tokens/s, decode "
+        f"launches {out['launches']['lm_engine_slab']}; tokens agreeing with (b) "
+        f"{agree_b}/{total}, with per-prompt offline generate {agree_off}/{total}, (b) with "
+        f"offline {agree_b_off}/{total} (bf16: the prefill shapes differ, so this is printed, "
+        "not asserted)")
+    out["slab"] = {"wall_s": slab["wall_s"], "steps": slab["steps"], "tokens": total,
+                   "agree_with_paged": agree_b, "agree_with_offline": agree_off,
+                   "paged_agree_with_offline": agree_b_off}
+    want = runs["burst"]["tokens"][:LM_SERVED]
+    del model
+    torch.cuda.empty_cache()
+    t_part = part_done("c", t_part)
+
+    # (d) served: EngineDeployment over the checkpoint, one replica on the card
+    served = ps[:LM_SERVED]
+    b = LM_SERVED // 2
+    try:
+        t0 = time.perf_counter()
+        h = serve.run(EngineDeployment.options(name="lm-engine", route_prefix="/lmengine",
+                                               num_chips=1)
+                      .bind(ckpt, EngineConfig(**LM_ENGINE), dtype="bfloat16"), port=port)
+        post_json(port, "/lmengine", {"prompts": [served[0][:64]], "max_new_tokens": 2})
+        start_s = time.perf_counter() - t0
+        snap_w = get(h.method("stats")())
+        t0 = time.perf_counter()
+        blocking = []
+        for w in range(0, len(served), b):
+            res, _ = post_json(port, "/lmengine", {"prompts": served[w:w + b]})
+            blocking += [r["tokens"] for r in res["results"]]
+        blocking_s = time.perf_counter() - t0
+        snap_b = get(h.method("stats")())
+        t0 = time.perf_counter()
+        streamed = engine_streams(port, "/lmengine", served, SERVE_CLIENTS,
+                                  LM_ENGINE["max_new_tokens"])
+        stream_s = time.perf_counter() - t0
+        snap = get(h.method("stats")())
+    finally:
+        serve.shutdown()
+    n_tok = sum(map(len, blocking))
+    rl = snap["kernel_launches"]
+    ttft_b, step_b = (gained(snap_w[k], snap_b[k]) for k in ("ttft_s", "step_latency_s"))
+    ttft_s, step_s = (gained(snap_b[k], snap[k]) for k in ("ttft_s", "step_latency_s"))
+    log(f"[lm serve] (d) EngineDeployment(EngineConfig({LM_ENGINE}), dtype=\"bfloat16\"), one "
+        f"replica leasing the card: serve.run + load + a 1-prompt warm-up {start_s:.3f} s; "
+        f"{len(served)} prompts as two blocking POSTs of {b} {blocking_s:.3f} s "
+        f"({n_tok / blocking_s:.1f} tokens/s), as streams from {SERVE_CLIENTS} client threads "
+        f"{stream_s:.3f} s ({n_tok / stream_s:.1f} tokens/s); replica device {snap['device']}, "
+        f"launches {rl}; blocking: TTFT p50 {ttft_b['p50'] * 1e3:.3f} ms, p99 "
+        f"{ttft_b['p99'] * 1e3:.3f} ms, decode step p50 {step_b['p50'] * 1e3:.3f} ms, p95 "
+        f"{step_b['p95'] * 1e3:.3f} ms; streams: TTFT p50 {ttft_s['p50'] * 1e3:.3f} ms, p99 "
+        f"{ttft_s['p99'] * 1e3:.3f} ms, decode step p50 {step_s['p50'] * 1e3:.3f} ms, p95 "
+        f"{step_s['p95'] * 1e3:.3f} ms; equal to (b): blocking {blocking == want}, streams "
+        f"{streamed == want}")
+    if snap["device"] != str(dev) or rl["decode_attention"] <= 0 or rl["flash_attention"]:
+        raise AssertionError(f"[lm serve] (d) replica device {snap['device']}, launches {rl}")
+    if blocking != want or streamed != want:
+        raise AssertionError(f"[lm serve] (d) served tokens differ from (b):\n{blocking}\n"
+                             f"{streamed}\n{want}")
+    out["served"] = {"serve_start_s": start_s, "blocking_s": blocking_s, "stream_s": stream_s,
+                     "tokens": n_tok, "device": snap["device"], "launches": rl,
+                     "blocking_ttft_s": ttft_b, "blocking_step_s": step_b,
+                     "stream_ttft_s": ttft_s, "stream_step_s": step_s}
+    out["launches"]["lm_serve_replica"] = rl["decode_attention"]
+    t_part = part_done("d", t_part)
+
+    # (e) f32 parity, depth cut to 2: the kernel against the plain version
+    out["parity"] = lm_serve_parity(dev)
+    out["launches"]["lm_serve_parity"] = out["parity"]["kernel_launches"]
+    part_done("e", t_part)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm serve] phase 22 (a)-(e) {out['phase_s']:.1f} s: "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in out["part_s"].items()))
+    return out
+
+
+def lm_serve_parity(dev) -> dict:
+    """Phase 22 (e): f32, full width, depth cut to 2, weights from numpy
+    seed 0, TF32 off: offline ``generate``, the slab engine and the paged
+    engine, each through the decode kernel and through
+    ``decode_attention_reference`` on the card; all six token streams
+    equal."""
+    from tpu_air_torch.models.lm import CausalLM, generate, modeling
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+
+    model = CausalLM(lm_config("float32", LM_SERVE_PARITY_LAYERS), device=dev).init_weights(SEED)
+    ps = lm_serve_prompts(LM_SERVE_PARITY_PROMPTS, model.config.vocab_size, SEED + 43)
+    new = LM_SERVE_PARITY_NEW
+    ecfg = {**LM_ENGINE, "max_new_tokens": new}
+    streams, launched = {}, {}
+    saved = modeling.decode_attention
+    for path in ("kernel", "plain"):
+        modeling.decode_attention = saved if path == "kernel" else decode_attention_reference
+        try:
+            decode_attention.launches = 0
+            streams[f"{path} offline"] = [generate(model, [p], max_new_tokens=new)[0].tolist()
+                                          for p in ps]
+            for mode in ("slab", "paged"):
+                streams[f"{path} {mode}"] = lm_engine_run(model, ps, mode, "burst",
+                                                          ecfg)["tokens"]
+            launched[path] = decode_attention.launches
+        finally:
+            modeling.decode_attention = saved
+    ref = streams["kernel offline"]
+    same = {k: v == ref for k, v in streams.items()}
+    log(f"[lm serve] (e) f32, {LM_SERVE_PARITY_LAYERS} layers at full width, "
+        f"{len(ps)} prompts -> {new} tokens: offline, slab and paged, through the kernel "
+        f"({launched['kernel']} launches) and the plain version ({launched['plain']}): equal "
+        f"to the kernel's offline streams: {same}")
+    if launched["plain"] or not launched["kernel"]:
+        raise AssertionError(f"[lm serve] (e) launches {launched}")
+    if not all(same.values()):
+        raise AssertionError(f"[lm serve] (e) token streams differ: {same}")
+    del model
+    torch.cuda.empty_cache()
+    return {"identical": True, "streams": list(streams), "kernel_launches": launched["kernel"]}
+
+
+def lm_serve_timing(dev, kernels: list, stats: dict) -> list:
+    """Phase 22 (f): the decode kernel at the LM engine's shape (b 16 slots,
+    L 1024, 8 heads of 128, bf16, a per-row mask with rows at varied
+    positions, one at 0) beside its bound (the live K/V bytes, q, the
+    output and the mask over 3.35 TB/s), its plain version and SDPA on the
+    same inputs; the slabs are cycled through ``COLD_BYTES`` as the L2
+    would find them cold.  The launches the phase counted are added to the
+    decode kernel's row."""
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+
+    b, L, h, d = LM_ENGINE["num_slots"], LM_ENGINE["slot_len"], 8, 128
+    dt = torch.bfloat16
+    rng = np.random.default_rng(SEED + 44)
+    pos = rng.integers(L // 16, L, b)
+    pos[0] = 0
+    mask_np = (np.arange(L)[None] <= pos[:, None]).astype(np.float32)
+    mask = torch.from_numpy(mask_np).to(dev)
+    lib_mask = mask.bool()[:, None, None, :]
+    copies = max(2, -(-COLD_BYTES // (2 * b * L * h * d * 2)))
+    sets = []
+    for _ in range(copies):
+        q, k, v, _ = decode_inputs(rng, b, L, h, d, dt, dev, "plain")
+        q = q * float(torch.tensor(d ** -0.5, dtype=dt))
+        sets.append((q, k, v))
+    q, k, v = sets[0]
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kv_mask=mask)
+    want = decode_attention_reference(q, k, v, kv_mask=mask)
+    err = scaled_err(got, want)
+    k4, v4 = (x.view(b, L, h, d).transpose(1, 2) for x in (k, v))
+    lib = F.scaled_dot_product_attention(q.transpose(1, 2), k4, v4, attn_mask=lib_mask,
+                                         scale=1.0).transpose(1, 2)
+    lib_err = scaled_err(lib, want)
+    ms = device_ms(cycled([partial(decode_attention, *s, kv_mask=mask) for s in sets]), 50)
+    plain_ms = device_ms(cycled([partial(decode_attention_reference, *s, kv_mask=mask)
+                                 for s in sets]), 10)
+    lib_ms = device_ms(cycled([
+        partial(F.scaled_dot_product_attention, s[0].transpose(1, 2),
+                s[1].view(b, L, h, d).transpose(1, 2), s[2].view(b, L, h, d).transpose(1, 2),
+                attn_mask=lib_mask, scale=1.0) for s in sets]), 20)
+    decode_attention.launches = before           # the comparison's launches are not counted
+    keys = int(mask_np.sum())
+    nbytes = 2 * keys * h * d * 2 + 2 * b * h * d * 2 + b * L * 4
+    flops = 4 * keys * h * d
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
+    if not err < TOL[dt]:
+        raise AssertionError(f"[lm serve timing] kernel against plain {err} >= {TOL[dt]}")
+    log(f"[lm serve] (f) decode_attention at the LM engine's shape, b {b}, L {L}, h {h}, "
+        f"d {d}, bf16, per-row mask ({keys} live keys of {b * L}): kernel {ms:.4f} ms device "
+        f"time, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes / 1e6:.2f} MB); kernel against plain {err:.3e} (tolerance {TOL[dt]}), SDPA "
+        f"against plain {lib_err:.3e}; card: {card_line()}")
+    row = next(r for r in kernels if r["name"] == "decode_attention")
+    row.setdefault("launches_by_path", {})
+    row["lm_engine_shape"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                              "bytes": nbytes, "flops": flops, "live_keys": keys,
+                              "shape": f"b {b} L {L} h {h} d {d} bf16 per-row mask"}
+    for where, n in stats["launches"].items():
+        row["launches_by_path"][where] = n
+        row["launches"] += n
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -3317,7 +3759,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     main_stats["parity"] = parity(dev)
     kernels = timing(dev, errs, main_stats["launches"])
     bwd_errs = compare_backward(dev)
-    lm_stats = lm_main_path(dev)
+    lm_stats = lm_main_path(dev, os.path.join(work, "lm_run"))
     lm_stats["parity"] = lm_parity(dev)
     kernels = lm_timing(dev, kernels, bwd_errs, lm_stats)
     w1_stats = w1_main_path(dev)
@@ -3352,11 +3794,13 @@ def run_phases(dev, work: str, t_start: float) -> int:
         w8_stats = w8_path(port)
         serve_stats = serve_t5_path(dev, os.path.join(work, "w3_ckpt"), port)
         serve_stats["parity"] = serve_t5_parity(dev, work, port)
+        lm_serve_stats = lm_serve_path(dev, lm_stats["checkpoint_dir"], port)
     finally:
         serve.shutdown()
         tpu_air_torch.shutdown()
-    log(f"[serve] phases 20-21 (runtime start and stop included) "
+    log(f"[serve] phases 20-22 (runtime start and stop included) "
         f"{time.perf_counter() - t_serve:.1f} s")
+    kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)
@@ -3368,7 +3812,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "main": main_stats, "lm": lm_stats, "w1": w1_stats,
                       "batch": batch_stats, "w2": w2_stats, "w7": w7_stats, "w6": w6_stats,
-                      "w8": w8_stats, "serve_t5": serve_stats}),
+                      "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

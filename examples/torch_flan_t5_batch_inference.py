@@ -16,7 +16,7 @@ Dials:
                  where there is none
 
 Run directly, or as a managed job:
-  python -m tpu_air.job submit examples/torch_flan_t5_job.yml --wait
+  python -m tpu_air_torch.job submit examples/torch_flan_t5_job.yml --wait
 """
 
 from __future__ import annotations

@@ -614,3 +614,70 @@ def test_t5_engine_streams_on_the_card_kernels_match_plain(dev, monkeypatch):
             eos = cfg.eos_token_id
             want.append(row[:row.index(eos) + 1] if eos in row else row)
     assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_the_lm_engine_shape(dev, dtype):
+    """The LM engine's 1-token step: b 16 slots over L 1024 keys, 8 heads of
+    128, a per-row validity mask with rows at varied positions (one at 0, a
+    free row), q scaled in its own type first as the model scales it."""
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+
+    rng = np.random.default_rng(16)
+    b, L, h, d = 16, 1024, 8, 128
+    q = _t(rng.standard_normal((b, 1, h, d)), dev, dtype) * float(
+        torch.tensor(d ** -0.5, dtype=dtype))
+    k = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+    v = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+    pos = rng.integers(64, L, b)
+    pos[0], pos[-1] = 0, L - 1
+    mask = _t((np.arange(L)[None] <= pos[:, None]).astype(np.float32), dev, torch.float32)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = decode_attention_reference(q, k, v, kv_mask=mask)
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) < TOL[dtype]
+
+
+def test_lm_paged_decode_step_on_the_card_matches_plain(dev, monkeypatch):
+    """One paged decode step of a 2-layer LM (d_model 1024, 8 heads of 128,
+    f32, TF32 off) through the kernel, against the same step with the plain
+    version in the model, from the same pool: equal tokens, and K/V pools
+    within the f32 tolerance.  Row 1 is free (null page, pos 0)."""
+    from tpu_air_torch.models.lm import (LMConfig, CausalLM, init_paged_cache,
+                                         make_lm_paged_decode_step_fn)
+    from tpu_air_torch.models.lm import modeling
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+
+    cfg = LMConfig(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8, max_seq_len=1024)
+    model = CausalLM(cfg, device=dev).init_weights(0)
+    S, P, C, npg = 4, 40, 16, 8
+    rng = np.random.default_rng(17)
+    table = torch.from_numpy(rng.permutation(np.arange(1, P))[:S * npg].reshape(S, npg)).to(dev)
+    table[1] = 0
+    pos = torch.tensor([70, 0, 127, 5], device=dev)
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, S)).to(dev)
+
+    def run():
+        cache = init_paged_cache(model, S, P, C, npg)
+        g = torch.Generator(dev).manual_seed(3)
+        for c in cache:
+            c.cached_key.normal_(generator=g)
+            c.cached_value.normal_(generator=g)
+        step = make_lm_paged_decode_step_fn(model, C * npg)
+        cache, nxt = step(cache, tok, pos, table)
+        return nxt, cache
+
+    before = decode_attention.launches
+    got, cache = run()
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + cfg.n_layers
+    monkeypatch.setattr(modeling, "decode_attention", decode_attention_reference)
+    want, plain_cache = run()
+    assert decode_attention.launches == before + cfg.n_layers
+    assert torch.equal(got, want)
+    for a, b in zip(cache, plain_cache):
+        assert _err(a.cached_key, b.cached_key) < TOL[torch.float32]
+        assert _err(a.cached_value, b.cached_value) < TOL[torch.float32]

@@ -1,9 +1,14 @@
 """The port's W1 -> W3 example through the jobs CLI: the job twin
 ``examples/torch_flan_t5_job.yml`` submitted as tests/test_examples_job.py
-submits the JAX package's, at the example's CPU smoke dials; and the port's
-W8 example, ``examples/torch_xgboost_e2e.py``, on a serve port of its own."""
+submits the JAX package's, at the example's CPU smoke dials, through the JAX
+package's runner and through the port's own (``python -m
+tpu_air_torch.job``); and the port's W8 example,
+``examples/torch_xgboost_e2e.py``, on a serve port of its own."""
 
+import json
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -26,6 +31,28 @@ def test_torch_flan_t5_job_submit_end_to_end(tmp_path, monkeypatch):
     # the joined inputs and outputs of the 19-row eval split
     assert "instruction generated_output" in " ".join(log.split())
     assert "generated 19 outputs" in log
+
+
+def test_torch_flan_t5_job_through_the_ports_cli(tmp_path):
+    """W5 as the yml says to run it: ``python -m tpu_air_torch.job submit
+    examples/torch_flan_t5_job.yml --wait``, then ``status`` and ``logs``
+    through the same CLI, which imports nothing of the JAX package."""
+    env = {**os.environ, "TPU_AIR_JOB_ROOT": str(tmp_path), "PYTHONPATH": REPO}
+
+    def cli(*args):
+        return subprocess.run([sys.executable, "-m", "tpu_air_torch.job", *args], cwd=REPO,
+                              capture_output=True, text=True, timeout=600, env=env)
+
+    sub = cli("submit", "examples/torch_flan_t5_job.yml", "--wait")
+    assert sub.returncode == 0, sub.stdout[-2000:] + sub.stderr[-2000:]
+    st = json.loads(sub.stdout)
+    assert st["status"] == "succeeded" and st["spec"]["name"] == "torch-flan-t5-batch-inference"
+    again = cli("status", st["job_id"])
+    assert again.returncode == 0 and json.loads(again.stdout)["status"] == "succeeded"
+    log = cli("logs", st["job_id"]).stdout
+    assert "generated 19 outputs" in log
+    listed = cli("list")
+    assert [j["job_id"] for j in json.loads(listed.stdout)] == [st["job_id"]]
 
 
 def test_example_without_a_card_refuses_unless_device_cpu():

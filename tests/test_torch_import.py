@@ -167,6 +167,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_pa
                                     path=str(tmp_path / "t5"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EngineDeployment.func_or_class(t5_ckpt, T5EngineConfig())._ensure_engine()
+    # the LM serving path: the predictor and the engine replica likewise
+    from tpu_air_torch.predict import LMGenerativePredictor
+
+    lm = CausalLM(LMConfig.tiny(), device="cpu").init_weights(0)
+    lm_ckpt = Checkpoint.from_model(model_config=LMConfig.tiny(), params=lm.state_dict(),
+                                    path=str(tmp_path / "lm"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMGenerativePredictor.from_checkpoint(lm_ckpt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EngineDeployment.func_or_class(lm_ckpt)._ensure_engine()
+    assert LMGenerativePredictor.from_checkpoint(
+        lm_ckpt, device="cpu").model.device == torch.device("cpu")
     assert SegformerTrainer(model_config=seg, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     model = T5ForConditionalGeneration(T5Config.tiny(), device="cpu")

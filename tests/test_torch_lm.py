@@ -243,15 +243,10 @@ def test_lm_trainer_reports_eval_and_retries_from_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["sequence_parallel", "model_parallel", "num_workers",
-                                  "adafactor", "decode"])
+                                  "adafactor"])
 def test_lm_paths_not_ported_yet_raise(what, tmp_path):
     """What needs several cards or a later slice raises, naming where it is
     tracked, rather than training something else."""
-    if what == "decode":
-        model = tlm.CausalLM(tlm.LMConfig(**TINY), device="cpu")
-        with pytest.raises(NotImplementedError, match="LM-generate"):
-            model(torch.ones(1, 4, dtype=torch.long), decode=True)
-        return
     sc = {"sequence_parallel": ScalingConfig(sequence_parallel=2),
           "model_parallel": ScalingConfig(model_parallel=2),
           "num_workers": ScalingConfig(num_workers=2)}.get(what)
@@ -264,6 +259,24 @@ def test_lm_paths_not_ported_yet_raise(what, tmp_path):
     ).fit()
     assert isinstance(result.error, RuntimeError)
     assert "NotImplementedError" in str(result.error) and "ROADMAP Queue 1" in str(result.error)
+
+
+def test_decode_runs_a_one_token_step(jax_params):
+    """``decode=True`` (once refused here) runs: a prefill then a 1-token
+    step over the cache give the full forward's last logits, and each moves
+    the cache index on by the tokens it wrote."""
+    from tpu_air_torch.models.lm.generate import init_cache
+
+    model = _port_model(jax_params)
+    ids = torch.from_numpy(_rows(2, seed=8, length=9)).long()
+    cache = init_cache(model, 2, 16)
+    with torch.no_grad():
+        full = model(ids)
+        model(ids[:, :8], decode=True, cache=cache)
+        assert all(c.cache_index == 8 for c in cache)
+        step = model(ids[:, 8:], torch.full((2, 1), 8), decode=True, cache=cache)
+    assert all(c.cache_index == 9 for c in cache)
+    np.testing.assert_allclose(step[:, 0].numpy(), full[:, -1].numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("cls, field, value", [

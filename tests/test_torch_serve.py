@@ -2,7 +2,9 @@
 tests/test_serve.py on the port's runtime, W8 (``PredictorDeployment`` over
 ``GBDTPredictor``) against the JAX package's in-process predictions, the
 tiny T5 through ``PredictorDeployment`` and through ``EngineDeployment``
-against their in-process counterparts, and every branch the port refuses.
+against their in-process counterparts, every branch the port refuses, and the
+causal-LM branches that it once refused (the LM engine's own serving tests
+are in tests/test_torch_lm_engine.py, on a port of their own).
 
 Isolation from the JAX package's tests, which run beside these in other
 processes: this file binds one port of its own (``PORT``, no other test file
@@ -25,7 +27,7 @@ import pytest
 import tpu_air_torch
 from tpu_air_torch import serve
 from tpu_air_torch.core import runtime as rt
-from tpu_air_torch.engine import EngineConfig, T5Engine, T5EngineConfig
+from tpu_air_torch.engine import EngineConfig, InferenceEngine, T5Engine, T5EngineConfig
 from tpu_air_torch.models.t5.config import T5Config
 from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
 from tpu_air_torch.models.tokenizer import ByteTokenizer
@@ -356,8 +358,6 @@ def _server(t5_ckpt, **kw):
 
 
 REFUSALS = {
-    "engine_config": (lambda c: EngineDeployment.func_or_class(c, EngineConfig()), "item 6b"),
-    "no_engine_config": (lambda c: EngineDeployment.func_or_class(c), "item 6b"),
     "mesh": (lambda c: _server(c, mesh=(1, 2)), "items 6b and 9"),
     "disagg": (lambda c: _server(c, disagg={"prefill_replicas": 1}), "items 6b and 9"),
     "adapter_submit": (lambda c: _server(c).submit([5, 6], adapter_id="t"), "item 6b"),
@@ -370,10 +370,6 @@ REFUSALS = {
     "borrow_return": (lambda c: _server(c).borrow_return(), "item 11"),
     "weight_store": (lambda c: serve.WeightStore, "item 6b"),
     "attach_weights": (lambda c: serve.attach_weights, "item 6b"),
-    "inference_engine": (lambda c: __import__("tpu_air_torch.engine").engine.InferenceEngine,
-                         "item 6b"),
-    "paged_kv_pool": (lambda c: __import__("tpu_air_torch.engine").engine.PagedKVPool,
-                      "item 6b"),
     "mesh_engine": (lambda c: __import__("tpu_air_torch.engine").engine.MeshEngine, "item 9"),
     "disagg_router": (lambda c: __import__("tpu_air_torch.engine").engine.DisaggRouter,
                       "items 6b and 9"),
@@ -385,6 +381,43 @@ def test_unported_branches_refuse_naming_their_item(t5_ckpt, case):
     fn, item = REFUSALS[case]
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         fn(t5_ckpt)
+
+
+@pytest.fixture(scope="module")
+def lm_ckpt():
+    from tpu_air_torch.models.lm import CausalLM, LMConfig
+
+    cfg = LMConfig.tiny()
+    model = CausalLM(cfg, device="cpu").init_weights(0)
+    return Checkpoint.from_model(model_config=cfg, params=model.state_dict())
+
+
+def _lm_engine_of(server):
+    try:
+        return server._ensure_engine()
+    finally:
+        server.close()
+
+
+NOW_SERVED = {
+    # an EngineConfig, or none, now builds the causal-LM slot engine
+    "engine_config": lambda c: isinstance(_lm_engine_of(EngineDeployment.func_or_class(
+        c, EngineConfig(num_slots=2, slot_len=64), device="cpu")), InferenceEngine),
+    "no_engine_config": lambda c: _lm_engine_of(EngineDeployment.func_or_class(
+        c, device="cpu")).config == EngineConfig(),
+    # the engine package's LM names now import
+    "inference_engine": lambda c: __import__("tpu_air_torch.engine").engine.InferenceEngine
+    is InferenceEngine,
+    "paged_kv_pool": lambda c: __import__("tpu_air_torch.engine").engine.PagedKVPool
+    .__module__ == "tpu_air_torch.engine.kvpool.pool",
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOW_SERVED))
+def test_lm_branches_once_refused_now_work(lm_ckpt, case):
+    """What this file once listed as refused for the causal LM (ROADMAP item
+    6b (i)) builds or imports."""
+    assert NOW_SERVED[case](lm_ckpt)
 
 
 def test_publish_weights_to_names_item_6b(tmp_path):

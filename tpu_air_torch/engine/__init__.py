@@ -1,17 +1,31 @@
 """tpu_air_torch.engine — online inference, the counterpart of
 ``tpu_air.engine``.
 
-The T5 family runs through :class:`T5Engine`, a window engine over the
-batch-synchronized T5 decode entry points, on the model's device: its
-prefill runs the flash-attention kernel in the encoder, and every decode
-step the decode-attention kernel.  The causal-LM slot engine with its paged
-KV pool (ROADMAP Queue 1 item 6b) and the distributed engines (items 6b
-and 9) are not ported: asking this package for one of them raises
+The causal LM runs through :class:`InferenceEngine`: a fixed pool of
+sequence slots over per-layer KV storage, block-table PAGED pools with
+prefix sharing and chunked prefill by default (``kvpool/``) or flat slabs
+(``kv_mode="slab"``), one decode step over the pool, admission and
+retirement between steps, and per-token streaming.  The T5 family runs
+through :class:`T5Engine`, a window engine over the batch-synchronized T5
+decode entry points.  Both run on the model's device, where every decode
+step runs the decode-attention kernel (T5's prefill the flash-attention
+kernel too).  The distributed engines (ROADMAP Queue 1 items 6b and 9) are
+not ported: asking this package for one of them raises
 ``NotImplementedError`` naming its item.
 """
 
+from .engine import InferenceEngine
+from .kvpool import (
+    AdmitPlan,
+    BlockAllocator,
+    KVPoolOOMError,
+    PagedKVPool,
+    PrefixCache,
+    PrefixMatch,
+)
 from .metrics import EngineMetrics, snapshot_all
 from .scheduler import Scheduler
+from .slots import Slot, SlotManager, make_insert_fn
 from .t5_engine import T5Engine, T5EngineConfig
 from .types import (
     EngineClosedError,
@@ -23,15 +37,10 @@ from .types import (
     ResponseStream,
 )
 
-_ITEM_6B = ("ROADMAP Queue 1 item 6b: the LM decode path, InferenceEngine, "
-            "slots.py and kvpool/")
 _ITEM_9 = "ROADMAP Queue 1 item 9: mesh, tensor parallelism and multi-host"
 _ITEM_6B_9 = ("ROADMAP Queue 1 items 6b and 9: engine/dist/, its KV transfer "
               "with the LM engine")
 _UNPORTED = {
-    **dict.fromkeys(("InferenceEngine", "Slot", "SlotManager", "make_insert_fn",
-                     "PagedKVPool", "AdmitPlan", "BlockAllocator", "KVPoolOOMError",
-                     "PrefixCache", "PrefixMatch"), _ITEM_6B),
     **dict.fromkeys(("MeshEngine", "ShardedPagedPool"), _ITEM_9),
     **dict.fromkeys(("DisaggRouter", "PrefillWorker"), _ITEM_6B_9),
 }
@@ -45,16 +54,26 @@ def __getattr__(name):
 
 
 __all__ = [
+    "AdmitPlan",
+    "BlockAllocator",
     "EngineClosedError",
     "EngineConfig",
     "EngineDrainingError",
     "EngineMetrics",
     "EngineOverloadedError",
+    "InferenceEngine",
+    "KVPoolOOMError",
+    "PagedKVPool",
+    "PrefixCache",
+    "PrefixMatch",
     "Request",
     "RequestValidationError",
     "ResponseStream",
     "Scheduler",
+    "Slot",
+    "SlotManager",
     "T5Engine",
     "T5EngineConfig",
+    "make_insert_fn",
     "snapshot_all",
 ]

@@ -1,0 +1,675 @@
+"""The continuous-batching inference engine for the causal LM, the
+counterpart of ``tpu_air/engine/engine.py`` on torch tensors on the model's
+device.
+
+One :class:`InferenceEngine` owns a fixed pool of ``S`` sequence slots and
+one decode step over that pool for its whole life; the KV cache is written
+in place, never copied.  Two KV layouts share the host loop
+(``EngineConfig.kv_mode``):
+
+* **paged** (default) — per-layer page pools ``[P, page_len, h*d]`` plus a
+  host block table mapping slot positions onto refcounted pages
+  (``engine/kvpool/``).  Prompts prefill in page-sized CHUNKS between decode
+  steps; prompts sharing a cached prefix skip the covered chunks and share
+  the physical pages, copy-on-write on the first divergent append.
+* **slab** — one private ``[slot_len]`` KV row per slot, whole-prompt
+  bucketed prefill.
+
+Requests flow through three host-side phases BETWEEN device steps:
+
+1. **admission** — FIFO from the scheduler queue (paged: gated on KV-page
+   capacity with a bounded reorder window so a big blocked head can't
+   starve small requests behind it).
+2. **prefill** — slab: one bucketed B=1 prefill per request, copied into
+   the slab row; paged: up to ``prefill_chunks_per_step`` chunk calls per
+   engine step, shortest-remaining-prompt first.
+3. **decode + retirement** — one fixed-shape step over all ``S`` rows; a
+   row that emits EOS (inclusive) or exhausts its budget is released (paged:
+   its private pages return to the free list; its prompt's pages stay
+   resident in the prefix cache).
+
+Every step has a fixed shape and rows do not see each other, so with greedy
+decoding a request's tokens do not depend on its neighbours: in both kv
+modes they equal offline ``generate`` on the same prompt (the CPU tests pin
+this for burst, staggered and trickle arrivals).  On the card every decode
+step runs the decode-attention kernel in each layer.
+
+The step loop runs in a daemon thread that enters ``torch.inference_mode()``
+itself (grad mode is per thread), and every tensor the engine makes names
+the model's device (the current CUDA device is per thread too).  A decode
+step makes one host sync, the ``.cpu()`` of its tokens; a prefill's final
+chunk makes one more, for the first token.
+
+Refused, each with ``NotImplementedError`` naming its ROADMAP Queue 1 item:
+LoRA adapters (``adapter_slots``, ``adapter_id``, ``load_adapter``,
+``unload_adapter``), live weights (``swap_params``, ``rollback_params``) and
+preemption migration (``preempt``, ``migrate_out``, ``submit_migrated``):
+item 6b (ii); ``submit_prefilled``, the disaggregated handoff: items 6b and
+9.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from tpu_air_torch.models.lm.generate import (
+    init_paged_cache,
+    init_slot_cache,
+    make_lm_decode_step_fn,
+    make_lm_paged_decode_step_fn,
+    make_lm_prefill_chunk_fn,
+    make_lm_prefill_fn,
+    page_copy,
+)
+from tpu_air_torch.observability import perf as _perf
+from tpu_air_torch.observability import tracing as _tracing
+
+from .kvpool import PagedKVPool
+from .kvpool.allocator import NULL_PAGE
+from .metrics import EngineMetrics, unregister
+from .scheduler import Scheduler
+from .slots import Slot, SlotManager, make_insert_fn
+from .types import (
+    PRIORITIES,
+    EngineClosedError,
+    EngineConfig,
+    EngineDrainingError,
+    EngineOverloadedError,
+    Request,
+    ResponseStream,
+)
+
+_ITEM_6B_II = "ROADMAP Queue 1 item 6b (ii): live weights, LoRA and migration"
+_ITEM_6B_9 = "ROADMAP Queue 1 items 6b and 9: engine/dist/, the disaggregated handoff"
+
+
+def _refuse(what: str, item: str = _ITEM_6B_II) -> None:
+    raise NotImplementedError(f"{what} is not ported to tpu_air_torch ({item})")
+
+
+class InferenceEngine:
+    """Slot-pool online inference over a causal LM that holds its weights on
+    the device the engine runs on.
+
+    ``submit`` is thread-safe and non-blocking (raises
+    :class:`EngineOverloadedError` under backpressure); tokens stream back
+    on the returned :class:`ResponseStream` as they are decoded.  With
+    ``auto_start=True`` (the default) a daemon thread drives the step loop;
+    ``auto_start=False`` hands the loop to the caller via :meth:`step` —
+    the deterministic mode the parity tests drive.
+    """
+
+    def __init__(self, model, config: Optional[EngineConfig] = None,
+                 *, auto_start: bool = True, name: str = "engine"):
+        self.model = model
+        self.device = model.device
+        self.config = config or EngineConfig()
+        self.name = name
+        cfg = self.config
+        if cfg.eos_token_id == "model":
+            self.eos_token_id = model.config.eos_token_id
+        else:
+            self.eos_token_id = cfg.eos_token_id
+        if cfg.slot_len > model.config.max_seq_len:
+            raise ValueError(
+                f"slot_len {cfg.slot_len} exceeds the model's max_seq_len "
+                f"{model.config.max_seq_len}"
+            )
+        if cfg.kv_mode not in ("paged", "slab"):
+            raise ValueError(f"unknown kv_mode {cfg.kv_mode!r}")
+        if cfg.adapter_slots > 0:
+            _refuse("adapter_slots > 0 (the LoRA head-delta banks)")
+        self.paged = cfg.kv_mode == "paged"
+
+        # device side: the persistent KV pool + the phases over it
+        if self.paged:
+            self._build_paged_state()
+        else:
+            self._build_slab_state()
+
+        # host side: authoritative per-slot state the step args come from
+        self._cur_tok = np.zeros((cfg.num_slots,), np.int64)
+        self._pos = np.zeros((cfg.num_slots,), np.int64)
+        self._round_reserved = 0   # pages promised during one admission round
+        self._chunks_run = 0       # prefill chunk calls, engine lifetime
+
+        self.scheduler = Scheduler(cfg)
+        self.slots = SlotManager(cfg.num_slots)
+        self.metrics = EngineMetrics(name=name, num_slots=cfg.num_slots)
+        # analytic flops/bytes per program, fed into the metrics ledger with
+        # each program's measured wall time.  The decode step attends the
+        # full context for every slot whatever the occupancy, so it is
+        # priced once, at S rows x slot_len.
+        self._cost_model = _perf.LMCostModel(model.config)
+        self._decode_cost = self._cost_model.decode_step_cost(cfg.num_slots, cfg.slot_len)
+
+        self._next_request_id = 0
+        self._id_lock = threading.Lock()
+        self._step_lock = threading.Lock()
+        self._closed = False
+        self._draining = False
+        self._round_admits = 0  # slots taken during one admission round
+        self._thread: Optional[threading.Thread] = None
+        if auto_start:
+            self.start()
+
+    # -- device state ----------------------------------------------------------
+    def _build_paged_state(self) -> None:
+        cfg = self.config
+        self.pool = PagedKVPool(
+            cfg.pool_pages(), cfg.page_len, cfg.num_slots,
+            cfg.pages_per_slot(), prefix_cache=cfg.prefix_cache,
+        )
+        self.cache = init_paged_cache(
+            self.model, cfg.num_slots, cfg.pool_pages(), cfg.page_len,
+            cfg.pages_per_slot(),
+        )
+        self._decode_step = make_lm_paged_decode_step_fn(self.model, cfg.slot_len)
+        self._chunk_fn = make_lm_prefill_chunk_fn(self.model, cfg.page_len, cfg.slot_len)
+
+    def _build_slab_state(self) -> None:
+        cfg = self.config
+        self.pool = None
+        self.cache = init_slot_cache(self.model, cfg.num_slots, cfg.slot_len)
+        self._decode_step = make_lm_decode_step_fn(self.model, cfg.slot_len)
+        self._insert = make_insert_fn()
+        self._prefill_fns: Dict[int, Any] = {}  # bucket -> prefill fn
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        """A host array as an int64 tensor on the engine's device."""
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(self.device)
+
+    # -- submission (any thread) ---------------------------------------------
+    def _make_request(self, prompt, max_new_tokens, stream,
+                      priority: str = "interactive", *,
+                      deadline_ms: Optional[float] = None,
+                      adapter_id: Optional[str] = None,
+                      tenant: Optional[str] = None) -> Request:
+        """Validation + Request construction."""
+        # airlint: disable=CC001 — _closed/_draining are GIL-atomic
+        # monotonic bools (False→True once); a submit racing the flip is
+        # indistinguishable from one that arrived a moment earlier
+        if self._closed:
+            raise EngineClosedError("engine is shut down")
+        # airlint: disable=CC001 — same monotonic-flag discipline as _closed
+        if self._draining:
+            raise EngineDrainingError(
+                f"engine {self.name!r} is draining; submit elsewhere")
+        if priority not in PRIORITIES:
+            raise ValueError(
+                f"unknown priority {priority!r} (expected one of {PRIORITIES})"
+            )
+        if adapter_id is not None:
+            _refuse("adapter_id (the LoRA head-delta banks)")
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("empty prompt")
+        budget = (self.config.max_new_tokens if max_new_tokens is None
+                  else int(max_new_tokens))
+        if budget < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {budget}")
+        if len(prompt) + budget > self.config.slot_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({budget}) "
+                f"exceeds slot_len ({self.config.slot_len})"
+            )
+        with self._id_lock:
+            rid = self._next_request_id
+            self._next_request_id += 1
+        return Request(request_id=rid, prompt=prompt, max_new_tokens=budget,
+                       stream=stream if stream is not None
+                       else ResponseStream(rid),
+                       priority=priority,
+                       deadline_ms=(None if deadline_ms is None
+                                    else float(deadline_ms)),
+                       tenant=(str(tenant) if tenant else None))
+
+    def submit(self, prompt: Sequence[int],
+               max_new_tokens: Optional[int] = None, *,
+               priority: str = "interactive",
+               stream: Optional[ResponseStream] = None,
+               deadline_ms: Optional[float] = None,
+               adapter_id: Optional[str] = None,
+               tenant: Optional[str] = None) -> ResponseStream:
+        """Queue one prompt; returns its token stream immediately.
+
+        ``priority`` is the request's SLO class (``types.PRIORITIES``):
+        admission pops interactive first each step, and under backpressure
+        best-effort sheds at half the queue depth interactive does.
+        ``stream`` lets a front end that already handed a stream to its
+        caller have the engine emit onto it.  ``deadline_ms`` is the
+        request's ABSOLUTE end-to-end deadline (unix-epoch ms): still queued
+        past it, the request expires with ``DeadlineExceededError``.
+        ``tenant`` is a cost-attribution label.  ``adapter_id`` raises
+        ``NotImplementedError`` (the LoRA banks are not ported)."""
+        req = self._make_request(prompt, max_new_tokens, stream, priority,
+                                 deadline_ms=deadline_ms, adapter_id=adapter_id,
+                                 tenant=tenant)
+        try:
+            self.scheduler.submit(req)
+        except EngineOverloadedError:  # backpressure: count the 503, surface it
+            self.metrics.record_reject(req.priority)
+            raise
+        self.metrics.record_submit(req.priority)
+        return req.stream
+
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 max_new_tokens: Optional[int] = None,
+                 timeout: Optional[float] = 120.0) -> List[List[int]]:
+        """Blocking convenience: submit every prompt, join every stream.
+        In manual mode (no background thread) it drives :meth:`step`."""
+        streams = [self.submit(p, max_new_tokens) for p in prompts]
+        if self._thread is None:
+            while not self.idle():
+                self.step()
+        return [s.result(timeout) for s in streams]
+
+    # -- what the port refuses ------------------------------------------------
+    def submit_prefilled(self, *_: Any, **__: Any) -> ResponseStream:
+        _refuse("submit_prefilled (the DisaggRouter handoff)", _ITEM_6B_9)
+
+    def preempt(self) -> None:
+        _refuse("preempt (preemption migration)")
+
+    def migrate_out(self) -> List[Dict[str, Any]]:
+        _refuse("migrate_out (preemption migration of paged KV)")
+
+    def submit_migrated(self, *_: Any, **__: Any) -> ResponseStream:
+        _refuse("submit_migrated (preemption migration of paged KV)")
+
+    def swap_params(self, *_: Any, **__: Any) -> float:
+        _refuse("swap_params (live weight swaps)")
+
+    def rollback_params(self) -> float:
+        _refuse("rollback_params (live weight rollback)")
+
+    def load_adapter(self, *_: Any, **__: Any) -> int:
+        _refuse("load_adapter (the LoRA head-delta banks)")
+
+    def unload_adapter(self, *_: Any, **__: Any) -> bool:
+        _refuse("unload_adapter (the LoRA head-delta banks)")
+
+    # -- the engine loop -----------------------------------------------------
+    def step(self) -> bool:
+        """One deterministic engine iteration: admit into free slots, run
+        the prefill quantum (paged), then one pool decode step if anything
+        is decoding.  Returns True if any work happened."""
+        with self._step_lock:
+            worked = False
+            self._round_reserved = 0
+            self._round_admits = 0
+            for req in self.scheduler.pop_admissible(
+                self.slots.free_count(), self._admit_gate()
+            ):
+                if self.paged:
+                    self._admit_paged(req)
+                else:
+                    self._admit(req)
+                worked = True
+            if self.paged and self._prefill_quantum():
+                worked = True
+            if any(not s.prefilling for s in self.slots.active_slots()):
+                self._decode_all()
+                worked = True
+            gauges: Dict[str, Any] = {}
+            if self.paged:
+                gauges = dict(
+                    kvpool=self.pool.stats(),
+                    reordered_admits=self.scheduler.reordered_admits,
+                    prefill_chunks=self._chunks_run,
+                )
+            self.metrics.observe_gauges(
+                self.scheduler.depth(), self.slots.occupancy(),
+                queue_by_class=self.scheduler.depth_by_class(),
+                draining=self._draining,
+                deadline_expired=self.scheduler.deadline_expired,
+                **gauges
+            )
+            return worked
+
+    def idle(self) -> bool:
+        return self.scheduler.depth() == 0 and self.slots.occupancy() == 0
+
+    # -- draining (zero-downtime rollout / scale-down) ------------------------
+    def drain(self) -> None:
+        """Stop admitting NEW submissions; everything already queued or in a
+        slot retires normally.  Idempotent; :meth:`close` still stops the
+        loop."""
+        self._draining = True
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def drained(self) -> bool:
+        """True once draining AND no admitted work remains."""
+        return self._draining and self.idle()
+
+    def _admit_gate(self):
+        """Per-round admission predicate handed to the scheduler: the paged
+        page-capacity gate combined with the interactive slot reserve
+        (``EngineConfig.reserved_interactive_slots``): a non-interactive
+        request takes a slot only while MORE than ``reserved`` slots would
+        stay free after this round's takes.  None (the scheduler's pure pop)
+        when neither applies."""
+        page_gate = self._can_admit if self.paged else None
+        reserved = self.config.reserved_interactive_slots
+        if reserved <= 0:
+            return page_gate
+
+        def gate(req: Request) -> bool:
+            if req.priority != "interactive" and (
+                self.slots.free_count() - self._round_admits <= reserved
+            ):
+                return False
+            if page_gate is not None and not page_gate(req):
+                return False
+            self._round_admits += 1
+            return True
+
+        return gate
+
+    # -- paged admission -----------------------------------------------------
+    def _can_admit(self, req: Request) -> bool:
+        """Page-capacity gate: can the pool cover the request's WORST CASE
+        (no prefix sharing — a prior admit's eviction may invalidate a
+        probe-time match, and shared pages stop being evictable)?  A True
+        answer RESERVES the pages for the rest of the round."""
+        need = self.pool.worst_case_pages(len(req.prompt), req.max_new_tokens)
+        if self.slots.free_count() == 0:
+            return False
+        if self._round_reserved + need > self.pool.capacity():
+            return False
+        self._round_reserved += need
+        return True
+
+    def _admit_paged(self, req: Request) -> None:
+        """Reserve pages + block-table row; the compute happens in the
+        chunked prefill quantum (TTFT lands when the final chunk runs)."""
+        slot = self.slots.acquire()
+        slot.request = req
+        slot.prefilling = True
+        slot.plan = self.pool.admit(slot.index, req.prompt, req.max_new_tokens)
+        # chunks about to be recomputed whose content the prefix cache held
+        # before eviction: work the machine already did once
+        if slot.plan.reprefill_tokens:
+            self.metrics.record_goodput("reprefill_cache_miss", slot.plan.reprefill_tokens)
+
+    def _prefill_quantum(self) -> bool:
+        """Run up to ``prefill_chunks_per_step`` chunk calls,
+        SHORTEST-REMAINING-PROMPT first (ties: request id = arrival order),
+        so a long prompt cannot stall in-flight decodes and short requests
+        keep a flat TTFT while it streams in."""
+        ran = False
+        for _ in range(max(1, self.config.prefill_chunks_per_step)):
+            pending = [s for s in self.slots.active_slots() if s.prefilling]
+            if not pending:
+                break
+            slot = min(
+                pending,
+                key=lambda s: (s.plan.chunks_left, s.request.request_id),
+            )
+            self._run_chunk(slot)
+            ran = True
+        return ran
+
+    def _run_chunk(self, slot: Slot) -> None:
+        plan = slot.plan
+        req = slot.request
+        C = self.config.page_len
+        p0 = plan.next_start
+        n = plan.prompt_len
+        ids = np.full((1, C), self.model.config.pad_token_id, np.int64)
+        chunk_toks = req.prompt[p0:p0 + C]
+        ids[0, :len(chunk_toks)] = chunk_toks
+        is_last = plan.chunks_done == len(plan.chunk_starts) - 1
+        last_local = (n - 1 - p0) if is_last else (C - 1)
+        row = self.pool.chunk_row(slot.index, p0, plan.null_target)
+        t0 = time.monotonic()
+        self.cache, tok = self._chunk_fn(self.cache, self._tensor(ids), p0, last_local,
+                                         self._tensor(row))
+        # the host clock at dispatch: only the final chunk syncs (int(tok)
+        # below), so a mid-prompt chunk's seconds are its launch cost
+        self.metrics.record_program("prefill_chunk",
+                                    self._cost_model.prefill_chunk_cost(C, p0),
+                                    time.monotonic() - t0)
+        plan.chunks_done += 1
+        self._chunks_run += 1
+        if not plan.done:
+            return
+        # final chunk: first token, publication, CoW, hand over to decode
+        first = int(tok)
+        req.first_token_at = time.monotonic()
+        if req.t_submit_ns:  # traced request: stamp TTFT for span emission
+            req.t_first_ns = _tracing.now_ns()
+        self.metrics.record_ttft(req.first_token_at - req.submitted_at,
+                                 req.priority,
+                                 trace_id=(req.trace_ctx or {}).get("trace_id"))
+        req.stream._emit(first)
+        self.metrics.record_tokens(1)  # prefill's first token
+        self.pool.register(slot.index, req.prompt)
+        cow = self.pool.resolve_cow(slot.index)
+        if cow is not None:
+            dst, src = cow
+            self.cache = page_copy(self.cache, dst, src)
+        self._start_decode(slot, first)
+
+    def _start_decode(self, slot: Slot, first: int) -> None:
+        """Hand a prefilled slot to the decode step at its prompt's end, or
+        retire it there (budget of 1, or EOS first)."""
+        n = len(slot.request.prompt)
+        slot.prefilling = False
+        slot.pos = n
+        slot.budget_left = slot.request.max_new_tokens - 1
+        self._cur_tok[slot.index] = first
+        self._pos[slot.index] = n
+        if slot.budget_left == 0 or (
+            self.eos_token_id is not None and first == self.eos_token_id
+        ):
+            self._retire(slot)
+
+    # -- slab admission ------------------------------------------------------
+    def _prefill_for(self, bucket: int):
+        if bucket not in self._prefill_fns:
+            self._prefill_fns[bucket] = make_lm_prefill_fn(self.model, bucket)
+        return self._prefill_fns[bucket]
+
+    def _admit(self, req: Request) -> None:
+        slot = self.slots.acquire()
+        n = len(req.prompt)
+        bucket = self.config.bucket_for(n)
+        ids = np.full((1, bucket), self.model.config.pad_token_id, np.int64)
+        ids[0, :n] = req.prompt
+        tok, segment = self._prefill_for(bucket)(self._tensor(ids),
+                                                 self._tensor(np.array([n - 1])))
+        # graft the whole padded segment: pad positions >= n are masked by
+        # the per-row validity check until decode writes overwrite them
+        self.cache = self._insert(self.cache, segment, slot.index)
+        first = int(tok[0])
+        req.first_token_at = time.monotonic()
+        if req.t_submit_ns:  # traced request: stamp TTFT for span emission
+            req.t_first_ns = _tracing.now_ns()
+        self.metrics.record_ttft(req.first_token_at - req.submitted_at,
+                                 req.priority,
+                                 trace_id=(req.trace_ctx or {}).get("trace_id"))
+        req.stream._emit(first)
+        self.metrics.record_tokens(1)  # prefill's first token
+        slot.request = req
+        self._start_decode(slot, first)
+
+    # -- decode --------------------------------------------------------------
+    def _decode_all(self) -> None:
+        t0 = time.monotonic()
+        tok, pos = self._tensor(self._cur_tok), self._tensor(self._pos)
+        if self.paged:
+            # non-decoding rows (free OR mid-prefill) ride along pointed at
+            # the null page: their ride-along scatter can't touch a live or
+            # prefix-shared page.  The authoritative table stays host-side.
+            table = self.pool.block_table.copy()
+            for s in self.slots.slots:
+                if not s.active or s.prefilling:
+                    table[s.index] = NULL_PAGE
+            self.cache, nxt = self._decode_step(self.cache, tok, pos, self._tensor(table))
+        else:
+            self.cache, nxt = self._decode_step(self.cache, tok, pos)
+        nxt = nxt.cpu().numpy()                  # the step's one host sync
+        dt = time.monotonic() - t0
+        self.metrics.record_program("decode_step", self._decode_cost, dt)
+        emitted = 0
+        for slot in self.slots.active_slots():
+            if slot.prefilling:
+                continue
+            token = int(nxt[slot.index])
+            slot.request.stream._emit(token)
+            emitted += 1
+            slot.pos += 1
+            slot.budget_left -= 1
+            self._cur_tok[slot.index] = token
+            self._pos[slot.index] = slot.pos
+            if slot.budget_left == 0 or (
+                self.eos_token_id is not None and token == self.eos_token_id
+            ):
+                self._retire(slot)
+        self.metrics.record_step(dt, emitted)
+
+    # -- retirement ----------------------------------------------------------
+    def _retire(self, slot: Slot) -> None:
+        req = slot.request
+        if req.t_submit_ns:
+            self._emit_request_spans(slot)
+        req.stream._finish()
+        self.metrics.record_complete()
+        # goodput: every token this stream emitted reached a consumer that
+        # saw the stream complete — useful work
+        decoded = slot.pos - len(req.prompt) + 1
+        self.metrics.record_goodput("useful", decoded)
+        # per-tenant cost attribution: the stream's tokens and its KV-page
+        # residency from first token to retirement (paged: the pool's own
+        # ceil-division; slab: the fixed slot reservation)
+        if self.paged:
+            n_pages = -(-slot.pos // self.config.page_len)
+        else:
+            n_pages = self.config.pages_per_slot()
+        resident_s = max(
+            0.0, time.monotonic() - (req.first_token_at or req.submitted_at))
+        self.metrics.record_tenant_retire(
+            req.tenant or req.adapter_id,
+            prefilled=len(req.prompt),
+            decoded=decoded,
+            kv_page_seconds=n_pages * resident_s)
+        if self.paged:
+            # private pages return to the free list; prompt pages the prefix
+            # cache registered stay resident for future hits
+            self.pool.release(slot.index)
+        self.slots.release(slot)
+        self._cur_tok[slot.index] = 0
+        self._pos[slot.index] = 0
+
+    def _emit_request_spans(self, slot: Slot) -> None:
+        """Retirement-time span emission: the request's span tree (queue
+        wait → prefill → decode residency) rebuilt from the stamps taken
+        along the way, so the decode loop does no tracing work."""
+        req = slot.request
+        end = _tracing.now_ns()
+        ctx = req.trace_ctx or {}
+        root = _tracing.record_span(
+            "engine.request",
+            trace_id=ctx.get("trace_id"),
+            parent_id=ctx.get("span_id"),
+            start_ns=req.t_submit_ns,
+            end_ns=end,
+            attrs={"engine": self.name, "request_id": req.request_id},
+        )
+        if req.t_admit_ns:
+            _tracing.record_span(
+                "engine.queue_wait",
+                trace_id=root.trace_id, parent_id=root.span_id,
+                start_ns=req.t_submit_ns, end_ns=req.t_admit_ns,
+            )
+        if req.t_admit_ns and req.t_first_ns > req.t_admit_ns:
+            attrs = {"slot": slot.index, "prompt_len": len(req.prompt)}
+            if self.paged and slot.plan is not None:
+                attrs["chunks"] = len(slot.plan.chunk_starts)
+                attrs["prefix_hit"] = slot.plan.prefix_tokens > 0
+                attrs["prefix_tokens"] = slot.plan.prefix_tokens
+            elif not self.paged:
+                attrs["bucket"] = self.config.bucket_for(len(req.prompt))
+            _tracing.record_span(
+                "engine.prefill",
+                trace_id=root.trace_id, parent_id=root.span_id,
+                start_ns=req.t_admit_ns, end_ns=req.t_first_ns,
+                attrs=attrs,
+            )
+        if req.t_first_ns:
+            _tracing.record_span(
+                "engine.decode",
+                trace_id=root.trace_id, parent_id=root.span_id,
+                start_ns=req.t_first_ns, end_ns=end,
+                attrs={
+                    "slot": slot.index,
+                    "tokens": slot.pos - len(req.prompt) + 1,
+                    "occupancy": self.slots.occupancy(),
+                },
+            )
+
+    # -- background loop / lifecycle -----------------------------------------
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(
+            target=self._loop, name=f"tpu-air-{self.name}", daemon=True
+        )
+        self._thread.start()
+
+    def _loop(self) -> None:
+        with torch.inference_mode():
+            # airlint: disable=CC001 — GIL-atomic stop flag; close() sets it
+            # then joins this thread, so a stale read costs one iteration
+            while not self._closed:
+                if not self.step():
+                    self.scheduler.wait_for_work(0.01)
+
+    def close(self) -> None:
+        """Stop the loop; fail queued and in-flight requests loudly."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        with self._step_lock:
+            err = EngineClosedError("engine shut down")
+            for req in self.scheduler.drain():
+                req.stream._finish(err)
+            # goodput: compute already spent on in-flight requests is lost —
+            # a drained close sheds work it had prefilled, a hard close
+            # kills live streams outright
+            waste_cat = ("shed_after_prefill" if self._draining
+                         else "dead_stream")
+            for slot in self.slots.active_slots():
+                req = slot.request
+                if slot.prefilling:
+                    plan = slot.plan
+                    wasted = 0
+                    if plan is not None and plan.chunks_done:
+                        wasted = min(plan.chunks_done * self.config.page_len,
+                                     len(req.prompt))
+                else:
+                    wasted = slot.pos - len(req.prompt) + 1
+                self.metrics.record_goodput(waste_cat, wasted)
+                req.stream._finish(err)
+                if self.paged:
+                    self.pool.release(slot.index)
+                self.slots.release(slot)
+        unregister(self.name)
+
+    def __enter__(self) -> "InferenceEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -1,8 +1,8 @@
 """Request/response types and config for the online inference engine,
 copied from ``tpu_air/engine/types.py`` (the port imports nothing of
-``tpu_air``).  The port runs the T5 window engine only; ``EngineConfig``
-(the causal-LM slot engine's dials) stays so that configs round-trip, and
-the engine it configures is ROADMAP Queue 1 item 6b.
+``tpu_air``).  ``EngineConfig`` configures the causal-LM slot engine
+(:class:`~tpu_air_torch.engine.InferenceEngine`), ``T5EngineConfig`` the T5
+window engine.
 
 The engine's unit of work is a :class:`Request` (one prompt + decode
 budget); its unit of delivery is a :class:`ResponseStream` — emitted token
@@ -68,11 +68,10 @@ class EngineConfig:
     * ``max_queue`` — queued (not yet admitted) request cap; beyond it
       ``submit`` raises :class:`EngineOverloadedError`.
     * ``kv_mode`` — ``"paged"`` (default): block-table-paged KV pool with
-      prefix sharing and chunked prefill (the JAX package's ``engine/kvpool/``);
+      prefix sharing and chunked prefill (``engine/kvpool/``);
       ``"slab"``: the fixed per-slot slabs ``[S, slot_len, h*d]``
       (kept as the bench baseline and the mode the T5 window engine uses).
-    * ``page_len`` — paged mode: positions per KV page.  Multiples of 8
-      keep every page whole (8, 128) TPU tiles in the flat ``h*d`` layout.
+    * ``page_len`` — paged mode: positions per KV page.
     * ``num_pages`` — paged mode: physical pages in the pool (page 0 is
       the pinned null page).  ``None`` → slab-equivalent capacity,
       ``num_slots * ceil(slot_len / page_len) + 1`` — same HBM as the
@@ -107,8 +106,10 @@ class EngineConfig:
     * ``eos_token_id`` — ``"model"`` (default): use the model config's
       ``eos_token_id``; ``None``: never early-stop (budget-only
       retirement); an int: that id.
-    * ``adapter_slots`` — multi-tenant LoRA: rows in the resident adapter
-      bank (0 disables adapters; paged single-chip engines only).  Row 0
+    * ``adapter_slots`` — (not ported: the port's engine refuses a value
+      above 0, ROADMAP Queue 1 item 6b (ii)) multi-tenant LoRA: rows in the
+      resident adapter bank (0 disables adapters; paged single-chip
+      engines only).  Row 0
       is the pinned zero adapter, so the bank holds ``adapter_slots``
       loadable tenants on top of it.  Per-request selection rides
       ``Request.adapter_id``; the decode step gathers each slot's delta

@@ -7,14 +7,22 @@ it imports nothing of JAX.  Flax ``Dense`` kernels are ``[in, out]`` and
 become ``nn.Linear`` weights ``[out, in]``; the embedding ``[vocab,
 d_model]`` (tied to the head unless ``lm_head`` is present) and the RMSNorm
 weights carry over as they are.  ``params_to_jax`` is the inverse.
+
+``cache_from_jax`` / ``cache_to_jax`` carry a decode cache both ways: the
+Flax ``"cache"`` collection (``{"layer_i": {"attn": {cached_key,
+cached_value, cache_index[, block_table]}}}``, numpy leaves) and the port's
+list of per-layer :class:`~tpu_air_torch.models.lm.modeling.AttnCache`, so
+one step of each decode branch can run on both packages from one state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
+
+from .modeling import AttnCache
 
 
 def _tensor(a) -> torch.Tensor:
@@ -58,4 +66,41 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         tree[f"layer_{i}"] = layer
     if "lm_head.weight" in state_dict:
         tree["lm_head"] = {"kernel": arr("lm_head.weight", True)}
+    return tree
+
+
+def cache_from_jax(cache: Dict[str, Any], device="cpu") -> List[AttnCache]:
+    """A Flax LM cache collection (numpy leaves) as the port's per-layer
+    caches on ``device``: the slabs or pools keep their type, a 0-d
+    ``cache_index`` becomes an int, a per-row one and the block table int64
+    tensors."""
+    out = []
+    for i in range(sum(1 for name in cache if name.startswith("layer_"))):
+        leaves = cache[f"layer_{i}"]["attn"]
+        kv = [torch.from_numpy(np.array(leaves[n])).to(device)
+              for n in ("cached_key", "cached_value")]
+        idx = np.asarray(leaves["cache_index"])
+        index = int(idx) if idx.ndim == 0 else torch.from_numpy(idx.astype(np.int64)).to(device)
+        table = leaves.get("block_table")
+        if table is not None:
+            table = torch.from_numpy(np.asarray(table).astype(np.int64)).to(device)
+        out.append(AttnCache(kv[0], kv[1], index, table))
+    return out
+
+
+def cache_to_jax(cache: List[AttnCache]) -> Dict[str, Any]:
+    """The port's per-layer caches as a Flax LM cache collection of numpy
+    leaves (int32 index and table, as the JAX package keeps them)."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    tree: Dict[str, Any] = {}
+    for i, c in enumerate(cache):
+        index = c.cache_index
+        leaves = {"cached_key": arr(c.cached_key), "cached_value": arr(c.cached_value),
+                  "cache_index": (np.asarray(index, np.int32) if isinstance(index, int)
+                                  else arr(index).astype(np.int32))}
+        if c.block_table is not None:
+            leaves["block_table"] = arr(c.block_table).astype(np.int32)
+        tree[f"layer_{i}"] = {"attn": leaves}
     return tree

@@ -1,12 +1,32 @@
-"""PyTorch long-context causal LM, the counterpart of the non-decode path of
+"""PyTorch long-context causal LM, the counterpart of
 ``tpu_air/models/lm/modeling.py``.
 
 Architecture: pre-RMSNorm, RoPE attention (interleaved pairs), SwiGLU MLP,
-tied embeddings.  Attention is causal flash attention through the port's
-kernels by device: the forward and both backward kernels on a CUDA tensor,
-their plain versions on a CPU tensor.  The model is applied
-deterministically (no dropout), as every training path of the JAX package
-applies it.
+tied embeddings.  Without a cache, attention is causal flash attention
+through the port's kernels by device: the forward and both backward kernels
+on a CUDA tensor, their plain versions on a CPU tensor.  The model is
+applied deterministically (no dropout), as every training path of the JAX
+package applies it.
+
+With ``decode=True`` the model reads and writes a KV cache: one
+:class:`AttnCache` per layer, Flax's mutable ``"cache"`` collection made
+explicit, under its leaf names.  The cache's tensors are written in place
+(the torch form of JAX's donation).  Four branches, as in the JAX package:
+
+* offline, scalar ``cache_index``: a prefill (l > 1) attends densely over
+  the flat ``[b, L, h*d]`` slabs from the index on; a 1-token step attends
+  through the decode kernel;
+* per-row ``cache_index`` ``[S]`` (the slab engine), 1-token steps only;
+* paged (a ``block_table``): page pools ``[P, page_len, h*d]``; a 1-token
+  step scatters to each row's page and attends over the gathered slabs
+  through the decode kernel;
+* paged chunk prefill: one slot, one page-sized chunk, dense attention over
+  the gathered pages.
+
+Every 1-token step goes through :func:`decode_attention`, the decode kernel
+on a CUDA tensor, where the JAX package runs ``flat_decode_attention`` (the
+same function in XLA).  Prefill stays dense, as there.  Decode is inference:
+call it under ``torch.no_grad()`` or ``torch.inference_mode()``.
 
 Precision as in Flax: parameters stay f32; each dense layer casts its input
 and weight to ``config.dtype`` per call (``nn.Dense(dtype=...)``), RMSNorm
@@ -15,13 +35,13 @@ and RoPE compute in f32 and cast back, and the logits and the loss are f32.
 Module names follow the Flax tree (``embedding``, ``layers.<i>.attn.q``,
 ``layers.<i>.mlp_norm`` ...), so
 :func:`tpu_air_torch.models.lm.convert.params_from_jax` is a rename and a
-transpose.  The KV-cache, paged and per-row decode paths wait for the
-LM-generate slice.
+transpose.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -31,10 +51,12 @@ from torch.utils.checkpoint import checkpoint
 
 from tpu_air_torch.device import DeviceLike, resolve_device
 from tpu_air_torch.models.layers import Dense
+from tpu_air_torch.ops.decode_attention import decode_attention, gather_pages
 from tpu_air_torch.ops.flash_attention import flash_attention
 
 from .config import LMConfig
 
+NEG_INF = -1e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -73,6 +95,55 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
+@dataclass
+class AttnCache:
+    """One attention layer's decode state, under the Flax cache leaf names.
+
+    ``cached_key`` / ``cached_value``: flat slabs ``[b, L, h*d]``, or page
+    pools ``[P, page_len, h*d]`` when ``block_table`` ``[S, pages_per_slot]``
+    is set.  ``cache_index``: an int (offline generation: every row at one
+    position) or an integer tensor ``[S]`` (the engines: each row at its
+    own).  Each call writes the new K/V into the slabs in place and moves
+    the index on by the tokens it wrote."""
+
+    cached_key: torch.Tensor
+    cached_value: torch.Tensor
+    cache_index: Union[int, torch.Tensor]
+    block_table: Optional[torch.Tensor] = None
+
+    def key_len(self) -> int:
+        """Key positions a step attends over: the slab's length, or the
+        pages a row's table reaches."""
+        if self.block_table is None:
+            return self.cached_key.shape[1]
+        return self.block_table.shape[1] * self.cached_key.shape[1]
+
+
+def step_mask(cache: AttnCache, b: int) -> torch.Tensor:
+    """The 1-token step's key mask, f32 ``[b, L]`` (1 = attend): positions up
+    to and including each row's index, where the step writes its own K/V.
+    Built once per step and shared by every layer (all sit at one index)."""
+    i = cache.cache_index
+    L = cache.key_len()
+    keys = torch.arange(L, device=cache.cached_key.device)
+    if isinstance(i, int):
+        return (keys <= i).float().expand(b, L).contiguous()
+    return (keys[None, :] <= i[:, None]).float()
+
+
+def _dense_causal_attention(q, k, v, scale, q_offset=0):
+    """(B, H, L, D) attention with f32 scores and a causal mask whose
+    queries start at ``q_offset`` (an int or a 0-d tensor); the JAX
+    package's ``_dense_causal_attention``."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    lq, lk = q.shape[2], k.shape[2]
+    qi = q_offset + torch.arange(lq, device=q.device)[:, None]
+    kj = torch.arange(lk, device=q.device)[None, :]
+    s = torch.where(qi >= kj, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, config: LMConfig):
         super().__init__()
@@ -83,8 +154,14 @@ class CausalSelfAttention(nn.Module):
         self.k = Dense(config.d_model, inner, dt)
         self.v = Dense(config.d_model, inner, dt)
         self.o = Dense(inner, config.d_model, dt)
+        self.scale = 1.0 / (config.head_dim ** 0.5)
+        # the JAX package scales q in the model type before the decode call:
+        # a Python float there is first rounded to that type, so the port
+        # multiplies by the same rounded value
+        self.q_scale = float(torch.tensor(self.scale, dtype=dt, device="cpu"))
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, cache: Optional[AttnCache] = None,
+                kv_mask: Optional[torch.Tensor] = None):
         cfg = self.config
         b, l, _ = x.shape
         h, d = cfg.n_heads, cfg.head_dim
@@ -94,8 +171,77 @@ class CausalSelfAttention(nn.Module):
 
         q = rope(heads(self.q(x)), positions, cfg.rope_theta)
         k = rope(heads(self.k(x)), positions, cfg.rope_theta)
-        o = flash_attention(q, k, heads(self.v(x)), scale=1.0 / (d ** 0.5), causal=True)
+        if cache is not None:
+            v = self.v(x)
+            kflat = k.transpose(1, 2).reshape(b, l, h * d)
+            return self.o(self._decode(q, kflat, v, cache, kv_mask))
+        o = flash_attention(q, k, heads(self.v(x)), scale=self.scale, causal=True)
         return self.o(o.transpose(1, 2).reshape(b, l, h * d))
+
+    def _step(self, q, ks, vs, kv_mask):
+        """One query token per row through the decode kernel (its plain
+        version on the CPU), q scaled first as the JAX package scales it."""
+        b, h, _, d = q.shape
+        o = decode_attention(q.transpose(1, 2) * self.q_scale, ks, vs, kv_mask=kv_mask)
+        return o.reshape(b, 1, h * d)
+
+    def _dense(self, q, ks, vs, q_offset):
+        b, h, l, d = q.shape
+        k4 = ks.view(ks.shape[0], -1, h, d).transpose(1, 2)
+        v4 = vs.view(vs.shape[0], -1, h, d).transpose(1, 2)
+        o = _dense_causal_attention(q, k4, v4, self.scale, q_offset)
+        return o.transpose(1, 2).reshape(b, l, h * d)
+
+    def _decode(self, q, kflat, vflat, c: AttnCache, kv_mask):
+        b, _, l, _ = q.shape
+        ck, cv, i = c.cached_key, c.cached_value, c.cache_index
+        kflat, vflat = kflat.to(ck.dtype), vflat.to(cv.dtype)
+        if c.block_table is not None:
+            table = c.block_table
+            C = ck.shape[1]
+            if l == 1:
+                rows = torch.arange(b, device=ck.device)
+                page, off = table[rows, i // C], i % C
+                # Rows that are free or mid-prefill point at the null page 0
+                # and sit at position 0, so several rows write (0, 0) at
+                # once; a non-accumulating index_put_ on CUDA keeps one of
+                # them at random.  That is harmless only because page 0 is
+                # never read unmasked: live rows reach it only past their
+                # index, and the rows reading it are ones whose output the
+                # engine drops.
+                ck[page, off] = kflat[:, 0]
+                cv[page, off] = vflat[:, 0]
+                c.cache_index = i + 1
+                return self._step(q, gather_pages(ck, table), gather_pages(cv, table), kv_mask)
+            if b != 1 or l != C:
+                raise ValueError(f"paged chunk prefill wants b=1, l=page_len ({C}); "
+                                 f"got b={b}, l={l}")
+            p0 = i[0]
+            page = table[0, p0 // C].reshape(1)
+            ck.index_copy_(0, page, kflat)
+            cv.index_copy_(0, page, vflat)
+            c.cache_index = i + l
+            return self._dense(q, gather_pages(ck, table[:1]), gather_pages(cv, table[:1]), p0)
+        if not isinstance(i, int):
+            # per-row index: each slot at its own position; positions past
+            # i[row] may hold a retired occupant's stale K/V, which the
+            # per-row mask hides until later steps overwrite them
+            if l != 1:
+                raise ValueError(f"per-row cache_index supports single-token decode "
+                                 f"steps only; got l={l}")
+            rows = torch.arange(b, device=ck.device)
+            ck[rows, i] = kflat[:, 0]
+            cv[rows, i] = vflat[:, 0]
+            c.cache_index = i + 1
+            return self._step(q, ck, cv, kv_mask)
+        ck[:, i:i + l] = kflat
+        cv[:, i:i + l] = vflat
+        c.cache_index = i + l
+        if l == 1:
+            return self._step(q, ck, cv, kv_mask)
+        # prefill (any multi-token window): dense over the whole slab with
+        # the queries at the index; future positions are zeros, masked
+        return self._dense(q, ck, cv, i)
 
 
 class SwiGLU(nn.Module):
@@ -119,8 +265,9 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(config.d_model, config.rmsnorm_eps, dt)
         self.mlp = SwiGLU(config)
 
-    def forward(self, x, positions):
-        x = x + self.attn(self.attn_norm(x), positions)
+    def forward(self, x, positions, cache: Optional[AttnCache] = None,
+                kv_mask: Optional[torch.Tensor] = None):
+        x = x + self.attn(self.attn_norm(x), positions, cache, kv_mask)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -131,7 +278,9 @@ class CausalLM(nn.Module):
     ``device="cpu"``) with f32 parameters; they are placeholders until
     loaded or set by :meth:`init_weights`.  ``positions`` (B, L) defaults
     to 0..L-1.  ``return_hidden=True`` returns the final-norm hidden states
-    instead of the logits, for :func:`lm_chunked_loss_with_targets`."""
+    instead of the logits, for :func:`lm_chunked_loss_with_targets` and the
+    generate loops.  ``decode=True`` reads and writes ``cache``, one
+    :class:`AttnCache` per layer (``models/lm/generate.py`` builds them)."""
 
     def __init__(self, config: LMConfig, device: DeviceLike = None):
         super().__init__()
@@ -163,19 +312,24 @@ class CausalLM(nn.Module):
         return self
 
     def forward(self, input_ids, positions: Optional[torch.Tensor] = None,
-                return_hidden: bool = False, decode: bool = False):
+                return_hidden: bool = False, decode: bool = False,
+                cache: Optional[List[AttnCache]] = None):
         cfg = self.config
-        if decode:
-            raise NotImplementedError(
-                "CausalLM decode (KV cache) waits for the port's LM-generate slice")
         b, l = input_ids.shape
         if l > cfg.max_seq_len:
             raise ValueError(f"sequence length {l} exceeds max_seq_len {cfg.max_seq_len}")
+        if decode and (cache is None or len(cache) != cfg.n_layers):
+            raise ValueError(f"decode=True needs one AttnCache per layer ({cfg.n_layers})")
+        if not decode:
+            cache = [None] * cfg.n_layers
         if positions is None:
             positions = torch.arange(l, device=input_ids.device).expand(b, l)
+        # the 1-token step's key mask: one contiguous f32 [b, L] per step,
+        # shared by the layers
+        kv_mask = step_mask(cache[0], b) if decode and l == 1 else None
         x = self.embedding[input_ids].to(torch_dtype(cfg.dtype))
-        for layer in self.layers:
-            x = layer(x, positions)
+        for layer, c in zip(self.layers, cache):
+            x = layer(x, positions, c, kv_mask)
         x = self.final_norm(x)
         if return_hidden:
             return x

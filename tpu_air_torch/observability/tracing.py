@@ -13,9 +13,10 @@ in a response header.
 
 Zero cost when off (the default): :func:`span` returns the singleton
 :data:`_NOOP` without allocating.  Enable with ``TPU_AIR_TRACE=1`` in the
-environment (workers inherit it) or :func:`enable`.  The retroactive spans
-and the dashboard's trace listing of the JAX package serve its LM engine
-and dashboard, which the port has not copied.
+environment (workers inherit it) or :func:`enable`.  The LM engine records
+each request's span tree at retirement through :func:`record_span`, from
+stamps it took along the way; the dashboard's trace listing of the JAX
+package is not copied (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ __all__ = [
     "new_span_id",
     "new_trace_id",
     "now_ns",
+    "record_span",
     "recorder",
     "span",
     "task_span",
@@ -295,6 +297,35 @@ def task_span(name: str, carrier: Optional[Dict[str, str]]):
     return span(name, parent=ctx, force=True)
 
 
+def record_span(
+    name: str,
+    *,
+    trace_id: Optional[str] = None,
+    parent_id: Optional[str] = None,
+    start_ns: int,
+    end_ns: int,
+    attrs: Optional[Dict[str, Any]] = None,
+    status: str = "ok",
+) -> Span:
+    """Retroactively record a span from timestamps collected elsewhere (the
+    engine's retirement-time emission path).  Returns the span so callers
+    can chain children under its ``span_id``."""
+    sp = Span(
+        name=name,
+        trace_id=trace_id or new_trace_id(),
+        span_id=new_span_id(),
+        parent_id=parent_id,
+        start_ns=start_ns,
+        end_ns=end_ns,
+        pid=os.getpid(),
+        tid=threading.get_ident() & 0xFFFFFFFF,
+        status=status,
+        attrs=dict(attrs) if attrs else {},
+    )
+    _recorder.record(sp)
+    return sp
+
+
 # ---------------------------------------------------------------------------
 # recorder
 # ---------------------------------------------------------------------------
@@ -341,6 +372,14 @@ class SpanRecorder:
     def for_trace(self, trace_id: str) -> List[Span]:
         with self._lock:
             return [s for s in self._buf if s.trace_id == trace_id]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._buf)
 
 
 _recorder = SpanRecorder()

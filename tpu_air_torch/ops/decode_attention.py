@@ -27,7 +27,9 @@ allocations do: the wrapper raises on one that does not and never copies
 a slab.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor takes :func:`decode_attention_reference`.
+tensor takes :func:`decode_attention_reference`.  :func:`gather_pages`
+assembles a paged KV pool's slot slabs for it; like the JAX package's, it is
+plain indexing outside the kernel.
 ``decode_attention.launches`` counts calls of the kernel (with its merge
 step, when it splits L).
 """
@@ -100,6 +102,22 @@ def decode_attention_reference(q, k, v, *, bias=None, kv_mask=None,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhl,blhd->bhd", p, vf).to(q.dtype)
     return out[:, None] if squeeze else out
+
+
+def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Per-slot flat K/V slabs from a paged pool, the counterpart of
+    ``gather_pages`` in the JAX package.
+
+    ``pool`` ``[P, page_len, h*d]`` (page 0 is the engine's null page);
+    ``block_table`` ``[S, pages_per_slot]`` integer page ids.  Returns
+    ``[S, pages_per_slot * page_len, h*d]``: position ``p`` of slot ``s`` is
+    ``pool[block_table[s, p // page_len], p % page_len]``.  The result is a
+    fresh allocation, so it starts on the 16 bytes the kernel's slabs need.
+    Entries that point at the null page gather don't-care bytes, which the
+    caller's validity mask hides."""
+    s, npg = block_table.shape
+    _, page_len, hd = pool.shape
+    return pool[block_table].reshape(s, npg * page_len, hd)
 
 
 # q, k, v, bias, mask, k_scale, v_scale, out, workspace; b, L, h, d, q type,

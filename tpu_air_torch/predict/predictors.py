@@ -5,6 +5,10 @@
   :func:`tpu_air_torch.models.t5.generate.generate` on the model's device
   and decodes to a ``generated_output`` column.  Its constructors cast the
   weights to the inference type once, at load.
+* ``LMGenerativePredictor`` — batched generation from a causal-LM
+  checkpoint, the counterpart of ``tpu_air.predict.predictors.
+  LMGenerativePredictor``: equal-length, un-padded prompts through
+  :func:`tpu_air_torch.models.lm.generate.generate` on the model's device.
 * ``TorchPredictor`` — the generic forward pass ``apply_fn(params,
   **features)`` (the JAX package's ``JaxPredictor``, under the reference's
   name), with the checkpoint's state dict and the features on the device.
@@ -100,6 +104,80 @@ class T5GenerativePredictor(Predictor):
             texts = self.tokenizer.batch_decode(seqs, skip_special_tokens=True)
         else:
             texts = [" ".join(map(str, row)) for row in seqs]
+        return pd.DataFrame({"generated_output": texts})
+
+
+class LMGenerativePredictor(Predictor):
+    """Batched text generation from a causal-LM checkpoint (``LMTrainer``'s
+    output): the decoder-only sibling of :class:`T5GenerativePredictor`."""
+
+    def __init__(self, model, tokenizer=None, preprocessor=None):
+        super().__init__(preprocessor)
+        self.model = model
+        self.tokenizer = tokenizer
+        self._calls = 0
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint, *, tokenizer=None, dtype: Optional[str] = None,
+                        device: DeviceLike = None) -> "LMGenerativePredictor":
+        """The model from the checkpoint (the port's or the JAX package's
+        format) on ``device`` (``cuda:0`` by default), its weights cast to
+        ``dtype`` once, here (None keeps f32); the checkpoint's tokenizer,
+        or none: token-id corpora train without one, and generation then
+        returns id strings."""
+        model = checkpoint.get_model(dtype=dtype, device=device)
+        if tokenizer is None or isinstance(tokenizer, type):
+            try:
+                tokenizer = checkpoint.get_tokenizer(tokenizer)
+            except FileNotFoundError:
+                tokenizer = None
+        return cls(model, tokenizer, checkpoint.get_preprocessor())
+
+    def _predict_numpy(
+        self,
+        data: Dict[str, np.ndarray],
+        feature_columns: Optional[List[str]] = None,
+        max_new_tokens: int = 64,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_k: int = 0,
+        seed: int = 0,
+        **_: Any,
+    ) -> pd.DataFrame:
+        from tpu_air_torch.models.lm.generate import generate
+
+        if feature_columns:
+            data = {k: v for k, v in data.items() if k in feature_columns}
+        try:
+            input_ids = np.stack([np.asarray(r) for r in data["input_ids"]])
+        except ValueError as e:
+            raise ValueError(
+                "LMGenerativePredictor needs EQUAL-LENGTH prompts per batch "
+                "(the decode cache is positional): bucket rows by length "
+                f"before predict ({e})"
+            ) from None
+        if (input_ids == self.model.config.pad_token_id).any():
+            # padded prompts would feed pad tokens as real context and
+            # sample the first token from a pad position's logits
+            raise ValueError(
+                "LMGenerativePredictor prompts must be un-padded; strip pad "
+                "tokens and bucket rows to equal lengths"
+            )
+        # vary sampling noise across batches deterministically: a generator
+        # seeded from (seed, calls), the JAX package's per-call fold-in
+        self._calls += 1
+        generator = torch.Generator(self.model.device)
+        generator.manual_seed(int(np.random.SeedSequence([seed, self._calls]).generate_state(1)[0]))
+        toks = generate(
+            self.model, input_ids, max_new_tokens=max_new_tokens, do_sample=do_sample,
+            temperature=temperature, top_k=top_k,
+            eos_token_id=getattr(self.model.config, "eos_token_id", None),
+            generator=generator,
+        ).cpu().numpy()
+        if self.tokenizer is not None:
+            texts = self.tokenizer.batch_decode(toks, skip_special_tokens=True)
+        else:
+            texts = [" ".join(map(str, row)) for row in toks]
         return pd.DataFrame({"generated_output": texts})
 
 

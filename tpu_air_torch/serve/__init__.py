@@ -12,7 +12,7 @@ Each replica is an actor of the port's runtime; one that leases the card
 threaded HTTP server in the driver, routing least-loaded across replicas,
 and touches no CUDA.  The live-weight plane (``serve/weights.py``:
 ``WeightStore``, ``attach_weights`` and the rest) is ROADMAP Queue 1 item
-6b: asking for one of its names raises ``NotImplementedError``.
+6b (ii): asking for one of its names raises ``NotImplementedError``.
 """
 
 from .admission import AdmissionController, AdmissionPolicy, AdmissionShedError
@@ -37,7 +37,7 @@ _WEIGHTS = ("GateFailedError", "TornPublishError", "WeightsController",
 def __getattr__(name):
     if name in _WEIGHTS:
         raise NotImplementedError(
-            f"tpu_air_torch.serve.{name} is not ported yet (ROADMAP Queue 1 item 6b: "
+            f"tpu_air_torch.serve.{name} is not ported yet (ROADMAP Queue 1 item 6b (ii): "
             "serve/weights.py, the live-weight plane)")
     raise AttributeError(f"module 'tpu_air_torch.serve' has no attribute '{name}'")
 

@@ -1,15 +1,18 @@
-"""EngineDeployment — serve the T5 window engine over HTTP, the counterpart
-of ``tpu_air/serve/engine_deployment.py``.
+"""EngineDeployment — serve the continuous-batching engines over HTTP, the
+counterpart of ``tpu_air/serve/engine_deployment.py``.
 
-Each replica actor owns one :class:`tpu_air_torch.engine.T5Engine` built
-from a Checkpoint on the replica's device: ``cuda:<first leased id>`` when
-the deployment leases the card (``num_chips=1``), else what ``device=``
-names.  Two client surfaces:
+Each replica actor owns one engine built from a Checkpoint on the replica's
+device (``cuda:<first leased id>`` when the deployment leases the card,
+``num_chips=1``, else what ``device=`` names): a
+:class:`tpu_air_torch.engine.InferenceEngine` over a causal LM when the
+``engine_config`` is an ``EngineConfig`` or None, a
+:class:`tpu_air_torch.engine.T5Engine` when it is a ``T5EngineConfig`` (the
+config type selects the engine family).  Two client surfaces:
 
 * blocking HTTP: ``POST {"prompts": [[ids...], ...], "max_new_tokens": n,
   "priority": "interactive"}`` → ``{"results": [{"request_id": ...,
   "tokens": [...]}, ...]}`` — every prompt is submitted up front so they
-  share windows, then joined.
+  share decode steps, then joined.
 * streaming over HTTP (action payloads): ``POST {"action": "submit",
   "prompt": [ids...], "priority": ...}`` → ``{"request_id": rid}``
   immediately, then ``POST {"action": "poll", "request_id": rid, "cursor":
@@ -26,8 +29,8 @@ admitted streams keep polling.  Both cross the actor boundary as
 ``RemoteError`` and the proxy maps them to HTTP 503.
 
 What the port refuses, each with ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: an ``EngineConfig`` (the causal-LM slot engine), ``adapter_id``,
-the live-weight RPCs and ``migrate_out`` / ``submit_migrated`` (item 6b);
+Queue 1 item: ``adapter_id``, the live-weight RPCs and ``migrate_out`` /
+``submit_migrated`` (item 6b (ii));
 ``mesh=`` and ``disagg=`` (items 6b and 9); the borrow return over a
 revocable lease (item 11).  The replica attaches no revocable lease, so
 ``preempt_status`` reports no notice, as a JAX replica does whose lease was
@@ -40,7 +43,7 @@ from typing import Any, Dict, Optional
 
 from .deployment import Deployment
 
-_ITEM_6B = "ROADMAP Queue 1 item 6b"
+_ITEM_6B = "ROADMAP Queue 1 item 6b (ii)"
 
 
 def _refuse(what: str, item: str = _ITEM_6B) -> None:
@@ -67,14 +70,9 @@ class _EngineServer:
         mesh: Optional[tuple] = None,
         disagg: Optional[Dict[str, Any]] = None,
     ):
-        from tpu_air_torch.engine import T5EngineConfig
-
         if mesh is not None or disagg is not None:
             _refuse("mesh= and disagg= serving (MeshEngine, DisaggRouter)",
                     "ROADMAP Queue 1 items 6b and 9")
-        if not isinstance(engine_config, T5EngineConfig):
-            _refuse(f"the causal-LM slot engine (engine_config "
-                    f"{type(engine_config).__name__}; pass a T5EngineConfig)")
         self._checkpoint = checkpoint
         self._engine_config = engine_config
         self._dtype = dtype
@@ -90,10 +88,18 @@ class _EngineServer:
 
     def _ensure_engine(self):
         if self._engine is None:
-            from tpu_air_torch.engine import T5Engine
+            from tpu_air_torch.engine import (EngineConfig, InferenceEngine, T5Engine,
+                                              T5EngineConfig)
 
             model = self._checkpoint.get_model(dtype=self._dtype, device=self._device)
-            self._engine = T5Engine(model, self._engine_config, name=self._engine_name)
+            # the config type picks the engine family: a T5EngineConfig gets
+            # the window engine, any EngineConfig (or None) the causal-LM
+            # slot/page engine
+            if isinstance(self._engine_config, T5EngineConfig):
+                self._engine = T5Engine(model, self._engine_config, name=self._engine_name)
+            else:
+                self._engine = InferenceEngine(model, self._engine_config or EngineConfig(),
+                                               name=self._engine_name)
         return self._engine
 
     def close(self) -> None:
@@ -135,8 +141,9 @@ class _EngineServer:
         max_new = payload.get("max_new_tokens")
         priority = payload.get("priority", "interactive")
         engine = self._ensure_engine()
-        # submit ALL before joining ANY — concurrent prompts share windows
-        streams = [engine.submit(p, max_new, priority=priority) for p in prompts]
+        kw = self._labels(engine, payload.get("deadline_ms"), None)
+        # submit ALL before joining ANY — concurrent prompts share decode steps
+        streams = [engine.submit(p, max_new, priority=priority, **kw) for p in prompts]
         return {
             "results": [
                 {"request_id": s.request_id,
@@ -153,13 +160,30 @@ class _EngineServer:
                tenant: Optional[str] = None) -> int:
         # the T5 window engine takes no deadline and no tenant label, as in
         # the JAX package (a deadline is honored proxy-side; the label only
-        # relabels billing); an adapter would change the tokens, so it is
-        # refused rather than dropped
+        # relabels billing); the LM engine takes both.  An adapter would
+        # change the tokens, so it is refused rather than dropped
         if adapter_id is not None:
             _refuse("adapter_id (the LoRA head-delta banks)")
-        stream = self._ensure_engine().submit(prompt, max_new_tokens, priority=priority)
+        engine = self._ensure_engine()
+        stream = engine.submit(prompt, max_new_tokens, priority=priority,
+                               **self._labels(engine, deadline_ms, tenant))
         self._streams[stream.request_id] = stream
         return stream.request_id
+
+    @staticmethod
+    def _labels(engine, deadline_ms, tenant) -> Dict[str, Any]:
+        """The deadline and tenant label, for the LM engine, which takes
+        them; the T5 window engine takes neither."""
+        from tpu_air_torch.engine import InferenceEngine
+
+        if not isinstance(engine, InferenceEngine):
+            return {}
+        kw: Dict[str, Any] = {}
+        if deadline_ms is not None:
+            kw["deadline_ms"] = float(deadline_ms)
+        if tenant is not None:
+            kw["tenant"] = str(tenant)
+        return kw
 
     def poll(self, request_id: int, cursor: int = 0) -> Dict[str, Any]:
         stream = self._streams.get(request_id)
