@@ -186,10 +186,44 @@ Phases, each fatal on failure:
               engine's shape (b 16, L 1024, 8 x 128, bf16, per-row mask)
               beside its bound, its plain version and SDPA.  Cuts: 32 engine
               prompts and 64 new tokens (the phase runs in about 90 s).
+23. lm live — live weights, LoRA head-delta adapters and migration on
+              phase 22's checkpoint, engine configuration and prompts, bf16,
+              every 1-token step through the decode kernel: (a) the paged
+              engine with a bank of 4 adapter rows of rank 4 and 3 seeded
+              tenants, the 32 prompts as one burst, a quarter on each
+              tenant and on the base: the base rows equal phase 22 (b)'s
+              burst (the zero row is exact), each tenant changes some
+              tokens; agreement with per-tenant ``offline_greedy``, the
+              decode step against phase 22's, the step with the banks and
+              without in turns from one state, and the launches are
+              printed;
+              (b) ``swap_params`` to byte-identical weights mid-burst
+              changes no token; a swap to v2 (the embedding E as 1 - E), then
+              ``rollback_params``: a prompt gives phase 22's tokens again,
+              and a second rollback raises; each stall printed; (c) two
+              engines, each on its own copy of the checkpoint: 16 prompts
+              on A, ``migrate_out`` after 8 decode steps, ``submit_migrated``
+              on B: tokens equal the unmigrated run's, no prefill chunk
+              runs on B; pages, bytes and ms printed; (d)
+              ``EngineDeployment`` (adapter bank of 4) with
+              ``attach_weights`` on a ``WeightStore`` in the run's work
+              directory: v1, the serving weights, promotes through the
+              exact-logit probe gate; v2, published under a
+              ``weights.publish`` corrupt fault, rolls back (``/-/stats``:
+              ``rollbacks`` 1); a tenant adapter promotes through the gate,
+              and one POST under it equals (a)'s tokens; the replica's device
+              and launches; (e) f32, full width, depth cut to 2, through the
+              kernel and through ``decode_attention_reference``: mixed
+              tenants equal per-tenant ``offline_greedy``, a swap, a
+              rollback and a migration equal the unswapped and unmigrated
+              tokens, and the exact-fingerprint canary gate passes on an
+              in-process replica's ``weights_probe``.  Cuts: as phase 22's,
+              4 probe prompts of 64 tokens (the phase aims at 90 s).
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
-generation, each of phase 22's in-process paths) and read just after it;
+generation, each of phase 22's and phase 23's in-process paths) and read
+just after it;
 the W3 batch path's are counted in its scoring actor, a fresh process,
 around the batch it scores, and W2's trials' in each trial's actor, around
 its training function, and the serve replicas' in each replica (a fresh
@@ -297,6 +331,12 @@ LM_ENGINE = {"num_slots": 16, "slot_len": 1024, "page_len": 16, "max_new_tokens"
 LM_ENGINE_PROMPTS, LM_PREFIX_LEN, LM_PREFIX_PROMPTS, LM_TRICKLE = 32, 256, 8, 4
 LM_PROMPT_LENS = (64, 512)
 LM_SERVED, LM_SERVE_PARITY_LAYERS, LM_SERVE_PARITY_PROMPTS, LM_SERVE_PARITY_NEW = 16, 2, 8, 32
+# LM live dials (phase 23), phase 22's checkpoint, engine and prompts: (a) 3
+# tenants of rank 4 in a bank of 4 rows, a and b drawn at LM_LIVE_SCALE; (b) the
+# swaps after LM_LIVE_SWAP_AT engine steps of the burst; (c) 16 prompts
+# migrated after 8 decode steps; (d) 4 canary probes of 64 tokens -> 8 new
+LM_LIVE_TENANTS, LM_LIVE_RANK, LM_LIVE_SCALE, LM_LIVE_SWAP_AT = 3, 4, (1 / 32, 0.5), 24
+LM_LIVE_MIGRATED, LM_LIVE_MIGRATE_AFTER, LM_LIVE_PROBES, LM_LIVE_PROBE_NEW = 16, 8, 4, 8
 
 
 def model_config():
@@ -3526,6 +3566,7 @@ def lm_serve_path(dev, ckpt_dir: str, port: int) -> dict:
                     for sched, r in runs.items()}
     out["paged"]["identical"] = same
     out["paged"]["profiled_step"] = idle
+    out["burst_tokens"] = runs["burst"]["tokens"]       # phase 23's yardstick
     out["launches"]["lm_engine_paged"] = paged_launches
     t_part = part_done("b", t_part)
 
@@ -3724,6 +3765,441 @@ def lm_serve_timing(dev, kernels: list, stats: dict) -> list:
     return kernels
 
 
+def lm_tenants(cfg, seed: int = SEED + 45) -> dict:
+    """``LM_LIVE_TENANTS`` seeded LoRA head deltas ``(a [d, r], b [r, V])``
+    of rank ``LM_LIVE_RANK``, scaled (``LM_LIVE_SCALE``) so that the delta's
+    logits, about 64 * std(a) * std(b) for a final-norm hidden state of RMS 1,
+    are as large as the base model's."""
+    rng = np.random.default_rng(seed)
+    sa, sb = LM_LIVE_SCALE
+    return {f"tenant-{i}": (
+        (rng.standard_normal((cfg.d_model, LM_LIVE_RANK)) * sa).astype(np.float32),
+        (rng.standard_normal((LM_LIVE_RANK, cfg.vocab_size)) * sb).astype(np.float32))
+        for i in range(LM_LIVE_TENANTS)}
+
+
+def lm_v2(state: dict) -> dict:
+    """Perturbed weights: the embedding (the tied head) E turned into 1 - E,
+    the ``weights.publish`` corrupt fault's flip on one tensor.  The logits
+    become sum(h) - h.E, so greedy picks what the base model scores lowest.
+    (A negated embedding is no perturbation: the model is nearly odd in
+    it, and the negated head turns the logits back.)"""
+    return {k: 1 - v if k == "embedding" else v for k, v in state.items()}
+
+
+def tenant_rows(n: int, names: list) -> list:
+    """Prompt i's tenant: the base model for every fourth, else tenant
+    ``i % 4 - 1`` (a quarter of the prompts each)."""
+    return [None if i % 4 == 0 else names[i % 4 - 1] for i in range(n)]
+
+
+def drain(engine) -> int:
+    """Step a manual engine until it is idle; the steps it took."""
+    steps = 0
+    while not engine.idle():
+        engine.step()
+        steps += 1
+    return steps
+
+
+def decode_steps(engine) -> int:
+    return engine.metrics.snapshot()["step_latency_s"]["count"]
+
+
+def migrate_mid_burst(src, dst, prompts_: list, after: int) -> dict:
+    """Every prompt on ``src`` (whose prefill runs in its first step), then
+    ``after`` decode steps, then ``migrate_out`` and ``submit_migrated`` of
+    every stream onto ``dst``, which decodes them to the end.  The streams'
+    tokens, the pages and bytes moved, and the host ms of ``migrate_out``,
+    of the ``submit_migrated`` checks and of ``dst``'s first step (the 16
+    landings' page writes and one decode step)."""
+    from tpu_air_torch.engine.dist import payload_nbytes, payload_pages
+
+    for p in prompts_:
+        src.submit(p)
+    for _ in range(after):
+        src.step()
+    sync = torch.cuda.synchronize if src.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    payloads = src.migrate_out()
+    out_ms = (time.perf_counter() - t0) * 1e3
+    if len(payloads) != len(prompts_):
+        raise AssertionError(f"migrate_out shipped {len(payloads)} of {len(prompts_)} streams")
+    t0 = time.perf_counter()
+    landed = [dst.submit_migrated(p) for p in payloads]
+    check_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dst.step()
+    sync()
+    land_ms = (time.perf_counter() - t0) * 1e3
+    drain(dst)
+    return {"tokens": [s.result(0) for s in landed],
+            "pages": sum(payload_pages(p["pages"]) for p in payloads),
+            "bytes": sum(payload_nbytes(p["pages"]) for p in payloads),
+            "migrate_out_ms": out_ms, "submit_migrated_ms": check_ms,
+            "first_step_ms": land_ms, "migrations": dst.metrics.snapshot()["migrations"],
+            "dst_chunks": dst._chunks_run}
+
+
+def adapter_step_cost(model, prompts_: list, tenants: dict, who: list) -> dict:
+    """The paged decode step at the engine's shape, every slot decoding (the
+    shortest prompts under their tenants of (a)), with the LoRA banks and
+    without, from the same state and in turns: the wall of a step with its
+    ``.cpu()`` (median of ``step_times_ms``; the step syncs with the host
+    inside, so ``device_ms`` cannot queue it behind a sleep); and the banks'
+    gather and two einsums alone (``device_ms``).  The launches these calls
+    make are not counted."""
+    from tpu_air_torch.engine import EngineConfig, InferenceEngine
+    from tpu_air_torch.models.lm import make_lm_paged_decode_step_fn
+    from tpu_air_torch.ops.decode_attention import decode_attention
+
+    before = decode_attention.launches
+    engine = InferenceEngine(model, EngineConfig(**{**LM_ENGINE, "prefill_chunks_per_step": 1 << 10},
+                                                 adapter_slots=4, adapter_rank=LM_LIVE_RANK),
+                             auto_start=False, name="lm-live-step-cost")
+    for name, (a, b) in tenants.items():
+        engine.load_adapter(name, a, b)
+    for i in sorted(range(len(prompts_)), key=lambda i: len(prompts_[i]))[:LM_ENGINE["num_slots"]]:
+        engine.submit(prompts_[i], adapter_id=who[i])
+    engine.step()                     # admits and prefills every slot, then one decode step
+    t = engine._tensor
+    args = (engine.cache, t(engine._cur_tok), t(engine._pos), t(engine.pool.block_table))
+    bank_a, bank_b, ids = engine._adapter_a, engine._adapter_b, t(engine._adapter_ids_host)
+    base_fn = make_lm_paged_decode_step_fn(model, LM_ENGINE["slot_len"])
+    calls = {"base": lambda: base_fn(*args)[1],
+             "banks": lambda: engine._decode_step(*args, bank_a, bank_b, ids)[1]}
+    host_ms = {k: [] for k in calls}
+    for k in ("base", "banks", "banks", "base"):
+        host_ms[k].append(float(np.median(step_times_ms(lambda: calls[k]().cpu(), 20))))
+    h = torch.randn(LM_ENGINE["num_slots"], model.config.d_model, device=model.device)
+    bank_ms = device_ms(lambda: torch.einsum("sr,srv->sv", torch.einsum(
+        "sd,sdr->sr", h, bank_a[ids]), bank_b[ids]), 50)
+    engine.close()
+    decode_attention.launches = before
+    return {"step_ms": {k: float(np.mean(v)) for k, v in host_ms.items()}, "bank_ms": bank_ms}
+
+
+def lm_live_path(dev, ckpt_dir: str, port: int, work: str, served: dict) -> dict:
+    """Phase 23 (a)-(e): live weights, LoRA adapters and migration on the
+    ``[lm]`` checkpoint's engine (see the module docstring).  ``served`` is
+    phase 22's result: its burst tokens and decode-step times are the
+    yardstick.  The counts of the decode kernel's launches are set to 0
+    before each of (a), (b), (c) and (e)'s kernel runs and read after it;
+    (d)'s are counted in its replica."""
+    from tpu_air_torch import get, serve
+    from tpu_air_torch.engine import EngineConfig, InferenceEngine
+    from tpu_air_torch.faults import plan as faults
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.serve import EngineDeployment, WeightStore, attach_weights, compute_probe
+    from tpu_air_torch.serve.weights import offline_greedy, uninstall_controller
+    from tpu_air_torch.train import Checkpoint
+
+    t_phase = time.perf_counter()
+    ckpt = Checkpoint.from_directory(ckpt_dir)
+    model = ckpt.get_model(dtype="bfloat16", device=dev)
+    cfg = model.config
+    ps = lm_serve_prompts(LM_ENGINE_PROMPTS, cfg.vocab_size, SEED + 42)
+    base, base_step = served["burst_tokens"], served["paged"]["burst"]["metrics"]["step_latency_s"]
+    tenants = lm_tenants(cfg)
+    names = list(tenants)
+    who = tenant_rows(len(ps), names)
+    new = LM_ENGINE["max_new_tokens"]
+    out = {"launches": {}, "part_s": {}}
+
+    def part_done(name, t_start):
+        out["part_s"][name] = time.perf_counter() - t_start
+        return time.perf_counter()
+
+    # (a) adapters: the mixed-tenant burst in process
+    engine = InferenceEngine(model, EngineConfig(**LM_ENGINE, adapter_slots=4,
+                                                 adapter_rank=LM_LIVE_RANK),
+                             auto_start=False, name="lm-live-adapters")
+    for name, (a, b) in tenants.items():
+        engine.load_adapter(name, a, b)
+    decode_attention.launches = 0
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, adapter_id=t) for p, t in zip(ps, who)]
+    drain(engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, n_steps = decode_attention.launches, decode_steps(engine)
+    step = engine.metrics.snapshot()["step_latency_s"]
+    engine.close()
+    toks = [s.result(0) for s in streams]
+    bad = [i for i, t in enumerate(who) if t is None and toks[i] != base[i]]
+    changed, agree, total = {}, {}, {}
+    for name in names:
+        rows = [i for i, t in enumerate(who) if t == name]
+        total[name] = len(rows) * new
+        changed[name] = sum(x != y for i in rows for x, y in zip(toks[i], base[i]))
+        agree[name] = sum(x == y for i in rows for x, y in zip(
+            toks[i], offline_greedy(model, ps[i], new, *tenants[name])))
+    log(f"[lm live] (a) paged InferenceEngine({LM_ENGINE}, adapter_slots=4, adapter_rank="
+        f"{LM_LIVE_RANK}), bf16: {len(names)} tenants of rank {LM_LIVE_RANK} (a ~ N(0, "
+        f"{LM_LIVE_SCALE[0]:.4f}), b ~ N(0, {LM_LIVE_SCALE[1]})), {len(ps)} prompts as one burst, "
+        f"a quarter on each tenant and on the base: {wall:.3f} s over {n_steps} decode steps; "
+        f"base rows equal to phase 22 (b)'s burst: {not bad}; tokens each tenant changed "
+        f"against the base model's {changed} of {total}; adapter rows agreeing with per-tenant "
+        f"offline_greedy (bf16: prefill shapes differ, printed, not asserted) {agree} of "
+        f"{total}; decode step p50 {step['p50'] * 1e3:.3f} ms, p95 {step['p95'] * 1e3:.3f} ms "
+        f"(phase 22 (b) burst: p50 {base_step['p50'] * 1e3:.3f} ms, p95 "
+        f"{base_step['p95'] * 1e3:.3f} ms); decode launches {launches}; card: {card_line()}")
+    if bad:
+        raise AssertionError(f"[lm live] (a) base rows {bad} differ from phase 22's burst")
+    if min(changed.values()) == 0:
+        raise AssertionError(f"[lm live] (a) a tenant changed no token: {changed}")
+    if launches != cfg.n_layers * n_steps:
+        raise AssertionError(f"[lm live] (a) decode launches {launches}, steps {n_steps}")
+    cost = adapter_step_cost(model, ps, tenants, who)
+    log(f"[lm live] (a) the decode step at 16 slots, all decoding, with the banks and without, "
+        f"in turns from one state: {cost['step_ms']['banks']:.3f} / {cost['step_ms']['base']:.3f} "
+        f"ms a step with its .cpu() (median of 20, twice each); the banks' gather "
+        f"([16, {LM_LIVE_RANK}, {cfg.vocab_size}] f32) and two einsums alone "
+        f"{cost['bank_ms']:.4f} ms of device time")
+    out["adapters"] = {"wall_s": wall, "steps": n_steps, "changed": changed, "total": total,
+                       "agree_offline": agree, "step_latency_s": step,
+                       "phase22_step_latency_s": base_step, "step_cost": cost}
+    out["launches"]["lm_live_adapters"] = launches
+    adapter_tokens = toks
+    t_part = part_done("a", t_phase)
+
+    # (b) live weights: a byte-identical swap mid-burst, then v2 and rollback
+    state = ckpt.get_params()                    # f32: the served bf16 after the cast
+    engine = InferenceEngine(model, EngineConfig(**LM_ENGINE), auto_start=False,
+                             name="lm-live-swap")
+    decode_attention.launches = 0
+    streams = [engine.submit(p) for p in ps]
+    for _ in range(LM_LIVE_SWAP_AT):
+        engine.step()
+    same_ms = engine.swap_params(state, version=1)
+    drain(engine)
+    toks = [s.result(0) for s in streams]
+    v2_ms = engine.swap_params(lm_v2(state),
+                               version=2)
+    fresh = ps[1]
+    under_v2 = engine.generate([fresh])[0]
+    back_ms = engine.rollback_params()
+    restored = engine.generate([fresh])[0]
+    try:
+        engine.rollback_params()
+        second = "no error"
+    except RuntimeError as e:
+        second = f"RuntimeError: {e}"
+    launches, n_steps = decode_attention.launches, decode_steps(engine)
+    engine.close()
+    log(f"[lm live] (b) swap_params to byte-identical weights after {LM_LIVE_SWAP_AT} steps of "
+        f"the {len(ps)}-prompt burst: stall {same_ms:.3f} ms, tokens identical to phase 22 (b)'s "
+        f"burst: {toks == base}; swap to v2 (embedding E -> 1 - E) stall {v2_ms:.3f} ms, a fresh "
+        f"prompt's tokens under v2 differ: {under_v2 != base[1]}; rollback stall {back_ms:.3f} "
+        f"ms, the prompt's tokens then equal phase 22's: {restored == base[1]}; a second "
+        f"rollback: {second}; decode launches {launches}")
+    if toks != base:
+        raise AssertionError("[lm live] (b) the same-weights swap changed tokens")
+    if under_v2 == base[1] or restored != base[1] or second == "no error":
+        raise AssertionError(f"[lm live] (b) v2 {under_v2 != base[1]}, restored "
+                             f"{restored == base[1]}, second rollback {second}")
+    if launches != cfg.n_layers * n_steps:
+        raise AssertionError(f"[lm live] (b) decode launches {launches}, steps {n_steps}")
+    out["swap"] = {"same_stall_ms": same_ms, "v2_stall_ms": v2_ms, "rollback_stall_ms": back_ms}
+    out["launches"]["lm_live_swap"] = launches
+    t_part = part_done("b", t_part)
+
+    # (c) migration between two engines on the card, each on its own copy
+    # of the checkpoint
+    model_b = ckpt.get_model(dtype="bfloat16", device=dev)
+    src = InferenceEngine(model, EngineConfig(**{**LM_ENGINE, "prefill_chunks_per_step": 1 << 10}),
+                          auto_start=False, name="lm-live-a")
+    dst = InferenceEngine(model_b, EngineConfig(**LM_ENGINE), auto_start=False, name="lm-live-b")
+    decode_attention.launches = 0
+    mig = migrate_mid_burst(src, dst, ps[:LM_LIVE_MIGRATED], LM_LIVE_MIGRATE_AFTER)
+    launches, n_steps = decode_attention.launches, decode_steps(src) + decode_steps(dst)
+    src.close()
+    dst.close()
+    del model_b
+    same = mig["tokens"] == base[:LM_LIVE_MIGRATED]
+    log(f"[lm live] (c) {LM_LIVE_MIGRATED} prompts on engine A, migrate_out after "
+        f"{LM_LIVE_MIGRATE_AFTER} decode steps, submit_migrated on engine B: {mig['pages']} "
+        f"pages, {mig['bytes'] / 1e6:.2f} MB moved through the host; migrate_out "
+        f"{mig['migrate_out_ms']:.3f} ms, submit_migrated checks {mig['submit_migrated_ms']:.3f} "
+        f"ms, B's first step (the landings and one decode step) {mig['first_step_ms']:.3f} ms, "
+        f"{mig['migrate_out_ms'] / mig['pages'] * 1e3:.1f} us a page out; tokens identical to "
+        f"the unmigrated run (phase 22 (b)): {same}; B's migrations {mig['migrations']}, prefill "
+        f"chunks {mig['dst_chunks']}; decode launches {launches}")
+    if not same or mig["migrations"]["in_reprefill_chunks"] or mig["dst_chunks"]:
+        raise AssertionError(f"[lm live] (c) identical {same}, {mig['migrations']}, chunks "
+                             f"{mig['dst_chunks']}")
+    if launches != cfg.n_layers * n_steps:
+        raise AssertionError(f"[lm live] (c) decode launches {launches}, steps {n_steps}")
+    out["migration"] = {k: v for k, v in mig.items() if k != "tokens"}
+    out["launches"]["lm_live_migrate"] = launches
+    torch.cuda.empty_cache()
+    t_part = part_done("c", t_part)
+
+    # (d) served: the canary controller over EngineDeployment
+    root = os.path.join(work, "lm_live_weights")
+    probes = [p[:64] for p in ps[1:1 + LM_LIVE_PROBES]]
+    probe = compute_probe(model, probes, LM_LIVE_PROBE_NEW, with_logits=True,
+                          logit_tolerance=0.0)
+    a, b = tenants[names[0]]
+    tprobe = compute_probe(model, probes, LM_LIVE_PROBE_NEW, adapter_a=a, adapter_b=b,
+                           with_logits=True, logit_tolerance=0.0)
+    rows = [i for i, t in enumerate(who) if t == names[0]]
+    try:
+        t0 = time.perf_counter()
+        h = serve.run(EngineDeployment.options(name="lm-live", route_prefix="/lmlive",
+                                               num_chips=1)
+                      .bind(ckpt, EngineConfig(**LM_ENGINE, adapter_slots=4,
+                                               adapter_rank=LM_LIVE_RANK), dtype="bfloat16"),
+                      port=port)
+        post_json(port, "/lmlive", {"prompts": [ps[0][:64]], "max_new_tokens": 2})
+        start_s = time.perf_counter() - t0
+        store = WeightStore(root)
+        t0 = time.perf_counter()
+        v1 = store.publish(state, metadata={"iteration": 1}, probe=probe)
+        publish_s = time.perf_counter() - t0
+        ctl = attach_weights("/lmlive", root, soak_s=0.2)
+        t0 = time.perf_counter()
+        r1 = ctl.promote(v1)
+        promote_s = time.perf_counter() - t0
+        faults.install(faults.FaultPlan(specs=[faults.FaultSpec("weights.publish", "corrupt")]))
+        try:
+            v2 = store.publish(state, metadata={"iteration": 2}, probe=probe)
+        finally:
+            faults.clear()
+        r2 = ctl.promote(v2)
+        r3 = ctl.promote(store.publish_adapter(names[0], a, b, probe=tprobe))
+        res, _ = post_json(port, "/lmlive", {"prompts": [ps[i] for i in rows],
+                                             "adapter_id": names[0]})
+        tenant_toks = [r["tokens"] for r in res["results"]]
+        stats, _ = post_json(port, "/-/stats", {})
+        snap = get(h.method("stats")())
+    finally:
+        uninstall_controller("/lmlive")
+        serve.shutdown()
+    wst = stats["weights"]["/lmlive"]
+    rl = snap["kernel_launches"]
+    same = tenant_toks == [adapter_tokens[i] for i in rows]
+    log(f"[lm live] (d) EngineDeployment(EngineConfig({LM_ENGINE}, adapter_slots=4), "
+        f"dtype=\"bfloat16\") with attach_weights on a WeightStore: serve.run + load + warm-up "
+        f"{start_s:.3f} s; publish of v1 ({len(store.manifest(v1)['tensors'])} tensors, f32) "
+        f"{publish_s:.3f} s; promote v1 (swap from the store, probe with exact logits, a "
+        f"{ctl.soak_s} s soak) {promote_s:.3f} s: {r1}; promote of v2, published under a "
+        f"weights.publish corrupt fault: {r2}; the tenant adapter through the gate: {r3}; "
+        f"/-/stats weights {wst}; {len(rows)} prompts of {names[0]} in one POST equal to (a)'s "
+        f"in-process tokens: {same}; replica device {snap['device']}, launches {rl}, weights "
+        f"{snap.get('weights')}")
+    if not r1["promoted"] or r2["promoted"] or not r3["promoted"]:
+        raise AssertionError(f"[lm live] (d) promotions {r1}, {r2}, {r3}")
+    if wst["rollbacks"] != 1 or wst["current_version"] != v1 or not same:
+        raise AssertionError(f"[lm live] (d) weights {wst}, tenant tokens equal {same}")
+    if snap["device"] != str(dev) or rl["decode_attention"] <= 0 or rl["flash_attention"]:
+        raise AssertionError(f"[lm live] (d) replica device {snap['device']}, launches {rl}")
+    out["served"] = {"serve_start_s": start_s, "publish_s": publish_s, "promote_s": promote_s,
+                     "promote_v1": r1, "promote_v2": r2, "promote_adapter": r3,
+                     "weights": wst, "replica_weights": snap.get("weights"), "launches": rl}
+    out["launches"]["lm_live_replica"] = rl["decode_attention"]
+    del model
+    torch.cuda.empty_cache()
+    t_part = part_done("d", t_part)
+
+    # (e) f32 parity at full width, depth cut to 2
+    out["parity"] = lm_live_parity(dev)
+    out["launches"]["lm_live_parity"] = out["parity"]["kernel_launches"]
+    part_done("e", t_part)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm live] phase 23 (a)-(e) {out['phase_s']:.1f} s: "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in out["part_s"].items()))
+    return out
+
+
+def lm_live_parity(dev) -> dict:
+    """Phase 23 (e): f32, full width, depth cut to 2, weights from numpy
+    seed 0, TF32 off, through the decode kernel and through
+    ``decode_attention_reference`` on the card: the mixed-tenant burst
+    equals per-tenant ``offline_greedy``; a same-weights swap mid-burst and
+    a migration equal the unswapped, unmigrated tokens; after v2 and a
+    rollback a prompt gives the base tokens again; and the exact-fingerprint
+    canary gate (``compute_probe`` without logits) passes on an in-process
+    replica's ``weights_probe``."""
+    from tpu_air_torch.engine import EngineConfig, InferenceEngine
+    from tpu_air_torch.models.lm import CausalLM, modeling
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+    from tpu_air_torch.serve import EngineDeployment, compute_probe
+    from tpu_air_torch.serve.weights import offline_greedy, probe_fingerprint
+    from tpu_air_torch.train import Checkpoint
+
+    model = CausalLM(lm_config("float32", LM_SERVE_PARITY_LAYERS), device=dev).init_weights(SEED)
+    cfg = model.config
+    ps = lm_serve_prompts(LM_SERVE_PARITY_PROMPTS, cfg.vocab_size, SEED + 46)
+    new = LM_SERVE_PARITY_NEW
+    ecfg = {**LM_ENGINE, "max_new_tokens": new}
+    tenants = lm_tenants(cfg)
+    who = tenant_rows(len(ps), list(tenants))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    checks, launched = {}, {}
+    saved = modeling.decode_attention
+    for path in ("kernel", "plain"):
+        modeling.decode_attention = saved if path == "kernel" else decode_attention_reference
+        try:
+            decode_attention.launches = 0
+            want = [offline_greedy(model, p, new, *(tenants[t] if t else (None, None)))
+                    for p, t in zip(ps, who)]
+            base = [offline_greedy(model, p, new) for p in ps]
+            engine = InferenceEngine(model, EngineConfig(**ecfg, adapter_slots=4,
+                                                         adapter_rank=LM_LIVE_RANK),
+                                     auto_start=False, name=f"lm-live-parity-{path}")
+            for name, (a, b) in tenants.items():
+                engine.load_adapter(name, a, b)
+            streams = [engine.submit(p, adapter_id=t) for p, t in zip(ps, who)]
+            drain(engine)
+            engine.close()
+            checks[f"{path} adapters"] = [s.result(0) for s in streams] == want
+            engine = InferenceEngine(model, EngineConfig(**ecfg), auto_start=False,
+                                     name=f"lm-live-parity-swap-{path}")
+            streams = [engine.submit(p) for p in ps]
+            for _ in range(LM_LIVE_SWAP_AT):
+                engine.step()
+            engine.swap_params(state, version=1)
+            drain(engine)
+            checks[f"{path} swap"] = [s.result(0) for s in streams] == base
+            engine.swap_params(lm_v2(state))
+            under_v2 = engine.generate([ps[1]])[0]
+            engine.rollback_params()
+            checks[f"{path} rollback"] = (under_v2 != base[1]
+                                          and engine.generate([ps[1]])[0] == base[1])
+            engine.close()
+            mig = migrate_mid_burst(
+                InferenceEngine(model, EngineConfig(**{**ecfg, "prefill_chunks_per_step": 1 << 10}),
+                                auto_start=False, name=f"lm-live-parity-a-{path}"),
+                InferenceEngine(model, EngineConfig(**ecfg), auto_start=False,
+                                name=f"lm-live-parity-b-{path}"),
+                ps, min(LM_LIVE_MIGRATE_AFTER, new // 2))
+            checks[f"{path} migration"] = (mig["tokens"] == base
+                                           and mig["migrations"]["in_reprefill_chunks"] == 0)
+            server = EngineDeployment.func_or_class(Checkpoint.from_dict({"model": model}),
+                                                    EngineConfig(**ecfg))
+            try:
+                got = server.weights_probe(ps[:LM_LIVE_PROBES], LM_LIVE_PROBE_NEW)
+            finally:
+                server.close()
+            pinned = compute_probe(model, ps[:LM_LIVE_PROBES], LM_LIVE_PROBE_NEW)
+            checks[f"{path} fingerprint gate"] = probe_fingerprint(got) == pinned["fingerprint"]
+            launched[path] = decode_attention.launches
+        finally:
+            modeling.decode_attention = saved
+    log(f"[lm live] (e) f32, {LM_SERVE_PARITY_LAYERS} layers at full width, {len(ps)} prompts "
+        f"-> {new} tokens, through the kernel ({launched['kernel']} launches) and the plain "
+        f"version ({launched['plain']}): {checks}")
+    if launched["plain"] or not launched["kernel"]:
+        raise AssertionError(f"[lm live] (e) launches {launched}")
+    if not all(checks.values()):
+        raise AssertionError(f"[lm live] (e) {checks}")
+    del model
+    torch.cuda.empty_cache()
+    return {"checks": checks, "kernel_launches": launched["kernel"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -3795,12 +4271,19 @@ def run_phases(dev, work: str, t_start: float) -> int:
         serve_stats = serve_t5_path(dev, os.path.join(work, "w3_ckpt"), port)
         serve_stats["parity"] = serve_t5_parity(dev, work, port)
         lm_serve_stats = lm_serve_path(dev, lm_stats["checkpoint_dir"], port)
+        lm_live_stats = lm_live_path(dev, lm_stats["checkpoint_dir"], free_port(), work,
+                                     lm_serve_stats)
     finally:
         serve.shutdown()
         tpu_air_torch.shutdown()
-    log(f"[serve] phases 20-22 (runtime start and stop included) "
+    log(f"[serve] phases 20-23 (runtime start and stop included) "
         f"{time.perf_counter() - t_serve:.1f} s")
+    del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
+    row = next(r for r in kernels if r["name"] == "decode_attention")
+    for where, n in lm_live_stats["launches"].items():   # phase 23's, in process and replica
+        row["launches_by_path"][where] = n
+        row["launches"] += n
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)
@@ -3812,7 +4295,8 @@ def run_phases(dev, work: str, t_start: float) -> int:
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "main": main_stats, "lm": lm_stats, "w1": w1_stats,
                       "batch": batch_stats, "w2": w2_stats, "w7": w7_stats, "w6": w6_stats,
-                      "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats}),
+                      "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats,
+                      "lm_live": lm_live_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -681,3 +681,96 @@ def test_lm_paged_decode_step_on_the_card_matches_plain(dev, monkeypatch):
     for a, b in zip(cache, plain_cache):
         assert _err(a.cached_key, b.cached_key) < TOL[torch.float32]
         assert _err(a.cached_value, b.cached_value) < TOL[torch.float32]
+
+
+def _lm_2layer(dev):
+    from tpu_air_torch.models.lm import CausalLM, LMConfig
+
+    cfg = LMConfig(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8, max_seq_len=1024)
+    return CausalLM(cfg, device=dev).init_weights(0)
+
+
+def test_lm_adapter_paged_step_on_the_card_matches_plain(dev, monkeypatch):
+    """One paged decode step of the 2-layer LM with the LoRA banks (rows 0
+    and 2 on seeded tenants, row 1 free, row 3 on the zero adapter), f32,
+    through the kernel and through the plain version from the same pool:
+    equal tokens; the zero-adapter row's token is the base step's."""
+    from tpu_air_torch.models.lm import init_paged_cache, make_lm_paged_decode_step_fn, modeling
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+
+    model = _lm_2layer(dev)
+    cfg = model.config
+    S, P, C, npg = 4, 40, 16, 8
+    rng = np.random.default_rng(19)
+    table = torch.from_numpy(rng.permutation(np.arange(1, P))[:S * npg].reshape(S, npg)).to(dev)
+    table[1] = 0
+    pos = torch.tensor([70, 0, 127, 5], device=dev)
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, S)).to(dev)
+    bank_a = torch.zeros(3, cfg.d_model, 4, device=dev)
+    bank_b = torch.zeros(3, 4, cfg.vocab_size, device=dev)
+    bank_a[1:] = torch.from_numpy(rng.standard_normal((2, cfg.d_model, 4)) / 32).to(dev)
+    bank_b[1:] = torch.from_numpy(rng.standard_normal((2, 4, cfg.vocab_size)) / 2).to(dev)
+    ids = torch.tensor([1, 0, 2, 0], device=dev)
+
+    def run(adapters):
+        cache = init_paged_cache(model, S, P, C, npg)
+        g = torch.Generator(dev).manual_seed(3)
+        for c in cache:
+            c.cached_key.normal_(generator=g)
+            c.cached_value.normal_(generator=g)
+        step = make_lm_paged_decode_step_fn(model, C * npg, adapters=adapters)
+        banks = (bank_a, bank_b, ids) if adapters else ()
+        return step(cache, tok, pos, table, *banks)[1]
+
+    before = decode_attention.launches
+    got, base = run(True), run(False)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2 * cfg.n_layers
+    monkeypatch.setattr(modeling, "decode_attention", decode_attention_reference)
+    assert torch.equal(got, run(True))
+    assert decode_attention.launches == before + 2 * cfg.n_layers
+    assert int(got[3]) == int(base[3])
+
+
+def test_insert_kv_pages_into_a_card_pool_from_bf16_cpu_pages(dev):
+    """A bf16 payload on the CPU written into a bf16 pool on the card (and
+    into an f32 one, the lossless widening) reads back exactly; the other
+    pages are untouched."""
+    from tpu_air_torch.engine.dist import extract_kv_pages, insert_kv_pages
+    from tpu_air_torch.models.lm.modeling import AttnCache
+
+    g = torch.Generator().manual_seed(5)
+    src = [AttnCache(torch.randn(9, 16, 1024, generator=g).bfloat16(),
+                     torch.randn(9, 16, 1024, generator=g).bfloat16(), 0) for _ in range(2)]
+    payload = extract_kv_pages(src, [2, 7, 4])
+    assert payload["layer_1/attn"]["v"].dtype == torch.bfloat16
+    for dt in (torch.bfloat16, torch.float32):
+        dst = [AttnCache(torch.zeros(12, 16, 1024, dtype=dt, device=dev),
+                         torch.zeros(12, 16, 1024, dtype=dt, device=dev), 0) for _ in range(2)]
+        insert_kv_pages(dst, [11, 1, 5], payload)
+        torch.cuda.synchronize()
+        for s, d in zip(src, dst):
+            assert torch.equal(d.cached_key[[11, 1, 5]].cpu(), s.cached_key[[2, 7, 4]].to(dt))
+            assert torch.equal(d.cached_value[[11, 1, 5]].cpu(), s.cached_value[[2, 7, 4]].to(dt))
+            assert not d.cached_key[[0, 2, 3, 4, 6, 7, 8, 9, 10]].any()
+
+
+def test_swap_then_one_step_equals_a_fresh_models_step(dev):
+    """An engine on the card swaps to new weights (another embedding, the
+    tied head) between steps; its next tokens equal an engine built on a
+    fresh model holding those weights, in f32 and in bf16."""
+    from tpu_air_torch.engine import EngineConfig, InferenceEngine
+
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _lm_2layer(dev).to(dtype)
+        new = {k: v.clone() for k, v in model.state_dict().items()}
+        new["embedding"] = torch.randn(new["embedding"].shape, generator=torch.Generator(
+            dev).manual_seed(11), device=dev).mul_(0.02).to(dtype)
+        fresh = _lm_2layer(dev).to(dtype)
+        fresh.load_state_dict(new)
+        prompts = [[5, 6, 7, 8, 9], list(range(100, 140))]
+        cfg = EngineConfig(num_slots=2, slot_len=64, max_new_tokens=4, eos_token_id=None)
+        engine = InferenceEngine(model, cfg, auto_start=False)
+        engine.swap_params(new)
+        got = engine.generate(prompts)
+        assert got == InferenceEngine(fresh, cfg, auto_start=False).generate(prompts)

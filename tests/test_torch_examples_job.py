@@ -3,7 +3,8 @@
 submits the JAX package's, at the example's CPU smoke dials, through the JAX
 package's runner and through the port's own (``python -m
 tpu_air_torch.job``); and the port's W8 example,
-``examples/torch_xgboost_e2e.py``, on a serve port of its own."""
+``examples/torch_xgboost_e2e.py``, on a serve port of its own; and the
+port's W2 example, ``examples/torch_tune_hpo_t5.py``."""
 
 import json
 import os
@@ -71,6 +72,18 @@ def test_example_without_a_card_refuses_unless_device_cpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode != 0
     assert "num_chips=" in proc.stderr and "train rows" not in proc.stdout
+
+
+def test_torch_tune_hpo_example():
+    """W2 on the port, the twin of tests/test_examples_job.py's
+    ``test_tune_hpo_example``: ``examples/torch_tune_hpo_t5.py`` with 2
+    trials on the CPU (one lease slot, the trials in turn)."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples", "torch_tune_hpo_t5.py"), "--trials", "2",
+         "--device", "cpu"], cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "best eval_loss" in proc.stdout and "errors: 0" in proc.stdout
 
 
 @pytest.mark.slow

@@ -44,6 +44,7 @@ from tpu_air_torch import serve  # noqa: E402
 from tpu_air_torch.engine import (  # noqa: E402
     BlockAllocator,
     EngineConfig,
+    EngineDrainingError,
     EngineOverloadedError,
     InferenceEngine,
     KVPoolOOMError,
@@ -659,29 +660,78 @@ def test_close_fails_what_is_still_queued(lm):
 
 
 REFUSED = {
-    "adapter_slots": lambda m: InferenceEngine(m, EngineConfig(adapter_slots=2),
-                                               auto_start=False),
-    "adapter_id": lambda m: _manual(m).submit([1, 2], adapter_id="t"),
-    "load_adapter": lambda m: _manual(m).load_adapter("t", None, None),
-    "unload_adapter": lambda m: _manual(m).unload_adapter("t"),
-    "swap_params": lambda m: _manual(m).swap_params({}),
-    "rollback_params": lambda m: _manual(m).rollback_params(),
-    "preempt": lambda m: _manual(m).preempt(),
-    "migrate_out": lambda m: _manual(m).migrate_out(),
-    "submit_migrated": lambda m: _manual(m).submit_migrated({}),
     "submit_prefilled": lambda m: _manual(m).submit_prefilled([1], 2, {}),
 }
 
 
-def _manual(model):
-    return InferenceEngine(model, EngineConfig(num_slots=1, slot_len=32), auto_start=False)
+def _manual(model, **kw):
+    return InferenceEngine(model, EngineConfig(num_slots=1, slot_len=32, **kw),
+                           auto_start=False)
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_engine_branches_refuse_naming_their_item(lm, case):
-    item = "items 6b and 9" if case == "submit_prefilled" else r"item 6b \(ii\)"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 items 6b and 9"):
         REFUSED[case](lm[2])
+
+
+def _run(engine, prompt, **kw):
+    stream = engine.submit(prompt, 3, **kw)
+    while not engine.idle():
+        engine.step()
+    return stream.result(0)
+
+
+def _adapter_engine(model):
+    e = _manual(model, adapter_slots=2, adapter_rank=2)
+    e.load_adapter("t", np.ones((CFG.d_model, 1), np.float32), np.ones((1, V), np.float32))
+    return e
+
+
+def _swapped(model):
+    e = _manual(model)
+    e.swap_params({k: v.clone() for k, v in model.state_dict().items()}, version=7)
+    return e
+
+
+def _preempted(model):
+    e = _manual(model)
+    e.preempt()
+    with pytest.raises(EngineDrainingError):
+        e.submit([1, 2])
+    return e.preempting
+
+
+def _migrated(model):
+    src, dst = _manual(model), _manual(model)
+    want = _run(_manual(model), [1, 2, 3])
+    stream = src.submit([1, 2, 3], 3)
+    src.step()
+    moved = dst.submit_migrated(src.migrate_out()[0])
+    while not dst.idle():
+        dst.step()
+    return moved.result(0) == want and not stream.done
+
+
+NOW_WORK = {
+    # what the engine refused before the live-weight plane was ported
+    "adapter_slots": lambda m: tuple(_adapter_engine(m)._adapter_b.shape) == (3, 2, V),
+    "adapter_id": lambda m: len(_run(_adapter_engine(m), [1, 2], adapter_id="t")) == 3,
+    "load_adapter": lambda m: _adapter_engine(m).adapters() == {"t": 1},
+    "unload_adapter": lambda m: _adapter_engine(m).unload_adapter("t") is True,
+    "swap_params": lambda m: _swapped(m).weights_version() == 7,
+    "rollback_params": lambda m: _swapped(m).rollback_params() >= 0.0,
+    "preempt": _preempted,
+    "migrate_out": lambda m: _manual(m).migrate_out() == [],
+    "submit_migrated": _migrated,
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOW_WORK))
+def test_engine_branches_once_refused_now_work(lm, case):
+    """Each branch the engine refused until the live-weight plane, adapters
+    and migration were ported now runs on the LM engine."""
+    assert NOW_WORK[case](lm[2])
 
 
 # -- EngineDeployment over an LM checkpoint ----------------------------------------------------

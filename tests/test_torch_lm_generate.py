@@ -357,10 +357,40 @@ def test_paged_chunk_prefill_decode_step_and_page_copy_match_jax(params, model):
             g = back[f"layer_{i}"]["attn"][leaf]
             # page 0 takes the free row's ride-along writes: don't-care
             np.testing.assert_allclose(g[1:], w[1:], atol=ATOL, rtol=RTOL)
-    with pytest.raises(NotImplementedError, match=r"item 6b \(ii\)"):
-        tlm.make_lm_paged_decode_step_fn(model, L, adapters=True)
-    with pytest.raises(NotImplementedError, match=r"item 6b \(ii\)"):
-        tlm.make_lm_prefill_chunk_fn(model, C, L, adapters=True)
+    # the LoRA banks (adapters=True): one more step, row 0 under the
+    # tenant of bank row 1, row 1 under the zero row; then the prompt's
+    # chunks again under row 1.  Tokens equal the JAX package's, and the
+    # zero row's equal the base step's from the same state
+    rng = np.random.default_rng(3)
+    bank_a = np.zeros((3, CFG.d_model, 2), np.float32)
+    bank_b = np.zeros((3, 2, V), np.float32)
+    bank_a[1:] = rng.standard_normal((2, CFG.d_model, 2)) * 4
+    bank_b[1:] = rng.standard_normal((2, 2, V)) * 4
+    ids_ = np.array([1, 0])
+    jastep = jgen.make_lm_paged_decode_step_fn(jmodel, L, adapters=True)
+    astep = tlm.make_lm_paged_decode_step_fn(model, L, adapters=True)
+    tb = torch.from_numpy(table).long()
+    _, base = step(cache, t, torch.from_numpy(pos), tb)
+    jcache, ja = jastep(params, jcache, jt, jnp.asarray(pos, jnp.int32), jnp.asarray(table),
+                        jnp.asarray(bank_a), jnp.asarray(bank_b), jnp.asarray(ids_, jnp.int32))
+    cache, a = astep(cache, t, torch.from_numpy(pos), tb, torch.from_numpy(bank_a),
+                     torch.from_numpy(bank_b), torch.from_numpy(ids_))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    assert int(a[1]) == int(base[1])
+    jachunk = jgen.make_lm_prefill_chunk_fn(jmodel, C, L, adapters=True)
+    achunk = tlm.make_lm_prefill_chunk_fn(model, C, L, adapters=True)
+    for p0 in range(0, len(prompt), C):
+        ids = np.zeros((1, C), np.int32)
+        part = prompt[p0:p0 + C]
+        ids[0, :len(part)] = part
+        last = len(prompt) - 1 - p0 if p0 + C >= len(prompt) else C - 1
+        jcache, jtok = jachunk(params, jcache, jnp.asarray(ids), jnp.int32(p0), jnp.int32(last),
+                               jnp.asarray(table[0]), jnp.asarray(bank_a), jnp.asarray(bank_b),
+                               jnp.int32(1))
+        cache, tok = achunk(cache, torch.from_numpy(ids).long(), p0, last,
+                            torch.from_numpy(table[0]).long(), torch.from_numpy(bank_a),
+                            torch.from_numpy(bank_b), 1)
+    assert int(tok) == int(jtok)
 
 
 # -- LMGenerativePredictor ----------------------------------------------------------------

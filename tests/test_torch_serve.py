@@ -360,16 +360,7 @@ def _server(t5_ckpt, **kw):
 REFUSALS = {
     "mesh": (lambda c: _server(c, mesh=(1, 2)), "items 6b and 9"),
     "disagg": (lambda c: _server(c, disagg={"prefill_replicas": 1}), "items 6b and 9"),
-    "adapter_submit": (lambda c: _server(c).submit([5, 6], adapter_id="t"), "item 6b"),
-    "adapter_http": (lambda c: _server(c)({"prompts": [[5, 6]], "adapter_id": "t"}), "item 6b"),
-    "weights_swap": (lambda c: _server(c).weights_swap("/nowhere"), "item 6b"),
-    "weights_rollback": (lambda c: _server(c).weights_rollback(), "item 6b"),
-    "weights_probe": (lambda c: _server(c).weights_probe([[5]]), "item 6b"),
-    "migrate_out": (lambda c: _server(c).migrate_out(), "item 6b"),
-    "submit_migrated": (lambda c: _server(c).submit_migrated({}), "item 6b"),
     "borrow_return": (lambda c: _server(c).borrow_return(), "item 11"),
-    "weight_store": (lambda c: serve.WeightStore, "item 6b"),
-    "attach_weights": (lambda c: serve.attach_weights, "item 6b"),
     "mesh_engine": (lambda c: __import__("tpu_air_torch.engine").engine.MeshEngine, "item 9"),
     "disagg_router": (lambda c: __import__("tpu_air_torch.engine").engine.DisaggRouter,
                       "items 6b and 9"),
@@ -381,6 +372,54 @@ def test_unported_branches_refuse_naming_their_item(t5_ckpt, case):
     fn, item = REFUSALS[case]
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         fn(t5_ckpt)
+
+
+def _t5_call(method, *args, **kw):
+    """Call ``method`` on a fresh T5 window-engine replica, closing its
+    engine after; a ``"<root>"`` argument is the test's empty weight store."""
+    def call(c, root):
+        srv = _server(c)
+        args_ = [root if a == "<root>" else a for a in args]
+        try:
+            return getattr(srv, method)(*args_, **kw) if method else srv(*args_, **kw)
+        finally:
+            srv.close()
+    return call
+
+
+# The LM replica's adapter, live-weight and migration branches on a T5
+# replica, answered as tpu_air/serve/engine_deployment.py's replica answers
+# them over its T5Engine: the window engine's submit takes no adapter_id
+# (TypeError), it has no weights to swap or roll back (an empty store has no
+# version to load: KeyError; rollback_params is missing: AttributeError),
+# the probe decodes through it, and migration needs the paged LM engine
+# (ValueError).  The weight plane's names import from the serve package.
+T5_ANSWERS = {
+    "adapter_submit": (_t5_call("submit", [5, 6], adapter_id="t"), TypeError),
+    "adapter_http": (_t5_call(None, {"prompts": [[5, 6]], "adapter_id": "t"}), TypeError),
+    "weights_swap": (_t5_call("weights_swap", "<root>"), KeyError),
+    "weights_rollback": (_t5_call("weights_rollback"), AttributeError),
+    "weights_probe": (_t5_call("weights_probe", [[5, 6, 7]], 4), None),
+    "migrate_out": (_t5_call("migrate_out"), ValueError),
+    "submit_migrated": (_t5_call("submit_migrated", {}), ValueError),
+    "weight_store": (lambda c, root: serve.WeightStore.__module__, None),
+    "attach_weights": (lambda c, root: serve.attach_weights("/no-such-route", root), KeyError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(T5_ANSWERS))
+def test_t5_replica_answers_lm_branches_as_the_jax_replica(t5_ckpt, tmp_path, case):
+    fn, error = T5_ANSWERS[case]
+    root = str(tmp_path / "weights")
+    if error is not None:
+        with pytest.raises(error):
+            fn(t5_ckpt, root)
+        return
+    out = fn(t5_ckpt, root)
+    if case == "weights_probe":
+        assert len(out) == 1 and len(out[0]) == 4
+    else:
+        assert out == "tpu_air_torch.serve.weights"
 
 
 @pytest.fixture(scope="module")
@@ -421,11 +460,20 @@ def test_lm_branches_once_refused_now_work(lm_ckpt, case):
 
 
 def test_publish_weights_to_names_item_6b(tmp_path):
+    """``publish_weights_to``, once refused naming item 6b, publishes each
+    retained checkpoint's weights to the store."""
+    from tpu_air_torch.models.lm import CausalLM, LMConfig
     from tpu_air_torch.train.config import CheckpointConfig
     from tpu_air_torch.train.session import Session
 
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        Session(str(tmp_path), CheckpointConfig(publish_weights_to=str(tmp_path / "w")))
+    model = CausalLM(LMConfig.tiny(), device="cpu").init_weights(0)
+    sess = Session(str(tmp_path / "run"),
+                   CheckpointConfig(publish_weights_to=str(tmp_path / "w")))
+    sess.report({"loss": 1.5}, checkpoint=Checkpoint.from_model(
+        model_config=model.config, params=model.state_dict()))
+    store = serve.WeightStore(str(tmp_path / "w"))
+    assert store.versions() == [1]
+    assert store.manifest(1)["metadata"]["metrics"]["loss"] == 1.5
 
 
 def test_replica_reports_no_preemption_notice_and_drains(t5_ckpt):

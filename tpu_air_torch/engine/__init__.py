@@ -9,11 +9,14 @@ retirement between steps, and per-token streaming.  The T5 family runs
 through :class:`T5Engine`, a window engine over the batch-synchronized T5
 decode entry points.  Both run on the model's device, where every decode
 step runs the decode-attention kernel (T5's prefill the flash-attention
-kernel too).  The distributed engines (ROADMAP Queue 1 items 6b and 9) are
-not ported: asking this package for one of them raises
-``NotImplementedError`` naming its item.
+kernel too).  The LM engine also serves multi-tenant LoRA head-delta
+adapters, swaps its weights live and migrates its decoding streams' KV
+pages to another engine (``dist/kv_transfer.py``).  The distributed engines
+(ROADMAP Queue 1 items 6b and 9) are not ported: asking this package for one
+of them raises ``NotImplementedError`` naming its item.
 """
 
+from .dist import UNPORTED, KVTransferError
 from .engine import InferenceEngine
 from .kvpool import (
     AdmitPlan,
@@ -37,19 +40,11 @@ from .types import (
     ResponseStream,
 )
 
-_ITEM_9 = "ROADMAP Queue 1 item 9: mesh, tensor parallelism and multi-host"
-_ITEM_6B_9 = ("ROADMAP Queue 1 items 6b and 9: engine/dist/, its KV transfer "
-              "with the LM engine")
-_UNPORTED = {
-    **dict.fromkeys(("MeshEngine", "ShardedPagedPool"), _ITEM_9),
-    **dict.fromkeys(("DisaggRouter", "PrefillWorker"), _ITEM_6B_9),
-}
-
 
 def __getattr__(name):
-    if name in _UNPORTED:
+    if name in UNPORTED:
         raise NotImplementedError(
-            f"tpu_air_torch.engine.{name} is not ported yet ({_UNPORTED[name]})")
+            f"tpu_air_torch.engine.{name} is not ported yet ({UNPORTED[name]})")
     raise AttributeError(f"module 'tpu_air_torch.engine' has no attribute '{name}'")
 
 
@@ -63,6 +58,7 @@ __all__ = [
     "EngineOverloadedError",
     "InferenceEngine",
     "KVPoolOOMError",
+    "KVTransferError",
     "PagedKVPool",
     "PrefixCache",
     "PrefixMatch",

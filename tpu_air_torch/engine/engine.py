@@ -40,12 +40,26 @@ the model's device (the current CUDA device is per thread too).  A decode
 step makes one host sync, the ``.cpu()`` of its tokens; a prefill's final
 chunk makes one more, for the first token.
 
-Refused, each with ``NotImplementedError`` naming its ROADMAP Queue 1 item:
-LoRA adapters (``adapter_slots``, ``adapter_id``, ``load_adapter``,
-``unload_adapter``), live weights (``swap_params``, ``rollback_params``) and
-preemption migration (``preempt``, ``migrate_out``, ``submit_migrated``):
-item 6b (ii); ``submit_prefilled``, the disaggregated handoff: items 6b and
-9.
+Three things change a running engine between steps, each under the step
+lock:
+
+* **live weights** — :meth:`InferenceEngine.swap_params` puts a new state
+  dict in place of the serving weights and keeps the prior tensors for one
+  :meth:`~InferenceEngine.rollback_params`; slots, tokens, positions and
+  pages are untouched, so in-flight streams continue on the new weights at
+  their exact positions;
+* **multi-tenant LoRA head deltas** (paged only, ``adapter_slots > 0``) —
+  f32 banks ``[A+1, d, r]`` and ``[A+1, r, V]`` on the device, row 0 the
+  zero adapter; a request names its tenant (``adapter_id``) and every step
+  adds its row's ``(h @ a) @ b`` to the logits;
+* **preemption migration** (paged only) — :meth:`~InferenceEngine.preempt`
+  freezes admission, :meth:`~InferenceEngine.migrate_out` ships every
+  decoding slot's prompt, streamed tokens and KV pages as CPU tensors, and
+  :meth:`~InferenceEngine.submit_migrated` lands one on another engine,
+  which continues the stream token for token and runs no prefill chunk.
+
+Refused with ``NotImplementedError`` naming its ROADMAP Queue 1 items:
+``submit_prefilled``, the disaggregated handoff (items 6b and 9).
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from tpu_air_torch.faults import plan as _faults
 from tpu_air_torch.models.lm.generate import (
     init_paged_cache,
     init_slot_cache,
@@ -69,6 +84,7 @@ from tpu_air_torch.models.lm.generate import (
 from tpu_air_torch.observability import perf as _perf
 from tpu_air_torch.observability import tracing as _tracing
 
+from .dist.kv_transfer import extract_kv_pages, insert_kv_pages, validate_kv_payload
 from .kvpool import PagedKVPool
 from .kvpool.allocator import NULL_PAGE
 from .metrics import EngineMetrics, unregister
@@ -81,15 +97,11 @@ from .types import (
     EngineDrainingError,
     EngineOverloadedError,
     Request,
+    RequestValidationError,
     ResponseStream,
 )
 
-_ITEM_6B_II = "ROADMAP Queue 1 item 6b (ii): live weights, LoRA and migration"
 _ITEM_6B_9 = "ROADMAP Queue 1 items 6b and 9: engine/dist/, the disaggregated handoff"
-
-
-def _refuse(what: str, item: str = _ITEM_6B_II) -> None:
-    raise NotImplementedError(f"{what} is not ported to tpu_air_torch ({item})")
 
 
 class InferenceEngine:
@@ -122,9 +134,10 @@ class InferenceEngine:
             )
         if cfg.kv_mode not in ("paged", "slab"):
             raise ValueError(f"unknown kv_mode {cfg.kv_mode!r}")
-        if cfg.adapter_slots > 0:
-            _refuse("adapter_slots > 0 (the LoRA head-delta banks)")
         self.paged = cfg.kv_mode == "paged"
+        self.adapters_enabled = cfg.adapter_slots > 0
+        if self.adapters_enabled and not self.paged:
+            raise ValueError("adapter_slots requires the paged engine (kv_mode='paged')")
 
         # device side: the persistent KV pool + the phases over it
         if self.paged:
@@ -148,11 +161,27 @@ class InferenceEngine:
         self._cost_model = _perf.LMCostModel(model.config)
         self._decode_cost = self._cost_model.decode_step_cost(cfg.num_slots, cfg.slot_len)
 
+        # live weights: the version serving and the PRIOR tensors, kept for
+        # one rollback that reads no store (so it survives a corrupt or
+        # collected publish); while they are kept, the weights take twice
+        # their memory
+        self._weights_version: Optional[int] = None
+        self._prev_weights: Optional[Dict[str, torch.Tensor]] = None
+        self._prev_version: Optional[int] = None
+
+        # multi-tenant LoRA: name -> bank row (row 0 = the zero adapter) and
+        # the host per-slot rows the decode step gathers.  Lock order:
+        # _step_lock OUTER, _adapter_lock inner
+        self._adapter_rows: Dict[str, int] = {}
+        self._adapter_lock = threading.Lock()
+        self._adapter_ids_host = np.zeros((cfg.num_slots,), np.int64)
+
         self._next_request_id = 0
         self._id_lock = threading.Lock()
         self._step_lock = threading.Lock()
         self._closed = False
         self._draining = False
+        self._preempting = False
         self._round_admits = 0  # slots taken during one admission round
         self._thread: Optional[threading.Thread] = None
         if auto_start:
@@ -169,16 +198,41 @@ class InferenceEngine:
             self.model, cfg.num_slots, cfg.pool_pages(), cfg.page_len,
             cfg.pages_per_slot(),
         )
-        self._decode_step = make_lm_paged_decode_step_fn(self.model, cfg.slot_len)
-        self._chunk_fn = make_lm_prefill_chunk_fn(self.model, cfg.page_len, cfg.slot_len)
+        if self.adapters_enabled:
+            mc = self.model.config
+            A, r = cfg.adapter_slots, cfg.adapter_rank
+            # row 0 is the pinned zero adapter: a base-model slot gathers an
+            # exact-zero delta, so its tokens are the base model's
+            self._adapter_a = torch.zeros((A + 1, mc.d_model, r), device=self.device)
+            self._adapter_b = torch.zeros((A + 1, r, mc.vocab_size), device=self.device)
+        self._build_step_fns()
 
     def _build_slab_state(self) -> None:
         cfg = self.config
         self.pool = None
         self.cache = init_slot_cache(self.model, cfg.num_slots, cfg.slot_len)
-        self._decode_step = make_lm_decode_step_fn(self.model, cfg.slot_len)
         self._insert = make_insert_fn()
         self._prefill_fns: Dict[int, Any] = {}  # bucket -> prefill fn
+        self._build_step_fns()
+
+    def _build_step_fns(self) -> None:
+        """The step functions over the model's weights as they are now.
+        Each holds the f32 head it was made with, so a weight swap makes
+        them anew (the slab prefill reads the head at every call)."""
+        cfg = self.config
+        if self.paged:
+            self._decode_step = make_lm_paged_decode_step_fn(
+                self.model, cfg.slot_len, adapters=self.adapters_enabled)
+            self._chunk_fn = make_lm_prefill_chunk_fn(
+                self.model, cfg.page_len, cfg.slot_len, adapters=self.adapters_enabled)
+        else:
+            self._decode_step = make_lm_decode_step_fn(self.model, cfg.slot_len)
+
+    def _sync(self) -> None:
+        """Wait for the device's queued work (nothing to wait for on the
+        CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """A host array as an int64 tensor on the engine's device."""
@@ -187,25 +241,26 @@ class InferenceEngine:
     # -- submission (any thread) ---------------------------------------------
     def _make_request(self, prompt, max_new_tokens, stream,
                       priority: str = "interactive", *,
+                      admit_while_draining: bool = False,
                       deadline_ms: Optional[float] = None,
                       adapter_id: Optional[str] = None,
                       tenant: Optional[str] = None) -> Request:
-        """Validation + Request construction."""
+        """Validation + Request construction for both submit paths.  A
+        migrated stream is admitted while draining (``admit_while_draining``):
+        its source already decoded it."""
         # airlint: disable=CC001 — _closed/_draining are GIL-atomic
         # monotonic bools (False→True once); a submit racing the flip is
         # indistinguishable from one that arrived a moment earlier
         if self._closed:
             raise EngineClosedError("engine is shut down")
         # airlint: disable=CC001 — same monotonic-flag discipline as _closed
-        if self._draining:
+        if self._draining and not admit_while_draining:
             raise EngineDrainingError(
                 f"engine {self.name!r} is draining; submit elsewhere")
         if priority not in PRIORITIES:
             raise ValueError(
                 f"unknown priority {priority!r} (expected one of {PRIORITIES})"
             )
-        if adapter_id is not None:
-            _refuse("adapter_id (the LoRA head-delta banks)")
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -218,6 +273,15 @@ class InferenceEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens ({budget}) "
                 f"exceeds slot_len ({self.config.slot_len})"
             )
+        if adapter_id is not None:
+            # fail fast (the proxy maps RequestValidationError to HTTP 400);
+            # admission resolves the name again: it may be unloaded meanwhile
+            if not self.adapters_enabled:
+                raise RequestValidationError(
+                    "adapter_id requires EngineConfig.adapter_slots > 0")
+            with self._adapter_lock:
+                if adapter_id not in self._adapter_rows:
+                    raise RequestValidationError(f"unknown adapter {adapter_id!r}")
         with self._id_lock:
             rid = self._next_request_id
             self._next_request_id += 1
@@ -227,7 +291,17 @@ class InferenceEngine:
                        priority=priority,
                        deadline_ms=(None if deadline_ms is None
                                     else float(deadline_ms)),
+                       adapter_id=adapter_id,
                        tenant=(str(tenant) if tenant else None))
+
+    def _enqueue(self, req: Request) -> ResponseStream:
+        try:
+            self.scheduler.submit(req)
+        except EngineOverloadedError:  # backpressure: count the 503, surface it
+            self.metrics.record_reject(req.priority)
+            raise
+        self.metrics.record_submit(req.priority)
+        return req.stream
 
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None, *,
@@ -245,18 +319,13 @@ class InferenceEngine:
         caller have the engine emit onto it.  ``deadline_ms`` is the
         request's ABSOLUTE end-to-end deadline (unix-epoch ms): still queued
         past it, the request expires with ``DeadlineExceededError``.
-        ``tenant`` is a cost-attribution label.  ``adapter_id`` raises
-        ``NotImplementedError`` (the LoRA banks are not ported)."""
-        req = self._make_request(prompt, max_new_tokens, stream, priority,
-                                 deadline_ms=deadline_ms, adapter_id=adapter_id,
-                                 tenant=tenant)
-        try:
-            self.scheduler.submit(req)
-        except EngineOverloadedError:  # backpressure: count the 503, surface it
-            self.metrics.record_reject(req.priority)
-            raise
-        self.metrics.record_submit(req.priority)
-        return req.stream
+        ``adapter_id`` names the tenant LoRA adapter the request decodes
+        under (None: the base model; a name not loaded raises
+        :class:`RequestValidationError`).  ``tenant`` is a cost-attribution
+        label, never validated: billing uses ``tenant or adapter_id``."""
+        return self._enqueue(self._make_request(
+            prompt, max_new_tokens, stream, priority, deadline_ms=deadline_ms,
+            adapter_id=adapter_id, tenant=tenant))
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: Optional[int] = None,
@@ -269,30 +338,9 @@ class InferenceEngine:
                 self.step()
         return [s.result(timeout) for s in streams]
 
-    # -- what the port refuses ------------------------------------------------
     def submit_prefilled(self, *_: Any, **__: Any) -> ResponseStream:
-        _refuse("submit_prefilled (the DisaggRouter handoff)", _ITEM_6B_9)
-
-    def preempt(self) -> None:
-        _refuse("preempt (preemption migration)")
-
-    def migrate_out(self) -> List[Dict[str, Any]]:
-        _refuse("migrate_out (preemption migration of paged KV)")
-
-    def submit_migrated(self, *_: Any, **__: Any) -> ResponseStream:
-        _refuse("submit_migrated (preemption migration of paged KV)")
-
-    def swap_params(self, *_: Any, **__: Any) -> float:
-        _refuse("swap_params (live weight swaps)")
-
-    def rollback_params(self) -> float:
-        _refuse("rollback_params (live weight rollback)")
-
-    def load_adapter(self, *_: Any, **__: Any) -> int:
-        _refuse("load_adapter (the LoRA head-delta banks)")
-
-    def unload_adapter(self, *_: Any, **__: Any) -> bool:
-        _refuse("unload_adapter (the LoRA head-delta banks)")
+        raise NotImplementedError("submit_prefilled (the DisaggRouter handoff) is not "
+                                  f"ported to tpu_air_torch ({_ITEM_6B_9})")
 
     # -- the engine loop -----------------------------------------------------
     def step(self) -> bool:
@@ -303,14 +351,17 @@ class InferenceEngine:
             worked = False
             self._round_reserved = 0
             self._round_admits = 0
-            for req in self.scheduler.pop_admissible(
-                self.slots.free_count(), self._admit_gate()
-            ):
-                if self.paged:
-                    self._admit_paged(req)
-                else:
-                    self._admit(req)
-                worked = True
+            # airlint: disable=CC001 — _preempting is a GIL-atomic monotonic
+            # bool; a round racing the flip admits one last batch
+            if not self._preempting:
+                for req in self.scheduler.pop_admissible(
+                    self.slots.free_count(), self._admit_gate()
+                ):
+                    if self.paged:
+                        self._admit_paged(req)
+                    else:
+                        self._admit(req)
+                    worked = True
             if self.paged and self._prefill_quantum():
                 worked = True
             if any(not s.prefilling for s in self.slots.active_slots()):
@@ -349,6 +400,101 @@ class InferenceEngine:
     def drained(self) -> bool:
         """True once draining AND no admitted work remains."""
         return self._draining and self.idle()
+
+    # -- preemption migration ------------------------------------------------
+    def preempt(self) -> None:
+        """A revocation notice arrived: admit nothing more.  New submits
+        shed (:class:`EngineDrainingError`: the proxy routes elsewhere) and
+        the queued backlog STAYS queued: prefilling it here would spend the
+        notice window on work this engine cannot finish, and the journal
+        replays it on a survivor.  Idempotent."""
+        self._draining = True
+        # airlint: disable=CC001 — GIL-atomic monotonic flip, never unset
+        self._preempting = True
+
+    @property
+    def preempting(self) -> bool:
+        # airlint: disable=CC001 — GIL-atomic monotonic bool read
+        return self._preempting
+
+    def migrate_out(self) -> List[Dict[str, Any]]:
+        """Freeze the loop between steps and pull every DECODING slot into a
+        payload for :meth:`submit_migrated` on a survivor: the prompt, every
+        token streamed so far, the cursor (``pos == len(prompt) +
+        len(streamed) - 1``), the remaining budget, the request's class,
+        deadline, adapter and tenant, and the KV pages of positions
+        ``0..pos-1`` as CPU tensors (:func:`extract_kv_pages`).  Slots still
+        prefilling and the queue are not shipped: the journal replays them.
+        Shipped slots are released here; their streams stay unfinished, and
+        the proxy re-pins their pollers at the destination."""
+        if not self.paged:
+            raise ValueError("migrate_out requires a paged engine (kv_mode='paged')")
+        self.preempt()
+        payloads: List[Dict[str, Any]] = []
+        with self._step_lock:
+            for slot in list(self.slots.active_slots()):
+                if slot.prefilling:
+                    continue
+                req = slot.request
+                p = int(slot.pos)
+                page_ids = self.pool.prompt_page_ids(slot.index, p)
+                # airlint: disable=CC003 — the only sleep here is an injected
+                # kv.transfer delay; the loop is frozen by design meanwhile
+                pages = extract_kv_pages(self.cache, page_ids)
+                payloads.append({
+                    "request_id": req.request_id,
+                    "prompt": [int(t) for t in req.prompt],
+                    "streamed": req.stream.tokens_so_far(),
+                    "pos": p,
+                    "budget_left": int(slot.budget_left),
+                    "priority": req.priority,
+                    "deadline_ms": req.deadline_ms,
+                    "adapter_id": req.adapter_id,
+                    "tenant": req.tenant,
+                    "pages": pages,
+                })
+                self.metrics.record_migration("out", len(page_ids))
+                # the destination continues the stream: nothing is waste
+                self._release(slot)
+        return payloads
+
+    def submit_migrated(self, payload: Dict[str, Any], *,
+                        stream: Optional[ResponseStream] = None) -> ResponseStream:
+        """Land one :meth:`migrate_out` payload, of this package's engine or
+        of the JAX package's, on this engine.  It is checked against this
+        cache before it is queued: a bad payload raises
+        :class:`~tpu_air_torch.engine.dist.kv_transfer.KVTransferError` or
+        :class:`RequestValidationError` here, and the supervisor falls back
+        to replay.  Admission writes the pages into unshared pages, replays
+        the streamed tokens onto the new stream and decodes on from the
+        cursor: no prefill chunk runs, and greedy tokens are those the
+        stream would have had, had it never moved."""
+        if not self.paged:
+            raise ValueError("submit_migrated requires a paged engine (kv_mode='paged')")
+        prompt = [int(t) for t in payload["prompt"]]
+        streamed = [int(t) for t in payload["streamed"]]
+        pos = int(payload["pos"])
+        budget_left = int(payload["budget_left"])
+        if not streamed or budget_left < 1 or pos != len(prompt) + len(streamed) - 1:
+            raise RequestValidationError(
+                f"inconsistent migration payload: prompt={len(prompt)} "
+                f"streamed={len(streamed)} pos={pos} budget_left={budget_left}")
+        # airlint: disable=CC001 — a geometry-only read: the pools are
+        # written in place, never rebound
+        validate_kv_payload(self.cache, range(-(-pos // self.config.page_len)),
+                            payload["pages"])
+        # the cache holds positions 0..pos-1: the prompt and every streamed
+        # token but the last (the cursor token, computed but not yet
+        # written); that context is the "prompt" the pool admits
+        req = self._make_request((prompt + streamed)[:pos], budget_left + 1, stream,
+                                 payload.get("priority", "interactive"),
+                                 admit_while_draining=True,
+                                 deadline_ms=payload.get("deadline_ms"),
+                                 adapter_id=payload.get("adapter_id"),
+                                 tenant=payload.get("tenant"))
+        req.migrated = {"streamed": streamed, "pages": payload["pages"],
+                        "client_prompt_len": len(prompt)}
+        return self._enqueue(req)
 
     def _admit_gate(self):
         """Per-round admission predicate handed to the scheduler: the paged
@@ -390,15 +536,68 @@ class InferenceEngine:
 
     def _admit_paged(self, req: Request) -> None:
         """Reserve pages + block-table row; the compute happens in the
-        chunked prefill quantum (TTFT lands when the final chunk runs)."""
+        chunked prefill quantum (TTFT lands when the final chunk runs).  A
+        migrated stream runs no chunk: its pages came with it."""
+        if not self._resolve_adapter(req):
+            return
         slot = self.slots.acquire()
         slot.request = req
+        self._adapter_ids_host[slot.index] = req.adapter_row
+        if req.migrated is not None:
+            self._admit_migrated(slot, req)
+            return
         slot.prefilling = True
         slot.plan = self.pool.admit(slot.index, req.prompt, req.max_new_tokens)
         # chunks about to be recomputed whose content the prefix cache held
         # before eviction: work the machine already did once
         if slot.plan.reprefill_tokens:
             self.metrics.record_goodput("reprefill_cache_miss", slot.plan.reprefill_tokens)
+
+    def _admit_migrated(self, slot: Slot, req: Request) -> None:
+        """Land a migrated stream: unshared pages sized for the whole
+        remaining run, the shipped K/V written into them, the streamed
+        tokens replayed onto the stream (it carries the FULL client-visible
+        list: the proxy re-pins pollers at offset 0), and the cursor parked
+        where the source stopped.  ``chunks_done`` covers the whole chunk
+        list, so no chunk runs (``migrations.in_reprefill_chunks`` stays
+        0).  The pages are not published to the prefix cache: the tail page
+        is mid-append, and the admitted "prompt" holds generated tokens."""
+        m = req.migrated
+        p = len(req.prompt)                       # cache-resident positions 0..p-1
+        slot.plan = self.pool.admit(slot.index, req.prompt, req.max_new_tokens, share=False)
+        slot.plan.chunks_done = len(slot.plan.chunk_starts)
+        page_ids = self.pool.prompt_page_ids(slot.index, p)
+        try:
+            insert_kv_pages(self.cache, page_ids, m["pages"])
+        except ValueError as e:   # KVTransferError: the payload does not fit
+            self._fail_admission(slot, req, e)
+            return
+        req.first_token_at = time.monotonic()
+        if req.t_submit_ns:
+            # t_first == t_admit: the prefill ran on the source and is not
+            # reported again here
+            req.t_first_ns = req.t_admit_ns
+        streamed = m["streamed"]
+        for tok in streamed:      # counted and TTFT-stamped on the source
+            req.stream._emit(tok)
+        slot.prefilling = False
+        slot.pos = p
+        slot.budget_left = req.max_new_tokens - 1
+        self._cur_tok[slot.index] = streamed[-1]
+        self._pos[slot.index] = p
+        self.metrics.record_migration("in", len(page_ids),
+                                      reprefill_chunks=slot.plan.chunks_left)
+        self.metrics.record_tenant_migrated(req.tenant or req.adapter_id, len(page_ids))
+        if self.eos_token_id is not None and streamed[-1] == self.eos_token_id:
+            self._retire(slot)
+
+    def _fail_admission(self, slot: Slot, req: Request, error: BaseException) -> None:
+        """Admission found the request unservable (a payload that does not
+        fit): give the slot back and fail the stream loudly, so that the
+        poller sees the error and the journal replays, rather than decode
+        from corrupt pages."""
+        self._release(slot)
+        req.stream._finish(error)
 
     def _prefill_quantum(self) -> bool:
         """Run up to ``prefill_chunks_per_step`` chunk calls,
@@ -430,9 +629,11 @@ class InferenceEngine:
         is_last = plan.chunks_done == len(plan.chunk_starts) - 1
         last_local = (n - 1 - p0) if is_last else (C - 1)
         row = self.pool.chunk_row(slot.index, p0, plan.null_target)
+        banks = ((self._adapter_a, self._adapter_b, req.adapter_row)
+                 if self.adapters_enabled else ())
         t0 = time.monotonic()
         self.cache, tok = self._chunk_fn(self.cache, self._tensor(ids), p0, last_local,
-                                         self._tensor(row))
+                                         self._tensor(row), *banks)
         # the host clock at dispatch: only the final chunk syncs (int(tok)
         # below), so a mid-prompt chunk's seconds are its launch cost
         self.metrics.record_program("prefill_chunk",
@@ -502,6 +703,173 @@ class InferenceEngine:
         slot.request = req
         self._start_decode(slot, first)
 
+    # -- live weights (serve/weights.py) --------------------------------------
+    def swap_params(self, new_state: Dict[str, Any], *, version: Optional[int] = None) -> float:
+        """Serve ``new_state`` from the next step on: a state dict with the
+        model's keys and shapes, of tensors or numpy arrays on any device
+        and in any float type.  Keys and shapes are checked against the
+        serving model first; a mismatch raises ``ValueError`` before
+        anything changes.  The new tensors are cast to each parameter's
+        type and copied to the engine's device OUTSIDE the step lock, so
+        decoding goes on during the host-to-device copy.  Under the lock
+        the parameters are pointed at them, the step functions are made anew
+        over the new head, and the device is synchronized before the lock
+        is released, so the next step reads finished weights.  Slots,
+        tokens, positions and pages are untouched: in-flight streams
+        continue on the new weights at their exact positions.  The prior
+        tensors are kept for :meth:`rollback_params`.
+
+        Returns the stall in milliseconds, request-to-done wall time: the
+        copy, the lock wait and the swap (the gap it opens between decode
+        steps is the last two)."""
+        t_req = time.monotonic()
+        if _faults.enabled():
+            _faults.perturb("weights.swap", key=self.name)
+        serving = self.model.state_dict(keep_vars=True)
+        if set(new_state) != set(serving):
+            missing = sorted(set(serving) - set(new_state))
+            extra = sorted(set(new_state) - set(serving))
+            raise ValueError(f"weight swap rejected: keys differ from the serving model "
+                             f"(missing {missing[:4]}, unexpected {extra[:4]})")
+        new = {k: torch.as_tensor(v) for k, v in new_state.items()}
+        for name, cur in serving.items():
+            if tuple(new[name].shape) != tuple(cur.shape):
+                raise ValueError(f"weight swap rejected: {name} is {tuple(new[name].shape)}, "
+                                 f"the serving model's {tuple(cur.shape)}")
+        with torch.no_grad():
+            placed = {name: new[name].to(device=cur.device, dtype=cur.dtype, copy=True)
+                      for name, cur in serving.items()}
+        self._sync()
+        with self._step_lock:
+            prev = {name: p.data for name, p in serving.items()}
+            self._point_weights(serving, placed)
+            self._prev_weights, self._prev_version = prev, self._weights_version
+            self._weights_version = version
+            stall_ms = (time.monotonic() - t_req) * 1000.0
+        self.metrics.record_weights_swap(version, stall_ms)
+        return stall_ms
+
+    def rollback_params(self) -> float:
+        """Serve again the weights :meth:`swap_params` replaced: a pointer
+        swap under the step lock that reads no store, so it works when the
+        bad publish's objects are corrupt or gone.  One-shot: the replaced
+        tensors are dropped, and a second rollback raises
+        ``RuntimeError``."""
+        t_req = time.monotonic()
+        with self._step_lock:
+            if self._prev_weights is None:
+                raise RuntimeError("no prior weights retained to roll back to")
+            self._point_weights(self.model.state_dict(keep_vars=True), self._prev_weights)
+            self._prev_weights = None
+            self._weights_version, self._prev_version = self._prev_version, None
+            version = self._weights_version
+            stall_ms = (time.monotonic() - t_req) * 1000.0
+        self.metrics.record_weights_swap(version, stall_ms, rollback=True)
+        return stall_ms
+
+    def _point_weights(self, serving: Dict[str, torch.Tensor],
+                       tensors: Dict[str, torch.Tensor]) -> None:
+        """Point each parameter at its new tensor, make the step functions
+        anew over it and wait for the device (call with the step lock)."""
+        for name, p in serving.items():
+            p.data = tensors[name]
+        self._build_step_fns()
+        self._sync()
+
+    def weights_version(self) -> Optional[int]:
+        # airlint: disable=CC001 — GIL-atomic read for stats; a reader
+        # racing a swap sees the old or the new version, both valid
+        return self._weights_version
+
+    # -- multi-tenant LoRA adapters ------------------------------------------
+    def _resolve_adapter(self, req: Request) -> bool:
+        """Admission-time resolution of ``req.adapter_id`` to a bank row.
+        The adapter may have been unloaded while the request sat queued:
+        then the stream fails loudly rather than serve base-model tokens
+        under the tenant's name."""
+        if req.adapter_id is None:
+            req.adapter_row = 0
+            return True
+        with self._adapter_lock:
+            row = self._adapter_rows.get(req.adapter_id)
+        if row is None:
+            req.stream._finish(RequestValidationError(
+                f"adapter {req.adapter_id!r} was evicted while request "
+                f"{req.request_id} was queued"))
+            return False
+        req.adapter_row = row
+        return True
+
+    def load_adapter(self, name: str, a, b) -> int:
+        """Load (or reload in place) tenant ``name``'s LoRA head delta
+        ``logits += (h @ a) @ b`` into a bank row; returns the row.  ``a``
+        ``[d_model, r]``, ``b`` ``[r, vocab]`` (numpy or tensors); a rank
+        below ``adapter_rank`` is zero-padded, which is exact.  Two row
+        writes under the step lock, between steps."""
+        if not self.adapters_enabled:
+            raise ValueError("adapters not enabled (EngineConfig.adapter_slots=0)")
+        mc, cfg = self.model.config, self.config
+        a = torch.from_numpy(np.array(a, np.float32))    # a copy: the caller's may be read-only
+        b = torch.from_numpy(np.array(b, np.float32))
+        if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+            raise ValueError(f"adapter shapes must be [d,r] x [r,V], got {tuple(a.shape)} "
+                             f"x {tuple(b.shape)}")
+        if a.shape[0] != mc.d_model or b.shape[1] != mc.vocab_size:
+            raise ValueError(f"adapter {tuple(a.shape)} x {tuple(b.shape)} does not fit "
+                             f"model [d={mc.d_model}, V={mc.vocab_size}]")
+        r = a.shape[1]
+        if r > cfg.adapter_rank:
+            raise ValueError(f"adapter rank {r} exceeds bank rank {cfg.adapter_rank}")
+        pa = torch.zeros((mc.d_model, cfg.adapter_rank))
+        pb = torch.zeros((cfg.adapter_rank, mc.vocab_size))
+        pa[:, :r], pb[:r] = a, b
+        with self._step_lock:
+            with self._adapter_lock:
+                row = self._adapter_rows.get(name)
+                if row is None:
+                    used = set(self._adapter_rows.values())
+                    free = [i for i in range(1, cfg.adapter_slots + 1) if i not in used]
+                    if not free:
+                        raise ValueError(f"adapter bank full ({cfg.adapter_slots} rows); "
+                                         "unload a tenant first")
+                    row = free[0]
+                    self._adapter_rows[name] = row
+                n_loaded = len(self._adapter_rows)
+            with torch.no_grad():
+                self._adapter_a[row] = pa.to(self.device)
+                self._adapter_b[row] = pb.to(self.device)
+        self.metrics.set_adapters_loaded(n_loaded)
+        return row
+
+    def unload_adapter(self, name: str) -> bool:
+        """Evict tenant ``name``: zero its bank row and free it.  Raises
+        ``RuntimeError`` while an active slot decodes under the row
+        (eviction must not change tokens mid-stream); False when the name
+        is not loaded."""
+        if not self.adapters_enabled:
+            return False
+        with self._step_lock:
+            with self._adapter_lock:
+                row = self._adapter_rows.get(name)
+                if row is None:
+                    return False
+                if any(self._adapter_ids_host[s.index] == row
+                       for s in self.slots.active_slots()):
+                    raise RuntimeError(f"adapter {name!r} is serving active slots; drain "
+                                       "them before unloading")
+                del self._adapter_rows[name]
+                n_loaded = len(self._adapter_rows)
+            with torch.no_grad():
+                self._adapter_a[row] = 0.0
+                self._adapter_b[row] = 0.0
+        self.metrics.set_adapters_loaded(n_loaded)
+        return True
+
+    def adapters(self) -> Dict[str, int]:
+        """Loaded tenant adapters: name -> bank row."""
+        with self._adapter_lock:
+            return dict(self._adapter_rows)
+
     # -- decode --------------------------------------------------------------
     def _decode_all(self) -> None:
         t0 = time.monotonic()
@@ -514,7 +882,12 @@ class InferenceEngine:
             for s in self.slots.slots:
                 if not s.active or s.prefilling:
                     table[s.index] = NULL_PAGE
-            self.cache, nxt = self._decode_step(self.cache, tok, pos, self._tensor(table))
+            # each slot's LoRA row goes in the way the table does: one host
+            # array, row 0 the exact-zero delta
+            banks = ((self._adapter_a, self._adapter_b, self._tensor(self._adapter_ids_host))
+                     if self.adapters_enabled else ())
+            self.cache, nxt = self._decode_step(self.cache, tok, pos, self._tensor(table),
+                                                *banks)
         else:
             self.cache, nxt = self._decode_step(self.cache, tok, pos)
         nxt = nxt.cpu().numpy()                  # the step's one host sync
@@ -562,13 +935,18 @@ class InferenceEngine:
             prefilled=len(req.prompt),
             decoded=decoded,
             kv_page_seconds=n_pages * resident_s)
+        self._release(slot)
+
+    def _release(self, slot: Slot) -> None:
+        """Free a slot and its host state (paged: its private pages return
+        to the free list; prompt pages the prefix cache registered stay
+        resident for future hits)."""
         if self.paged:
-            # private pages return to the free list; prompt pages the prefix
-            # cache registered stay resident for future hits
             self.pool.release(slot.index)
         self.slots.release(slot)
         self._cur_tok[slot.index] = 0
         self._pos[slot.index] = 0
+        self._adapter_ids_host[slot.index] = 0
 
     def _emit_request_spans(self, slot: Slot) -> None:
         """Retirement-time span emission: the request's span tree (queue
@@ -592,6 +970,7 @@ class InferenceEngine:
                 start_ns=req.t_submit_ns, end_ns=req.t_admit_ns,
             )
         if req.t_admit_ns and req.t_first_ns > req.t_admit_ns:
+            # strictly after: a migrated stream lands with t_first == t_admit
             attrs = {"slot": slot.index, "prompt_len": len(req.prompt)}
             if self.paged and slot.plan is not None:
                 attrs["chunks"] = len(slot.plan.chunk_starts)
@@ -663,9 +1042,7 @@ class InferenceEngine:
                     wasted = slot.pos - len(req.prompt) + 1
                 self.metrics.record_goodput(waste_cat, wasted)
                 req.stream._finish(err)
-                if self.paged:
-                    self.pool.release(slot.index)
-                self.slots.release(slot)
+                self._release(slot)
         unregister(self.name)
 
     def __enter__(self) -> "InferenceEngine":

@@ -106,12 +106,11 @@ class EngineConfig:
     * ``eos_token_id`` — ``"model"`` (default): use the model config's
       ``eos_token_id``; ``None``: never early-stop (budget-only
       retirement); an int: that id.
-    * ``adapter_slots`` — (not ported: the port's engine refuses a value
-      above 0, ROADMAP Queue 1 item 6b (ii)) multi-tenant LoRA: rows in the
-      resident adapter bank (0 disables adapters; paged single-chip
-      engines only).  Row 0
-      is the pinned zero adapter, so the bank holds ``adapter_slots``
-      loadable tenants on top of it.  Per-request selection rides
+    * ``adapter_slots`` — multi-tenant LoRA: rows in the resident adapter
+      bank (0 disables adapters; the paged engine only: a slab engine with
+      a value above 0 raises ``ValueError``).  Row 0 is the pinned zero
+      adapter, so the bank holds ``adapter_slots`` loadable tenants on top
+      of it.  Per-request selection rides
       ``Request.adapter_id``; the decode step gathers each slot's delta
       the way it gathers the block table.
     * ``adapter_rank`` — LoRA rank r of the bank rows ``[d, r] x [r, V]``.

@@ -22,6 +22,14 @@ site                  actions
 ``runtime.task``      ``delay``
 ``proxy.request``     ``delay``, ``kill`` (crash a serving replica)
 ``proxy.poll``        ``delay``, ``kill`` (crash the pinned replica)
+``kv.transfer``       ``delay`` (a slow KV-page extraction)
+``weights.publish``   ``kill`` (torn publish: shards land, the manifest
+                      never does), ``corrupt`` (tensor VALUES flipped
+                      before checksumming: the crc is valid and the
+                      weights are wrong, the canary gate's quarry),
+                      ``delay`` (stall before the manifest write)
+``weights.swap``      ``delay``, ``error`` (the swap fails on the target
+                      replica before it takes the step lock)
 ====================  ==========================================
 """
 

@@ -39,15 +39,6 @@ from tpu_air_torch.models.sampling import sample_token
 
 from .modeling import AttnCache, CausalLM, head_weight, torch_dtype
 
-_ITEM_6B_II = "ROADMAP Queue 1 item 6b (ii): the LoRA head-delta banks"
-
-
-def _refuse_adapters(adapters: bool) -> None:
-    if adapters:
-        raise NotImplementedError(f"adapters=True is not ported to tpu_air_torch "
-                                  f"({_ITEM_6B_II})")
-
-
 def _slabs(model: CausalLM, rows: int, length: int):
     cfg = model.config
     shape = (rows, length, cfg.n_heads * cfg.head_dim)
@@ -72,8 +63,11 @@ def _as_ids(x, device) -> torch.Tensor:
 
 
 def _head(model: CausalLM) -> torch.Tensor:
-    """The f32 (d_model, vocab) head, made once per generate call or engine
-    (the model's weights may be in a half type)."""
+    """The f32 (d_model, vocab) head, made once per generate call or step
+    function (the model's weights may be in a half type).  It is a copy of
+    a half-type head and a view of an f32 one, so after the model's weights
+    change the step functions that hold it are made anew
+    (``InferenceEngine.swap_params`` does)."""
     return head_weight(model).float()
 
 
@@ -235,19 +229,33 @@ def make_lm_paged_decode_step_fn(model: CausalLM, slot_len: int,
     """The paged engine step: ``fn(cache, tok, pos, block_table) -> (cache,
     next_tok)``, the contract of :func:`make_lm_decode_step_fn` plus the
     table ``[S, pages_per_slot]`` (the host pool's, with the rows of slots
-    that are not decoding pointed at the null page).  ``adapters=True``
-    (the LoRA banks) raises ``NotImplementedError``."""
-    _refuse_adapters(adapters)
+    that are not decoding pointed at the null page).
+
+    ``adapters=True`` appends the multi-tenant LoRA banks: ``fn(cache, tok,
+    pos, block_table, bank_a, bank_b, adapter_ids)`` with f32 ``bank_a``
+    ``[A+1, d_model, r]``, ``bank_b`` ``[A+1, r, vocab]`` and ``adapter_ids``
+    ``[S]`` int64, all on the model's device; each row's f32 logits gain
+    ``(h @ bank_a[id]) @ bank_b[id]``, gathered the way the table gathers
+    pages.  Bank row 0 is the zero adapter, so a row with id 0 gains an
+    exact zero and its token is the base model's."""
     head_w = _head(model)
 
     def step(cache: List[AttnCache], tok: torch.Tensor, pos: torch.Tensor,
-             block_table: torch.Tensor):
+             block_table: torch.Tensor, bank_a: Optional[torch.Tensor] = None,
+             bank_b: Optional[torch.Tensor] = None,
+             adapter_ids: Optional[torch.Tensor] = None):
         with torch.inference_mode():
             for c in cache:
                 c.cache_index, c.block_table = pos, block_table
             hidden = model(tok[:, None], pos[:, None], return_hidden=True, decode=True,
                            cache=cache)
-            return cache, torch.argmax(hidden[:, -1].float() @ head_w, dim=-1)
+            h = hidden[:, -1].float()
+            logits = h @ head_w
+            if adapters:
+                a, b = bank_a[adapter_ids], bank_b[adapter_ids]    # [S, d, r], [S, r, V]
+                logits = logits + torch.einsum("sr,srv->sv",
+                                               torch.einsum("sd,sdr->sr", h, a), b)
+            return cache, torch.argmax(logits, dim=-1)
 
     return step
 
@@ -266,12 +274,15 @@ def make_lm_prefill_chunk_fn(model: CausalLM, page_len: int, slot_len: int,
     * ``table_row`` ``[pages_per_slot]``: the slot's table row (the pool
       may point a fully covered prompt's re-run chunk at the null page).
 
-    ``adapters=True`` raises ``NotImplementedError``."""
-    _refuse_adapters(adapters)
+    ``adapters=True`` appends ``bank_a``, ``bank_b`` (as in
+    :func:`make_lm_paged_decode_step_fn`) and one int ``adapter_id`` (a
+    chunk is one slot's work): the first token gets the same head delta,
+    so a tenant's stream is the adapter's from its first token."""
     head_w = _head(model)
 
     def prefill_chunk(cache: List[AttnCache], ids: torch.Tensor, p0: int, last_local: int,
-                      table_row: torch.Tensor):
+                      table_row: torch.Tensor, bank_a: Optional[torch.Tensor] = None,
+                      bank_b: Optional[torch.Tensor] = None, adapter_id: int = 0):
         with torch.inference_mode():
             dev = ids.device
             index = torch.full((1,), p0, dtype=torch.long, device=dev)
@@ -279,7 +290,11 @@ def make_lm_prefill_chunk_fn(model: CausalLM, page_len: int, slot_len: int,
                 c.cache_index, c.block_table = index, table_row[None]
             positions = (p0 + torch.arange(page_len, device=dev))[None]
             hidden = model(ids, positions, return_hidden=True, decode=True, cache=cache)
-            return cache, torch.argmax(hidden[0, last_local].float() @ head_w)
+            h_last = hidden[0, last_local].float()
+            logits = h_last @ head_w
+            if adapters:
+                logits = logits + (h_last @ bank_a[adapter_id]) @ bank_b[adapter_id]
+            return cache, torch.argmax(logits)
 
     return prefill_chunk
 

@@ -10,9 +10,9 @@ http_adapter=pandas_read_json))`` and client ``requests.post`` to
 Each replica is an actor of the port's runtime; one that leases the card
 (``num_chips=1``) builds its model on ``cuda:<leased id>``.  The proxy is a
 threaded HTTP server in the driver, routing least-loaded across replicas,
-and touches no CUDA.  The live-weight plane (``serve/weights.py``:
-``WeightStore``, ``attach_weights`` and the rest) is ROADMAP Queue 1 item
-6b (ii): asking for one of its names raises ``NotImplementedError``.
+and touches no CUDA.  The live-weight plane (``serve/weights.py``): a
+versioned ``WeightStore`` and the canary ``WeightsController`` that
+``attach_weights`` binds to a route of ``EngineDeployment``.
 """
 
 from .admission import AdmissionController, AdmissionPolicy, AdmissionShedError
@@ -29,17 +29,15 @@ from .engine_deployment import EngineDeployment
 from .http_adapters import json_request, pandas_read_json
 from .predictor_deployment import PredictorDeployment
 from .proxy import rollout, run, shutdown, status
-
-_WEIGHTS = ("GateFailedError", "TornPublishError", "WeightsController",
-            "WeightsIntegrityError", "WeightStore", "attach_weights", "compute_probe")
-
-
-def __getattr__(name):
-    if name in _WEIGHTS:
-        raise NotImplementedError(
-            f"tpu_air_torch.serve.{name} is not ported yet (ROADMAP Queue 1 item 6b (ii): "
-            "serve/weights.py, the live-weight plane)")
-    raise AttributeError(f"module 'tpu_air_torch.serve' has no attribute '{name}'")
+from .weights import (
+    GateFailedError,
+    TornPublishError,
+    WeightsController,
+    WeightsIntegrityError,
+    WeightStore,
+    attach_weights,
+    compute_probe,
+)
 
 
 __all__ = [
@@ -52,9 +50,16 @@ __all__ = [
     "Deployment",
     "DeploymentHandle",
     "EngineDeployment",
+    "GateFailedError",
     "NoLiveReplicasError",
     "PredictorDeployment",
     "ReplicaGoneError",
+    "TornPublishError",
+    "WeightStore",
+    "WeightsController",
+    "WeightsIntegrityError",
+    "attach_weights",
+    "compute_probe",
     "deployment",
     "json_request",
     "pandas_read_json",

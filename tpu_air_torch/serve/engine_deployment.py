@@ -28,13 +28,20 @@ DRAINING replica raises ``EngineDrainingError`` for new submits while
 admitted streams keep polling.  Both cross the actor boundary as
 ``RemoteError`` and the proxy maps them to HTTP 503.
 
+The LM replica also serves tenant LoRA adapters (``adapter_id`` on a POST
+or a submit), the live-weight RPCs of :class:`~tpu_air_torch.serve.weights.
+WeightsController` (``weights_swap``, ``weights_rollback``,
+``weights_probe`` and the rest) and both halves of a preemption migration
+(``migrate_out``, ``submit_migrated``).  A T5 replica answers those as a
+JAX package's T5 replica does: its window engine takes no adapter, has no
+weights to swap or roll back, and migration raises ``ValueError``.
+
 What the port refuses, each with ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: ``adapter_id``, the live-weight RPCs and ``migrate_out`` /
-``submit_migrated`` (item 6b (ii));
-``mesh=`` and ``disagg=`` (items 6b and 9); the borrow return over a
-revocable lease (item 11).  The replica attaches no revocable lease, so
-``preempt_status`` reports no notice, as a JAX replica does whose lease was
-never revoked.
+Queue 1 item: ``mesh=`` and ``disagg=`` (items 6b and 9); the borrow return
+over a revocable lease (item 11).  The replica attaches no revocable lease,
+so ``preempt_status`` reports no notice, as a JAX replica does whose lease
+was never revoked, and what would deliver one to the
+:class:`~tpu_air_torch.serve.supervisor.PreemptionWatcher` waits for item 11.
 """
 
 from __future__ import annotations
@@ -43,10 +50,7 @@ from typing import Any, Dict, Optional
 
 from .deployment import Deployment
 
-_ITEM_6B = "ROADMAP Queue 1 item 6b (ii)"
-
-
-def _refuse(what: str, item: str = _ITEM_6B) -> None:
+def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported to tpu_air_torch ({item})")
 
 
@@ -136,12 +140,12 @@ class _EngineServer:
             prompts = payload.get("prompts")
         if not prompts:
             raise ValueError('payload needs "prompt" or a non-empty "prompts"')
-        if payload.get("adapter_id") is not None:
-            _refuse("adapter_id (the LoRA head-delta banks)")
         max_new = payload.get("max_new_tokens")
         priority = payload.get("priority", "interactive")
         engine = self._ensure_engine()
         kw = self._labels(engine, payload.get("deadline_ms"), None)
+        if payload.get("adapter_id") is not None:
+            kw["adapter_id"] = str(payload["adapter_id"])
         # submit ALL before joining ANY — concurrent prompts share decode steps
         streams = [engine.submit(p, max_new, priority=priority, **kw) for p in prompts]
         return {
@@ -160,13 +164,14 @@ class _EngineServer:
                tenant: Optional[str] = None) -> int:
         # the T5 window engine takes no deadline and no tenant label, as in
         # the JAX package (a deadline is honored proxy-side; the label only
-        # relabels billing); the LM engine takes both.  An adapter would
-        # change the tokens, so it is refused rather than dropped
-        if adapter_id is not None:
-            _refuse("adapter_id (the LoRA head-delta banks)")
+        # relabels billing); the LM engine takes both.  An adapter changes
+        # the tokens, so it goes to either engine, and the T5 engine's
+        # submit refuses it (TypeError), as the JAX package's does
         engine = self._ensure_engine()
-        stream = engine.submit(prompt, max_new_tokens, priority=priority,
-                               **self._labels(engine, deadline_ms, tenant))
+        kw = self._labels(engine, deadline_ms, tenant)
+        if adapter_id is not None:
+            kw["adapter_id"] = str(adapter_id)
+        stream = engine.submit(prompt, max_new_tokens, priority=priority, **kw)
         self._streams[stream.request_id] = stream
         return stream.request_id
 
@@ -208,21 +213,86 @@ class _EngineServer:
                 raise err
         return {"tokens": toks[cursor:], "done": done}
 
-    # -- what the port refuses ------------------------------------------------
+    # -- live weights (serve/weights.py WeightsController RPCs) ---------------
     def weights_swap(self, store_root: str, version: Optional[int] = None) -> float:
-        _refuse("live weight swaps (serve/weights.py, swap_params)")
+        """Load ``version`` (default: the latest) from the weight store,
+        checksums checked, carry the JAX package's tree into the port's
+        state dict (``params_from_jax``) and swap it into the serving
+        engine between decode steps.  Returns the swap's stall in ms."""
+        from tpu_air_torch.models.lm.convert import params_from_jax
+
+        from .weights import WeightStore
+
+        engine = self._ensure_engine()
+        store = WeightStore(store_root)
+        if version is None:
+            version = store.latest_version()
+        state = params_from_jax(store.load(version))
+        return engine.swap_params(state, version=version)
 
     def weights_rollback(self) -> float:
-        _refuse("live weight rollback (serve/weights.py, rollback_params)")
+        """Serve the pre-swap weights again (tensors the engine kept: no
+        store reads)."""
+        return self._ensure_engine().rollback_params()
 
-    def weights_probe(self, prompts, max_new: int = 8, **_: Any) -> list:
-        _refuse("the live-weight canary probe (serve/weights.py)")
+    def weights_version(self) -> Optional[int]:
+        if self._engine is None:
+            return None
+        return self._engine.weights_version()
 
+    def weights_probe(self, prompts, max_new: int = 8, *,
+                      adapter_id: Optional[str] = None, timeout_s: float = 60.0) -> list:
+        """The canary probe prompts through THIS replica's engine (the whole
+        admit, prefill and decode path, not an offline forward); their
+        greedy token lists."""
+        engine = self._ensure_engine()
+        kw = {} if adapter_id is None else {"adapter_id": str(adapter_id)}
+        streams = [engine.submit([int(t) for t in p], int(max_new), **kw) for p in prompts]
+        return [s.result(float(timeout_s)) for s in streams]
+
+    def weights_probe_logits(self, prompts) -> list:
+        """Last-prompt-position logits under the SERVING weights (the
+        surface of the logit-tolerance gate)."""
+        from .weights import probe_logits
+
+        return probe_logits(self._ensure_engine().model, prompts)
+
+    def weights_load_adapter(self, name: str, a, b) -> int:
+        return self._ensure_engine().load_adapter(name, a, b)
+
+    def weights_unload_adapter(self, name: str) -> bool:
+        return self._ensure_engine().unload_adapter(name)
+
+    def weights_adapters(self) -> Dict[str, int]:
+        if self._engine is None:
+            return {}
+        return self._engine.adapters()
+
+    # -- preemption migration (serve/supervisor.py PreemptionWatcher RPCs) ----
     def migrate_out(self) -> list:
-        _refuse("migrate_out (preemption migration of paged KV)")
+        """Freeze this replica's engine and pull every decoding slot into a
+        payload (prompt, streamed tokens, KV pages).  The abandoned source
+        streams stay in ``_streams``: a poll racing the migration keeps
+        getting a correct prefix until the supervisor re-pins its journal
+        entry at the destination."""
+        engine = self._ensure_engine()
+        if not hasattr(engine, "migrate_out"):
+            raise ValueError("migrate_out needs the paged causal-LM engine "
+                             f"(this replica serves {type(engine).__name__})")
+        return engine.migrate_out()
 
     def submit_migrated(self, payload: Dict[str, Any]) -> int:
-        _refuse("submit_migrated (preemption migration of paged KV)")
+        """Land one migrated stream on THIS replica.  Raises synchronously
+        (``KVTransferError``, ``RequestValidationError``, crossing as
+        ``RemoteError``) when the payload cannot be admitted cleanly, so the
+        supervisor falls back to journal replay."""
+        engine = self._ensure_engine()
+        if not hasattr(engine, "submit_migrated"):
+            raise ValueError("submit_migrated needs the paged causal-LM engine "
+                             f"(this replica serves {type(engine).__name__})")
+        stream = engine.submit_migrated(payload)
+        self._streams[stream.request_id] = stream
+        return stream.request_id
 
     def borrow_return(self, notice_s: float = 5.0) -> bool:
         _refuse("borrow_return over a revocable chip lease (attach_chip_lease)",

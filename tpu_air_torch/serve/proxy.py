@@ -68,6 +68,7 @@ from .deployment import (
     start_replicas,
 )
 from .supervisor import PreemptionWatcher, RequestJournal, journaled_poll
+from .weights import controller_stats
 
 #: request header that pins streaming polls to the replica holding their
 #: stream; the proxy sets it on every routed response
@@ -581,6 +582,11 @@ def serve_control_stats() -> Dict[str, Any]:
             preempt[k] = preempt.get(k, 0) + int(v)
     out["recovery"] = {**journal.stats(), **preempt,
                        "faults": _faults.stats()}
+    # live-weight canary controllers (serve/weights.py): per-route state
+    # machine, promotions and rollbacks, gate failures with reasons
+    weights = controller_stats()
+    if weights:
+        out["weights"] = weights
     return out
 
 

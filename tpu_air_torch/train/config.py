@@ -57,8 +57,9 @@ class ScalingConfig:
 class CheckpointConfig:
     """Score-based checkpoint retention: keep ``num_to_keep`` checkpoints,
     ranked by ``checkpoint_score_attribute`` (most recent when unset).
-    ``publish_weights_to`` (the live-serving handoff) waits for the port's
-    live-weight plane (ROADMAP Queue 1 item 6b); a session given it raises."""
+    ``publish_weights_to``: a :class:`~tpu_air_torch.serve.weights.WeightStore`
+    root every retained checkpoint is also published to (the live-serving
+    handoff), keeping the newest ``num_to_keep`` versions."""
 
     num_to_keep: Optional[int] = None
     checkpoint_score_attribute: Optional[str] = None

@@ -8,9 +8,11 @@ epoch; the session records the history (also appended to
 several workers every rank has a session; rank 0's writes the progress
 file and retains the checkpoints.  In a Tune trial the session's
 ``decision_cb`` hands each report to the driver and ``report`` raises
-:class:`StopTrial` when the scheduler stops the trial.  Fault-plan
-hooks, tracing spans, metric sinks and weight publishing wait for the
-slices that port them.
+:class:`StopTrial` when the scheduler stops the trial.  With
+``CheckpointConfig.publish_weights_to`` every retained checkpoint is also
+published to that :class:`~tpu_air_torch.serve.weights.WeightStore`, the
+live-serving handoff.  Fault-plan hooks, tracing spans and metric sinks
+wait for the slices that port them.
 """
 
 from __future__ import annotations
@@ -43,11 +45,6 @@ class Session:
     ):
         self.run_dir = run_dir
         self.checkpoint_config = checkpoint_config or CheckpointConfig()
-        if self.checkpoint_config.publish_weights_to:
-            raise NotImplementedError(
-                "CheckpointConfig.publish_weights_to: publishing to a WeightStore "
-                "waits for the port's live-weight plane, serve/weights.py "
-                "(ROADMAP Queue 1 item 6b)")
         self.datasets = datasets or {}
         self.config = config or {}
         self.world_size = world_size
@@ -73,11 +70,42 @@ class Session:
             f.write(json.dumps(rec, default=float) + "\n")
         if checkpoint is not None:
             self._retain(checkpoint, rec)
+            if self.checkpoint_config.publish_weights_to:
+                self._publish_weights(checkpoint, rec)
         # the stream's sequence number is the session's own counter: user
         # metrics may set training_iteration, but the Tune driver drains
         # report-1, report-2, ... in order
         if self.decision_cb is not None and not self.decision_cb(rec, self._iter):
             raise StopTrial(f"trial stopped by scheduler at iteration {self._iter}")
+
+    # -- weight publishing (the live-serving handoff) -----------------------
+    def _publish_weights(self, checkpoint: Checkpoint, metrics: Dict[str, Any]) -> None:
+        """Publish the retained checkpoint's parameters, with its iteration
+        and metrics, to ``CheckpointConfig.publish_weights_to``, then keep
+        the newest ``num_to_keep`` versions (2 when unset).  The publish is
+        torn-proof and checksummed, and a failure, an injected
+        ``weights.publish`` fault included, does not stop training: serving
+        keeps the previous version."""
+        from tpu_air_torch.faults.plan import FaultInjectedError
+        from tpu_air_torch.serve.weights import TornPublishError, WeightStore
+
+        params = checkpoint.get_params()
+        if params is None:
+            return
+        cfg = self.checkpoint_config
+        try:
+            store = WeightStore(cfg.publish_weights_to)
+            store.publish(params, metadata={
+                "iteration": self._iter,
+                "run_dir": self.run_dir,
+                "metrics": {k: v for k, v in metrics.items()
+                            if isinstance(v, (int, float, str))},
+            })
+            store.gc(keep=cfg.num_to_keep or 2)
+        except (TornPublishError, FaultInjectedError, OSError, TimeoutError):
+            # a torn or failed publish leaves no manifest, so serving never
+            # sees it
+            pass
 
     # -- retention (CheckpointConfig semantics) -----------------------------
     def _retain(self, checkpoint: Checkpoint, metrics: Dict[str, Any]):
