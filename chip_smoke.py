@@ -10,9 +10,11 @@ Phases, each fatal on failure:
               source, started together) and print, from ``ptxas -v``, each
               kernel's registers, shared memory and spills, and the card's
               name and power limit; then, from ``cuobjdump -sass``, each
-              kernel's count of tensor-core (HMMA) instructions: every
-              tensor-core kernel (``*_mma_kernel``) must have some, and
-              none may spill;
+              kernel's count of tensor-core instructions (HMMA for
+              ``mma.sync``, HGMMA for ``wgmma``): every ``*_mma_kernel``
+              must have HMMA, every ``*_wgmma_kernel`` HGMMA, the flash
+              forward a bf16 and an f16 wgmma instance for every head dim,
+              and no tensor-core kernel may spill;
 2. compare  — each T5 kernel against its plain PyTorch version on the card, at
               the generation path's shapes and at edge cases (masked rows,
               causal, ragged lengths, int8 slabs), and the decode kernel where
@@ -272,7 +274,7 @@ NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 TAG = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 SEED = 0
 # how each kernel computes its products in bf16, the type the main paths run
-DESIGN = {"flash_attention": "mma.sync bf16",
+DESIGN = {"flash_attention": "wgmma bf16 on a TMA-fed K/V ring, producer warpgroup, persistent",
           "decode_attention": "cuda-core f32, 16-byte loads, one pass, split-K, masked chunks skipped",
           "flash_attention_bwd_dq": "mma.sync bf16", "flash_attention_bwd_dkv": "mma.sync bf16"}
 # main-path dials: W3 batch generation at the reference's max_new_tokens=128
@@ -670,9 +672,10 @@ def ptxas_usage(log: str) -> list:
 # -- phase 1 -----------------------------------------------------------------
 
 
-def hmma_counts(sass: str) -> dict:
-    """{kernel instantiation: count of HMMA instructions} from the output of
-    ``cuobjdump -sass``."""
+def mma_counts(sass: str) -> dict:
+    """{kernel instantiation: {"HMMA": n, "HGMMA": m}} from the output of
+    ``cuobjdump -sass``: the ``mma.sync`` and the ``wgmma`` tensor-core
+    instructions of each kernel."""
     import re
 
     counts, fn = {}, None
@@ -680,10 +683,48 @@ def hmma_counts(sass: str) -> dict:
         m = re.search(r"Function : (_Z\w+)", line)
         if m:
             fn = _demangle(m.group(1))
-            counts[fn] = 0
-        elif fn is not None and re.search(r"\bHMMA\.", line):
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None and (m := re.search(r"\b(HGMMA|HMMA)\.", line)):
+            counts[fn][m.group(1)] += 1
     return counts
+
+
+# the tensor-core kernel families and the instruction each must contain
+TENSOR_CORE_KINDS = (("_wgmma_kernel", "HGMMA"), ("_mma_kernel", "HMMA"))
+FLASH_FWD_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def tensor_core_kind(fn: str):
+    """("_wgmma_kernel", "HGMMA"), ("_mma_kernel", "HMMA") or None."""
+    name = fn.split("<")[0]
+    return next((k for k in TENSOR_CORE_KINDS if name.endswith(k[0])), None)
+
+
+def check_tensor_core_kernels(src: str, counts: dict, spills: dict) -> None:
+    """Raise unless every tensor-core kernel of ``src`` has its instruction
+    and a bf16 and an f16 instance, none spills, and (flash_attention.cu)
+    the forward has a bf16 and an f16 ``wgmma`` instance for every head dim,
+    each with HGMMA and 0 spill bytes.  ``spills``: {kernel: spill bytes}."""
+    idle = [fn for fn, n in counts.items()
+            if tensor_core_kind(fn) and n[tensor_core_kind(fn)[1]] == 0]
+    if idle:
+        raise AssertionError(f"[build] tensor-core kernels without their HMMA/HGMMA: {idle}")
+    spilled = [fn for fn, n in spills.items() if tensor_core_kind(fn) and n]
+    if spilled:
+        raise AssertionError(f"[build] tensor-core kernels that spill: {spilled}")
+    tc = [fn for fn in counts if tensor_core_kind(fn)]
+    for ty in ("bf16", "f16"):
+        if tc and not any(f"<{ty}," in fn for fn in tc):
+            raise AssertionError(f"[build] {src}.cu has no {ty} tensor-core instance: {tc}")
+    if src == "flash_attention":
+        for ty in ("bf16", "f16"):
+            for d in FLASH_FWD_HEAD_DIMS:
+                inst = [fn for fn in counts
+                        if fn.startswith(f"flash_fwd_wgmma_kernel<{ty},{d},")]
+                if not inst or any(counts[fn]["HGMMA"] == 0 or spills.get(fn, 0)
+                                   for fn in inst):
+                    raise AssertionError(f"[build] flash_fwd_wgmma_kernel<{ty}, {d}>: instances "
+                                         f"{inst}, none may lack HGMMA or spill")
 
 
 def build() -> None:
@@ -695,31 +736,26 @@ def build() -> None:
     t0 = time.perf_counter()
     logs = _build.build(names)
     log(f"[build] {names} built for sm_90a in {time.perf_counter() - t0:.1f} s")
+    spills = {}
     for src, report in sorted(logs.items()):    # registers, static smem, spill stores
         usage = ptxas_usage(report)
         log(f"[build] ptxas {src}.cu: " + "; ".join(
             f"{fn} {regs} regs {smem} B smem {spill} B spill" for fn, regs, smem, spill in usage))
-        spilled = [fn for fn, _, _, spill in usage if "_mma_kernel" in fn and spill]
-        if spilled:
-            raise AssertionError(f"[build] tensor-core kernels that spill: {spilled}")
+        for line in report.splitlines():         # e.g. wgmma serialised by ptxas
+            if line.startswith("ptxas warning") or "Performance Loss" in line:
+                log(f"[build] {src}.cu: {line.strip()}")
+        spills.update({fn: spill for fn, _, _, spill in usage})
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
-        log("[build] cuobjdump not found: HMMA counts not read")
-        return
+        raise AssertionError("[build] cuobjdump not found: HMMA/HGMMA counts not read")
     for src in names:
         sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(src)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
-        counts = hmma_counts(sass)
-        log(f"[build] HMMA instructions in {src}.cu (cuobjdump -sass): "
-            + "; ".join(f"{fn} {n}" for fn, n in sorted(counts.items())))
-        idle = [fn for fn, n in counts.items() if "_mma_kernel" in fn and n == 0]
-        if idle:
-            raise AssertionError(f"[build] tensor-core kernels without HMMA: {idle}")
-        # every tensor-core kernel has a bf16 and an f16 instance, each with HMMA
-        mma = [fn for fn in counts if "_mma_kernel" in fn]
-        for ty in ("bf16", "f16"):
-            if mma and not any(f"<{ty}," in fn for fn in mma):
-                raise AssertionError(f"[build] {src}.cu has no {ty} tensor-core instance: {mma}")
+        counts = mma_counts(sass)
+        log(f"[build] tensor-core instructions in {src}.cu (cuobjdump -sass): "
+            + "; ".join(f"{fn} HMMA {n['HMMA']} HGMMA {n['HGMMA']}"
+                        for fn, n in sorted(counts.items())))
+        check_tensor_core_kernels(src, counts, spills if src in logs else {})
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -1379,7 +1415,7 @@ def lm_main_path(dev, storage: str) -> dict:
         f"{idle_median:.4f}); heaviest kernels "
         "per step: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c:g}" for k, (t, c) in top))
     per_launch = {}
-    for name, kernel in (("flash_attention", "flash_fwd_mma_kernel"),
+    for name, kernel in (("flash_attention", "flash_fwd_wgmma_kernel"),
                          ("flash_attention_bwd_dq", "flash_bwd_dq_mma_kernel"),
                          ("flash_attention_bwd_dkv", "flash_bwd_dkv_mma_kernel")):
         hits = [(t, c) for k, (t, c) in prof["kernels"].items() if kernel in k]

@@ -145,15 +145,17 @@ def _edge_mask(L, dev):
     return _t(m, dev, torch.float32)
 
 
-# lengths at every edge of the tensor-core kernels' 64-row tiles (and the
+# lengths at every edge of the backward kernels' 64-row tiles (and the
 # 32-row query tiles of the D=128 dk/dv kernel)
 EDGE_LENGTHS = [1, 63, 64, 65, 129, 200]
+# and of the wgmma forward's: 64-row consumers, 128-row blocks, 128-key tiles
+FWD_EDGE_LENGTHS = EDGE_LENGTHS + [127, 128, 255, 257]
 
 
 @pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("L", EDGE_LENGTHS)
+@pytest.mark.parametrize("L", FWD_EDGE_LENGTHS)
 def test_flash_kernel_matches_plain_at_tile_edges(dev, d, causal, L, dtype):
     """The bf16 and f16 tensor-core forward at lengths around its tile
     edges, with a ragged key mask and a fully masked row (whose output is
@@ -175,6 +177,39 @@ def test_flash_kernel_matches_plain_at_tile_edges(dev, d, causal, L, dtype):
     lse = lse.reshape(b * h, L)
     live = want_lse.abs() < 1e20
     assert (lse[live] - want_lse[live]).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("bias_lead", ["1", "H"])
+@pytest.mark.parametrize("L", [63, 200, 257])
+def test_flash_kernel_shared_bias_odd_batch(dev, d, bias_lead, L, dtype):
+    """A bias the batch shares pairs the forward's two consumers over two
+    batch elements of one head; an odd batch leaves the last pair's second
+    consumer idle.  Against the plain version, causal or not, with a ragged
+    key mask and a fully masked row (the last batch row, the unpaired one);
+    L = 63 has rows off 16 bytes in the bias (lk % 4 != 0: cp.async, not
+    TMA)."""
+    from tpu_air_torch.ops.flash_attention import flash_attention_reference, flash_attention_with_lse
+
+    rng = np.random.default_rng(L + d)
+    b, h = 5, 3
+    q, k, v = (_t(rng.standard_normal((b, L, h, d)), dev, dtype).transpose(1, 2)
+               for _ in range(3))
+    bias = _t(rng.standard_normal((1 if bias_lead == "1" else h, L, L)), dev, torch.float32)
+    lens = np.array([L, max(1, L - 37), L // 2, 1, 0])
+    mask = _t(np.arange(L)[None] < lens[:, None], dev, torch.float32)
+    for causal in (False, True):
+        out, lse = flash_attention_with_lse(q, k, v, bias[None], kv_mask=mask, scale=1.0,
+                                            causal=causal)
+        torch.cuda.synchronize()
+        flat = [t.reshape(b * h, L, d) for t in (q, k, v)]
+        want, want_lse = flash_attention_reference(*flat, bias, mask, 1.0, causal)
+        got = out.reshape(b * h, L, d)
+        assert torch.isfinite(got.float()).all()
+        assert _err(got, want) < TOL[dtype]
+        live = want_lse.abs() < 1e20
+        assert (lse.reshape(b * h, L)[live] - want_lse[live]).abs().max().item() < 1e-3
 
 
 @pytest.mark.parametrize("dtype", HALF)

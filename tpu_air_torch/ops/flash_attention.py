@@ -12,12 +12,14 @@ Counterpart of ``tpu_air/ops/flash_attention.py``.  Three kernels:
   dq, and dk/dv, from the saved ``(out, lse)``.
 
 In bf16 and f16 all three kernels run their products on the tensor cores
-(``mma.sync``, 16-bit operands, f32 accumulation, the reference's
-precision); in f32 they run on the CUDA cores.  The 16-bit
-tensor-core kernels stage rows with 16-byte ``cp.async`` copies, so every
-(b, h, l) row of q, k, v and do must start on a 16-byte boundary: a 16-bit
-view that breaks that rule is first copied to a contiguous tensor
-(:func:`_aligned`).  The model's projections never need the copy.
+(16-bit operands, f32 accumulation, the reference's precision): the forward
+on Hopper's warpgroup products (``wgmma``) fed by TMA from a ring that a
+producer warp keeps full, the backward on ``mma.sync``; in f32 all three
+run on the CUDA cores.  TMA and the backward's 16-byte ``cp.async`` copies
+both need every (b, h, l) row of q, k, v and do to start on a 16-byte
+boundary: a 16-bit view that breaks that rule is first copied to a
+contiguous tensor (:func:`_aligned`).
+The model's projections never need the copy.
 
 Both outputs of :func:`flash_attention_with_lse` are differentiable, through
 one ``torch.autograd.Function`` (the counterpart of ``_flash_pair`` and its
@@ -185,9 +187,10 @@ def _rows_16b_aligned(t) -> bool:
 
 
 def _aligned(t):
-    """``t``, or, for a 16-bit view that the tensor-core kernels' 16-byte row
-    copies cannot read, a contiguous copy of it.  (``contiguous()`` would
-    return a contiguous view that starts off a 16-byte boundary as it is.)"""
+    """``t``, or, for a 16-bit view whose rows TMA and the tensor-core
+    kernels' 16-byte copies cannot read, a contiguous copy of it.
+    (``contiguous()`` would return a contiguous view that starts off a
+    16-byte boundary as it is.)"""
     if t.dtype == torch.float32 or _rows_16b_aligned(t):
         return t
     return t.clone(memory_format=torch.contiguous_format)
