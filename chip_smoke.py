@@ -13,8 +13,10 @@ Phases, each fatal on failure:
               kernel's count of tensor-core instructions (HMMA for
               ``mma.sync``, HGMMA for ``wgmma``): every ``*_mma_kernel``
               must have HMMA, every ``*_wgmma_kernel`` HGMMA, the flash
-              forward a bf16 and an f16 wgmma instance for every head dim,
-              and no tensor-core kernel may spill;
+              forward and the backward's dq and dk/dv a bf16 and an f16
+              wgmma instance for every head dim (and the backward no
+              ``mma.sync`` kernel), no tensor-core kernel may spill, and
+              ptxas may serialise no wgmma kernel's products;
 2. compare  — each T5 kernel against its plain PyTorch version on the card, at
               the generation path's shapes and at edge cases (masked rows,
               causal, ragged lengths, int8 slabs), and the decode kernel where
@@ -60,7 +62,8 @@ Phases, each fatal on failure:
               card from the same weights; losses and step-1 gradients agree;
 9. lm timing — device time of the forward, dq and dk/dv kernels at the LM
               shape beside their bound, their plain versions and SDPA's
-              forward and backward;
+              forward and backward; the backward kernels' host time a call,
+              registers and HGMMA count;
 10. w1       — W1: ``T5Trainer.fit()`` fine-tunes FLAN-T5-base (full width and
               depth, dropout 0.1, bf16 compute on f32 parameters, random
               weights from numpy seed 0) for one epoch of 6 steps of 8 rows
@@ -243,6 +246,7 @@ import ctypes
 import itertools
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -276,7 +280,10 @@ SEED = 0
 # how each kernel computes its products in bf16, the type the main paths run
 DESIGN = {"flash_attention": "wgmma bf16 on a TMA-fed K/V ring, producer warpgroup, persistent",
           "decode_attention": "cuda-core f32, 16-byte loads, one pass, split-K, masked chunks skipped",
-          "flash_attention_bwd_dq": "mma.sync bf16", "flash_attention_bwd_dkv": "mma.sync bf16"}
+          "flash_attention_bwd_dq": "wgmma bf16 on a TMA-fed K/V ring, producer warpgroup, "
+                                    "persistent",
+          "flash_attention_bwd_dkv": "wgmma bf16 on a TMA-fed Q/dO ring, producer warpgroup, "
+                                     "persistent"}
 # main-path dials: W3 batch generation at the reference's max_new_tokens=128
 BATCH, PROMPT_LEN, NEW_TOKENS = 64, 512, 128
 SMALL_BATCH, RAGGED_LEN = 8, 200          # edge cases of the compare phase
@@ -691,7 +698,15 @@ def mma_counts(sass: str) -> dict:
 
 # the tensor-core kernel families and the instruction each must contain
 TENSOR_CORE_KINDS = (("_wgmma_kernel", "HGMMA"), ("_mma_kernel", "HMMA"))
-FLASH_FWD_HEAD_DIMS = (16, 32, 64, 128)
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
+# the wgmma kernels each source must hold a bf16 and an f16 instance of for
+# every head dim
+WGMMA_KERNELS = {"flash_attention": ("flash_fwd_wgmma_kernel",),
+                 "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")}
+# the LM step's flash kernels, as the profiler names them
+LM_PROFILED_KERNELS = (("flash_attention", "flash_fwd_wgmma_kernel"),
+                       ("flash_attention_bwd_dq", "flash_bwd_dq_wgmma_kernel"),
+                       ("flash_attention_bwd_dkv", "flash_bwd_dkv_wgmma_kernel"))
 
 
 def tensor_core_kind(fn: str):
@@ -702,9 +717,11 @@ def tensor_core_kind(fn: str):
 
 def check_tensor_core_kernels(src: str, counts: dict, spills: dict) -> None:
     """Raise unless every tensor-core kernel of ``src`` has its instruction
-    and a bf16 and an f16 instance, none spills, and (flash_attention.cu)
-    the forward has a bf16 and an f16 ``wgmma`` instance for every head dim,
-    each with HGMMA and 0 spill bytes.  ``spills``: {kernel: spill bytes}."""
+    and a bf16 and an f16 instance, none spills, and each kernel of
+    ``WGMMA_KERNELS[src]`` (the flash forward; the backward's dq and dk/dv)
+    has a bf16 and an f16 instance for every head dim, each with HGMMA and 0
+    spill bytes; the backward keeps no ``mma.sync`` kernel.  ``spills``:
+    {kernel: spill bytes}."""
     idle = [fn for fn, n in counts.items()
             if tensor_core_kind(fn) and n[tensor_core_kind(fn)[1]] == 0]
     if idle:
@@ -716,18 +733,24 @@ def check_tensor_core_kernels(src: str, counts: dict, spills: dict) -> None:
     for ty in ("bf16", "f16"):
         if tc and not any(f"<{ty}," in fn for fn in tc):
             raise AssertionError(f"[build] {src}.cu has no {ty} tensor-core instance: {tc}")
-    if src == "flash_attention":
+    for kernel in WGMMA_KERNELS.get(src, ()):
         for ty in ("bf16", "f16"):
-            for d in FLASH_FWD_HEAD_DIMS:
+            for d in FLASH_HEAD_DIMS:
                 inst = [fn for fn in counts
-                        if fn.startswith(f"flash_fwd_wgmma_kernel<{ty},{d},")]
+                        if re.match(rf"{kernel}<{ty},{d}[,>]", fn)]
                 if not inst or any(counts[fn]["HGMMA"] == 0 or spills.get(fn, 0)
                                    for fn in inst):
-                    raise AssertionError(f"[build] flash_fwd_wgmma_kernel<{ty}, {d}>: instances "
+                    raise AssertionError(f"[build] {kernel}<{ty}, {d}>: instances "
                                          f"{inst}, none may lack HGMMA or spill")
+    if src == "flash_attention_bwd":
+        left = [fn for fn in counts if tensor_core_kind(fn) == TENSOR_CORE_KINDS[1]]
+        if left:
+            raise AssertionError(f"[build] {src}.cu still holds mma.sync kernels: {left}")
 
 
-def build() -> None:
+def build() -> dict:
+    """Phase 1.  Returns {kernel instantiation: {"regs", "spill", "HMMA",
+    "HGMMA"}}."""
     import shutil
 
     from tpu_air_torch.ops import _build
@@ -736,7 +759,7 @@ def build() -> None:
     t0 = time.perf_counter()
     logs = _build.build(names)
     log(f"[build] {names} built for sm_90a in {time.perf_counter() - t0:.1f} s")
-    spills = {}
+    spills, built, serialised = {}, {}, []
     for src, report in sorted(logs.items()):    # registers, static smem, spill stores
         usage = ptxas_usage(report)
         log(f"[build] ptxas {src}.cu: " + "; ".join(
@@ -744,7 +767,12 @@ def build() -> None:
         for line in report.splitlines():         # e.g. wgmma serialised by ptxas
             if line.startswith("ptxas warning") or "Performance Loss" in line:
                 log(f"[build] {src}.cu: {line.strip()}")
+                if "Performance Loss" in line and "wgmma" in line:
+                    serialised.append(line.strip())
         spills.update({fn: spill for fn, _, _, spill in usage})
+        built.update({fn: {"regs": regs, "spill": spill} for fn, regs, _, spill in usage})
+    if serialised:
+        raise AssertionError(f"[build] ptxas serialised wgmma products: {serialised}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         raise AssertionError("[build] cuobjdump not found: HMMA/HGMMA counts not read")
@@ -756,6 +784,9 @@ def build() -> None:
             + "; ".join(f"{fn} HMMA {n['HMMA']} HGMMA {n['HGMMA']}"
                         for fn, n in sorted(counts.items())))
         check_tensor_core_kernels(src, counts, spills if src in logs else {})
+        for fn, n in counts.items():
+            built.setdefault(fn, {}).update(n)
+    return built
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -1415,9 +1446,7 @@ def lm_main_path(dev, storage: str) -> dict:
         f"{idle_median:.4f}); heaviest kernels "
         "per step: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c:g}" for k, (t, c) in top))
     per_launch = {}
-    for name, kernel in (("flash_attention", "flash_fwd_wgmma_kernel"),
-                         ("flash_attention_bwd_dq", "flash_bwd_dq_mma_kernel"),
-                         ("flash_attention_bwd_dkv", "flash_bwd_dkv_mma_kernel")):
+    for name, kernel in LM_PROFILED_KERNELS:
         hits = [(t, c) for k, (t, c) in prof["kernels"].items() if kernel in k]
         if sum(c for _, c in hits) != cfg.n_layers:
             raise AssertionError(f"[lm] the step profile holds {hits} of {kernel}")
@@ -1559,13 +1588,16 @@ def lm_parity(dev) -> dict:
 # -- phase 9 -----------------------------------------------------------------
 
 
-def lm_timing(dev, kernels: list, bwd_errs: dict, lm_stats: dict) -> list:
+def lm_timing(dev, kernels: list, bwd_errs: dict, lm_stats: dict, built: dict) -> list:
     """The three flash kernels at the LM training shape (B*H = 8, L = 8192,
     D = 128, causal, bf16), beside their bounds (flops over 989 TFLOP/s, the
     causal half counted), their plain versions and SDPA.  A kernel's time is
     its device time per launch in the main path's profiled step; the plain
     versions and SDPA, every call of which runs for 0.2 ms or more, are
-    timed with CUDA events over back-to-back calls."""
+    timed with CUDA events over back-to-back calls.  The backward kernels'
+    rows also carry their host time a call (four tensor maps encoded each)
+    and, from ``built`` (phase 1), their bf16 D = 128 instance's registers
+    and HGMMA count."""
     from tpu_air_torch.ops.flash_attention import (
         flash_attention, flash_attention_backward, flash_attention_reference)
 
@@ -1596,6 +1628,9 @@ def lm_timing(dev, kernels: list, bwd_errs: dict, lm_stats: dict) -> list:
                                                       retain_graph=True), 5, 2)
     lm_errs = bwd_errs[f"bf16 LM shape B1 H{h} L{L} D{d} causal"]
     shape = f"B*H {h} L{L} D{d} causal bf16"
+    calls = bwd_kernel_calls(q, k, v, do, out, lse, scale, True)
+    host = {name: host_us(call, 20) for name, call in calls.items()}
+    events = {name: device_ms(call, 5) for name, call in calls.items()}
     rows = {}
     # forward: reads q, k, v, writes out and lse; 2 products of 2*d flops per
     # live pair.  dq: reads q, k, v, do, lse, delta, writes dq; 3 products.
@@ -1621,6 +1656,16 @@ def lm_timing(dev, kernels: list, bwd_errs: dict, lm_stats: dict) -> list:
         log(f"[lm timing] {name} ({DESIGN[name]}) {shape}: kernel {ms:.3f} ms device time a "
             f"launch, plain {plain_ms:.3f} ms, SDPA {'forward' if name == 'flash_attention' else 'backward'} "
             f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
+        if name in host:
+            kernel = dict(LM_PROFILED_KERNELS)[name]
+            inst = built.get(f"{kernel}<bf16,{d}>", {})
+            rows[name].update(events_ms=events[name], host_us_per_call=host[name],
+                              registers=inst.get("regs"), hgmma=inst.get("HGMMA"),
+                              spill_bytes=inst.get("spill"))
+            log(f"[lm timing] {name}: {events[name]:.3f} ms a launch by CUDA events "
+                f"(device_ms, alone); host {host[name]:.1f} us a call; {kernel}<bf16,{d}> "
+                f"{inst.get('regs')} registers at launch, {inst.get('HGMMA')} HGMMA, "
+                f"{inst.get('spill')} B spill")
     log(f"[lm timing] by CUDA events: flash_attention {fwd_events_ms:.3f} ms, one "
         f"flash_attention_backward call (delta, dq, dk/dv) {bwd_events_ms:.3f} ms; the plain "
         f"backward computes dq, dk and dv in {plain_bwd_ms:.3f} ms, SDPA's in "
@@ -1644,7 +1689,7 @@ def lm_timing(dev, kernels: list, bwd_errs: dict, lm_stats: dict) -> list:
             "backward_call_events_ms": bwd_events_ms,
             "kernel_ms": r["ms"], "max_err": r["max_abs_err"],
         })
-    del q, k, v, do, out, lse, qs, ks, vs, sdpa_out
+    del q, k, v, do, out, lse, qs, ks, vs, sdpa_out, calls
     torch.cuda.empty_cache()
     return kernels
 
@@ -1998,7 +2043,7 @@ def in_turns(calls: dict, measure) -> dict:
     return {dt: float(np.mean(v)) for dt, v in got.items()}
 
 
-def f16_timing(dev, kernels: list, errs: dict, bwd_errs: dict) -> list:
+def f16_timing(dev, kernels: list, errs: dict, bwd_errs: dict, built: dict) -> list:
     """The four kernels in f16 at the shapes their main paths give them (W3:
     the encoder's flash forward and the decode cross and self steps; the LM
     shape for dq and dk/dv, each launched alone), timed by ``device_ms``,
@@ -2092,10 +2137,13 @@ def f16_timing(dev, kernels: list, errs: dict, bwd_errs: dict) -> list:
              max(lm_errs["dk"], lm_errs["dv"]))):
         b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
         ms = in_turns({t: c[name] for t, c in calls.items()}, lambda f: device_ms(f, 5))
+        inst = built.get(f"{dict(LM_PROFILED_KERNELS)[name]}<f16,{d}>", {})
         by_name[name]["f16"] = {
             "ms": ms[dt], "bf16_same_phase_ms": ms[torch.bfloat16], "plain_ms": plain_ms,
             "library_ms": sdpa_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-            "norm_tol": NORM_TOL[dt], "shape": f"B*H {h} L{Ll} D{d} causal f16"}
+            "norm_tol": NORM_TOL[dt], "shape": f"B*H {h} L{Ll} D{d} causal f16",
+            "host_us_per_call": host_us(calls[dt][name], 20), "registers": inst.get("regs"),
+            "hgmma": inst.get("HGMMA"), "spill_bytes": inst.get("spill")}
     del q, k, v, do, out, lse, qs, ks, vs, sdpa_out, calls, fixed
     torch.cuda.empty_cache()
     for name in ("flash_attention", "decode_attention", "flash_attention_bwd_dq",
@@ -2103,7 +2151,9 @@ def f16_timing(dev, kernels: list, errs: dict, bwd_errs: dict) -> list:
         r = by_name[name]["f16"]
         log(f"[f16 timing] {name} {r['shape']}: kernel {r['ms']:.4f} ms device time (bf16 "
             f"in turns with it {r['bf16_same_phase_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
-            f"ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+            f"ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+            + (f"; host {r['host_us_per_call']:.1f} us a call, {r['registers']} registers, "
+               f"{r['hgmma']} HGMMA" if "host_us_per_call" in r else ""))
     r = by_name["decode_attention"]["f16"]["self_step"]
     log(f"[f16 timing] decode_attention self step {r['shape']}: kernel {r['ms']:.4f} ms (bf16 "
         f"{r['bf16_same_phase_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, SDPA "
@@ -4265,7 +4315,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
 
-    build()
+    built = build()
     errs = compare(dev)
     main_stats = main_path(dev)
     main_stats["parity"] = parity(dev)
@@ -4273,13 +4323,13 @@ def run_phases(dev, work: str, t_start: float) -> int:
     bwd_errs = compare_backward(dev)
     lm_stats = lm_main_path(dev, os.path.join(work, "lm_run"))
     lm_stats["parity"] = lm_parity(dev)
-    kernels = lm_timing(dev, kernels, bwd_errs, lm_stats)
+    kernels = lm_timing(dev, kernels, bwd_errs, lm_stats, built)
     w1_stats = w1_main_path(dev)
     w1_stats["parity"] = w1_parity(dev)
     kernels = w1_timing(dev, kernels, errs, w1_stats)
     errs16 = compare(dev, (torch.float16,), "f16 compare")
     errs16.update(compare_backward(dev, (torch.float16,), "f16 compare"))
-    kernels = f16_timing(dev, kernels, errs16, errs16)
+    kernels = f16_timing(dev, kernels, errs16, errs16, built)
     # last: once its scoring actor has used the card, this process's
     # profiler lost kernel records (complete_profile)
     batch_stats = batch_path(dev, os.path.join(work, "w3_ckpt"))

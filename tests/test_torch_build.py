@@ -22,8 +22,7 @@ def csrc(tmp_path, monkeypatch):
 
 
 def test_the_kernels_share_a_header():
-    assert sorted(p.name for p in pathlib.Path(_build.CSRC_DIR).glob("*.cuh")) == [
-        "hopper.cuh", "mma_bf16.cuh"]
+    assert sorted(p.name for p in pathlib.Path(_build.CSRC_DIR).glob("*.cuh")) == ["hopper.cuh"]
 
 
 @pytest.mark.parametrize("name", _build.sources())
@@ -40,7 +39,7 @@ def test_lib_path_follows_every_shared_header(csrc, name):
     """Editing a header, adding one, or editing the source itself each give
     the library a new name, so a stale build is never loaded."""
     seen = {_build._lib_path(name)}
-    header = csrc / "mma_bf16.cuh"
+    header = csrc / "hopper.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     seen.add(_build._lib_path(name))
     (csrc / "zz_extra.cuh").write_text("#pragma once\n")

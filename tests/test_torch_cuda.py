@@ -145,11 +145,11 @@ def _edge_mask(L, dev):
     return _t(m, dev, torch.float32)
 
 
-# lengths at every edge of the backward kernels' 64-row tiles (and the
-# 32-row query tiles of the D=128 dk/dv kernel)
-EDGE_LENGTHS = [1, 63, 64, 65, 129, 200]
-# and of the wgmma forward's: 64-row consumers, 128-row blocks, 128-key tiles
-FWD_EDGE_LENGTHS = EDGE_LENGTHS + [127, 128, 255, 257]
+# lengths at every edge of the wgmma kernels' tiles: the backward's 64-row
+# consumers and ring stages and 128-row work items, the forward's 64-row
+# consumers, 128-row blocks and 128-key tiles
+EDGE_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 200, 255, 257]
+FWD_EDGE_LENGTHS = EDGE_LENGTHS
 
 
 @pytest.mark.parametrize("dtype", HALF)
@@ -246,6 +246,61 @@ def test_flash_backward_kernels_match_plain_at_tile_edges(dev, d, causal, L, dty
 
 
 @pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq, lk", [(70, 133), (133, 70), (200, 1), (1, 200)])
+def test_flash_backward_kernels_lq_ne_lk(dev, d, causal, lq, lk, dtype):
+    """dq and dk/dv with queries and keys of other lengths, with a key mask
+    and a fully masked row: against the plain backward; under causal
+    masking the keys past lq, which no query sees, get dk = dv = 0."""
+    from tpu_air_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_with_lse)
+
+    rng = np.random.default_rng(lq + 3 * lk + d)
+    b, h = 3, 2
+    q, do = (_t(rng.standard_normal((b, lq, h, d)), dev, dtype).transpose(1, 2) for _ in range(2))
+    k, v = (_t(rng.standard_normal((b, lk, h, d)), dev, dtype).transpose(1, 2) for _ in range(2))
+    mask = _edge_mask(lk, dev)
+    out, lse = flash_attention_with_lse(q, k, v, kv_mask=mask, causal=causal)
+    glse = _t(rng.standard_normal((b, h, lq)), dev, torch.float32)
+    got = flash_attention_backward(q, k, v, mask, out, lse, do, glse, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_reference(
+        q.reshape(b * h, lq, d), k.reshape(b * h, lk, d), v.reshape(b * h, lk, d), mask,
+        out.reshape(b * h, lq, d), lse.reshape(b * h, lq), do.reshape(b * h, lq, d),
+        glse.reshape(b * h, lq), d ** -0.5, causal)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _err(g.reshape(w.shape), w) < TOL[dtype]
+        assert g[2].abs().max().item() == 0.0
+    if causal and lk > lq:
+        assert got[1][:, :, lq:].abs().max().item() == 0.0 == got[2][:, :, lq:].abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernels_are_bitwise_deterministic(dev, causal, dtype):
+    """No atomics: two backward calls on the same inputs give bitwise-equal
+    dq, dk and dv, at D 128 and 64 with a key mask and at the LM's B*H 8, L
+    2048 (more work items than SMs)."""
+    from tpu_air_torch.ops.flash_attention import flash_attention_backward, flash_attention_with_lse
+
+    rng = np.random.default_rng(11 + causal)
+    for b, h, L, d, masked in ((3, 2, 1000, 128, True), (3, 2, 1000, 64, True),
+                               (1, 8, 2048, 128, False)):
+        q, k, v, do = (_t(rng.standard_normal((b, L, h, d)), dev, dtype).transpose(1, 2)
+                       for _ in range(4))
+        mask = _edge_mask(L, dev) if masked else None
+        out, lse = flash_attention_with_lse(q, k, v, kv_mask=mask, causal=causal)
+        first = flash_attention_backward(q, k, v, mask, out, lse, do, None, d ** -0.5, causal)
+        second = flash_attention_backward(q, k, v, mask, out, lse, do, None, d ** -0.5, causal)
+        torch.cuda.synchronize()
+        for a, c in zip(first, second):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("grad", ["dq", "dk_dv"])
 def test_bf16_fully_masked_row_dk_dv_are_exactly_zero(dev, d, grad, dtype):
@@ -275,7 +330,7 @@ def test_bf16_fully_masked_row_dk_dv_are_exactly_zero(dev, d, grad, dtype):
 
 def test_bf16_rows_off_16_bytes_are_copied_then_run(dev):
     """A bf16 view whose rows do not start on 16-byte boundaries cannot feed
-    the tensor-core kernels' cp.async copies: the wrapper copies it to a
+    the tensor-core kernels' TMA copies: the wrapper copies it to a
     contiguous tensor, and forward and backward agree with the aligned
     input's results."""
     from tpu_air_torch.ops.flash_attention import flash_attention

@@ -91,10 +91,7 @@
 #include <stdint.h>
 #include <string.h>
 
-#include <type_traits>
-
 #include "hopper.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -371,41 +368,6 @@ __device__ __forceinline__ void score_tile(float (&sacc)[BK / 2], float (&mx)[2]
   }
 }
 
-// O += P V for one key tile: P (rounded to T) the register A operand, V
-// (stored key-major) the MN-major B.  Issued and committed, not waited for.
-template <typename T, int DP, int BK>
-__device__ __forceinline__ void pv_issue(float (&o)[DP / 2], uint32_t (&pa)[BK / 16][4],
-                                         const unsigned char* v_st) {
-  const uint64_t v_desc = hopper::desc_sw128(v_st, BK * 128, 1024);
-  hopper::fence_regs(o);
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    hopper::wgmma_rs<T, DP>(o, pa[kk], hopper::desc_add(v_desc, kk * 16 * 128));
-  hopper::wgmma_commit();
-  // pin the operands in their registers while the product runs
-  hopper::fence_regs(o);
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) hopper::fence_regs(pa[kk]);
-}
-
-// S = Q K^T for one key tile (64 rows x BK keys; Q and K K-major in
-// shared memory; the first k-step overwrites sacc), issued and committed.
-template <typename T, int D, int BK>
-__device__ __forceinline__ void s_issue(float (&sacc)[BK / 2], uint64_t q_desc,
-                                        const unsigned char* k_st) {
-  const uint64_t k_desc = hopper::desc_sw128(k_st, 16, 1024);
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    hopper::wgmma_ss<T, BK>(sacc,
-                            hopper::desc_add(q_desc, (kk / 4) * kRows * 128 + (kk % 4) * 32),
-                            hopper::desc_add(k_desc, (kk / 4) * BK * 128 + (kk % 4) * 32),
-                            kk > 0);
-  hopper::wgmma_commit();
-  hopper::fence_regs(sacc);
-}
-
 // One tile's online-softmax step on S, in place: scores in log2 units
 // (score_tile), the row max across the quad that holds the row, P =
 // exp2(x - max) (exactly 1 where x equals the max, as on a fully masked
@@ -445,18 +407,6 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[BK / 2], float (&m_ru
   }
 }
 
-// P rounded to T, packed as the A fragments of O += P V
-template <typename T, int BK>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&sacc)[BK / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pa[kk][0] = mma_bf16::pack<T>(sacc[8 * kk], sacc[8 * kk + 1]);
-    pa[kk][1] = mma_bf16::pack<T>(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-    pa[kk][2] = mma_bf16::pack<T>(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-    pa[kk][3] = mma_bf16::pack<T>(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-  }
-}
-
 template <typename T, int D, int BK>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -464,8 +414,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap v_map,
                        const __grid_constant__ CUtensorMap bias_map, const WgmmaParams p) {
   using namespace hopper;
-  using mma_bf16::cp_async4;
-  using mma_bf16::store2;
   using Cfg = WgmmaFwd<D, BK>;
   constexpr int DP = Cfg::DP, NB = Cfg::NB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -640,21 +588,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       uint32_t pa[BK / 16][4];  // P of the tile whose O += P V is next
       int s = ring_i % p.stages;
       mbar_wait(&full[s], (ring_i / p.stages) & 1);
-      s_issue<T, D, BK>(sacc, q_desc, ring + s * p.stage_bytes + kv_slot * 2 * Cfg::KV_BYTES);
+      ss_issue<T, D, BK>(sacc, q_desc, ring + s * p.stage_bytes + kv_slot * 2 * Cfg::KV_BYTES);
       wgmma_wait<0>();
       fence_regs(sacc);
       if (my_tiles == 1) mbar_arrive(q_empty);  // the item's last use of Q
       float alpha[2];
       softmax_tile<BK>(sacc, m_run, l_run, alpha, p, ring + s * p.stage_bytes, bias_off, mask_off,
                        bias_slot, mask_slot, bias_sw, 0, row0, cq0, t);
-      pack_p<T, BK>(pa, sacc);
+      pack_a<T, BK>(pa, sacc);
       int pend_s = s;
       ++ring_i;
       for (int j = 1; j < my_tiles; ++j, ++ring_i) {
         s = ring_i % p.stages;
         mbar_wait(&full[s], (ring_i / p.stages) & 1);
-        s_issue<T, D, BK>(sacc, q_desc, ring + s * p.stage_bytes + kv_slot * 2 * Cfg::KV_BYTES);
-        pv_issue<T, DP, BK>(o, pa, ring + pend_s * p.stage_bytes + kv_slot * 2 * Cfg::KV_BYTES +
+        ss_issue<T, D, BK>(sacc, q_desc, ring + s * p.stage_bytes + kv_slot * 2 * Cfg::KV_BYTES);
+        rs_issue<T, DP, BK>(o, pa, ring + pend_s * p.stage_bytes + kv_slot * 2 * Cfg::KV_BYTES +
                                        Cfg::KV_BYTES);
         wgmma_wait<1>();
         fence_regs(sacc);
@@ -673,10 +621,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           o[4 * n8 + 2] *= alpha[1];
           o[4 * n8 + 3] *= alpha[1];
         }
-        pack_p<T, BK>(pa, sacc);
+        pack_a<T, BK>(pa, sacc);
         pend_s = s;
       }
-      pv_issue<T, DP, BK>(o, pa, ring + pend_s * p.stage_bytes + kv_slot * 2 * Cfg::KV_BYTES +
+      rs_issue<T, DP, BK>(o, pa, ring + pend_s * p.stage_bytes + kv_slot * 2 * Cfg::KV_BYTES +
                                      Cfg::KV_BYTES);
       wgmma_wait<0>();
       fence_regs(o);
@@ -736,48 +684,10 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda at run time: the library
-// links no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// A (B, H, L, D) 16-bit operand as a TMA map: dims (D, L, H, B), boxes of 64
-// columns (128 bytes, swizzled) by `rows`; zero-filled past D and L.
-bool encode_qkv(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type, const void* ptr,
-                Strides s, int d, int l, int heads, int batch, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)l, (cuuint64_t)heads, (cuuint64_t)batch};
-  cuuint64_t strides[3] = {(cuuint64_t)s.l * 2, (cuuint64_t)s.h * 2, (cuuint64_t)s.b * 2};
-  // a dimension of size 1 is never stepped: give it a stride the encoder takes
-  if (l == 1) strides[0] = (cuuint64_t)d * 2 + 16 - (d * 2) % 16;
-  if (heads == 1) strides[1] = strides[0] * l;
-  if (batch == 1) strides[2] = strides[1] * heads;
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The (bias_n, lq, lk) f32 bias as a TMA map: boxes of 32 columns (128
 // bytes, swizzled) by 64 rows; zero-filled past lq and lk.
-bool encode_bias(CUtensorMap* map, EncodeTiled encode, const float* bias, int bias_n, int lq,
-                 int lk) {
+bool encode_bias(CUtensorMap* map, hopper::EncodeTiled encode, const float* bias, int bias_n,
+                 int lq, int lk) {
   const cuuint64_t dims[3] = {(cuuint64_t)lk, (cuuint64_t)lq, (cuuint64_t)bias_n};
   const cuuint64_t strides[2] = {(cuuint64_t)lk * 4, (cuuint64_t)lq * lk * 4};
   const cuuint32_t box[3] = {32, (cuuint32_t)kRows, 1};
@@ -829,7 +739,7 @@ FwdPlan plan_fwd(int d, int batch, int heads, int lq, int lk, int bias_n, bool m
 
 template <typename T, int D, int BK>
 cudaError_t launch_wgmma(const Args& a, const FwdPlan& pl) {
-  const EncodeTiled encode = encode_tiled();
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   if (pl.stages < 2) return cudaErrorInvalidConfiguration;
   if ((long long)pl.units * pl.tiles > 0x7fffffff) return cudaErrorInvalidValue;
@@ -839,14 +749,12 @@ cudaError_t launch_wgmma(const Args& a, const FwdPlan& pl) {
                 pl.stage_bytes, pl.units, pl.tiles};
 
   // one tensor map per operand per call: the maps hold the pointers
-  const CUtensorMapDataType type = std::is_same<T, bf16>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const CUtensorMapDataType type = hopper::tensor_map_type<T>();
   CUtensorMap q_map, k_map, v_map, bias_map;
   memset(&bias_map, 0, sizeof(bias_map));
-  if (!encode_qkv(&q_map, encode, type, a.q, a.sq, D, a.lq, a.heads, batch, kRows) ||
-      !encode_qkv(&k_map, encode, type, a.k, a.sk, D, a.lk, a.heads, batch, BK) ||
-      !encode_qkv(&v_map, encode, type, a.v, a.sv, D, a.lk, a.heads, batch, BK) ||
+  if (!hopper::encode_qkv(&q_map, encode, type, a.q, a.sq, D, a.lq, a.heads, batch, kRows) ||
+      !hopper::encode_qkv(&k_map, encode, type, a.k, a.sk, D, a.lk, a.heads, batch, BK) ||
+      !hopper::encode_qkv(&v_map, encode, type, a.v, a.sv, D, a.lk, a.heads, batch, BK) ||
       (p.bias_tma && !encode_bias(&bias_map, encode, a.bias, a.bias_n, a.lq, a.lk)))
     return cudaErrorInvalidPitchValue;
 

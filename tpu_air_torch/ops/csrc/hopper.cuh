@@ -1,6 +1,7 @@
 // Inline-PTX building blocks for Hopper (sm_90a) kernels: mbarriers, TMA
-// tensor loads, warpgroup matrix products (wgmma) and register hand-over
-// between warpgroups (setmaxnreg).
+// tensor loads, warpgroup matrix products (wgmma), register hand-over
+// between warpgroups (setmaxnreg), and the 16-bit packing and 4-byte
+// cp.async copies around them.
 //
 // Shared-memory operand layout (both wgmma operands and every TMA box that
 // feeds one): 16-bit tiles in column blocks of 64 elements (128 bytes), each
@@ -21,11 +22,16 @@
 // mma.sync: a[0] (g, 2t), a[1] (g + 8, 2t), a[2] (g, 2t + 8), a[3] (g + 8,
 // 2t + 8), so an accumulator rounded to 16 bits feeds the next product as A
 // without leaving registers.
+//
+// ss_issue, rs_issue and pack_a are the two product shapes of the flash
+// kernels (a 64-row tile against a staged operand, K-major or MN-major);
+// encode_qkv builds the per-call tensor map of a (B, H, L, D) operand.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -34,6 +40,35 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two f32 rounded to T (bf16 or f16) and packed, lo in the lower half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  static_assert(std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>,
+                "pack: T is bf16 or f16");
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
+// The same, stored to p (4-byte aligned): two neighbouring output columns.
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack<T>(lo, hi);
+}
+
+// Copy 4 bytes (an f32) global -> shared, asynchronously; with valid = false
+// nothing is read and the 4 bytes are zeroed (src must still be a mapped
+// address).  Completion reaches an mbarrier through mbar_arrive_cp_async.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -257,5 +292,101 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HOPPER_OPS8
 #undef HOPPER_ACC64
 #undef HOPPER_ACC32
+
+// acc = A B^T over D: A the 64 rows at a_desc, B the N rows staged at b_st,
+// both K-major in 64-column blocks (A's 64 x 128 B, B's N x 128 B apart);
+// the first k-step overwrites acc.  Issued and committed, not waited for.
+template <typename T, int D, int N>
+__device__ __forceinline__ void ss_issue(float (&acc)[N / 2], uint64_t a_desc,
+                                         const unsigned char* b_st) {
+  const uint64_t b_desc = desc_sw128(b_st, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<T, N>(acc, desc_add(a_desc, (kk / 4) * 64 * 128 + (kk % 4) * 32),
+                   desc_add(b_desc, (kk / 4) * N * 128 + (kk % 4) * 32), kk > 0);
+  wgmma_commit();
+  fence_regs(acc);
+}
+
+// acc += A B over K: A (64 x K, rounded to T) the register fragments pa, B
+// the K rows staged at b_st (stored K x DP, the MN-major operand).  Issued
+// and committed, not waited for.
+template <typename T, int DP, int K>
+__device__ __forceinline__ void rs_issue(float (&acc)[DP / 2], uint32_t (&pa)[K / 16][4],
+                                         const unsigned char* b_st) {
+  const uint64_t b_desc = desc_sw128(b_st, K * 128, 1024);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) wgmma_rs<T, DP>(acc, pa[kk], desc_add(b_desc, kk * 16 * 128));
+  wgmma_commit();
+  // pin the operands in their registers while the product runs
+  fence_regs(acc);
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) fence_regs(pa[kk]);
+}
+
+// A (64 x K) accumulator rounded to T, packed as the A fragments of rs_issue
+template <typename T, int K>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[K / 16][4], const float (&acc)[K / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    pa[kk][0] = pack<T>(acc[8 * kk], acc[8 * kk + 1]);
+    pa[kk][1] = pack<T>(acc[8 * kk + 2], acc[8 * kk + 3]);
+    pa[kk][2] = pack<T>(acc[8 * kk + 4], acc[8 * kk + 5]);
+    pa[kk][3] = pack<T>(acc[8 * kk + 6], acc[8 * kk + 7]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor maps, encoded on the host for each call
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up in libcuda at run time: the library
+// links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A (B, H, L, D) 16-bit operand with (b, h, l) element strides s as a TMA
+// map: dims (D, L, H, B), boxes of 64 columns (128 bytes, swizzled) by
+// `rows`; zero-filled past D and L.
+template <typename Strides>
+bool encode_qkv(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type, const void* ptr,
+                Strides s, int d, int l, int heads, int batch, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)l, (cuuint64_t)heads, (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)s.l * 2, (cuuint64_t)s.h * 2, (cuuint64_t)s.b * 2};
+  // a dimension of size 1 is never stepped: give it a stride the encoder takes
+  if (l == 1) strides[0] = (cuuint64_t)d * 2 + 16 - (d * 2) % 16;
+  if (heads == 1) strides[1] = strides[0] * l;
+  if (batch == 1) strides[2] = strides[1] * heads;
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+CUtensorMapDataType tensor_map_type() {
+  return std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
 
 }  // namespace hopper

@@ -11,13 +11,13 @@ Counterpart of ``tpu_air/ops/flash_attention.py``.  Three kernels:
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` launched by ``_pallas_bwd``:
   dq, and dk/dv, from the saved ``(out, lse)``.
 
-In bf16 and f16 all three kernels run their products on the tensor cores
-(16-bit operands, f32 accumulation, the reference's precision): the forward
-on Hopper's warpgroup products (``wgmma``) fed by TMA from a ring that a
-producer warp keeps full, the backward on ``mma.sync``; in f32 all three
-run on the CUDA cores.  TMA and the backward's 16-byte ``cp.async`` copies
-both need every (b, h, l) row of q, k, v and do to start on a 16-byte
-boundary: a 16-bit view that breaks that rule is first copied to a
+In bf16 and f16 all three kernels run their products on Hopper's warpgroup
+products (``wgmma``; 16-bit operands, f32 accumulation, the reference's
+precision), fed by TMA from a ring of tiles that a producer warpgroup keeps
+full: the forward streams K and V, dq streams K and V past 128 query rows,
+dk/dv streams Q and dO past 128 keys.  In f32 all three run on the CUDA
+cores.  TMA needs every (b, h, l) row of q, k, v and do to start on a
+16-byte boundary: a 16-bit view that breaks that rule is first copied to a
 contiguous tensor (:func:`_aligned`).
 The model's projections never need the copy.
 
