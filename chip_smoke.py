@@ -16,7 +16,10 @@ Phases, each fatal on failure:
               forward and the backward's dq and dk/dv a bf16 and an f16
               wgmma instance for every head dim (and the backward no
               ``mma.sync`` kernel), no tensor-core kernel may spill, and
-              ptxas may serialise no wgmma kernel's products;
+              ptxas may serialise no wgmma kernel's products; the bf16/f16
+              decode kernel needs a bf16 and an f16 instance for every head
+              dim, each with the bulk copy (``UBLKCP``) in its SASS, and no
+              decode kernel may spill;
 2. compare  — each T5 kernel against its plain PyTorch version on the card, at
               the generation path's shapes and at edge cases (masked rows,
               causal, ragged lengths, int8 slabs), and the decode kernel where
@@ -24,8 +27,8 @@ Phases, each fatal on failure:
               masked chunks, live keys in one chunk, an all-pad row, L no
               multiple of the chunk, both int8 scale kinds), and at W1's
               shapes (the flash forward at the training step's, decode at
-              those of generation from the W1 checkpoint, its cross step in
-              4 chunks of 128 keys), against a stated tolerance;
+              those of generation from the W1 checkpoint, its cross step
+              split into chunks), against a stated tolerance;
 3. main     — FLAN-T5-base width (12+12 layers, d_model 768, 12 heads, vocab
               32128) in bf16 with weights from a numpy seed at T5's initializer
               scales: the ``T5GenerativePredictor`` generates greedily for 64
@@ -40,9 +43,13 @@ Phases, each fatal on failure:
               behind a sleep kernel) of each T5 kernel, its plain version and
               one PyTorch library call (``scaled_dot_product_attention``) at
               the generation path's shapes (and a cross step of 8 rows of
-              4096 keys, split over L), beside the least time the card
-              could take (bytes over 3.35 TB/s, flops over 989 TFLOP/s, the
-              H100 SXM data-sheet peaks);
+              4096 keys, split over L, and the b 8 steps of W1 generation,
+              the serve predictor and the T5 window engine), beside the
+              least time the card could take (bytes over 3.35 TB/s, flops
+              over 989 TFLOP/s, the H100 SXM data-sheet peaks); split
+              decode calls at the LM engine's shape under the profiler, in
+              bf16 and f16, must record no device work but
+              ``decode_ring_kernel``, at most once a call;
 6. backward — the flash backward kernels (dq, dk/dv) against
               ``flash_attention_backward_reference`` on the card: head dims
               16-128, causal or not, key masks with a fully masked row (whose
@@ -279,7 +286,8 @@ TAG = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 SEED = 0
 # how each kernel computes its products in bf16, the type the main paths run
 DESIGN = {"flash_attention": "wgmma bf16 on a TMA-fed K/V ring, producer warpgroup, persistent",
-          "decode_attention": "cuda-core f32, 16-byte loads, one pass, split-K, masked chunks skipped",
+          "decode_attention": "bulk-copy K/V rings in shared memory (a copy a unit of positions, "
+                              "every head), split-K merged in a thread-block cluster, one launch",
           "flash_attention_bwd_dq": "wgmma bf16 on a TMA-fed K/V ring, producer warpgroup, "
                                     "persistent",
           "flash_attention_bwd_dkv": "wgmma bf16 on a TMA-fed Q/dO ring, producer warpgroup, "
@@ -696,6 +704,21 @@ def mma_counts(sass: str) -> dict:
     return counts
 
 
+def bulk_copy_counts(sass: str) -> dict:
+    """{kernel instantiation: n} from the output of ``cuobjdump -sass``: the
+    bulk copies (``cp.async.bulk`` global to shared, opcode ``UBLKCP``) in
+    each kernel."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (_Z\w+)", line)
+        if m:
+            fn = _demangle(m.group(1))
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bUBLKCP\.", line):
+            counts[fn] += 1
+    return counts
+
+
 # the tensor-core kernel families and the instruction each must contain
 TENSOR_CORE_KINDS = (("_wgmma_kernel", "HGMMA"), ("_mma_kernel", "HMMA"))
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
@@ -713,6 +736,30 @@ def tensor_core_kind(fn: str):
     """("_wgmma_kernel", "HGMMA"), ("_mma_kernel", "HMMA") or None."""
     name = fn.split("<")[0]
     return next((k for k in TENSOR_CORE_KINDS if name.endswith(k[0])), None)
+
+
+# the bulk-copy kernels each source must hold a bf16 and an f16 instance of
+# for every head dim, each with UBLKCP and 0 spill bytes
+BULK_COPY_KERNELS = {"decode_attention": ("decode_ring_kernel",)}
+
+
+def check_bulk_copy_kernels(src: str, counts: dict, spills: dict) -> None:
+    """Raise unless every kernel of ``BULK_COPY_KERNELS[src]`` (the bf16/f16
+    decode kernel) has a bf16 and an f16 instance for every head dim, every
+    instance holds the bulk copy's opcode (``UBLKCP``) in its SASS, and no
+    kernel of ``src`` spills.  ``counts``: ``bulk_copy_counts``; ``spills``:
+    {kernel: spill bytes}, empty when the source was built by an earlier
+    run."""
+    for kernel in BULK_COPY_KERNELS.get(src, ()):
+        for ty in ("bf16", "f16"):
+            for d in FLASH_HEAD_DIMS:
+                inst = [fn for fn in counts if re.match(rf"{kernel}<{ty},{d}[,>]", fn)]
+                if not inst or any(counts[fn] == 0 for fn in inst):
+                    raise AssertionError(f"[build] {kernel}<{ty}, {d}>: instances {inst}, "
+                                         "none may lack the bulk copy (UBLKCP)")
+        spilled = [fn for fn, n in spills.items() if n]
+        if spilled:
+            raise AssertionError(f"[build] {src}.cu kernels that spill: {spilled}")
 
 
 def check_tensor_core_kernels(src: str, counts: dict, spills: dict) -> None:
@@ -750,7 +797,7 @@ def check_tensor_core_kernels(src: str, counts: dict, spills: dict) -> None:
 
 def build() -> dict:
     """Phase 1.  Returns {kernel instantiation: {"regs", "spill", "HMMA",
-    "HGMMA"}}."""
+    "HGMMA", "UBLKCP"}}."""
     import shutil
 
     from tpu_air_torch.ops import _build
@@ -779,13 +826,15 @@ def build() -> dict:
     for src in names:
         sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(src)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
-        counts = mma_counts(sass)
-        log(f"[build] tensor-core instructions in {src}.cu (cuobjdump -sass): "
-            + "; ".join(f"{fn} HMMA {n['HMMA']} HGMMA {n['HGMMA']}"
+        counts, bulk = mma_counts(sass), bulk_copy_counts(sass)
+        log(f"[build] tensor-core and bulk-copy instructions in {src}.cu (cuobjdump -sass): "
+            + "; ".join(f"{fn} HMMA {n['HMMA']} HGMMA {n['HGMMA']} UBLKCP {bulk[fn]}"
                         for fn, n in sorted(counts.items())))
-        check_tensor_core_kernels(src, counts, spills if src in logs else {})
+        src_spills = {fn: n for fn, n in spills.items() if fn in counts} if src in logs else {}
+        check_tensor_core_kernels(src, counts, src_spills)
+        check_bulk_copy_kernels(src, bulk, src_spills)
         for fn, n in counts.items():
-            built.setdefault(fn, {}).update(n)
+            built.setdefault(fn, {}).update(n, UBLKCP=bulk[fn])
     return built
 
 
@@ -840,7 +889,7 @@ def decode_inputs(rng, b, L, h, d, dtype, dev, kind):
         lens[0], lens[-1] = L, 0
         kw["kv_mask"] = torch.from_numpy((np.arange(L)[None] < lens[:, None]).astype(np.float32)).to(dev)
     if kind == "one_chunk":   # live keys inside the fourth chunk only
-        c = decode_chunk(b, h, L, dev)
+        c = decode_chunk(b, h, d, L, dtype, dev)
         m = np.zeros((b, L), np.float32)
         m[:, 3 * c + 5:3 * c + 60] = 1.0
         kw["kv_mask"] = torch.from_numpy(m).to(dev)
@@ -863,11 +912,12 @@ def w1_flash_inputs(rng, cfg, dev) -> dict:
     return out
 
 
-def decode_chunk(b, h, L, dev) -> int:
+def decode_chunk(b, h, d, L, dtype, dev, masked: bool = True) -> int:
     """The positions per block the decode kernel takes at this shape."""
-    from tpu_air_torch.ops.decode_attention import split_chunk
+    from tpu_air_torch.ops.decode_attention import plan_chunk
 
-    return split_chunk(b, h, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return plan_chunk(b, h, d, L, dtype, torch.cuda.get_device_properties(dev).multi_processor_count,
+                      masked)
 
 
 def compare(dev, dtypes=(torch.float32, torch.bfloat16), phase: str = "compare") -> dict:
@@ -932,7 +982,7 @@ def compare(dev, dtypes=(torch.float32, torch.bfloat16), phase: str = "compare")
         # and where it splits L into chunks
         for b, Lk, kind in SPLIT_CASES:
             q, k, v, kw = decode_inputs(rng, b, Lk, H, D, dtype, dev, kind)
-            chunks = -(-Lk // decode_chunk(b, H, Lk, dev))
+            chunks = -(-Lk // decode_chunk(b, H, D, Lk, dtype, dev, "kv_mask" in kw))
             if chunks < 2:
                 raise AssertionError(f"[{phase}] decode b{b} L{Lk}: {chunks} chunk, no split")
             check(f"decode {tag} {kind} b{b} L{Lk} ({chunks} chunks)",
@@ -940,17 +990,17 @@ def compare(dev, dtypes=(torch.float32, torch.bfloat16), phase: str = "compare")
                   dtype)
         # and at the shapes of generation from the W1 checkpoint: self over
         # W1_NEW + 1 positions, cross over the W1 prompts' own padded mask,
-        # which b 8 x h 12 splits into chunks of 128 keys
+        # which b 8 x h 12 splits into chunks
         q, k, v, kw = decode_inputs(rng, W1_PROMPTS, W1_NEW + 1, H, D, dtype, dev, "self")
         check(f"decode {tag} self b{W1_PROMPTS} L{W1_NEW + 1} (W1)",
               decode_attention(q, k, v, **kw), decode_attention_reference(q, k, v, **kw), dtype)
         q, k, v, _ = decode_inputs(rng, W1_PROMPTS, W1_LEN, H, D, dtype, dev, "none")
         _, m = prompts(W1_PROMPTS, W1_LEN, cfg.vocab_size, SEED + 42)
         kw = {"kv_mask": torch.from_numpy(m.astype(np.float32)).to(dev)}
-        chunks = -(-W1_LEN // decode_chunk(W1_PROMPTS, H, W1_LEN, dev))
-        if chunks != 4:
-            raise AssertionError(f"[{phase}] decode b{W1_PROMPTS} L{W1_LEN}: {chunks} chunks, "
-                                 f"not the 4 W1 generation runs")
+        chunks = -(-W1_LEN // decode_chunk(W1_PROMPTS, H, D, W1_LEN, dtype, dev))
+        if chunks < 2:
+            raise AssertionError(f"[{phase}] decode b{W1_PROMPTS} L{W1_LEN}: {chunks} chunk, "
+                                 f"W1 generation splits its cross step")
         check(f"decode {tag} cross b{W1_PROMPTS} L{W1_LEN} ({chunks} chunks, W1)",
               decode_attention(q, k, v, **kw), decode_attention_reference(q, k, v, **kw), dtype)
         del q, k, v, kw
@@ -1130,6 +1180,47 @@ def parity(dev) -> dict:
 # -- phase 5 -----------------------------------------------------------------
 
 
+def decode_one_kernel(dev, calls: int = 10) -> dict:
+    """Calls of the decode kernel at the LM engine's shape (b 16, L 1024, 8
+    heads of 128, per-row mask; split over L, a cluster a row) under the
+    profiler, in bf16 and in f16: the only device work recorded must be
+    ``decode_ring_kernel``, at most once a call (no merge kernel, no
+    workspace, no copy).  The profiler can drop records of cluster launches
+    (on the H100 it kept 1 of 3), so the count is bounded, not matched.
+    These launches are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_air_torch.ops.decode_attention import decode_attention
+
+    b, L, h, d = LM_ENGINE["num_slots"], LM_ENGINE["slot_len"], 8, 128
+    rng = np.random.default_rng(SEED + 44)
+    pos = rng.integers(L // 16, L, b)
+    pos[0] = 0
+    mask = torch.from_numpy((np.arange(L)[None] <= pos[:, None]).astype(np.float32)).to(dev)
+    out = {}
+    for dt in (torch.bfloat16, torch.float16):
+        q, k, v, _ = decode_inputs(rng, b, L, h, d, dt, dev, "plain")
+        chunks = -(-L // decode_chunk(b, h, d, L, dt, dev))
+        before = decode_attention.launches
+        decode_attention(q, k, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                decode_attention(q, k, v, kv_mask=mask)
+            torch.cuda.synchronize()
+        decode_attention.launches = before
+        names = [(name[:80], c * calls) for name, (_, c) in device_kernels(prof, calls).items()]
+        log(f"[timing] decode_attention {TAG[dt]} at the LM engine's shape, {chunks} chunks a "
+            f"row, {calls} calls profiled: device records {names}")
+        if chunks < 2 or len(names) != 1 or "decode_ring_kernel" not in names[0][0] \
+                or not 1 <= names[0][1] <= calls:
+            raise AssertionError(f"[timing] decode_attention {TAG[dt]} split over {chunks} "
+                                 f"chunks: device records over {calls} calls {names}, expect "
+                                 "decode_ring_kernel alone, at most once a call")
+        out[TAG[dt]] = {"chunks": chunks, "calls": calls, "device_records": names}
+    return out
+
+
 def timing(dev, errs: dict, launches: dict) -> list:
     from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
     from tpu_air_torch.ops.flash_attention import flash_attention
@@ -1176,8 +1267,14 @@ def timing(dev, errs: dict, launches: dict) -> list:
     # loop, where every layer reads its own cache (back to back on one copy,
     # a slab that fits the 50 MB L2, as the self step's does, is read from
     # there: "warm_ms", kept for comparison with earlier timings).
+    # the b 8 steps: generation from the W1 checkpoint and the serve
+    # predictor (self over 32 + 1 positions, cross over 512) and the T5
+    # window engine (self over 64 + 1)
     for key, b, kind, Lk in (("cross", B, "cross", L), ("self", B, "self", NEW_TOKENS + 1),
-                             ("split", SMALL_BATCH, "cross", 4096)):
+                             ("split", SMALL_BATCH, "cross", 4096),
+                             ("b8_cross", SMALL_BATCH, "cross", L),
+                             ("b8_self33", SMALL_BATCH, "self", W1_NEW + 1),
+                             ("b8_self65", SMALL_BATCH, "self", SERVE_CFG["max_new_tokens"] + 1)):
         h, d = H, D
         copies = max(2, -(-COLD_BYTES // (2 * b * Lk * h * d * 2)))
         sets = [decode_inputs(rng, b, Lk, h, d, dt, dev, kind) for _ in range(copies)]
@@ -1205,10 +1302,10 @@ def timing(dev, errs: dict, launches: dict) -> list:
         nbytes = 2 * h * d * 2 * int(keys.sum()) + 2 * b * h * d * 2 + extra
         flops = 4 * h * d * int(keys.sum())
         b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
-        chunks = -(-Lk // decode_chunk(b, h, Lk, dev))
+        chunks = -(-Lk // decode_chunk(b, h, d, Lk, dt, dev, kind == "cross"))
         rows[key] = {
-            "max_abs_err": max_err(kernels_[0](), plains[0]()) if key == "split"
-            else errs[f"decode bf16 {kind}"], "tol": TOL[dt],
+            "max_abs_err": errs[f"decode bf16 {kind}"] if key in ("cross", "self")
+            else max_err(kernels_[0](), plains[0]()), "tol": TOL[dt],
             "ms": device_ms(f_kernel, 200), "plain_ms": device_ms(f_plain, 20),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(f_lib, 200),
             "warm_ms": device_ms(kernels_[0], 200),
@@ -1229,12 +1326,17 @@ def timing(dev, errs: dict, launches: dict) -> list:
         "replaces": "tpu_air/ops/decode_attention.py:61",
         "launches": launches["decode_attention"], **rows["cross"],
         "self_step": rows["self"], "split_cross_step": rows["split"],
+        "b8_cross_step": rows["b8_cross"], "b8_self_step_33": rows["b8_self33"],
+        "b8_self_step_65": rows["b8_self65"], "one_kernel_a_call": decode_one_kernel(dev),
     }
     for r in (flash_row, decode_row):   # aliases of ms and max_abs_err
         r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
     rows["self"]["label"] = "decode_attention self step"
     rows["split"]["label"] = "decode_attention cross step split over L"
-    for r in (flash_row, decode_row, rows["self"], rows["split"]):
+    for key in ("b8_cross", "b8_self33", "b8_self65"):
+        rows[key]["label"] = f"decode_attention {'cross' if 'cross' in key else 'self'} step b 8"
+    for r in (flash_row, decode_row, rows["self"], rows["split"], rows["b8_cross"],
+              rows["b8_self33"], rows["b8_self65"]):
         warm = ""
         if "warm_ms" in r:
             warm = (f"; L2 warm (one input set back to back) kernel {r['warm_ms']:.4f} ms, "

@@ -98,7 +98,7 @@ def test_decode_kernel_matches_plain(dev, dtype, d, L, b, case):
     rows, whose masked tails are whole chunks that are skipped; "one_chunk"
     leaves live keys only inside one chunk (and an all-pad fourth row)."""
     from tpu_air_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference, split_chunk)
+        decode_attention, decode_attention_reference, plan_chunk)
 
     rng = np.random.default_rng(L + d)
     h = 3
@@ -119,7 +119,8 @@ def test_decode_kernel_matches_plain(dev, dtype, d, L, b, case):
         m = np.arange(L)[None] < np.array(lens)[:, None]
         kw["kv_mask"] = _t(m, dev, torch.float32)   # one fully-masked row
     if case == "one_chunk":
-        c = split_chunk(b, h, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+        c = plan_chunk(b, h, d, L, dtype,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
         live = (L - 1) // c * c                     # the last chunk's first key
         m = np.zeros((b, L), bool)
         m[:, live:live + 3] = True
@@ -137,6 +138,124 @@ def test_decode_kernel_matches_plain(dev, dtype, d, L, b, case):
     assert torch.isfinite(got.float()).all()
     err = _err(got, want)
     assert err < TOL[dtype], err
+
+
+def _ring_mask(b, L, chunk):
+    """Rows of a key mask at the bf16/f16 decode kernel's edges: full; live
+    keys starting and ending mid-stage with masked holes inside; a few live
+    keys past the first chunk's length, mid-stage (one block of the row's
+    cluster holds them, the others skip); all-pad; a ragged tail."""
+    m = np.zeros((b, L), bool)
+    m[0] = True
+    m[1 % b, 37:min(L, 3 * chunk + 45)] = True
+    m[1 % b, 41:43] = False
+    if b > 2:
+        m[2, min(L - 1, chunk + 5):min(L, chunk + 40)] = True
+    if b > 4:
+        m[4, :L - 11] = True
+    return m                               # row 3: all-pad
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("case", ["mask", "bias"])
+def test_decode_ring_kernel_cluster_sizes(dev, monkeypatch, dtype, cluster, case):
+    """The bf16/f16 kernel with L = 1000 (no multiple of a stage or a chunk)
+    in clusters of 1 to 8 blocks, each block walking several ring stages:
+    rows whose live range starts and ends mid-stage, holes inside it, live
+    keys in one block's stage only, an all-pad row; and a bias with a causal
+    row and no mask (every block reads its whole share)."""
+    from tpu_air_torch.ops import decode_attention as tdec
+
+    rng = np.random.default_rng(cluster)
+    b, L, h, d = 5, 1000, 3, 64
+    chunk = -(-(-(-L // cluster)) // tdec._STAGE_POS) * tdec._STAGE_POS
+    assert -(-L // chunk) == cluster
+    monkeypatch.setattr(tdec, "split_chunk", lambda *_: chunk)
+    q = _t(rng.standard_normal((b, 1, h, d)), dev, dtype)
+    k = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+    v = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+    if case == "mask":
+        kw = {"kv_mask": _t(_ring_mask(b, L, chunk), dev, torch.float32)}
+    else:
+        causal = np.where(np.arange(L) <= 2 * L // 3, 0.0, -1e9)
+        kw = {"bias": _t(rng.standard_normal((h, L)) + causal, dev, torch.float32)}
+    got = tdec.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = tdec.decode_attention_reference(q, k, v, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) < TOL[dtype]
+    if case == "mask":                       # the all-pad row: mean(V)
+        mean_v = v[3].float().reshape(L, h, d).mean(0)
+        assert _err(got[3, 0], mean_v) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("L", [1, 3, 4, 5, 31, 32, 33, 95, 257, 1000])
+def test_decode_ring_kernel_at_stage_edges(dev, dtype, d, L):
+    """Every head dim at lengths around the ring's 32-position stages and
+    4-position units, the split rule's own chunks (b 6 x h 2: split
+    wherever L allows), a key mask with the rows of ``_ring_mask`` and a
+    bias."""
+    from tpu_air_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference, plan_chunk)
+
+    rng = np.random.default_rng(L * d)
+    b, h = 6, 2
+    chunk = plan_chunk(b, h, d, L, dtype,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    q = _t(rng.standard_normal((b, 1, h, d)), dev, dtype)
+    k = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+    v = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+    kw = {"kv_mask": _t(_ring_mask(b, L, chunk), dev, torch.float32),
+          "bias": _t(rng.standard_normal((h, L)), dev, torch.float32)}
+    got = decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = decode_attention_reference(q, k, v, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", HALF)
+def test_decode_ring_kernel_is_bitwise_deterministic(dev, dtype):
+    """The cluster merge runs in rank order: two calls on the same inputs
+    are bitwise equal, at the LM engine shape (8 chunks a row) and at the
+    W3 cross step (one chunk)."""
+    from tpu_air_torch.ops.decode_attention import decode_attention
+
+    rng = np.random.default_rng(7)
+    for b, L, h, d in ((16, 1024, 8, 128), (64, 512, 12, 64)):
+        q = _t(rng.standard_normal((b, 1, h, d)), dev, dtype)
+        k = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+        v = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+        pos = rng.integers(1, L, b)
+        mask = _t((np.arange(L)[None] <= pos[:, None]).astype(np.float32), dev, torch.float32)
+        first = decode_attention(q, k, v, kv_mask=mask)
+        second = decode_attention(q, k, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_decode_ring_entry_refuses_more_than_eight_chunks(dev):
+    """A bf16 launch whose chunk would need more than 8 blocks a row (a
+    cluster's portable limit) is refused by the C entry, and the wrapper
+    raises; f32 takes the same chunk through its merge kernel."""
+    from tpu_air_torch.ops import decode_attention as tdec
+
+    b, L, h, d = 1, 9 * 32, 2, 64
+    q = torch.zeros(b, 1, h, d, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(b, L, h * d, device=dev, dtype=torch.bfloat16)
+    saved = tdec.split_chunk
+    try:
+        tdec.split_chunk = lambda *_: 32
+        with pytest.raises(RuntimeError, match="cudaError"):
+            tdec.decode_attention(q, k, k)
+        out = tdec.decode_attention(q.float(), k.float(), k.float())
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.zeros_like(out))
+    finally:
+        tdec.split_chunk = saved
 
 
 def _edge_mask(L, dev):
@@ -706,7 +825,7 @@ def test_t5_engine_streams_on_the_card_kernels_match_plain(dev, monkeypatch):
     assert got == want
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_decode_kernel_at_the_lm_engine_shape(dev, dtype):
     """The LM engine's 1-token step: b 16 slots over L 1024 keys, 8 heads of
     128, a per-row validity mask with rows at varied positions (one at 0, a

@@ -176,18 +176,21 @@ def test_decode_fully_masked_row_is_mean_v():
 
 
 # -- the decode kernel's split-K arithmetic ----------------------------------
+# (the f32 and int8 kernel's; tests/test_torch_decode_plan.py mirrors the
+# bf16/f16 kernel's cluster walk)
 
 
 def _split_decode_mirror(q, k, v, bias=None, kv_mask=None, k_scale=None, v_scale=None, *,
                          chunk):
-    """What csrc/decode_attention.cu computes, step for step in torch: per
-    (b, h) and chunk of ``chunk`` positions, the f32 softmax state (m, den,
-    acc) over the chunk's range from its first live key to its last, masked
-    keys inside it at weight 0; (-1e20, 0, 0), K/V unread, for a chunk
-    without a live key in a row that has one; every position, each at the
-    -1e20 floor, in a row without one.  Then the states merge.  q [b, h, d];
-    k/v [b, L, h*d]; scales flat.  Returns the output and the number of
-    (b, h, position) K/V reads."""
+    """What csrc/decode_attention.cu's decode_kernel and
+    decode_combine_kernel (f32 and int8 slabs) compute, step for step in
+    torch: per (b, h) and chunk of ``chunk`` positions, the f32 softmax
+    state (m, den, acc) over the chunk's range from its first live key to
+    its last, masked keys inside it at weight 0; (-1e20, 0, 0), K/V unread,
+    for a chunk without a live key in a row that has one; every position,
+    each at the -1e20 floor, in a row without one.  Then the states merge.
+    q [b, h, d]; k/v [b, L, h*d]; scales flat.  Returns the output and the
+    number of (b, h, position) K/V reads."""
     b, h, d = q.shape
     L = k.shape[1]
     kf, vf = k.reshape(b, L, h, d).float(), v.reshape(b, L, h, d).float()
@@ -236,17 +239,17 @@ def _split_decode_mirror(q, k, v, bias=None, kv_mask=None, k_scale=None, v_scale
     return out.to(q.dtype), reads
 
 
-@pytest.mark.parametrize("chunk", [16, 40, 64])
+@pytest.mark.parametrize("chunk", [32, 64, 96])
 @pytest.mark.parametrize("case", ["splits", "masked_chunks", "all_pad", "one_chunk",
                                   "int8_pos", "int8_chan"])
 def test_decode_split_mirror_matches_references(case, chunk):
     """The split-K merge and the masked-chunk skip, mirrored in torch,
-    against the port's plain version and the JAX reference: several chunks
-    (L = 100 is no multiple of any), padded rows whose tails are whole
-    masked chunks, an all-pad row (mean(V), every chunk read), live keys in
-    one chunk only, and both int8 scale kinds.  The mirror reads K/V only
-    where the kernel does: the live range of each row, all of an all-pad
-    row."""
+    against the port's plain version and the JAX reference, at chunks the
+    split rule gives (whole 32-position stages): several chunks (L = 100 is
+    no multiple of any), padded rows whose tails are whole masked chunks,
+    an all-pad row (mean(V), every chunk read), live keys in one chunk
+    only, and both int8 scale kinds.  The mirror reads K/V only where the
+    kernel does: the live range of each row, all of an all-pad row."""
     b, L, h, d = 4, 100, 3, 16
     rng = np.random.default_rng(chunk)
     q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
@@ -260,7 +263,8 @@ def test_decode_split_mirror_matches_references(case, chunk):
         kw = {"bias": (rng.standard_normal((h, L)) + causal).astype(np.float32)}
     elif case == "one_chunk":
         mask[:] = 0.0
-        mask[:, chunk + 2:chunk + 5] = 1.0
+        first = min(chunk, L - 5) + 2              # three keys inside one chunk
+        mask[:, first:first + 3] = 1.0
     elif case.startswith("int8"):
         k = rng.integers(-127, 128, (b, L, h, d)).astype(np.int8)
         v = rng.integers(-127, 128, (b, L, h, d)).astype(np.int8)
@@ -287,21 +291,30 @@ def test_decode_split_mirror_matches_references(case, chunk):
         np.testing.assert_allclose(got.numpy()[3], v[3].astype(np.float32).mean(0), atol=ATOL)
 
 
-@pytest.mark.parametrize("b,h,L,chunks", [
-    (64, 12, 512, 1), (64, 12, 129, 1),        # the W3 cross and self steps
-    (48, 12, 512, 1), (32, 12, 512, 3),        # just over and under half a wave
-    (8, 12, 4096, 8), (8, 12, 4133, 9), (1, 12, 4096, 32), (1, 12, 4133, 33),
-    (5, 3, 129, 2), (1, 3, 4096, 32), (1, 12, 100, 1),
+@pytest.mark.parametrize("b,h,d,L,dtype,masked,chunks", [
+    (64, 12, 64, 512, torch.bfloat16, True, 1),             # the W3 cross step
+    (64, 12, 64, 129, torch.bfloat16, False, 1),            # the W3 self step
+    (16, 8, 128, 1024, torch.bfloat16, True, 4),            # the LM engine's step
+    (8, 12, 64, 512, torch.bfloat16, True, 8),              # W1 generation, serving
+    (8, 12, 64, 33, torch.bfloat16, False, 2), (8, 12, 64, 65, torch.bfloat16, False, 3),
+    (8, 12, 64, 4096, torch.bfloat16, True, 8), (8, 12, 64, 4096, torch.bfloat16, False, 5),
+    (8, 12, 64, 4133, torch.bfloat16, True, 8), (1, 12, 64, 4096, torch.bfloat16, True, 8),
+    (5, 3, 64, 129, torch.float16, True, 5), (1, 12, 64, 100, torch.float16, True, 4),
+    (32, 12, 64, 512, torch.bfloat16, True, 2),             # a wave of two blocks a pair
+    (200, 12, 64, 512, torch.bfloat16, True, 1),            # enough rows: unsplit
+    (64, 12, 64, 512, torch.float32, True, 1), (16, 8, 128, 1024, torch.float32, True, 5),
+    (8, 12, 64, 4096, torch.float32, True, 6), (1, 12, 64, 4133, torch.int8, True, 8),
 ])
-def test_decode_split_chunk(b, h, L, chunks):
-    """The kernel splits L only while b*h blocks fill less than half a wave
-    of six blocks on each of an H100's 132 SMs, up to that wave, into
-    chunks of at least 128 positions, multiples of 64, and never into an
-    empty chunk."""
-    chunk = tdec.split_chunk(b, h, L, 132)
+def test_decode_split_chunk(b, h, d, L, dtype, masked, chunks):
+    """The kernel splits L into as many chunks as one wave of blocks holds
+    (bf16/f16: two blocks an SM of an H100's 132, each reading a group of
+    heads, one an SM without a key mask; f32 and int8: five blocks of one
+    head), at most 8 (a cluster), each a whole number of 32-position
+    stages, never an empty one."""
+    chunk = tdec.plan_chunk(b, h, d, L, dtype, 132, masked)
     assert -(-L // chunk) == chunks
-    assert chunk == L or (chunk % 64 == 0 and chunk >= tdec._MIN_CHUNK)
-    assert (chunks - 1) * chunk < L
+    assert chunk == L or chunk % tdec._STAGE_POS == 0
+    assert (chunks - 1) * chunk < L and chunks <= tdec._MAX_CLUSTER
 
 
 def test_cpu_wrappers_take_plain_versions():

@@ -1,7 +1,8 @@
 // Inline-PTX building blocks for Hopper (sm_90a) kernels: mbarriers, TMA
-// tensor loads, warpgroup matrix products (wgmma), register hand-over
-// between warpgroups (setmaxnreg), and the 16-bit packing and 4-byte
-// cp.async copies around them.
+// tensor loads and plain bulk copies, thread-block cluster barriers and
+// distributed shared memory, warpgroup matrix products (wgmma), register
+// hand-over between warpgroups (setmaxnreg), and the 16-bit packing and
+// 4-byte cp.async copies around them.
 //
 // Shared-memory operand layout (both wgmma operands and every TMA box that
 // feeds one): 16-bit tiles in column blocks of 64 elements (128 bytes), each
@@ -145,6 +146,49 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Bulk copy of `bytes` contiguous bytes global -> shared (no tensor map):
+// dst, src and bytes multiples of 16; the barrier's transaction count falls
+// by `bytes` when they land.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters: every thread of every block of the cluster arrives
+// (release: its earlier writes become visible) and waits (acquire) once per
+// phase; distributed shared memory is addressed through mapa.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in block `rank`
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_cluster(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // 2^x, the special-function unit's approximation (as __expf uses it)

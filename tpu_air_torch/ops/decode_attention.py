@@ -18,20 +18,23 @@ causal row); ``kv_mask`` ``[b, L]`` (1 = attend) adds a -1e20 floor, and
 the running max is floored there too, so a row whose every key is masked
 yields mean(V), finite.
 
-The kernel reads each needed slab byte once in 16-byte loads, in one pass
-with an online softmax, split over chunks of L when ``b*h`` alone cannot
-fill the card (:func:`split_chunk`; the partial states are merged on the
-card); with a key mask it skips the K/V bytes of every chunk whose keys are
-all masked.  The slabs must start on a 16-byte boundary, as fresh
-allocations do: the wrapper raises on one that does not and never copies
-a slab.
+The kernel reads each needed slab byte once, in one pass with an online
+softmax, split over chunks of L when ``b*h`` alone cannot fill the card
+(:func:`split_chunk`); with a key mask it skips the K/V bytes of every chunk
+whose keys are all masked.  bf16 and f16 slabs (every main path) stream
+through a ring of bulk copies in shared memory, and the chunks of a row,
+one thread-block cluster, merge their partial states inside the one
+launch; f32 and int8 slabs keep 16-byte register loads and merge the
+chunks in a second kernel over a workspace.  The slabs must start on a
+16-byte boundary, as fresh allocations do: the wrapper raises on one that
+does not and never copies a slab.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor takes :func:`decode_attention_reference`.  :func:`gather_pages`
 assembles a paged KV pool's slot slabs for it; like the JAX package's, it is
 plain indexing outside the kernel.
-``decode_attention.launches`` counts calls of the kernel (with its merge
-step, when it splits L).
+``decode_attention.launches`` counts calls of the kernel (one launch in
+bf16 and f16; with the merge kernel in f32 and int8 when L is split).
 """
 
 from __future__ import annotations
@@ -123,30 +126,60 @@ def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
 # q, k, v, bias, mask, k_scale, v_scale, out, workspace; b, L, h, d, q type,
 # int8, k kind, v kind, chunk; stream
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-# Split-K: the kernel runs one block of 128 threads per (b, h, chunk of L);
-# an SM holds seven at its register count, and one wave of _BLOCKS_PER_SM
-# an SM keeps enough bytes in flight to stream the slabs at the card's rate.
-# A grid of b*h blocks that fills half that wave or more runs unsplit (the
-# merge would cost more than the wave's tail: on an H100 the W3 cross step,
-# 768 blocks, took longer split in two); a smaller one is split up to the
-# wave, into chunks of no fewer than _MIN_CHUNK positions, a multiple of 64.
-_BLOCKS_PER_SM = 6
-_MIN_CHUNK = 128
+# Split-K: the kernel runs one block per (b, group of heads, chunk of L).
+# L is split into as many chunks as one wave of ``blocks_per_sm`` blocks an
+# SM holds, at most _MAX_CLUSTER (the bf16/f16 kernel's thread-block
+# cluster, whose blocks merge their states in one launch), each a whole
+# number of the ring's stages of _STAGE_POS positions (8 warps x 4).  The
+# bf16/f16 kernel reads a group of heads (:func:`ring_group`) and runs
+# _RING_BLOCKS_PER_SM blocks an SM (its registers, 256 threads a block); the
+# f32/int8 kernel reads one head and runs _BLOCKS_PER_SM.
+_RING_BLOCKS_PER_SM = 2
+_BLOCKS_PER_SM = 5
+_STAGE_POS = 32
+_MAX_CLUSTER = 8
+_SPAN = 256          # elements of a warp's 32 16-byte loads
 
 
-def split_chunk(b: int, h: int, L: int, sm_count: int) -> int:
-    """Positions each block of the decode kernel reads: ``L`` (one chunk)
-    when ``b*h`` blocks fill half a wave of ``_BLOCKS_PER_SM`` an SM or
-    more, else the chunk that brings the grid to a whole wave, at least
-    ``_MIN_CHUNK`` and rounded up to a multiple of 64.  The kernel runs
-    ``ceil(L / chunk)`` chunks per (b, h) and merges their partial softmax
-    states."""
-    want = _BLOCKS_PER_SM * sm_count
-    if 2 * b * h >= want or L <= _MIN_CHUNK:
+def ring_group(h: int, d: int) -> int:
+    """Heads one block of the bf16/f16 kernel reads: the largest divisor of
+    ``h`` whose slices of one position fit one warp's 32 16-byte loads (4 of
+    T5's heads of 64, 2 of the LM's of 128), one contiguous bulk copy."""
+    g = _SPAN // d
+    while h % g:
+        g -= 1
+    return g
+
+
+def split_chunk(b: int, h: int, L: int, sm_count: int,
+                blocks_per_sm: int = _RING_BLOCKS_PER_SM) -> int:
+    """Positions each block of the decode kernel reads, for a grid of
+    ``b*h`` (row, head group) pairs: split into as many chunks as one wave
+    of ``blocks_per_sm`` blocks an SM holds, at most ``_MAX_CLUSTER``, each
+    a whole number of stages of ``_STAGE_POS`` positions; ``L`` (one chunk)
+    when that wave holds fewer than two blocks a pair.  The kernel runs
+    ``ceil(L / chunk)`` chunks per pair, never an empty one, and merges
+    their partial softmax states."""
+    splits = min(_MAX_CLUSTER, blocks_per_sm * sm_count // (b * h), -(-L // _STAGE_POS))
+    if splits <= 1:
         return L
-    splits = min(-(-want // (b * h)), -(-L // _MIN_CHUNK))
     chunk = -(-L // splits)
-    return min(L, -(-chunk // 64) * 64)
+    return min(L, -(-chunk // _STAGE_POS) * _STAGE_POS)
+
+
+def plan_chunk(b: int, h: int, d: int, L: int, dtype: torch.dtype, sm_count: int,
+               masked: bool = True) -> int:
+    """The chunk a call at this shape runs: :func:`split_chunk` over the
+    bf16/f16 kernel's head groups (:func:`ring_group`), over single heads
+    for f32 and int8 slabs.  Without a key mask every row of a bf16/f16 call
+    reads all of L, so its blocks are even and L is split only until the
+    grid holds a block an SM; a key mask leaves rows of uneven length, which
+    the split evens out (a row's stages are dealt to its cluster in turn),
+    so a masked call fills the wave."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return split_chunk(b, h // ring_group(h, d), L, sm_count,
+                           _RING_BLOCKS_PER_SM if masked else 1)
+    return split_chunk(b, h, L, sm_count, _BLOCKS_PER_SM)
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,10 +235,10 @@ def _launch(q, k, v, bias, kv_mask, k_scale, v_scale):
                              "boundary (the kernel reads it in 16-byte loads)")
         args.append(t.data_ptr())
     out = torch.empty(b, h, d, dtype=q.dtype, device=q.device)
-    chunk = split_chunk(b, h, L, _sm_count(q.device.index))
+    chunk = plan_chunk(b, h, d, L, k.dtype, _sm_count(q.device.index), kv_mask is not None)
     splits = -(-L // chunk)
     work = None
-    if splits > 1:
+    if splits > 1 and (kv_int8 or q.dtype == torch.float32):   # the merge kernel's input
         work = torch.empty(b * h * splits * (d + 2), dtype=torch.float32, device=q.device)
     fn = _build.kernel_fn(_NAME, f"{_NAME}_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
