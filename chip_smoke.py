@@ -63,7 +63,18 @@ Phases, each fatal on failure:
               phase 22): one warm-up step, then
               measured steps; launches per step (8 forward, 8 dq, 8 dk/dv),
               each step's loss, step time, tokens/s and the step's device idle
-              share;
+              share; (c) two more steps of the step ``LMTrainer`` runs under
+              ``profile_trace(device="cuda:0")`` and ``step_timer(span_name=
+              "lm.step")`` with tracing on: the Chrome trace must parse and
+              name 8 forward, 8 dq and 8 dk/dv launches a step, equal to the
+              launch counters (taken again when short, failing after three),
+              and ``profiler.xplane_trace`` must carry its directory; once
+              with the host's ops recorded and once with device activity only
+              (``host_tracer_level=0``): the step's wall from ``step_timer``,
+              the card's busy time from the trace, the idle share, the idle
+              gaps by length and the five longest, each with the host op over
+              it; the heaviest kernels and the flash kernels' device ms a
+              launch come from the first trace;
 8. lm parity — the same width in f32 at a cut depth and length: two train
               steps through the kernels and through the plain versions on the
               card from the same weights; losses and step-1 gradients agree;
@@ -231,15 +242,46 @@ Phases, each fatal on failure:
               tokens, and the exact-fingerprint canary gate passes on an
               in-process replica's ``weights_probe``.  Cuts: as phase 22's,
               4 probe prompts of 64 tokens (the phase aims at 90 s).
+24. obs serve — the observability plane over phase 22's served engine, in a
+              runtime of its own: ``init(include_dashboard=True,
+              dashboard_port=0)`` with ``TPU_AIR_TRACE=1`` and
+              ``TPU_AIR_POSTMORTEM_DIR`` set, the default SLO monitor over
+              ``dashboard.slo_source``, airwatch (``WatchConfig(seed=0,
+              interval_s=0.5)``), ``EngineDeployment`` over the checkpoint in
+              bf16 (phase 22's engine configuration): (a) ``serve.run``
+              starts the fleet scraper; (b) phase 22's 32 prompts as
+              submit/poll streams from 4 client threads, then 8 of them in
+              one blocking POST, 64 new tokens, all equal to phase 22's
+              burst, and so are phase 22 (d)'s 16 streams driven again and the
+              POST;
+              (c) every dashboard route answers 200: ``/api/engines`` totals
+              equal the replica's ``stats()``, ``/metrics`` parses as
+              Prometheus text with ``tpu_air_engine_*`` and
+              ``tpu_air_slo_*`` families, ``/api/traces`` lists the POST's
+              trace and the last 4 streams' final polls, and
+              ``/api/traces/export`` of each has one event a span (the span
+              ring drops the older polls), ``/api/slo`` evaluates every
+              default objective,
+              ``/api/watch`` counts scrapes, ``/api/tenants`` has card-seconds
+              per 1k tokens above 0; (d) the autoscaler's default sources
+              return the monitor's and the detector's lists, a same-weights
+              ``WeightsController.promote`` passes its soak, and fails it under
+              an installed SLO every request breaks; (e) the decode step of
+              phase 22 (d)'s 16 streams, driven again after (b)'s 32 with the
+              plane on, against phase 22's (the difference reported); then
+              an actor on the
+              leased card exits with status 17 and its flight record must load
+              naming ``WorkerCrashed``, the actor and its card.
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
 generation, each of phase 22's and phase 23's in-process paths) and read
-just after it;
+just after it (the ``[lm]`` phase's traced steps are counted apart, against
+their trace);
 the W3 batch path's are counted in its scoring actor, a fresh process,
 around the batch it scores, and W2's trials' in each trial's actor, around
 its training function, and the serve replicas' in each replica (a fresh
-process) over its whole life.  The SegFormer
+process) over its whole life, phase 24's replica too.  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -354,6 +396,12 @@ LM_SERVED, LM_SERVE_PARITY_LAYERS, LM_SERVE_PARITY_PROMPTS, LM_SERVE_PARITY_NEW 
 # migrated after 8 decode steps; (d) 4 canary probes of 64 tokens -> 8 new
 LM_LIVE_TENANTS, LM_LIVE_RANK, LM_LIVE_SCALE, LM_LIVE_SWAP_AT = 3, 4, (1 / 32, 0.5), 24
 LM_LIVE_MIGRATED, LM_LIVE_MIGRATE_AFTER, LM_LIVE_PROBES, LM_LIVE_PROBE_NEW = 16, 8, 4, 8
+# observability dials: [lm] (c) traces LM_TRACE_STEPS train steps and prints
+# the LM_TRACE_GAPS longest device-idle gaps; [obs serve]'s airwatch scrapes
+# every OBS_WATCH_S seconds, its traced POST carries OBS_POST prompts, and
+# the traces of the last OBS_LAST_STREAMS streams to finish must be listed
+LM_TRACE_STEPS, LM_TRACE_GAPS = 2, 5
+OBS_WATCH_S, OBS_POST, OBS_LAST_STREAMS = 0.5, 8, 4
 
 
 def model_config():
@@ -1537,62 +1585,207 @@ def lm_main_path(dev, storage: str) -> dict:
     if any(n != cfg.n_layers for n in per_step.values()):
         raise AssertionError(f"[lm] launches per step {per_step}")
     med = float(np.median(step_ms[1:]))
-    prof = lm_step_profile(dev, cfg)
-    top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1][0])[:8]
-    # the profiler slows the host's side of a step: against the unprofiled
-    # median step the same device time gives the idle share without it
-    idle_median = 1 - prof["busy_ms"] / med
+    trace = lm_trace(dev, cfg, os.path.join(storage, "trace"), med)
+    top = sorted(trace["kernels"].items(), key=lambda kv: -kv[1][0])[:8]
     log(f"[lm] median step {med:.1f} ms over {LM_STEPS} steps = {LM_LEN / med * 1e3:.0f} "
-        f"tokens/s; a profiled step: {prof['wall_ms']:.1f} ms, device busy "
-        f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.4f}; of the median step "
-        f"{idle_median:.4f}); heaviest kernels "
-        "per step: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c:g}" for k, (t, c) in top))
+        f"tokens/s; device busy {trace['busy_ms_per_step']:.1f} ms a step in (c)'s trace "
+        f"(idle share of the median step {trace['idle_share_of_median_step']:.4f}); heaviest "
+        "kernels per step: " + "; ".join(f"{k[:60]} {t:.2f} ms x{c:g}" for k, (t, c) in top))
     per_launch = {}
     for name, kernel in LM_PROFILED_KERNELS:
-        hits = [(t, c) for k, (t, c) in prof["kernels"].items() if kernel in k]
-        if sum(c for _, c in hits) != cfg.n_layers:
-            raise AssertionError(f"[lm] the step profile holds {hits} of {kernel}")
+        hits = [(t, c) for k, (t, c) in trace["kernels"].items() if kernel in k]
         per_launch[name] = sum(t for t, _ in hits) / cfg.n_layers
-    log("[lm] device ms per launch in the profiled step: "
+    log("[lm] device ms per launch in (c)'s trace: "
         + ", ".join(f"{n} {t:.3f}" for n, t in per_launch.items()))
     return {"launches": launches, "launches_per_step": per_step, "losses": losses,
             "step_ms": step_ms, "step_ms_median": med, "tokens_per_s": LM_LEN / med * 1e3,
-            "profiled_step_ms": prof["wall_ms"], "step_device_busy_ms": prof["busy_ms"],
-            "idle_share": prof["idle_share"], "idle_share_of_median_step": idle_median,
-            "kernel_ms_per_launch": per_launch,
+            "kernel_ms_per_launch": per_launch, "trace": trace,
             "fit_wall_s": wall, "checkpoint_dir": result.checkpoint.path}
 
 
-def lm_step_profile(dev, cfg, steps: int = 2) -> dict:
-    """One train step (the step ``LMTrainer`` runs) under the profiler, on a
-    fresh model; these launches are not counted.  Returns the step's wall
-    time and device busy time over the same window, their idle share, and
-    {kernel name: (device ms, launches)} per step."""
-    from torch.profiler import ProfilerActivity, profile
+# idle gaps on the card's timeline by length in ms: [lo, hi) and a label
+GAP_CLASSES = ((0.0, 0.01, "<10 us"), (0.01, 0.1, "10-100 us"), (0.1, 1.0, "0.1-1 ms"),
+               (1.0, float("inf"), ">=1 ms"))
+# Chrome-trace categories of the card's kernels, of all its work and of the host's
+KERNEL_CAT = "kernel"
+DEVICE_CATS = (KERNEL_CAT, "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+
+
+def merged_intervals(spans):
+    """The union of [start, end) intervals, sorted, as disjoint intervals."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def trace_account(events: list, gaps: int) -> dict:
+    """From a Chrome trace's complete events (``ph == "X"``, microseconds):
+    the window from the first host event (the first device event in a
+    trace without host events) to the last event, the card's busy time
+    (the union of its kernels, copies and memsets), and the ``gaps``
+    longest stretches of the window in which the card ran nothing, each
+    with the host event that overlaps it most (the shortest such event on
+    a tie: the innermost; None without host events)."""
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat", "").lower() in DEVICE_CATS]
+    host = [e for e in events if e.get("cat", "").lower() in HOST_CATS]
+    t0 = min([e["ts"] for e in host] or [a for a, _ in dev])
+    t1 = max([e["ts"] + e["dur"] for e in host] + [b for _, b in dev])
+    busy = merged_intervals(dev)
+    idle, last = [], t0
+    for a, b in busy:
+        if a > last:
+            idle.append((last, a))
+        last = max(last, b)
+    if t1 > last:
+        idle.append((last, t1))
+    sizes = {}
+    for lo, hi, label in GAP_CLASSES:
+        within = [b - a for a, b in idle if lo <= (b - a) / 1e3 < hi]
+        sizes[label] = (len(within), sum(within) / 1e3)
+    out = []
+    for a, b in sorted(idle, key=lambda g: g[0] - g[1])[:gaps]:
+        gap = {"ms": (b - a) / 1e3, "at_ms": (a - t0) / 1e3, "host_op": None,
+               "host_op_ms": None, "overlap_ms": None}
+        if host:
+            best = max(host, key=lambda e: (min(b, e["ts"] + e["dur"]) - max(a, e["ts"]),
+                                            -e["dur"]))
+            gap.update(host_op=best["name"], host_op_ms=best["dur"] / 1e3,
+                       overlap_ms=max(0.0, min(b, best["ts"] + best["dur"]) - max(a, best["ts"]))
+                       / 1e3)
+        out.append(gap)
+    return {"window_ms": (t1 - t0) / 1e3, "busy_ms": sum(b - a for a, b in busy) / 1e3,
+            "idle_ms": sum(b - a for a, b in idle) / 1e3, "gap_sizes": sizes, "gaps": out}
+
+
+def trace_kernels(events: list, steps: int) -> dict:
+    """{name: (device ms, launches) per step} of the card's kernels, copies
+    and memsets among a Chrome trace's complete events over ``steps``
+    steps."""
+    out: dict = {}
+    for e in events:
+        if e.get("cat", "").lower() in DEVICE_CATS:
+            ms, n = out.get(e["name"], (0.0, 0))
+            out[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    return {k: (ms / steps, n / steps) for k, (ms, n) in out.items()}
+
+
+def lm_trace(dev, cfg, trace_root: str, median_step_ms: float) -> dict:
+    """``[lm] (c)``: ``LM_TRACE_STEPS`` more steps of the step ``LMTrainer``
+    runs (``make_sp_train_step``, each ended by reading its loss, the one
+    host sync of a one-step epoch) on a fresh model of the phase's width,
+    under ``profile_trace(device=dev)`` and ``step_timer(span_name=
+    "lm.step")`` with tracing on, inside one ``lm.trace`` span: once with
+    the host's ops recorded (``host_tracer_level`` 1), once with device
+    activity only (0), whose step is close to an unprofiled one.  Each
+    trace file must parse as JSON and name ``n_layers`` forward, dq and
+    dk/dv launches a step, equal to the launch counters around the same
+    steps; ``profiler.xplane_trace`` must carry its directory.  A trace
+    short of a launch is taken again (the profiler can lose kernel
+    records, ``complete_profile``), and after three the phase fails.
+    Prints, for each trace, the step's wall from ``step_timer``, the card's
+    busy time, the idle share, the idle gaps by length and the longest,
+    with the host op over each.  Returns the device-only trace's account
+    and the first trace's table of kernels.  These launches are not
+    counted in the kernels line."""
+    import glob
 
     from tpu_air_torch.models.lm import CausalLM
+    from tpu_air_torch.observability import profile_trace, step_timer, tracing
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
     from tpu_air_torch.parallel.sequence_parallel import make_sp_train_step, shift_targets
     from tpu_air_torch.train.t5_trainer import TrainingArguments, _make_optimizer
 
     model = CausalLM(cfg, device=dev).init_weights(SEED)
     opt = _make_optimizer(TrainingArguments(learning_rate=3e-4), 4, model.parameters())
     step = make_sp_train_step(model, opt)
-    ids = torch.from_numpy(lm_rows(1, LM_LEN, SEED + 21)).to(dev, torch.long)
+    ids = torch.from_numpy(lm_rows(1, LM_LEN, SEED + 22)).to(dev, torch.long)
     tgt = shift_targets(ids, cfg.pad_token_id)
-    step(ids, tgt)                                   # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(ids, tgt)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = device_kernels(prof, steps)
-    busy_ms = sum(t for t, _ in kernels.values())
+    float(step(ids, tgt))                            # warm-up
+    want = cfg.n_layers * LM_TRACE_STEPS
+
+    def take(level: int) -> dict:
+        for attempt in range(3):
+            log_dir = os.path.join(trace_root, f"level{level}_take{attempt}")
+            timer = step_timer(span_name="lm.step")
+            flash_attention.launches = 0
+            flash_attention_backward.dq_launches = 0
+            flash_attention_backward.dkv_launches = 0
+            with tracing.span("lm.trace") as root:
+                with profile_trace(log_dir, host_tracer_level=level, device=dev):
+                    for _ in range(LM_TRACE_STEPS):
+                        with timer.step():
+                            float(step(ids, tgt))
+            counters = {"flash_attention": flash_attention.launches,
+                        "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
+                        "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches}
+            (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+            with open(path) as f:
+                events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+            kernels = [e["name"] for e in events if e.get("cat", "").lower() == KERNEL_CAT]
+            in_trace = {name: sum(k in n for n in kernels) for name, k in LM_PROFILED_KERNELS}
+            if in_trace == counters == dict.fromkeys(counters, want):
+                break
+            log(f"[lm] (c) level {level} take {attempt + 1}: the trace names {in_trace} of the "
+                f"flash kernels, the counters {counters}, {want} each expected")
+        else:
+            raise AssertionError(f"[lm] (c) three level-{level} traces short of the flash "
+                                 f"launches: {in_trace} against counters {counters}")
+        spans = tracing.recorder().for_trace(root.trace_id)
+        xplane = [s.attrs for s in spans if s.name == "profiler.xplane_trace"]
+        n_steps = sum(s.name == "lm.step" for s in spans)
+        if xplane != [{"log_dir": log_dir}] or n_steps != LM_TRACE_STEPS:
+            raise AssertionError(f"[lm] (c) level {level} spans: xplane {xplane}, "
+                                 f"{n_steps} lm.step")
+        summ = timer.summary()
+        acc = trace_account(events, LM_TRACE_GAPS)
+        wall_ms = summ["total_s"] * 1e3 / LM_TRACE_STEPS
+        busy_ms = acc["busy_ms"] / LM_TRACE_STEPS
+        size_mb = os.path.getsize(path) / 1e6
+        tag = f"[lm] (c) host_tracer_level={level}"
+        log(f"{tag}: profile_trace(device={str(dev)!r}) over {LM_TRACE_STEPS} steps, take "
+            f"{attempt + 1}: {os.path.basename(path)} ({size_mb:.1f} MB, {len(events)} events, "
+            f"{len(kernels)} kernels) names {in_trace} of the flash kernels = the counters; "
+            f"span profiler.xplane_trace log_dir={log_dir}")
+        log(f"{tag}: step wall from step_timer mean {summ['mean_s'] * 1e3:.3f} ms, max "
+            f"{summ['max_s'] * 1e3:.3f} ms (the unprofiled [lm] median {median_step_ms:.1f} "
+            f"ms); device busy from the trace {busy_ms:.3f} ms a step, idle share "
+            f"{1 - busy_ms / wall_ms:.4f} of the step_timer wall and "
+            f"{acc['idle_ms'] / acc['window_ms']:.4f} of the traced window "
+            f"({acc['window_ms']:.3f} ms), {1 - busy_ms / median_step_ms:.4f} of the unprofiled "
+            f"median; card: {card_line()}")
+        log(f"{tag}: idle gaps a step by length: " + ", ".join(
+            f"{label} {n / LM_TRACE_STEPS:g} gaps {ms / LM_TRACE_STEPS:.3f} ms"
+            for label, (n, ms) in acc["gap_sizes"].items()))
+        for i, g in enumerate(acc["gaps"]):
+            over = ("no host event recorded" if g["host_op"] is None else
+                    f"under host event {g['host_op']!r} ({g['host_op_ms']:.3f} ms, "
+                    f"{g['overlap_ms']:.3f} ms of the gap)")
+            log(f"{tag}: idle gap {i + 1}: {g['ms']:.3f} ms at +{g['at_ms']:.3f} ms, {over}")
+        return {"level": level, "takes": attempt + 1, "trace_mb": size_mb,
+                "launches_in_trace": in_trace, "counters": counters, "step_timer": summ,
+                "step_wall_ms": wall_ms, "busy_ms_per_step": busy_ms,
+                "idle_share": 1 - busy_ms / wall_ms,
+                "idle_share_of_median_step": 1 - busy_ms / median_step_ms,
+                "window_ms": acc["window_ms"], "window_idle_ms": acc["idle_ms"],
+                "gap_sizes": acc["gap_sizes"], "gaps": acc["gaps"],
+                "kernels": trace_kernels(events, LM_TRACE_STEPS)}
+
+    tracing.enable()
+    try:
+        host_ops = take(1)
+        device_only = take(0)
+    finally:
+        tracing.disable()
     del model, opt, step
     torch.cuda.empty_cache()
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "kernels": kernels}
+    return {**device_only, "steps": LM_TRACE_STEPS, "kernels": host_ops.pop("kernels"),
+            "host_ops": host_ops}
 
 
 class _PlainFlash(torch.autograd.Function):
@@ -3317,11 +3510,12 @@ def window_tokens(model, prompts_: list) -> list:
 
 
 def engine_streams(port: int, route: str, prompts_: list, clients: int,
-                   max_new: int = SERVE_CFG["max_new_tokens"]) -> list:
+                   max_new: int = SERVE_CFG["max_new_tokens"], finals: list = None) -> list:
     """Each prompt as a submit/poll stream over HTTP from ``clients`` client
     threads: each thread submits its share of the prompts, then polls its
     streams in turn every 10 ms until all are done, each poll pinned to the
-    replica that took the submit."""
+    replica that took the submit.  With ``finals``, each stream's last poll
+    appends (host clock, its trace id) to it."""
     from concurrent.futures import ThreadPoolExecutor
 
     def client(share):
@@ -3336,10 +3530,12 @@ def engine_streams(port: int, route: str, prompts_: list, clients: int,
             for i, (rid, pin, toks) in enumerate(streams):
                 if done[i]:
                     continue
-                res, _ = post_json(port, route, {"action": "poll", "request_id": rid,
-                                                 "cursor": len(toks)}, headers=pin)
+                res, got = post_json(port, route, {"action": "poll", "request_id": rid,
+                                                   "cursor": len(toks)}, headers=pin)
                 toks += res["tokens"]
                 done[i] = res["done"]
+                if done[i] and finals is not None:
+                    finals.append((time.perf_counter(), got["x-tpu-air-trace-id"]))
             time.sleep(0.01)
         return [toks for _, _, toks in streams]
 
@@ -4301,6 +4497,310 @@ def lm_live_path(dev, ckpt_dir: str, port: int, work: str, served: dict) -> dict
     return out
 
 
+PROM_SAMPLE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? [-+0-9.eEinfINFaN]+$")
+
+
+def prometheus_families(text: str) -> set:
+    """The metric names of a Prometheus text exposition, checked line by
+    line: a ``#`` comment, or ``name{labels} value`` (an OpenMetrics
+    exemplar after `` # `` allowed); anything else fails."""
+    names = set()
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        sample = line.split(" # ", 1)[0]
+        if not PROM_SAMPLE.match(sample):
+            raise AssertionError(f"[obs serve] /metrics: not Prometheus text: {line!r}")
+        float(sample.rsplit(" ", 1)[1])
+        names.add(re.split(r"[{ ]", sample, maxsplit=1)[0])
+    return names
+
+
+def get_url(url: str):
+    """(status, body bytes) of a GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=120) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def obs_serve_path(dev, ckpt_dir: str, work: str, served: dict) -> dict:
+    """``[obs serve]``: the observability plane over the served paged LM
+    engine, in a runtime of its own (``init(include_dashboard=True,
+    dashboard_port=0)``, ``TPU_AIR_TRACE=1`` and ``TPU_AIR_POSTMORTEM_DIR``
+    set before it starts), on phase 22's checkpoint, engine configuration
+    and prompts in bf16 (``served`` is phase 22's result).  (a) the default
+    SLO monitor over ``dashboard.slo_source`` and airwatch (seed 0, a scrape
+    every ``OBS_WATCH_S``) installed, ``EngineDeployment`` served; (b) the
+    32 prompts as streams, then phase 22 (d)'s ``LM_SERVED`` again as
+    streams, then ``OBS_POST`` of them in one traced blocking POST, at 64
+    new tokens, equal to phase 22's burst; (c) every dashboard route
+    scraped and checked, and the last streams' traces listed whole; (d)
+    the autoscaler's default
+    sources, a same-weights canary promotion, and the same promotion under
+    an SLO every request breaks, which must fail on the burn; (e) the
+    decode step of the ``LM_SERVED`` streams with the plane on against
+    phase 22's over the same streams, the difference reported; then a
+    postmortem: an actor on a leased card exits with status 17, and its
+    dump must load naming the crash, the actor and its card.  The decode
+    launches are counted in the replica."""
+    import tpu_air_torch
+    from tpu_air_torch import get, serve
+    from tpu_air_torch.engine import EngineConfig
+    from tpu_air_torch.observability import dashboard, postmortem, slo, tracing, watch
+    from tpu_air_torch.serve import EngineDeployment, WeightStore, attach_weights
+    from tpu_air_torch.serve.autoscaler import (_installed_monitor_burning,
+                                                _installed_watch_anomalies)
+    from tpu_air_torch.serve.weights import uninstall_controller
+    from tpu_air_torch.train import Checkpoint
+
+    t_phase = time.perf_counter()
+    ckpt = Checkpoint.from_directory(ckpt_dir)
+    pm_dir = os.path.join(work, "postmortem")
+    os.environ["TPU_AIR_TRACE"] = "1"              # the replica inherits it
+    os.environ["TPU_AIR_POSTMORTEM_DIR"] = pm_dir
+    tracing.enable()
+    out = {}
+    try:
+        tpu_air_torch.init(include_dashboard=True, dashboard_port=0)
+        url = dashboard.start_dashboard(port=0)   # the running server's URL
+        mon = slo.ensure_default(dashboard.slo_source)
+        w = watch.install(watch.WatchConfig(seed=0, interval_s=OBS_WATCH_S))
+        port = free_port()
+        t0 = time.perf_counter()
+        h = serve.run(EngineDeployment.options(name="lm-obs", route_prefix="/lmobs",
+                                               num_chips=1)
+                      .bind(ckpt, EngineConfig(**LM_ENGINE), dtype="bfloat16"), port=port)
+        post_json(port, "/lmobs", {"prompts": [[5, 6, 7, 8]], "max_new_tokens": 2})
+        start_s = time.perf_counter() - t0
+        if not (w._scraper is not None and w._scraper.running):
+            raise AssertionError("[obs serve] (a) serve.run did not start the fleet scraper")
+        log(f"[obs serve] (a) init(include_dashboard=True) at {url}; default SLO monitor "
+            f"({', '.join(s.name for s in mon.slos)}); airwatch seed 0 every {OBS_WATCH_S} s; "
+            f"EngineDeployment(EngineConfig({LM_ENGINE}), dtype=\"bfloat16\") on the card, "
+            f"serve.run + load + warm-up {start_s:.3f} s")
+
+        # (b) phase 22's prompts over HTTP
+        ps = lm_serve_prompts(LM_ENGINE_PROMPTS, ckpt.get_model_config().vocab_size, SEED + 42)
+        burst = served["burst_tokens"]
+        # streams keep the replica's actor free between short calls, so the
+        # scraper's stats RPCs land while the engine decodes
+        t0 = time.perf_counter()
+        tokens = engine_streams(port, "/lmobs", ps, SERVE_CLIENTS, LM_ENGINE["max_new_tokens"])
+        traffic_s = time.perf_counter() - t0
+        # phase 22 (d)'s streams again, the same load with the plane on: (e)
+        # reads their decode steps, (c) their last polls' traces
+        finals = []
+        snap_s = get(h.method("stats")())
+        again = engine_streams(port, "/lmobs", ps[:LM_SERVED], SERVE_CLIENTS,
+                               LM_ENGINE["max_new_tokens"], finals)
+        snap_e = get(h.method("stats")())
+        # then one blocking POST, whose trace (a few dozen spans) the
+        # dashboard must list
+        res, headers = post_json(port, "/lmobs", {"prompts": ps[:OBS_POST]})
+        posted = [r["tokens"] for r in res["results"]]
+        trace_id = headers["x-tpu-air-trace-id"]
+        same = (tokens == burst, again == burst[:LM_SERVED], posted == burst[:OBS_POST])
+        n_tok = sum(map(len, tokens))
+        log(f"[obs serve] (b) {len(ps)} prompts as submit/poll streams from {SERVE_CLIENTS} "
+            f"client threads: {traffic_s:.3f} s, {n_tok / traffic_s:.1f} generated tokens/s; "
+            f"then phase 22 (d)'s {LM_SERVED} as streams again, then {OBS_POST} in one "
+            f"blocking POST; tokens equal phase 22's burst: streams {same[0]}, the "
+            f"{LM_SERVED} again {same[1]}, POST {same[2]}")
+        if not all(same):
+            bad = [i for i, (a, b) in enumerate(zip(tokens, burst)) if a != b]
+            raise AssertionError(f"[obs serve] (b) tokens differ from phase 22's: streams at "
+                                 f"{bad}, the {LM_SERVED} again equal {same[1]}, POST equal "
+                                 f"{same[2]}")
+
+        # (c) every route, once the scraper has seen the end of the traffic
+        seen = w.scrapes
+        deadline = time.time() + 30
+        while w.scrapes < seen + 2:
+            if time.time() > deadline:
+                raise AssertionError(f"[obs serve] (c) the scraper stopped at {w.scrapes}")
+            time.sleep(0.05)
+        stats = get(h.method("stats")())
+        bodies = {}
+        for route in ("/", "/api/cluster", "/api/objects", "/api/engines", "/api/serve",
+                      "/api/traces", "/api/traces/export", "/api/slo", "/api/tenants",
+                      "/api/watch", "/api/batch", "/api/version", "/metrics"):
+            status, body = get_url(url + route)
+            if status != 200:
+                raise AssertionError(f"[obs serve] (c) {route}: {status} {body[:300]!r}")
+            bodies[route] = body
+        data = {r: json.loads(b) for r, b in bodies.items() if r.startswith("/api/")}
+        # the replica's engines; /api/engines also lists this process's own
+        # (the earlier phases' in-process engines stay registered)
+        engines = {k: v for k, v in data["/api/engines"].items() if k.startswith("lm-obs/")}
+        totals = {k: sum(v[k] for v in engines.values())
+                  for k in ("requests_completed", "tokens_emitted")}
+        want = {k: stats[k] for k in totals}
+        fams = prometheus_families(bodies["/metrics"].decode())
+        _, body = get_url(f"{url}/api/traces?limit={1 << 20}")   # the polls' traces too
+        listing = json.loads(body)
+        listed = {t["trace_id"] for t in listing["traces"]}
+
+        def spans_and_events(tid):
+            _, one = get_url(f"{url}/api/traces?trace_id={tid}")
+            _, exp = get_url(f"{url}/api/traces/export?trace_id={tid}")
+            return (len(json.loads(one)["spans"]),
+                    sum(e["ph"] == "X" for e in json.loads(exp)["traceEvents"]))
+
+        n_spans, n_events = spans_and_events(trace_id)
+        # the ring keeps the newest spans: the last streams' polls are in it
+        last = {tid: spans_and_events(tid) for _, tid in sorted(finals)[-OBS_LAST_STREAMS:]}
+        slos = {s["name"]: s for s in data["/api/slo"]["slos"]}
+        headline = data["/api/tenants"]["headline"]
+        log(f"[obs serve] (c) /api/engines {sorted(data['/api/engines'])}: the replica's "
+            f"{sorted(engines)} totals {totals}, its stats() {want}; /metrics {len(fams)} families "
+            f"({sum(f.startswith('tpu_air_engine_') for f in fams)} tpu_air_engine_*, "
+            f"{sum(f.startswith('tpu_air_slo_') for f in fams)} tpu_air_slo_*); /api/traces "
+            f"recorder {listing['recorder']}, {len(listed)} traces listed; the POST's trace "
+            f"listed {trace_id in listed}, its {n_spans} spans and {n_events} exported events; "
+            f"the last {OBS_LAST_STREAMS} streams' final polls listed "
+            f"{[tid in listed for tid in last]}, (spans, exported events) "
+            f"{list(last.values())}; /api/slo "
+            + ", ".join(f"{n} total {s['total']:g} burn {[round(x['burn_rate'], 3) for x in s['windows']]}"
+                        for n, s in slos.items())
+            + f"; /api/watch scrapes {data['/api/watch']['scrapes']}, anomalies "
+            f"{data['/api/watch']['anomalies']}; /api/tenants chip-seconds per 1k tokens "
+            f"{headline['chip_seconds_per_1k_tokens']:.6f} over {headline['tokens_total']:g} "
+            f"tokens; /api/cluster gcs {data['/api/cluster']['gcs']}, /api/batch "
+            f"{data['/api/batch']}")
+        checks = {
+            "engines": totals == want and len(engines) == 1,
+            "metrics": any(f.startswith("tpu_air_engine_") for f in fams)
+            and any(f.startswith("tpu_air_slo_") for f in fams),
+            "traces": trace_id in listed and n_spans > 0 and n_spans == n_events,
+            "stream traces": len(last) == OBS_LAST_STREAMS
+            and all(tid in listed and 0 < n == m for tid, (n, m) in last.items()),
+            "slo": sorted(slos) == sorted(s.name for s in slo.default_slos())
+            and all(len(s["windows"]) == 2 for s in slos.values())
+            and slos["ttft"]["total"] > 0,
+            "watch": data["/api/watch"]["scrapes"] > 0,
+            "tenants": headline["chip_seconds_per_1k_tokens"] > 0,
+            "cluster": data["/api/cluster"]["initialized"]
+            and data["/api/cluster"]["gcs"] == {"address": None, "nodes": []},
+            "batch": data["/api/batch"] == {"jobs": {}},
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"[obs serve] (c) failed checks: "
+                                 f"{[k for k, ok in checks.items() if not ok]}")
+
+        # (d) the controls read the plane
+        burning, anomalies = _installed_monitor_burning(), _installed_watch_anomalies()
+        if burning != tuple(mon.burning()) or anomalies != tuple(w.anomalous()):
+            raise AssertionError(f"[obs serve] (d) autoscaler sources {burning}, {anomalies}")
+        store = WeightStore(os.path.join(work, "obs_weights"))
+        v1 = store.publish(ckpt.get_params(), metadata={"iteration": 1})
+        ctl = attach_weights("/lmobs", store.root, soak_s=1.0)
+        try:
+            r1 = ctl.promote(v1)
+            slo.install(slo.SLOMonitor(
+                [slo.SLO(name="obs-every-request", metric="ttft_s", threshold_s=1e-6,
+                         windows=((600.0, 1.0),))], source=dashboard.slo_source))
+            slo.monitor().observe()
+            post_json(port, "/lmobs", {"prompts": ps[:4], "max_new_tokens": 4})
+            time.sleep(2 * OBS_WATCH_S)
+            slo.monitor().observe()
+            burn = slo.monitor().burning()
+            r2 = ctl.promote(v1)
+        finally:
+            uninstall_controller("/lmobs")
+            slo.install(mon)
+        log(f"[obs serve] (d) autoscaler default sources: burning {burning}, anomalies "
+            f"{anomalies} (= the monitor's and the detector's); same-weights promote with a "
+            f"{ctl.soak_s} s soak: {r1}; under an SLO every request breaks (burning {burn}): "
+            f"{r2}")
+        if not r1["promoted"] or r2["promoted"] or "SLO burning" not in r2["reason"] \
+                or "obs-every-request" not in r2["reason"]:
+            raise AssertionError(f"[obs serve] (d) promotions {r1}, {r2}")
+
+        # (e) the decode step of phase 22 (d)'s streams, plane on against off
+        step = gained(snap_s["step_latency_s"], snap_e["step_latency_s"])
+        base = served["served"]["stream_step_s"]
+        cost = {q: (step[q] - base[q]) * 1e3 for q in ("p50", "p95")}
+        rl = stats["kernel_launches"]
+        log(f"[obs serve] (e) phase 22 (d)'s {LM_SERVED} streams with the plane on: decode "
+            f"step p50 {step['p50'] * 1e3:.3f} ms, p95 {step['p95'] * 1e3:.3f} ms over "
+            f"{step['count']} steps; in phase 22 (plane off): p50 {base['p50'] * 1e3:.3f} ms, "
+            f"p95 {base['p95'] * 1e3:.3f} ms over {base['count']} steps; on - off: p50 "
+            f"{cost['p50']:+.3f} ms, p95 {cost['p95']:+.3f} ms (reported, not asserted); "
+            f"replica device {stats['device']}, launches {rl}; card: {card_line()}")
+        if stats["device"] != str(dev) or rl["decode_attention"] <= 0 or rl["flash_attention"]:
+            raise AssertionError(f"[obs serve] replica device {stats['device']}, launches {rl}")
+        serve.shutdown()
+        if w._scraper is not None:
+            raise AssertionError("[obs serve] serve.shutdown left the fleet scraper running")
+        out.update({"serve_start_s": start_s, "traffic_s": traffic_s, "tokens": n_tok,
+                    "totals": totals, "metric_families": len(fams), "trace_spans": n_spans,
+                    "tenants_headline": headline, "scrapes": w.scrapes, "promote_same": r1,
+                    "promote_burning": r2, "decode_step_s": step, "phase22_step_s": base,
+                    "plane_cost_ms": cost, "last_stream_traces": last,
+                    "recorder": listing["recorder"],
+                    "launches": rl})
+
+        # postmortem: an actor on a leased card dies
+        @tpu_air_torch.remote(num_chips=1)
+        class Doomed:
+            def where(self):
+                from tpu_air_torch.device import resolve_device
+
+                return (str(torch.ones(1, device=resolve_device()).device),
+                        os.environ.get("TPU_AIR_CHIP_IDS"))
+
+            def die(self):
+                os._exit(17)
+
+        actor = Doomed.remote()
+        where = get(actor.where.remote(), timeout=300)
+        try:
+            get(actor.die.remote(), timeout=300)
+            raise AssertionError("[obs serve] the actor's exit raised nothing")
+        except tpu_air_torch.RemoteError as e:
+            crash = str(e)
+        # every worker death dumps (the replica that serve.shutdown killed
+        # too): the actor's dump is the one that names it
+        deadline = time.time() + 60
+        while True:
+            dumps = {f: postmortem.load(os.path.join(pm_dir, f))
+                     for f in sorted(os.listdir(pm_dir)) if f.endswith(".json")}
+            mine = [f for f, d in dumps.items() if d["context"]["actor_id"] == actor._actor_id]
+            if mine:
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"[obs serve] no postmortem of {actor._actor_id} in "
+                                     f"{pm_dir} after {crash!r}: {sorted(dumps)}")
+            time.sleep(0.1)
+        name = mine[0]
+        dump = dumps[name]
+        ctx = dump["context"]
+        log(f"[obs serve] postmortem: the actor on {where[0]} (lease {where[1]}) exited with "
+            f"17; {crash.splitlines()[0][:120]}; dump {name} (of {len(dumps)} in the directory: "
+            f"every worker death writes one): reason {dump['reason']}, actor {ctx['actor_id']}, card ids "
+            f"{ctx['chip_ids']}, sections {sorted(dump)}")
+        if (not dump["reason"].startswith("WorkerCrashed(") or ctx["actor_id"] != actor._actor_id
+                or ctx["chip_ids"] != [dev.index or 0] or where[0] != str(dev)):
+            raise AssertionError(f"[obs serve] postmortem {dump['reason']}, {ctx}, {where}")
+        out["postmortem"] = {"reason": dump["reason"], "context": ctx, "sections": sorted(dump)}
+    finally:
+        serve.shutdown()
+        watch.clear()
+        slo.install(None)
+        tpu_air_torch.shutdown()
+        tracing.disable()
+        os.environ.pop("TPU_AIR_TRACE", None)
+        os.environ.pop("TPU_AIR_POSTMORTEM_DIR", None)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[obs serve] phase {out['phase_s']:.1f} s (runtime start and stop included)")
+    return out
+
+
 def lm_live_parity(dev) -> dict:
     """Phase 23 (e): f32, full width, depth cut to 2, weights from numpy
     seed 0, TF32 off, through the decode kernel and through
@@ -4466,12 +4966,15 @@ def run_phases(dev, work: str, t_start: float) -> int:
         tpu_air_torch.shutdown()
     log(f"[serve] phases 20-23 (runtime start and stop included) "
         f"{time.perf_counter() - t_serve:.1f} s")
+    obs_stats = obs_serve_path(dev, lm_stats["checkpoint_dir"], work, lm_serve_stats)
     del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     row = next(r for r in kernels if r["name"] == "decode_attention")
     for where, n in lm_live_stats["launches"].items():   # phase 23's, in process and replica
         row["launches_by_path"][where] = n
         row["launches"] += n
+    row["launches_by_path"]["obs_serve_replica"] = obs_stats["launches"]["decode_attention"]
+    row["launches"] += obs_stats["launches"]["decode_attention"]
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)
@@ -4484,7 +4987,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     print(json.dumps({"kernels": kernels, "main": main_stats, "lm": lm_stats, "w1": w1_stats,
                       "batch": batch_stats, "w2": w2_stats, "w7": w7_stats, "w6": w6_stats,
                       "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats,
-                      "lm_live": lm_live_stats}),
+                      "lm_live": lm_live_stats, "obs_serve": obs_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

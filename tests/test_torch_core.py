@@ -217,7 +217,6 @@ def test_start_method_never_forks_after_cuda(monkeypatch):
 @pytest.mark.parametrize("env,match", [
     ({"TPU_AIR_GCS": "127.0.0.1:1"}, "GCS"),
     ({"TPU_AIR_COORDINATOR": "127.0.0.1:1"}, "rendezvous"),
-    ({"TPU_AIR_POSTMORTEM_DIR": "/nonexistent"}, "postmortem"),
     ({"TPU_AIR_ARENA_BYTES": "1024"}, "arena"),
 ])
 def test_unported_branches_refuse(env, match, monkeypatch):
@@ -231,12 +230,44 @@ def test_unported_branches_refuse(env, match, monkeypatch):
 
 
 @pytest.mark.parametrize("how", ["argument", "env"])
-def test_dashboard_refuses(how, monkeypatch):
+def test_dashboard_starts(how, monkeypatch, capsys):
+    """``init(include_dashboard=True)`` or ``TPU_AIR_DASHBOARD=1`` starts
+    the dashboard and prints its URL; ``/api/cluster`` answers with the new
+    runtime's state and no GCS.  The test's runtime is its own: the module's
+    stays in place for the tests after it."""
+    import json
+    import re
+    import urllib.request
+
+    monkeypatch.setattr(rt, "_runtime", None)
     kwargs = {"include_dashboard": True} if how == "argument" else {}
     if how == "env":
         monkeypatch.setenv("TPU_AIR_DASHBOARD", "1")
-    with pytest.raises(NotImplementedError, match="dashboard"):
-        tpu_air_torch.init(num_cpus=1, num_chips=0, **kwargs)
+    runtime = tpu_air_torch.init(num_cpus=1, num_chips=0, dashboard_port=0, **kwargs)
+    try:
+        url = re.search(r"dashboard: (http://\S+)", capsys.readouterr().out).group(1)
+        with urllib.request.urlopen(f"{url}/api/cluster", timeout=30) as resp:
+            cluster = json.loads(resp.read())
+    finally:
+        tpu_air_torch.shutdown()
+    assert cluster["initialized"] and cluster["session_id"] == runtime.session_id
+    assert cluster["resources"]["cpu"] == 1 and cluster["resources"]["chip"] == 0
+    assert cluster["gcs"] == {"address": None, "nodes": []}
+    from tpu_air_torch.observability import dashboard
+
+    assert dashboard._server is None           # shutdown stopped it
+
+
+def test_runtime_accepts_postmortem_dir(monkeypatch, tmp_path):
+    """``TPU_AIR_POSTMORTEM_DIR`` arms the flight recorder instead of being
+    refused; the runtime reports no GCS, as the JAX package does without
+    one."""
+    monkeypatch.setenv("TPU_AIR_POSTMORTEM_DIR", str(tmp_path))
+    runtime = rt.Runtime(num_cpus=1, num_chips=0)
+    try:
+        assert runtime.nodes() == [] and runtime.gcs_address is None
+    finally:
+        runtime.shutdown()
 
 
 def test_chip_count_comes_from_cuda(monkeypatch):

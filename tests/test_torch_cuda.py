@@ -983,3 +983,39 @@ def test_swap_then_one_step_equals_a_fresh_models_step(dev):
         engine.swap_params(new)
         got = engine.generate(prompts)
         assert got == InferenceEngine(fresh, cfg, auto_start=False).generate(prompts)
+
+
+@pytest.mark.parametrize("dtype", HALF)
+def test_profile_trace_records_the_flash_kernels_by_name(dev, dtype, tmp_path):
+    """``profile_trace(device="cuda:0")`` around one flash forward and its
+    backward writes a Chrome trace that names the forward, dq and dk/dv
+    kernels, one launch each, and the launch counters agree."""
+    import glob
+    import json
+
+    from tpu_air_torch.observability import profile_trace
+    from tpu_air_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_with_lse)
+
+    rng = np.random.default_rng(7)
+    b, h, L, d = 2, 4, 512, 128
+    q, k, v, do = (_t(rng.standard_normal((b, h, L, d)), dev, dtype) for _ in range(4))
+    glse = torch.zeros(b, h, L, device=dev)
+    out, lse = flash_attention_with_lse(q, k, v, causal=True)     # build and warm up
+    flash_attention_backward(q, k, v, None, out, lse, do, glse, d ** -0.5, True)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    flash_attention_backward.dq_launches = flash_attention_backward.dkv_launches = 0
+    with profile_trace(str(tmp_path), device="cuda:0"):
+        out, lse = flash_attention_with_lse(q, k, v, causal=True)
+        flash_attention_backward(q, k, v, None, out, lse, do, glse, d ** -0.5, True)
+        torch.cuda.synchronize()
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    counts = {kern: sum(kern in n for n in names)
+              for kern in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                           "flash_bwd_dkv_wgmma_kernel")}
+    assert counts == dict.fromkeys(counts, 1), names
+    assert (flash_attention.launches, flash_attention_backward.dq_launches,
+            flash_attention_backward.dkv_launches) == (1, 1, 1)

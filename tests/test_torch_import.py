@@ -59,7 +59,12 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
                 "tpu_air_torch.serve.autoscaler", "tpu_air_torch.serve.supervisor",
                 "tpu_air_torch.serve.predictor_deployment",
                 "tpu_air_torch.serve.http_adapters", "tpu_air_torch.faults.retry",
-                "tpu_air_torch.utils.metrics", "tpu_air_torch.observability.perf"):
+                "tpu_air_torch.utils.metrics", "tpu_air_torch.observability.perf",
+                "tpu_air_torch.observability.profiler", "tpu_air_torch.observability.slo",
+                "tpu_air_torch.observability.timeseries", "tpu_air_torch.observability.watch",
+                "tpu_air_torch.observability.dashboard",
+                "tpu_air_torch.observability.trace_export",
+                "tpu_air_torch.observability.postmortem"):
         assert new in mods, new
     code = (
         "import importlib, sys\n"

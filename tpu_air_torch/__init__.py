@@ -31,6 +31,7 @@ from tpu_air_torch.core import (
     init,
     is_initialized,
     kill,
+    nodes,
     put,
     remote,
     shutdown,
@@ -64,6 +65,7 @@ __all__ = [
     "init",
     "is_initialized",
     "kill",
+    "nodes",
     "put",
     "remote",
     "shutdown",

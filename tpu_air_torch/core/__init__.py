@@ -2,7 +2,7 @@
 ``tpu_air/core``."""
 
 from .actor_pool import ActorPool
-from .api import get, put, wait
+from .api import get, nodes, put, wait
 from .object_store import ObjectRef
 from .remote import ActorClass, ActorHandle, ActorMethod, RemoteFunction, kill, remote
 from .runtime import (
@@ -32,6 +32,7 @@ __all__ = [
     "init",
     "is_initialized",
     "kill",
+    "nodes",
     "put",
     "remote",
     "shutdown",

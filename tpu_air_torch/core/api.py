@@ -34,6 +34,13 @@ def get(ref, timeout: Optional[float] = None):
     return rt.get_runtime().get(ref, timeout=timeout)
 
 
+def nodes() -> List[dict]:
+    """Cluster membership (``ray.nodes()`` analog): ``[]``, since the port
+    has no GCS control-plane daemon (ROADMAP Queue 1 item 11); the JAX
+    package returns the same without one."""
+    return rt.get_runtime().nodes()
+
+
 def wait(refs: List[ObjectRef], num_returns: int = 1, timeout: Optional[float] = None):
     ctx = rt.current_worker()
     if ctx is None:

@@ -24,11 +24,15 @@ initializes CUDA.  The runtime never forks the driver once
 ``torch.cuda.is_initialized()`` is true: a forked child inherits a CUDA
 context it cannot use.  ``start_method="fork"`` is honoured only until then.
 
-Not ported, and refused when asked for (``NotImplementedError`` naming the
-ROADMAP item): the GCS control-plane daemon (``TPU_AIR_GCS``), multi-host
-rendezvous (``TPU_AIR_COORDINATOR``), the postmortem flight recorder
-(``TPU_AIR_POSTMORTEM_DIR``), the dashboard (``include_dashboard=True`` or
-``TPU_AIR_DASHBOARD=1``) and the C++ object arena (object_store.py).
+``init(include_dashboard=True)`` (or ``TPU_AIR_DASHBOARD=1``) starts the
+dashboard (observability/dashboard.py), and with ``TPU_AIR_POSTMORTEM_DIR``
+set every worker death dumps a flight record (observability/postmortem.py),
+as in the JAX package.  Not ported, and refused when asked for
+(``NotImplementedError`` naming the ROADMAP item): the GCS control-plane
+daemon (``TPU_AIR_GCS``) and multi-host rendezvous
+(``TPU_AIR_COORDINATOR``); without them :meth:`Runtime.nodes` is ``[]``
+and ``gcs_address`` is ``None``, which is what the JAX package reports
+without a GCS.  The C++ object arena is refused by object_store.py.
 """
 
 from __future__ import annotations
@@ -406,8 +410,7 @@ class Runtime:
     ):
         for var, what, item in (
                 ("TPU_AIR_GCS", "the GCS control-plane daemon", "the GCS daemon"),
-                ("TPU_AIR_COORDINATOR", "multi-host rendezvous", "multi-host rendezvous"),
-                ("TPU_AIR_POSTMORTEM_DIR", "the postmortem flight recorder", "postmortem")):
+                ("TPU_AIR_COORDINATOR", "multi-host rendezvous", "multi-host rendezvous")):
             if os.environ.get(var):
                 _refuse(f"{what} ({var} is set)", item)
         if num_chips is None:
@@ -428,6 +431,7 @@ class Runtime:
         self.num_chips = num_chips
         self.free_chips: List[int] = list(range(self.num_chips))
         self.avail = {"cpu": float(self.num_cpus), "chip": float(self.num_chips)}
+        self.gcs_address: Optional[str] = None  # no GCS daemon in the port
         method = start_method or os.environ.get("TPU_AIR_START_METHOD", "forkserver")
         self.mp_ctx = mp.get_context(method)
         if method == "forkserver":
@@ -594,7 +598,15 @@ class Runtime:
         elif kind == "kill_actor":
             self.kill_actor(msg[1], no_restart=True)
 
+    def nodes(self) -> List[Dict]:
+        """Cluster membership (``ray.nodes()`` analog): ``[]``, as the JAX
+        package reports when its GCS is unavailable; the port has no GCS
+        daemon (ROADMAP Queue 1 item 11)."""
+        return []
+
     def _on_worker_death(self, worker: _WorkerState):
+        crashed_traces = []
+        chip_ids: List[int] = []
         with self.lock:
             worker.alive = False
             outstanding = [
@@ -607,6 +619,8 @@ class Runtime:
                     self._release(res)
                 if not self.store.contains(task_id):
                     trace_id = self.task_trace.pop(task_id, None)
+                    if trace_id:
+                        crashed_traces.append(trace_id)
                     self.store.put(  # airlint: disable=CC003 — chaos-only: the fault-plan delay inside put models the slow-disk stall this bounded error-sentinel write already risks under the lock; zero cost with no plan installed
                         _ErrorSentinel(
                             f"WorkerCrashed(worker={worker.worker_id})",
@@ -629,9 +643,30 @@ class Runtime:
                     # the physical ids via free_chips
                     self._release(st.resources)
                     st.resources = {}
+                    chip_ids = list(st.chip_ids)
                     self.free_chips.extend(st.chip_ids)
                     st.chip_ids = []
             self.workers.pop(worker.worker_id, None)
+        # flight recorder (outside the lock: dump() scrapes snapshot()/
+        # engine_stats(), which re-take it); no-op unless
+        # TPU_AIR_POSTMORTEM_DIR is set, and dump() never raises.  The
+        # context adds the dead actor's leased card ids to the JAX
+        # package's keys: the cluster snapshot is taken after their release
+        from tpu_air_torch.observability import postmortem as _postmortem
+
+        if _postmortem.enabled():
+            _postmortem.dump(
+                f"WorkerCrashed(worker={worker.worker_id})",
+                {
+                    "worker_id": worker.worker_id,
+                    "pid": worker.proc.pid,
+                    "actor_id": worker.actor_id,
+                    "busy_task": worker.busy_task,
+                    "outstanding_tasks": outstanding,
+                    "trace_ids": crashed_traces,
+                    "chip_ids": chip_ids,
+                },
+            )
         self._notify_objects()
         self._schedule()
 
@@ -1185,23 +1220,41 @@ def init(
     num_chips: Optional[int] = None,
     ignore_reinit_error: bool = True,
     include_dashboard: Optional[bool] = None,
+    dashboard_port: int = 8265,
     **kwargs,
 ) -> Runtime:
     """Start the port's runtime (the ``ray.init()`` analog).  Idempotent by
     default.  ``num_chips`` defaults to the CUDA device count and must be
-    given where there is none.  The dashboard is not ported:
-    ``include_dashboard=True`` (or ``TPU_AIR_DASHBOARD=1``) raises."""
+    given where there is none.
+
+    ``include_dashboard=True`` starts the status service at
+    127.0.0.1:<dashboard_port> (0 picks a free port) and prints the URL.
+    Default off (None) to keep tests quiet; set env TPU_AIR_DASHBOARD=1 to
+    default on.
+    """
     global _runtime
-    if include_dashboard is None:
-        include_dashboard = os.environ.get("TPU_AIR_DASHBOARD", "0") == "1"
-    if include_dashboard:
-        _refuse("the dashboard", "the dashboard")
     if _runtime is not None:
         if not ignore_reinit_error:
             raise TpuAirError("tpu_air_torch.init() called twice")
+        if include_dashboard:  # honor an explicit request on reinit too
+            _start_dashboard(dashboard_port)
         return _runtime
     _runtime = Runtime(num_cpus=num_cpus, num_chips=num_chips, **kwargs)
+    if include_dashboard is None:
+        include_dashboard = os.environ.get("TPU_AIR_DASHBOARD", "0") == "1"
+    if include_dashboard:
+        _start_dashboard(dashboard_port)
     return _runtime
+
+
+def _start_dashboard(port: int) -> None:
+    try:
+        from tpu_air_torch.observability import start_dashboard
+
+        url = start_dashboard(port=port)
+        print(f"tpu_air_torch dashboard: {url}")
+    except OSError as e:
+        print(f"tpu_air_torch dashboard failed to start: {e}")
 
 
 def is_initialized() -> bool:
@@ -1211,6 +1264,9 @@ def is_initialized() -> bool:
 def shutdown():
     global _runtime
     if _runtime is not None:
+        from tpu_air_torch.observability import stop_dashboard
+
+        stop_dashboard()
         _runtime.shutdown()
         _runtime = None
 

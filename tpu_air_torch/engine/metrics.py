@@ -3,11 +3,12 @@ latency — copied from ``tpu_air/engine/metrics.py`` (metric names and the
 exposition text are the JAX package's).
 
 Process-local registry: ``EngineMetrics`` instances self-register by engine
-name at construction; :func:`snapshot_all` and :func:`prometheus_lines`
-read it (the JAX package's dashboard folds them into ``/metrics``; the
-port has no dashboard, ROADMAP Queue 1 item 11).  Engines inside serve
-replica workers expose the same snapshot over the deployment's ``stats``
-method (serve/engine_deployment.py).
+name at construction; ``observability/dashboard.py`` folds
+:func:`snapshot_all` into ``/metrics`` (prometheus text) and serves it as
+``/api/engines``.  The dashboard runs in the driver process, so it sees the
+engines of THAT process — a driver-embedded engine, or the test harness.
+Engines inside serve replica workers expose the same snapshot over the
+deployment's ``stats`` method instead (serve/engine_deployment.py).
 
 Latency distributions are airscope :class:`~tpu_air_torch.observability.perf.
 Histogram` instances (log-bucketed, unwindowed, mergeable): the seed's

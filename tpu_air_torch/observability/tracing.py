@@ -9,14 +9,17 @@ actor-method payload, ``core/runtime.py`` opens a worker-side span around
 the call and ships the finished spans back to the driver's recorder on the
 ``done`` control message; the serve proxy opens a root span per HTTP request
 (honoring an inbound W3C ``traceparent`` header) and returns the trace id
-in a response header.
+in a response header; the train session records one ``train.iteration``
+span per report, and ``profiler.profile_trace`` one span carrying its trace
+directory, so ``step_timer`` numbers and the device trace share a timeline.
 
 Zero cost when off (the default): :func:`span` returns the singleton
 :data:`_NOOP` without allocating.  Enable with ``TPU_AIR_TRACE=1`` in the
 environment (workers inherit it) or :func:`enable`.  The LM engine records
 each request's span tree at retirement through :func:`record_span`, from
-stamps it took along the way; the dashboard's trace listing of the JAX
-package is not copied (ROADMAP Queue 1 item 11).
+stamps it took along the way.  :mod:`.trace_export` renders the recorder as
+Chrome-trace JSON (the dashboard's ``/api/traces/export``), and
+:func:`trace_summaries` is its ``/api/traces`` listing.
 """
 
 from __future__ import annotations
@@ -209,6 +212,20 @@ class Span:
     def set_status(self, status: str) -> None:
         self.status = status
 
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "start_ns": self.start_ns,
+            "end_ns": self.end_ns,
+            "pid": self.pid,
+            "tid": self.tid,
+            "status": self.status,
+            "attrs": dict(self.attrs),
+        }
+
     # -- context-manager protocol -------------------------------------------
     def __enter__(self) -> "Span":
         self._token = _current.set(self.context)
@@ -334,23 +351,32 @@ def record_span(
 class SpanRecorder:
     """Process-local lock-protected ring buffer of finished spans.
 
-    Worker recorders are drained into the ``done`` control message and
-    folded into the driver's (core/runtime.py), so the driver's
-    :meth:`recent` and :meth:`for_trace` read one merged timeline.
+    The driver's recorder is what ``/api/traces`` serves; worker recorders
+    are drained into the ``done`` control message and folded into the
+    driver's (core/runtime.py), so the dashboard sees one merged timeline.
     """
 
     def __init__(self, capacity: int = 8192):
         self.capacity = capacity
         self._buf: Deque[Span] = deque(maxlen=capacity)
         self._lock = threading.Lock()
+        self._dropped = 0
+        self._total = 0
 
     def record(self, span_: Span) -> None:
         with self._lock:
+            if len(self._buf) == self.capacity:
+                self._dropped += 1
             self._buf.append(span_)
+            self._total += 1
 
     def record_many(self, spans: List[Span]) -> None:
         with self._lock:
-            self._buf.extend(spans)
+            for sp in spans:
+                if len(self._buf) == self.capacity:
+                    self._dropped += 1
+                self._buf.append(sp)
+                self._total += 1
 
     def drain(self) -> List[Span]:
         """Remove and return everything buffered (worker → driver ship)."""
@@ -376,10 +402,21 @@ class SpanRecorder:
     def clear(self) -> None:
         with self._lock:
             self._buf.clear()
+            self._dropped = 0
+            self._total = 0
 
     def __len__(self) -> int:
         with self._lock:
             return len(self._buf)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {
+                "buffered": len(self._buf),
+                "capacity": self.capacity,
+                "recorded_total": self._total,
+                "dropped": self._dropped,
+            }
 
 
 _recorder = SpanRecorder()
@@ -396,3 +433,27 @@ def drain_if_any() -> Optional[List[Span]]:
     if not _recorder._buf:
         return None
     return _recorder.drain() or None
+
+
+def trace_summaries(limit: int = 64) -> List[Dict[str, Any]]:
+    """Recent traces grouped from the buffer, newest first: id, root name,
+    span count, wall span.  The ``/api/traces`` listing payload."""
+    by_trace: Dict[str, List[Span]] = {}
+    for sp in _recorder.recent(0):
+        by_trace.setdefault(sp.trace_id, []).append(sp)
+    out = []
+    for trace_id, spans in by_trace.items():
+        roots = [s for s in spans if s.parent_id is None]
+        start = min(s.start_ns for s in spans)
+        end = max(s.end_ns for s in spans)
+        name = roots[0].name if roots else spans[0].name
+        out.append({
+            "trace_id": trace_id,
+            "root": name,
+            "spans": len(spans),
+            "start_ns": start,
+            "duration_ms": (end - start) / 1e6,
+            "errors": sum(1 for s in spans if s.status != "ok"),
+        })
+    out.sort(key=lambda t: -t["start_ns"])
+    return out[:limit]

@@ -1,6 +1,5 @@
 """Gauge-driven replica autoscaling for a serve deployment, copied from
-``tpu_air/serve/autoscaler.py``; only the default ``slo_source`` and
-``anomaly_source`` differ (see :func:`_nothing_installed`).
+``tpu_air/serve/autoscaler.py`` (the port imports nothing of ``tpu_air``).
 
 The :class:`Autoscaler` is a DRIVER-SIDE control loop (a daemon thread in
 the proxy's process, NOT an actor — nothing here blocks a worker message
@@ -19,15 +18,15 @@ loop) that scales one deployment between ``min_replicas`` and
   the burn-rate signal fires on *error-budget spend velocity*, which
   catches a slow degradation a raw p99 threshold misses and stays quiet
   through brief spikes a p99 threshold would overreact to.
-  ``slo_source`` is injectable like ``gauge_source``; by default
-  nothing is burning (the port has no SLO monitor yet).
+  ``slo_source`` is injectable like ``gauge_source``; by default the
+  process-wide installed monitor (``observability.slo.install``) is
+  consulted, so wiring a monitor up is enough.
 * **anomaly detection** — when airwatch (observability/watch.py) is
   installed, a recent ``watch.anomaly`` on any fleet metric is a third
   scale-up signal of equal rank: the detector catches step changes
   (a replica death's throughput cliff, a queue-depth spike) one scrape
   after they happen, before a burn-rate window can confirm them.
-  ``anomaly_source`` is injectable the same way; by default nothing is
-  flagged (the port has no airwatch detector yet).
+  ``anomaly_source`` is injectable the same way; off ⇒ one global read.
 
 Scale-DOWN is deliberately timid: only after ``scale_down_idle_ticks``
 CONSECUTIVE ticks with empty queues and zero slot occupancy, and never
@@ -50,13 +49,27 @@ from time import monotonic
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 
-def _nothing_installed() -> Tuple[str, ...]:
-    """Default ``slo_source`` and ``anomaly_source``: the port has no SLO
-    monitor and no airwatch detector yet (ROADMAP Queue 1 item 10:
-    ``observability/slo.py``, ``watch.py``, ``timeseries.py``), so the
-    default is the JAX package's "nothing installed" case — no objective
-    burning, no metric flagged."""
-    return ()
+def _installed_monitor_burning() -> Tuple[str, ...]:
+    """Default ``slo_source``: sample + evaluate the process-wide airscope
+    SLO monitor, empty when none is installed."""
+    from tpu_air_torch.observability import slo as _slo
+
+    mon = _slo.monitor()
+    if mon is None:
+        return ()
+    mon.observe()
+    return tuple(mon.burning())
+
+
+def _installed_watch_anomalies() -> Tuple[str, ...]:
+    """Default ``anomaly_source``: metrics the installed airwatch detector
+    flagged inside its hold window; empty when airwatch is off (the
+    zero-cost-off path is one module-global read)."""
+    from tpu_air_torch.observability import watch as _watch
+
+    if not _watch.enabled():
+        return ()
+    return tuple(_watch.anomalous())
 
 
 @dataclass(frozen=True)
@@ -98,12 +111,13 @@ class Autoscaler:
         if self.config.max_replicas < self.config.min_replicas:
             raise ValueError("max_replicas must be >= min_replicas")
         self._gauge_source = gauge_source or handle.engine_stats
-        # returns the names of SLOs currently burning (scale-up signal)
-        self._slo_source = slo_source or _nothing_installed
+        # returns the names of SLOs currently burning (scale-up signal);
+        # default reads whatever monitor the app installed process-wide
+        self._slo_source = slo_source or _installed_monitor_burning
         # third scale signal: metrics the airwatch anomaly detector
         # flagged recently (observability/watch.py) — a detected step
         # change in fleet behavior ranks with queue depth and SLO burn
-        self._anomaly_source = anomaly_source or _nothing_installed
+        self._anomaly_source = anomaly_source or _installed_watch_anomalies
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # decision state below is written by the tick thread and read by

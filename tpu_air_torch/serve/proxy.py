@@ -1,7 +1,7 @@
 """HTTP proxy + serve.run/shutdown, copied from ``tpu_air/serve/proxy.py``
 over the port's runtime (the port imports nothing of ``tpu_air``).  The
-JAX package's airwatch scraper, live-weight controllers and batch lane are
-not ported (ROADMAP Queue 1 items 10 and 6b), so their hooks are gone.
+JAX package's batch lane is not ported yet (ROADMAP Queue 1 item 15), so
+its ``route_control`` surface and ``/-/stats`` entry are not here.
 
 Request path (SURVEY.md §3.5): client POST :8000 → proxy → route match →
 SLO admission (priority class + token budget, serve/admission.py) →
@@ -498,6 +498,12 @@ def run(
         # Redeploy on an existing route: retire the previous deployment's
         # replicas so their actor processes and chip leases are released.
         _retire(old)
+    # airwatch (observability/watch.py): an installed watch gets its fleet
+    # scraper thread once replicas exist to scrape; off ⇒ one global read
+    from tpu_air_torch.observability import watch as _watch
+
+    if _watch.enabled():
+        _watch.current().start_scraper()
     return handle
 
 
@@ -533,6 +539,11 @@ def rollout(route_prefix: str = "/", timeout: float = 120.0) -> int:
 
 def shutdown() -> None:
     """Stop the proxy, the control loops, and every replica actor."""
+    # the fleet scraper would only see dead replicas from here on
+    from tpu_air_torch.observability import watch as _watch
+
+    if _watch.enabled():
+        _watch.current().stop_scraper()
     with _state.lock:
         for watcher in _state.watchers.values():
             watcher.stop()
@@ -553,6 +564,36 @@ def shutdown() -> None:
             _state.port = None
         # retired replicas take their streams with them — drop the journal
         _state.journal = RequestJournal()
+
+
+def replica_engine_stats() -> Dict[str, Dict[str, Any]]:
+    """Engine-metrics snapshots from every deployed replica, merged across
+    routes — the dashboard folds this into ``/api/engines`` + ``/metrics``
+    so replica-side engines are visible beyond the driver's own registry."""
+    with _state.lock:
+        handles = list(_state.routes.values())
+        controllers = dict(_state.admission)
+    out: Dict[str, Dict[str, Any]] = {}
+    for handle in handles:
+        try:
+            out.update(handle.engine_stats())
+        except Exception:  # noqa: BLE001 — scrape is best-effort
+            continue
+    # proxy-side per-tenant quota sheds ride the ENGINE metric families
+    # (``priority.<class>.quota_shed``): a synthetic partial snapshot per
+    # route sums into the fleet view via merge_snapshots and renders as
+    # tpu_air_engine_priority_quota_shed — both consumers key-guard, so
+    # the missing engine gauges are simply absent, not zero
+    for prefix, controller in controllers.items():
+        qs = controller.stats()["quota_shed"]
+        if any(qs.values()):
+            name = f"admission{prefix.rstrip('/') or '/'}"
+            out[name] = {
+                "name": name,
+                "priority": {p: {"quota_shed": int(n)}
+                             for p, n in qs.items() if n},
+            }
+    return out
 
 
 def serve_control_stats() -> Dict[str, Any]:

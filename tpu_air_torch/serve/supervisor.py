@@ -434,6 +434,15 @@ class PreemptionWatcher:
         with self._lock:
             self.preemption_recovery_ms = max(
                 self.preemption_recovery_ms, recovery_ms)
+        # airwatch gets the recovery as a first-class event next to any
+        # anomaly the capacity drop trips (off ⇒ one module-global read)
+        from tpu_air_torch.observability import watch as _watch
+
+        if _watch.enabled():
+            _watch.current().note(
+                "preemption.recovered", route=self._prefix, replica=tag,
+                recovery_ms=round(recovery_ms, 3),
+                migrated_all=migrated_all, borrowed=borrowed)
         # the serve plane took everything it wants from the zombie
         # (payloads migrated, pollers re-pinned or replaying): terminate
         # it so its chips return to the pool — the preempted capacity must

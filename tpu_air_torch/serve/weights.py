@@ -31,8 +31,9 @@ Three layers, bottom-up:
   rolls the canary back to the prior version (tensors the engine kept:
   rollback reads no store) and shows in ``/-/stats`` under ``weights``.
   Adapter versions promote through the same gate as bank-row loads.  The
-  soak reads no SLO monitor: the port has none (ROADMAP Queue 1 item 10),
-  and with none installed the JAX package's soak is time-only too.
+  soak fails on any objective the installed SLO monitor
+  (``observability.slo``) reports burning; with none installed it is
+  time-only.
 
 Concurrency: the store has one writer (the trainer); readers see only
 sealed objects and renamed manifests.  Controller state is guarded by one
@@ -516,11 +517,18 @@ class WeightsController:
                                   f"pinned {probe['fingerprint'][:12]}")
 
     def _soak_gate(self) -> None:
-        """The canary serves for ``soak_s`` before the fleet follows.  The
-        port has no SLO burn monitor (ROADMAP Queue 1 item 10), so the soak
-        is time-only, as the JAX package's is with none installed."""
+        """SLO burn must stay quiet for the whole soak window.  No
+        monitor installed -> time-only soak (the window still gives the
+        burn monitor a chance to be installed/fed by the harness)."""
+        from tpu_air_torch.observability import slo as _slo
+
         deadline = time.monotonic() + self.soak_s
         while time.monotonic() < deadline:
+            mon = _slo.monitor()
+            if mon is not None:
+                burning = mon.burning()
+                if burning:
+                    raise GateFailedError(f"SLO burning during soak: {burning}")
             time.sleep(self.soak_poll_s)
 
     # -- promotion -----------------------------------------------------------

@@ -11,8 +11,11 @@ file and retains the checkpoints.  In a Tune trial the session's
 :class:`StopTrial` when the scheduler stops the trial.  With
 ``CheckpointConfig.publish_weights_to`` every retained checkpoint is also
 published to that :class:`~tpu_air_torch.serve.weights.WeightStore`, the
-live-serving handoff.  Fault-plan hooks, tracing spans and metric sinks
-wait for the slices that port them.
+live-serving handoff.  With tracing on (``TPU_AIR_TRACE=1``), each report
+records a ``train.iteration`` span under the trace context the session was
+made in, so ``step_timer`` numbers and ``profile_trace`` land on the same
+timeline.  Fault-plan hooks and metric sinks wait for the slices that port
+them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import shutil
 import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from tpu_air_torch.observability import tracing as _tracing
 
 from .checkpoint import Checkpoint
 from .config import CheckpointConfig
@@ -53,6 +58,11 @@ class Session:
         self.history: List[Dict[str, Any]] = []
         self.checkpoints: List[Tuple[str, Dict[str, Any]]] = []  # (dir, metrics)
         self._iter = 0
+        # airtrace: ambient context at session construction (the trainer's
+        # task span on the worker) so every train.iteration span lands on
+        # the same trial timeline; report-to-report window stamps
+        self._trace_ctx = _tracing.current_propagation()
+        self._last_report_ns = _tracing.now_ns() if _tracing.enabled() else 0
         os.makedirs(run_dir, exist_ok=True)
 
     def get_dataset_shard(self, name: str):
@@ -64,6 +74,8 @@ class Session:
         rec.setdefault("training_iteration", self._iter)
         rec.setdefault("_timestamp", time.time())
         self.history.append(rec)
+        if _tracing.enabled():
+            self._emit_iteration_span()
         if self.world_rank != 0:
             return
         with open(os.path.join(self.run_dir, "progress.jsonl"), "a") as f:
@@ -77,6 +89,25 @@ class Session:
         # report-1, report-2, ... in order
         if self.decision_cb is not None and not self.decision_cb(rec, self._iter):
             raise StopTrial(f"trial stopped by scheduler at iteration {self._iter}")
+
+    def _emit_iteration_span(self) -> None:
+        """One ``train.iteration`` span per report, covering the window
+        since the previous report (what ``step_timer`` summarizes) so the
+        trial's cadence is visible on the same timeline as everything else."""
+        now = _tracing.now_ns()
+        if self._trace_ctx is None:
+            # no ambient context at construction (tracing enabled later, or
+            # a bare local session): root one trace for the whole session
+            self._trace_ctx = {"trace_id": _tracing.new_trace_id()}
+        _tracing.record_span(
+            "train.iteration",
+            trace_id=self._trace_ctx.get("trace_id"),
+            parent_id=self._trace_ctx.get("span_id"),
+            start_ns=self._last_report_ns or now,
+            end_ns=now,
+            attrs={"iteration": self._iter, "run_dir": self.run_dir},
+        )
+        self._last_report_ns = now
 
     # -- weight publishing (the live-serving handoff) -----------------------
     def _publish_weights(self, checkpoint: Checkpoint, metrics: Dict[str, Any]) -> None:
