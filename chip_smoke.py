@@ -271,7 +271,31 @@ Phases, each fatal on failure:
               plane on, against phase 22's (the difference reported); then
               an actor on the
               leased card exits with status 17 and its flight record must load
-              naming ``WorkerCrashed``, the actor and its card.
+              naming ``WorkerCrashed``, the actor and its card;
+25. batch lane — revocable leases and the batch lane over phase 22's
+              checkpoint, engine configuration and 32 prompts in bf16, in a
+              runtime of its own with the dashboard and airwatch:
+              ``EngineDeployment`` with 2 replicas of ``num_chips=0.5``
+              sharing the card, each on it; (b) ``BatchJob`` over a
+              ``Dataset`` of the prompts (4 blocks, 2 shards, 4-row chunks,
+              window 8, ``best_effort``, 64 new tokens) killed by a
+              ``batch.runner`` fault at its 3rd chunk commit, then resumed by
+              a fresh job of the same id: every row exactly once across the
+              committed chunks, a chunk resumed, each row's tokens equal to
+              phase 22 (b)'s burst, the rows billed to tenant
+              ``batch:chip-batch``, a ``batch.job`` span with a
+              ``batch.chunk`` child per chunk; rows/s, shed and submit
+              retries, the replicas' decode launches and step p50; (c) 16
+              prompts as streams, replica A handed back once one of its
+              streams has 8 tokens, through the lane's return path (``shrink_target``,
+              ``mark_borrowed``, the ``borrow_return`` RPC with a 5 s
+              notice): the preemption watcher migrates A's live streams
+              into B's process, every stream equal to phase 22's, one borrow
+              return, no replica spawned in A's place, no prefill chunk
+              re-run on B; pages, bytes and ms a page; (d) ``/api/batch``,
+              ``/metrics`` and ``/-/stats`` report the job.  Borrowing on a
+              trough waits for a whole free card, so with one card it runs
+              only in the CPU tests.
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
@@ -281,7 +305,9 @@ their trace);
 the W3 batch path's are counted in its scoring actor, a fresh process,
 around the batch it scores, and W2's trials' in each trial's actor, around
 its training function, and the serve replicas' in each replica (a fresh
-process) over its whole life, phase 24's replica too.  The SegFormer
+process) over its whole life, phase 24's replica and phase 25's two too
+(the returned one's read just after its notice: the watcher ends its
+process after the migration).  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -402,6 +428,12 @@ LM_LIVE_MIGRATED, LM_LIVE_MIGRATE_AFTER, LM_LIVE_PROBES, LM_LIVE_PROBE_NEW = 16,
 # the traces of the last OBS_LAST_STREAMS streams to finish must be listed
 LM_TRACE_STEPS, LM_TRACE_GAPS = 2, 5
 OBS_WATCH_S, OBS_POST, OBS_LAST_STREAMS = 0.5, 8, 4
+# batch lane dials (phase 25), phase 22's checkpoint, engine and prompts: 2
+# replicas of half the card each; (b) the 32 prompts in 4 blocks through a
+# job of 2 shards, 4-row chunks and a window of 8, killed at its 3rd chunk
+# commit; (c) 16 streams, replica A returned with a 5 s notice after 8 tokens
+LANE_REPLICA_CHIPS, LANE_BLOCKS, LANE_SHARDS, LANE_CHUNK_ROWS, LANE_WINDOW = 0.5, 4, 2, 4, 8
+LANE_KILL_AT, LANE_STREAMS, LANE_RETURN_AFTER, LANE_NOTICE_S = 3, 16, 8, 5.0
 
 
 def model_config():
@@ -4801,6 +4833,298 @@ def obs_serve_path(dev, ckpt_dir: str, work: str, served: dict) -> dict:
     return out
 
 
+def lane_streams(port: int, route: str, prompts_: list, progress: dict):
+    """Each prompt as a submit/poll stream over HTTP, all submitted first
+    from this thread, then polled in turn every 10 ms (each poll pinned to
+    the replica that took the submit) until all are done; ``progress[i]``
+    is ``[pin, tokens]`` of stream ``i`` as it goes, for the caller to read
+    while the streams decode."""
+    streams = []
+    for i, prompt in enumerate(prompts_):
+        sub, headers = post_json(port, route, {"action": "submit", "prompt": prompt,
+                                               "max_new_tokens": LM_ENGINE["max_new_tokens"]})
+        progress[i] = [headers["x-tpu-air-replica"], []]
+        streams.append(sub["request_id"])
+    done = [False] * len(streams)
+    while not all(done):
+        for i, rid in enumerate(streams):
+            if done[i]:
+                continue
+            pin, toks = progress[i]
+            res, _ = post_json(port, route, {"action": "poll", "request_id": rid,
+                                             "cursor": len(toks)},
+                               headers={"x-tpu-air-replica": pin})
+            toks += res["tokens"]
+            done[i] = res["done"]
+        time.sleep(0.01)
+
+
+def batch_lane_path(dev, ckpt_dir: str, served: dict) -> dict:
+    """``[batch lane]`` (phase 25): revocable leases and the batch lane over
+    the served paged LM engine, in a runtime of its own, on phase 22's
+    checkpoint, engine configuration and prompts in bf16 (``served`` is
+    phase 22's result; its burst tokens are the yardstick).  (a) ``init``
+    with the dashboard on port 0 and airwatch; ``EngineDeployment`` with 2
+    replicas of ``num_chips=0.5`` sharing the card, each printing its
+    device; (b) ``BatchJob`` over a ``Dataset`` of the 32 prompts (4
+    blocks), killed by the ``batch.runner`` fault site at its 3rd chunk
+    commit, then resumed by a fresh job of the same id: every row exactly
+    once across the committed chunk objects, at least one chunk resumed,
+    each row's tokens equal to phase 22 (b)'s, billed to tenant
+    ``batch:chip-batch``, and the ``batch.job`` span with ``batch.chunk``
+    children; (c) 16 of the prompts as streams; once the first of A's has
+    ``LANE_RETURN_AFTER`` tokens, replica A goes back through the lane's own
+    return path
+    (``shrink_target``, ``mark_borrowed``, the ``borrow_return`` RPC with a
+    ``LANE_NOTICE_S`` notice), and the preemption watcher migrates A's live
+    streams into B's process (the journal replays those still queued or
+    prefilling on B from their prompts): every stream equal to phase 22's,
+    one borrow return, at least one migration, no replay failure, no
+    replica spawned in A's place, no prefill chunk re-run on B for a
+    migrated stream; the pages and bytes moved and the ms a page; (d) ``/api/batch``, ``/metrics`` and ``/-/stats`` report the job.
+    Borrowing on a trough (``BatchJob._maybe_borrow``) waits for a whole
+    free card (``avail["chip"] >= 1.0``): with one card shared by the two
+    replicas it never borrows here, and tests/test_torch_batch.py checks it
+    on the CPU with two device slots.  The decode launches are counted in
+    the replicas: A's read just after its notice (the few steps between
+    that read and its ``migrate_out`` are not counted; the watcher ends
+    A's process after the migration), B's at the end."""
+    import threading
+
+    import tpu_air_torch
+    from tpu_air_torch import data as tdata
+    from tpu_air_torch import get, serve
+    from tpu_air_torch.batch import BatchJob, BatchJobConfig, BatchJobKilled
+    from tpu_air_torch.core.runtime import get_runtime
+    from tpu_air_torch.engine import EngineConfig
+    from tpu_air_torch.engine.metrics import merge_snapshots
+    from tpu_air_torch.faults import plan as faults
+    from tpu_air_torch.observability import dashboard, tracing, watch
+    from tpu_air_torch.serve import EngineDeployment
+    from tpu_air_torch.serve.proxy import replica_engine_stats, route_control
+    from tpu_air_torch.train import Checkpoint
+
+    t_phase = time.perf_counter()
+    ckpt = Checkpoint.from_directory(ckpt_dir)
+    cfg = ckpt.get_model_config()
+    ps = lm_serve_prompts(LM_ENGINE_PROMPTS, cfg.vocab_size, SEED + 42)
+    burst = served["burst_tokens"]
+    route = "/lmlane"
+    out = {}
+    try:
+        # (a) two replicas sharing the card
+        tpu_air_torch.init(include_dashboard=True, dashboard_port=0)
+        url = dashboard.start_dashboard(port=0)
+        w = watch.install(watch.WatchConfig(seed=0, interval_s=OBS_WATCH_S))
+        port = free_port()
+        t0 = time.perf_counter()
+        h = serve.run(EngineDeployment.options(name="lm-lane", route_prefix=route,
+                                               num_replicas=2, num_chips=LANE_REPLICA_CHIPS)
+                      .bind(ckpt, EngineConfig(**LM_ENGINE), dtype="bfloat16"), port=port)
+        replicas = list(h._replicas)
+        get([r.handle.remote("weights_probe", ([[5, 6, 7, 8]], 2), {}) for r in replicas],
+            timeout=600)
+        devices = [get(r.handle.remote("stats", (), {}))["device"] for r in replicas]
+        start_s = time.perf_counter() - t0
+        log(f"[batch lane] (a) init(include_dashboard=True) at {url}, airwatch seed 0; "
+            f"EngineDeployment(EngineConfig({LM_ENGINE}), dtype=\"bfloat16\"), 2 replicas of "
+            f"num_chips={LANE_REPLICA_CHIPS}: devices {devices}; serve.run + load + warm-up "
+            f"{start_s:.3f} s")
+        if devices != [str(dev)] * 2:
+            raise AssertionError(f"[batch lane] (a) replica devices {devices}")
+
+        # (b) the batch lane, killed at a chunk commit, then resumed
+        ds = tdata.from_items([{"prompt": p} for p in ps], parallelism=LANE_BLOCKS)
+        jcfg = BatchJobConfig(route_prefix=route, max_new_tokens=LM_ENGINE["max_new_tokens"],
+                              num_shards=LANE_SHARDS, chunk_rows=LANE_CHUNK_ROWS,
+                              window=LANE_WINDOW)
+        tracing.enable()
+        t0 = time.perf_counter()
+        faults.install(faults.FaultPlan(seed=0, specs=[
+            faults.FaultSpec("batch.runner", "kill", at=LANE_KILL_AT)]))
+        killed = BatchJob(ds, job_id="chip-batch", config=jcfg)
+        try:
+            killed.run()
+            raise AssertionError("[batch lane] (b) the batch.runner kill raised nothing")
+        except BatchJobKilled as e:
+            kill_msg = str(e)
+        finally:
+            faults.clear()
+        kill_s = time.perf_counter() - t0
+        first = killed.stats()
+        t0 = time.perf_counter()
+        job = BatchJob(ds, job_id="chip-batch", config=jcfg)
+        stats = job.run()
+        resume_s = time.perf_counter() - t0
+        tracing.disable()
+        store = get_runtime().store
+        occ = {}
+        for s in range(LANE_SHARDS):
+            c = 0
+            while store.contains(job._chunk_id(s, c)):
+                for gi in store.get(job._chunk_id(s, c))["rows"]:
+                    occ[int(gi)] = occ.get(int(gi), 0) + 1
+                c += 1
+        results = job.results()
+        bad = [gi for gi in range(len(ps)) if results.get(gi) != burst[gi]]
+        spans = [sp for sp in tracing.recorder().recent(0) if sp.name.startswith("batch.")]
+        roots = [sp for sp in spans if sp.name == "batch.job"
+                 and sp.attrs.get("job_id") == "chip-batch" and sp.attrs.get("resumed") == 1]
+        children = [sp for sp in spans if sp.name == "batch.chunk" and roots
+                    and sp.parent_id == roots[-1].span_id]
+        adm = route_control(route)["admission"].tenants.get("batch:chip-batch", {})
+        tenants = merge_snapshots(replica_engine_stats()).get("tenants") or {}
+        billed = tenants.get("batch:chip-batch", {})
+        snaps = [get(r.handle.remote("stats", (), {})) for r in replicas]
+        steps = [sn["step_latency_s"]["p50"] for sn in snaps]
+        lane_launches = sum(sn["kernel_launches"]["decode_attention"] for sn in snaps)
+        resumed_notes = w.events(kind="batch.resume")
+        log(f"[batch lane] (b) BatchJob(job_id=\"chip-batch\", {LANE_SHARDS} shards, "
+            f"{LANE_CHUNK_ROWS}-row chunks, window {LANE_WINDOW}, best_effort) over "
+            f"{len(ps)} rows in {LANE_BLOCKS} blocks under FaultSpec(\"batch.runner\", \"kill\", "
+            f"at={LANE_KILL_AT}): {kill_msg!r} after {kill_s:.3f} s with {first['rows_done']} "
+            f"rows committed; the resumed job: {resume_s:.3f} s, rows processed "
+            f"{stats['rows_processed']}, resumed {stats['rows_resumed']}, chunks resumed "
+            f"{stats['chunks_resumed']}, {stats['rows_per_s']:.3f} rows/s "
+            f"({len(ps) / (kill_s + resume_s):.3f} rows/s over both runs), shed retries "
+            f"{first['shed_retries']} + {stats['shed_retries']}, submit retries "
+            f"{first['submit_retries']} + {stats['submit_retries']}; rows in the committed "
+            f"chunks {len(occ)}, each once {set(occ.values()) == {1}}; rows equal to phase "
+            f"22's burst: {len(ps) - len(bad)} of {len(ps)}; tenant batch:chip-batch admitted "
+            f"{adm.get('admitted')}, engine requests completed "
+            f"{billed.get('requests_completed')}; span batch.job (resumed) with "
+            f"{len(children)} batch.chunk children; airwatch batch.resume notes "
+            f"{len(resumed_notes)}; decode launches in the replicas {lane_launches}, decode "
+            f"step p50 {[round(x * 1e3, 3) for x in steps]} ms; card: {card_line()}")
+        checks = {
+            "exactly once": sorted(occ) == list(range(len(ps)))
+            and set(occ.values()) == {1},
+            "resumed": stats["state"] == "done" and stats["resumes"] == 1
+            and stats["chunks_resumed"] >= 1
+            and stats["rows_resumed"] == first["rows_done"]
+            and 0 < first["rows_done"] < len(ps),
+            "tokens": not bad,
+            "billing": adm.get("admitted") == len(ps)
+            and billed.get("requests_completed") == len(ps),
+            "spans": len(roots) == 1 and len(children) == stats["chunks_done"] > 0,
+            "airwatch": len(resumed_notes) == 1,
+            "launches": lane_launches > 0,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"[batch lane] (b) failed checks "
+                                 f"{[k for k, ok in checks.items() if not ok]}; rows off "
+                                 f"phase 22's burst {bad}")
+        out.update({"job": stats, "killed": first, "kill_s": kill_s, "resume_s": resume_s,
+                    "step_p50_s": steps, "job_launches": lane_launches})
+
+        # (c) replica A returned through the lane's path, its streams migrate
+        progress = {}
+        streams = threading.Thread(target=lane_streams,
+                                   args=(port, route, ps[:LANE_STREAMS], progress),
+                                   daemon=True)
+        streams.start()
+        a, b = replicas
+        deadline = time.time() + 300
+        # the first of A's streams to reach LANE_RETURN_AFTER tokens: A's
+        # other streams are decoding (shipped) or still prefilling or queued
+        # (replayed from their prompts on B), none near its end
+        while not (len(progress) == LANE_STREAMS
+                   and any(len(t) >= LANE_RETURN_AFTER for pin, t in progress.values()
+                           if pin == a._actor_id)):
+            if time.time() > deadline or not streams.is_alive():
+                raise AssertionError(f"[batch lane] (c) the streams stopped: "
+                                     f"{[len(t) for _, t in progress.values()]}")
+            time.sleep(0.005)
+        seen = sorted(len(t) for pin, t in progress.values() if pin == a._actor_id)
+        watcher = route_control(route)["watcher"]
+        target = h.shrink_target()
+        watcher.mark_borrowed(a._actor_id)
+        returned = get(a.handle.remote("borrow_return", (LANE_NOTICE_S,), {}))
+        a_launches = get(a.handle.remote("stats", (), {}))["kernel_launches"]
+        streams.join(timeout=300)
+        if streams.is_alive():
+            raise AssertionError("[batch lane] (c) the streams did not finish")
+        deadline = time.time() + 60
+        while h.live_replicas() != 1 and time.time() < deadline:
+            time.sleep(0.05)
+        tokens = [progress[i][1] for i in range(LANE_STREAMS)]
+        ws = watcher.stats()
+        replays = route_control(route)["journal"].stats()
+        snap_b = get(b.handle.remote("stats", (), {}))
+        mg = snap_b.get("migrations") or {}
+        page_bytes = (cfg.n_layers * 2 * LM_ENGINE["page_len"] * cfg.n_heads * cfg.head_dim
+                      * torch.tensor([], dtype=torch.bfloat16).element_size())
+        pages = ws["migrated_pages"]
+        ms_page = ws["preemption_recovery_ms"] / pages if pages else float("nan")
+        recovered = w.events(kind="preemption.recovered")
+        on_a = len(seen)
+        log(f"[batch lane] (c) {LANE_STREAMS} prompts as streams, {on_a} on replica A; once "
+            f"one of A's showed {LANE_RETURN_AFTER} tokens to its client ({seen}): "
+            f"shrink_target() -> {target}, "
+            f"mark_borrowed(A), borrow_return({LANE_NOTICE_S}) -> {returned}; watcher "
+            f"{ws}; journal {replays}; replicas live {h.live_replicas()}, left {[r._actor_id for r in h._replicas]}"
+            f" (B {b._actor_id}); B's migrations {mg}; moved {pages} pages, "
+            f"{pages * page_bytes} bytes ({page_bytes} a page over {cfg.n_layers} layers, k "
+            f"and v), notice seen to A out of rotation {ws['preemption_recovery_ms']:.3f} ms, "
+            f"{ms_page:.3f} ms a page; tokens equal to phase 22's burst "
+            f"{tokens == burst[:LANE_STREAMS]}; A's launches just after its notice {a_launches}, "
+            f"B's {snap_b['kernel_launches']}; airwatch preemption.recovered "
+            f"{recovered[-1] if recovered else None}")
+        checks = {
+            "returned": returned is True and target == 1 and on_a >= 1,
+            "tokens": tokens == burst[:LANE_STREAMS],
+            "watcher": ws["borrow_returns"] == 1 and ws["preemptions"] == 1
+            and ws["migrations"] >= 1 and ws["migration_fallbacks"] == 0
+            and replays["replay_failures"] == 0,
+            "no backfill": route_control(route)["autoscaler"] is None
+            and [r._actor_id for r in h._replicas] == [b._actor_id],
+            "no re-prefill": mg.get("in") == ws["migrations"]
+            and mg.get("in_reprefill_chunks") == 0,
+            "airwatch": bool(recovered) and recovered[-1].get("borrowed") is True,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"[batch lane] (c) failed checks "
+                                 f"{[k for k, ok in checks.items() if not ok]}")
+        launches = a_launches["decode_attention"] + snap_b["kernel_launches"]["decode_attention"]
+        if a_launches["flash_attention"] or snap_b["kernel_launches"]["flash_attention"]:
+            raise AssertionError(f"[batch lane] flash launches in the replicas: {a_launches}, "
+                                 f"{snap_b['kernel_launches']}")
+        out.update({"migration": ws, "journal": replays, "pages": pages, "bytes": pages * page_bytes,
+                    "ms_per_page": ms_page, "b_migrations": mg,
+                    "launches": {"decode_attention": launches},
+                    "launches_a_before_notice": a_launches,
+                    "launches_b": snap_b["kernel_launches"]})
+
+        # (d) the job on the dashboard and the serve plane's stats
+        _, body = get_url(url + "/api/batch")
+        api = json.loads(body)["jobs"].get("chip-batch", {})
+        _, body = get_url(url + "/metrics")
+        text = body.decode()
+        fams = prometheus_families(text)
+        sample = [ln for ln in text.splitlines()
+                  if ln.startswith('tpu_air_batch_rows_done{job="chip-batch"}')]
+        _, body = get_url(f"http://127.0.0.1:{port}/-/stats")
+        section = json.loads(body).get("batch", {}).get("chip-batch", {})
+        log(f"[batch lane] (d) /api/batch chip-batch rows_done {api.get('rows_done')} of "
+            f"{api.get('rows_total')}, state {api.get('state')}; /metrics "
+            f"{sorted(f for f in fams if f.startswith('tpu_air_batch_'))}, {sample}; /-/stats "
+            f"batch chip-batch rows_done {section.get('rows_done')}")
+        if not (api.get("rows_done") == api.get("rows_total") == len(ps)
+                and sample and float(sample[0].rsplit(" ", 1)[1]) == len(ps)
+                and section.get("rows_done") == len(ps)):
+            raise AssertionError(f"[batch lane] (d) /api/batch {api}, /metrics {sample}, "
+                                 f"/-/stats {section}")
+    finally:
+        faults.clear()
+        tracing.disable()
+        serve.shutdown()
+        watch.clear()
+        tpu_air_torch.shutdown()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[batch lane] phase {out['phase_s']:.1f} s (runtime start and stop included)")
+    return out
+
+
 def lm_live_parity(dev) -> dict:
     """Phase 23 (e): f32, full width, depth cut to 2, weights from numpy
     seed 0, TF32 off, through the decode kernel and through
@@ -4967,6 +5291,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     log(f"[serve] phases 20-23 (runtime start and stop included) "
         f"{time.perf_counter() - t_serve:.1f} s")
     obs_stats = obs_serve_path(dev, lm_stats["checkpoint_dir"], work, lm_serve_stats)
+    lane_stats = batch_lane_path(dev, lm_stats["checkpoint_dir"], lm_serve_stats)
     del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     row = next(r for r in kernels if r["name"] == "decode_attention")
@@ -4975,6 +5300,8 @@ def run_phases(dev, work: str, t_start: float) -> int:
         row["launches"] += n
     row["launches_by_path"]["obs_serve_replica"] = obs_stats["launches"]["decode_attention"]
     row["launches"] += obs_stats["launches"]["decode_attention"]
+    row["launches_by_path"]["batch_lane_replicas"] = lane_stats["launches"]["decode_attention"]
+    row["launches"] += lane_stats["launches"]["decode_attention"]
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)
@@ -4987,7 +5314,8 @@ def run_phases(dev, work: str, t_start: float) -> int:
     print(json.dumps({"kernels": kernels, "main": main_stats, "lm": lm_stats, "w1": w1_stats,
                       "batch": batch_stats, "w2": w2_stats, "w7": w7_stats, "w6": w6_stats,
                       "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats,
-                      "lm_live": lm_live_stats, "obs_serve": obs_stats}),
+                      "lm_live": lm_live_stats, "obs_serve": obs_stats,
+                      "batch_lane": lane_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1019,3 +1019,104 @@ def test_profile_trace_records_the_flash_kernels_by_name(dev, dtype, tmp_path):
     assert counts == dict.fromkeys(counts, 1), names
     assert (flash_attention.launches, flash_attention_backward.dq_launches,
             flash_attention_backward.dkv_launches) == (1, 1, 1)
+
+
+def test_borrow_return_migrates_streams_between_replicas_sharing_the_card(dev, tmp_path):
+    """Two ``EngineDeployment`` replicas of ``num_chips=0.5`` share the card
+    (bf16, the 2-layer LM); 8 streams decode through the proxy, and one
+    replica goes back through the batch lane's return path
+    (``shrink_target``, ``mark_borrowed``, ``borrow_return`` with a 5 s
+    notice): the preemption watcher migrates its live streams into the other
+    replica's process, and every stream's tokens equal those of an
+    undisturbed engine on the same weights."""
+    import json
+    import socket
+    import threading
+    import time
+    import urllib.request
+
+    import tpu_air_torch
+    from tpu_air_torch import serve
+    from tpu_air_torch.engine import EngineConfig, InferenceEngine
+    from tpu_air_torch.serve import EngineDeployment
+    from tpu_air_torch.serve.proxy import route_control
+    from tpu_air_torch.train import Checkpoint
+
+    model = _lm_2layer(dev)
+    path = str(tmp_path / "ckpt")
+    Checkpoint.from_model(model_config=model.config,
+                          params={k: v.cpu() for k, v in model.state_dict().items()}).to_directory(path)
+    cfg = dict(num_slots=8, slot_len=512, page_len=16, max_new_tokens=160, eos_token_id=None)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, 32000, int(n)).tolist() for n in rng.integers(16, 200, 8)]
+    want = InferenceEngine(Checkpoint.from_directory(path).get_model(dtype="bfloat16"),
+                           EngineConfig(**cfg), auto_start=False).generate(prompts)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+
+    def post(payload, pin=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/lane", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json",
+                     **({"x-tpu-air-replica": pin} if pin else {})})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read()), dict(resp.headers)
+
+    progress = {}
+
+    def streams():
+        rids = []
+        for i, p in enumerate(prompts):
+            # an explicit budget journals the stream: one still queued on
+            # the returned replica is replayed from its prompt
+            out, headers = post({"action": "submit", "prompt": p,
+                                 "max_new_tokens": cfg["max_new_tokens"]})
+            progress[i] = [headers["x-tpu-air-replica"], []]
+            rids.append(out["request_id"])
+        done = [False] * len(rids)
+        while not all(done):
+            for i, rid in enumerate(rids):
+                if not done[i]:
+                    res, _ = post({"action": "poll", "request_id": rid,
+                                   "cursor": len(progress[i][1])}, pin=progress[i][0])
+                    progress[i][1] += res["tokens"]
+                    done[i] = res["done"]
+            time.sleep(0.01)
+
+    tpu_air_torch.init(num_cpus=2)
+    try:
+        h = serve.run(EngineDeployment.options(name="lane", route_prefix="/lane",
+                                               num_replicas=2, num_chips=0.5)
+                      .bind(Checkpoint.from_directory(path), EngineConfig(**cfg),
+                            dtype="bfloat16"), port=port)
+        a, b = h._replicas
+        for r in (a, b):
+            tpu_air_torch.get(r.handle.remote("weights_probe", ([[5, 6, 7]], 2), {}))
+        client = threading.Thread(target=streams, daemon=True)
+        client.start()
+        deadline = time.time() + 120
+        while not (len(progress) == len(prompts) and any(
+                len(t) >= 8 for pin, t in progress.values() if pin == a._actor_id)):
+            assert time.time() < deadline and client.is_alive()
+            time.sleep(0.005)
+        assert any(pin == a._actor_id for pin, _ in progress.values())
+        watcher = route_control("/lane")["watcher"]
+        assert h.shrink_target() == 1
+        watcher.mark_borrowed(a._actor_id)
+        assert tpu_air_torch.get(a.handle.remote("borrow_return", (5.0,), {})) is True
+        client.join(timeout=300)
+        assert not client.is_alive()
+        assert [progress[i][1] for i in range(len(prompts))] == want
+        while h.live_replicas() != 1 and time.time() < deadline:
+            time.sleep(0.05)
+        st = watcher.stats()
+        assert st["borrow_returns"] == 1 and st["migrations"] >= 1
+        assert st["migration_fallbacks"] == 0 and h.live_replicas() == 1
+        snap = tpu_air_torch.get(b.handle.remote("stats", (), {}))
+        assert snap["device"] == "cuda:0" and snap["kernel_launches"]["decode_attention"] > 0
+        assert snap["migrations"]["in"] == st["migrations"]
+        assert snap["migrations"]["in_reprefill_chunks"] == 0
+    finally:
+        serve.shutdown()
+        tpu_air_torch.shutdown()

@@ -58,6 +58,8 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
                 "tpu_air_torch.serve.engine_deployment", "tpu_air_torch.serve.admission",
                 "tpu_air_torch.serve.autoscaler", "tpu_air_torch.serve.supervisor",
                 "tpu_air_torch.serve.predictor_deployment",
+                "tpu_air_torch.batch", "tpu_air_torch.batch.job",
+                "tpu_air_torch.batch.reader",
                 "tpu_air_torch.serve.http_adapters", "tpu_air_torch.faults.retry",
                 "tpu_air_torch.utils.metrics", "tpu_air_torch.observability.perf",
                 "tpu_air_torch.observability.profiler", "tpu_air_torch.observability.slo",

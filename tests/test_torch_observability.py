@@ -367,7 +367,12 @@ def _engine_metrics(pkg_metrics, name: str):
     return m
 
 
-def test_dashboard_serves_every_route(dash):
+def test_dashboard_serves_every_route(dash, monkeypatch):
+    from tpu_air_torch.batch import job as tbatch
+
+    # jobs that earlier tests left registered in this process would show
+    # on /api/batch
+    monkeypatch.setattr(tbatch, "_registry", {})
     url, runtime = dash
     tslo.install(None)
     twatch.install(twatch.WatchConfig(seed=0)).scrape_once()
@@ -434,10 +439,25 @@ def test_metrics_families_match_jax(dash, monkeypatch):
     exposition for an equivalent state — the same cluster snapshot, one
     engine with the same observations in each package's registry, the
     default SLO monitor and an airwatch plane after one scrape — hold the
-    same metric families."""
+    same metric families.  Each package's process-wide state that
+    ``/metrics`` reads (the engine registry, the serve proxy's routes,
+    admission controllers, watchers and journal, the batch-job registry)
+    is swapped for an empty one for the test's duration, so engines,
+    tenants and jobs that earlier tests left behind in this process do not
+    enter either side."""
+    from tpu_air.batch import job as jbatch
     from tpu_air.engine import metrics as jmetrics
+    from tpu_air.serve import proxy as jproxy
+    from tpu_air_torch.batch import job as tbatch
     from tpu_air_torch.engine import metrics as tmetrics
+    from tpu_air_torch.serve import proxy as tproxy
 
+    for metrics_mod in (jmetrics, tmetrics):
+        monkeypatch.setattr(metrics_mod, "_registry", {})
+    for proxy_mod in (jproxy, tproxy):
+        monkeypatch.setattr(proxy_mod, "_state", proxy_mod._ServeState())
+    for job_mod in (jbatch, tbatch):
+        monkeypatch.setattr(job_mod, "_registry", {})
     url, _ = dash
     engines = [_engine_metrics(jmetrics, "obs-engine"), _engine_metrics(tmetrics, "obs-engine")]
     jmetrics.register(engines[0])

@@ -360,7 +360,6 @@ def _server(t5_ckpt, **kw):
 REFUSALS = {
     "mesh": (lambda c: _server(c, mesh=(1, 2)), "items 6b and 9"),
     "disagg": (lambda c: _server(c, disagg={"prefill_replicas": 1}), "items 6b and 9"),
-    "borrow_return": (lambda c: _server(c).borrow_return(), "item 11"),
     "mesh_engine": (lambda c: __import__("tpu_air_torch.engine").engine.MeshEngine, "item 9"),
     "disagg_router": (lambda c: __import__("tpu_air_torch.engine").engine.DisaggRouter,
                       "items 6b and 9"),
@@ -474,6 +473,34 @@ def test_publish_weights_to_names_item_6b(tmp_path):
     store = serve.WeightStore(str(tmp_path / "w"))
     assert store.versions() == [1]
     assert store.manifest(1)["metadata"]["metrics"]["loss"] == 1.5
+
+
+def test_borrow_return_on_a_never_built_replica_returns_false(t5_ckpt):
+    """As the JAX replica: no engine, so no lease to revoke and nothing to
+    hand back; the call builds nothing and leaves no notice."""
+    srv = _server(t5_ckpt)
+    assert srv.borrow_return(5.0) is False
+    assert srv._engine is None and srv._lease is None
+    assert srv.preempt_status() == {"preempting": False}
+
+
+def test_borrow_return_delivers_a_notice_to_the_replicas_lease(t5_ckpt):
+    """On a built replica ``borrow_return`` revokes the replica's own lease:
+    ``preempt_status`` turns to preempting with the notice it carried, and
+    what is left of the window never exceeds it."""
+    srv = _server(t5_ckpt)
+    try:
+        srv({"prompts": _prompts(4, 1)})
+        assert srv.preempt_status() == {"preempting": False}
+        assert srv.borrow_return(notice_s=5.0) is True
+        st = srv.preempt_status()
+        assert st["preempting"] is True and st["notice_s"] == 5.0
+        assert 0.0 <= st["notice_left_s"] <= 5.0
+        assert srv._lease.revoking and not srv._lease.expired
+        assert srv.borrow_return(notice_s=1.0) is True   # idempotent notice
+        assert srv.preempt_status()["notice_s"] == 5.0
+    finally:
+        srv.close()
 
 
 def test_replica_reports_no_preemption_notice_and_drains(t5_ckpt):

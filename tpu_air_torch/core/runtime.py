@@ -27,7 +27,15 @@ context it cannot use.  ``start_method="fork"`` is honoured only until then.
 ``init(include_dashboard=True)`` (or ``TPU_AIR_DASHBOARD=1``) starts the
 dashboard (observability/dashboard.py), and with ``TPU_AIR_POSTMORTEM_DIR``
 set every worker death dumps a flight record (observability/postmortem.py),
-as in the JAX package.  Not ported, and refused when asked for
+as in the JAX package.
+
+Chip leases are revocable, as in the JAX package: :meth:`Runtime.lease_chips`
+grants a driver-level :class:`ChipLease` (a ``list`` of device ids, which
+name ``cuda:<id>`` as ``resolve_device`` does), :func:`attach_chip_lease`
+wraps the devices an actor was placed on, and a lease's ``on_revoke``
+callbacks fire when :meth:`Runtime.revoke_lease` or the ``runtime.lease``
+fault site delivers a notice (how the serve plane drains and migrates a
+replica).  Not ported, and refused when asked for
 (``NotImplementedError`` naming the ROADMAP item): the GCS control-plane
 daemon (``TPU_AIR_GCS``) and multi-host rendezvous
 (``TPU_AIR_COORDINATOR``); without them :meth:`Runtime.nodes` is ``[]``
@@ -80,6 +88,99 @@ class RemoteError(TpuAirError):
 
 class ActorDiedError(TpuAirError):
     pass
+
+
+class ChipLease(list):
+    """A granted chip lease: a ``list`` of device ids (drop-in for the plain
+    ``List[int]`` callers index, join, and pass back to
+    :meth:`Runtime.release_chips`) plus revocation plumbing for preemptible
+    capacity.  Id ``c`` is the device ``cuda:<c>``, as
+    :func:`tpu_air_torch.device.resolve_device` maps a leased actor's ids.
+
+    Preemption arrives with *notice*: "these devices go away in N seconds",
+    and a holder that drains or migrates within the window loses nothing.
+    :meth:`on_revoke` registers a callback; when the lease is revoked (by
+    the ``runtime.lease`` fault site's ``notice`` action or by
+    :meth:`Runtime.revoke_lease`), every callback fires once with the
+    advance warning in seconds, and ``notice_s`` seconds later the lease
+    reports :attr:`expired`: past that point the holder must treat the
+    devices as gone.
+
+    Callbacks run on the revoker's thread and never under the handle's
+    lock; a callback registered *after* the notice was delivered fires
+    immediately (no lost-wakeup window between engine construction and
+    watcher registration).
+    """
+
+    def __init__(self, chip_ids):
+        super().__init__(chip_ids)
+        self._lease_lock = threading.Lock()
+        self._callbacks: List[Any] = []
+        self._notice_s: Optional[float] = None
+        self._expired = threading.Event()
+
+    @property
+    def chip_ids(self) -> List[int]:
+        return list(self)
+
+    @property
+    def revoking(self) -> bool:
+        """True once a revocation notice has been delivered."""
+        with self._lease_lock:
+            return self._notice_s is not None
+
+    @property
+    def notice_s(self) -> Optional[float]:
+        """The advance warning the notice carried, or None if not revoked."""
+        with self._lease_lock:
+            return self._notice_s
+
+    @property
+    def expired(self) -> bool:
+        """True once the notice window has elapsed: the devices are gone."""
+        return self._expired.is_set()
+
+    def on_revoke(self, callback) -> None:
+        """Register ``callback(notice_s: float)`` to fire when this lease
+        is revoked.  Fires immediately (on the caller's thread) if the
+        notice already arrived."""
+        with self._lease_lock:
+            if self._notice_s is None:
+                self._callbacks.append(callback)
+                return
+            notice = self._notice_s
+        callback(notice)
+
+    def deliver_notice(self, notice_s: float) -> None:
+        """Deliver the revocation notice: fire callbacks with ``notice_s``
+        of warning, then mark the lease expired once the window elapses.
+        Idempotent: only the first delivery counts."""
+        notice = max(0.0, float(notice_s))
+        with self._lease_lock:
+            if self._notice_s is not None:
+                return
+            self._notice_s = notice
+            callbacks, self._callbacks = self._callbacks, []
+        for cb in callbacks:
+            try:
+                cb(notice)
+            except Exception:  # a broken callback must not mask the notice
+                pass
+        if notice > 0:
+            t = threading.Timer(notice, self._expired.set)
+            t.daemon = True
+            t.start()
+        else:
+            self._expired.set()
+
+    def wait_expired(self, timeout: Optional[float] = None) -> bool:
+        return self._expired.wait(timeout)
+
+    def __reduce__(self):
+        # a lease crossing a process boundary degrades to its device ids:
+        # the revocation plumbing (lock, timer, callbacks) means something
+        # only in the process that holds the lease
+        return (list, (list(self),))
 
 
 class _ErrorSentinel:
@@ -692,6 +793,78 @@ class Runtime:
         for k, v in res.items():
             self.avail[k] = self.avail.get(k, 0.0) + v
 
+    def _queued_reservations(self) -> bool:
+        """Whether a queued actor request that fits is entitled to whole
+        devices: the JAX package's FIFO scan of the actor queue (feasible
+        requests consume from a scratch copy of ``avail``; the scan stops
+        at the first that does not fit) on one host, where a reservation
+        is the whole host.  A fractional request takes no device id and
+        reserves nothing.  Caller holds the lock."""
+        avail = dict(self.avail)
+        for rec in self.actor_queue:
+            res = rec["resources"]
+            if not all(avail.get(k, 0.0) >= v for k, v in res.items()):
+                return False
+            if int(res.get("chip", 0)):
+                return True
+            for k, v in res.items():
+                avail[k] = avail.get(k, 0.0) - v
+        return False
+
+    def lease_chips(self, n: int, timeout: Optional[float] = None) -> ChipLease:
+        """Driver-level device lease for work that runs on the driver
+        itself rather than in an actor.  Blocks until ``n`` devices are
+        free, and never outraces a queued actor request that fits
+        (``_queued_reservations``).  Returns a :class:`ChipLease` (a list
+        of device ids carrying ``on_revoke`` preemption plumbing).  Pair
+        with :meth:`release_chips`."""
+        self._check_satisfiable({"chip": float(n)})
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            ids = None
+            with self.lock:
+                if (self._can_fit({"chip": float(n)})
+                        and not self._queued_reservations()):
+                    ids = self._claim_chips(n)
+                    self._acquire({"chip": float(n)})
+            if ids is not None:
+                lease = ChipLease(ids)
+                if _faults.enabled():
+                    try:
+                        spec = _faults.perturb("runtime.lease", key=str(n))
+                    except _faults.LeaseRevokedError:
+                        # the claim must not leak: hand the devices back
+                        # before surfacing the revocation
+                        self.release_chips(ids)
+                        raise
+                    if spec is not None and spec.action == "notice":
+                        # graceful preemption: grant the lease, then
+                        # delay_s later deliver notice_s of warning via
+                        # the handle (preemption lands mid-work, not at
+                        # acquisition)
+                        t = threading.Timer(
+                            spec.delay_s, lease.deliver_notice,
+                            args=(spec.notice_s,))
+                        t.daemon = True
+                        t.start()
+                return lease
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"no {n}-chip lease available after {timeout}s")
+            time.sleep(0.05)
+
+    def revoke_lease(self, lease: ChipLease, notice_s: float = 0.0) -> None:
+        """Programmatic preemption: deliver a revocation notice to a lease
+        this runtime granted.  The holder's ``on_revoke`` callbacks fire
+        with ``notice_s`` of warning; the holder still calls
+        :meth:`release_chips` when its drain completes."""
+        lease.deliver_notice(notice_s)
+
+    def release_chips(self, chip_ids: List[int]) -> None:
+        with self.lock:
+            self._release({"chip": float(len(chip_ids))})
+            self.free_chips.extend(chip_ids)
+        self._schedule()
+
     def _check_satisfiable(self, res: Dict[str, float]):
         total = {"cpu": float(self.num_cpus), "chip": float(self.num_chips)}
         for k, v in res.items():
@@ -1277,3 +1450,41 @@ def get_runtime() -> Runtime:
     if _runtime is None:
         init()
     return _runtime
+
+
+def attach_chip_lease(chip_ids: Optional[List[int]] = None) -> ChipLease:
+    """ACTOR-side lease attachment: wrap the devices this process was
+    placed on (``TPU_AIR_CHIP_IDS``, set by the worker loop at actor
+    creation, or an explicit ``chip_ids``) in a :class:`ChipLease` so
+    in-actor holders (the serving engine) get the same ``on_revoke``
+    preemption surface as driver-side :meth:`Runtime.lease_chips` holders.
+    A fractional (``num_chips < 1``) actor holds no id: its lease is empty
+    and revocable all the same.
+
+    Consults the ``runtime.lease`` fault site exactly like the driver
+    path, with one difference: a cold ``revoke`` here delivers an
+    immediate zero-notice revocation through the handle instead of
+    raising, because the actor is already *placed* on the devices: the
+    interesting failure is losing them mid-work, not failing to get
+    them."""
+    if chip_ids is None:
+        raw = os.environ.get("TPU_AIR_CHIP_IDS", "")
+        chip_ids = [int(c) for c in raw.split(",") if c.strip()]
+    lease = ChipLease(chip_ids)
+    if _faults.enabled():
+        try:
+            # keyed by the device ids so a plan's ``match`` can aim a
+            # preemption at the replica holding a specific device
+            spec = _faults.perturb(
+                "runtime.lease",
+                key="chips=" + ",".join(str(c) for c in lease),
+            )
+        except _faults.LeaseRevokedError:
+            spec = None
+            lease.deliver_notice(0.0)
+        if spec is not None and spec.action == "notice":
+            t = threading.Timer(spec.delay_s, lease.deliver_notice,
+                                args=(spec.notice_s,))
+            t.daemon = True
+            t.start()
+    return lease

@@ -64,6 +64,7 @@ Refused with ``NotImplementedError`` naming its ROADMAP Queue 1 items:
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -179,6 +180,10 @@ class InferenceEngine:
         self._next_request_id = 0
         self._id_lock = threading.Lock()
         self._step_lock = threading.Lock()
+        # callers waiting in _between_steps; the loop stays out of the step
+        # lock while any wait
+        self._freezers = 0
+        self._freezers_lock = threading.Lock()
         self._closed = False
         self._draining = False
         self._preempting = False
@@ -343,6 +348,24 @@ class InferenceEngine:
                                   f"ported to tpu_air_torch ({_ITEM_6B_9})")
 
     # -- the engine loop -----------------------------------------------------
+    @contextlib.contextmanager
+    def _between_steps(self):
+        """Hold the step lock for a caller outside the loop, between two
+        steps.  The loop stays out of the lock while a caller waits: a bare
+        Lock goes back to the loop that just released it, and the caller
+        would wait until every slot had finished."""
+        with self._freezers_lock:
+            self._freezers += 1
+        try:
+            self._step_lock.acquire()
+        finally:
+            with self._freezers_lock:
+                self._freezers -= 1
+        try:
+            yield
+        finally:
+            self._step_lock.release()
+
     def step(self) -> bool:
         """One deterministic engine iteration: admit into free slots, run
         the prefill quantum (paged), then one pool decode step if anything
@@ -431,7 +454,7 @@ class InferenceEngine:
             raise ValueError("migrate_out requires a paged engine (kv_mode='paged')")
         self.preempt()
         payloads: List[Dict[str, Any]] = []
-        with self._step_lock:
+        with self._between_steps():
             for slot in list(self.slots.active_slots()):
                 if slot.prefilling:
                     continue
@@ -740,7 +763,7 @@ class InferenceEngine:
             placed = {name: new[name].to(device=cur.device, dtype=cur.dtype, copy=True)
                       for name, cur in serving.items()}
         self._sync()
-        with self._step_lock:
+        with self._between_steps():
             prev = {name: p.data for name, p in serving.items()}
             self._point_weights(serving, placed)
             self._prev_weights, self._prev_version = prev, self._weights_version
@@ -756,7 +779,7 @@ class InferenceEngine:
         tensors are dropped, and a second rollback raises
         ``RuntimeError``."""
         t_req = time.monotonic()
-        with self._step_lock:
+        with self._between_steps():
             if self._prev_weights is None:
                 raise RuntimeError("no prior weights retained to roll back to")
             self._point_weights(self.model.state_dict(keep_vars=True), self._prev_weights)
@@ -823,7 +846,7 @@ class InferenceEngine:
         pa = torch.zeros((mc.d_model, cfg.adapter_rank))
         pb = torch.zeros((cfg.adapter_rank, mc.vocab_size))
         pa[:, :r], pb[:r] = a, b
-        with self._step_lock:
+        with self._between_steps():
             with self._adapter_lock:
                 row = self._adapter_rows.get(name)
                 if row is None:
@@ -848,7 +871,7 @@ class InferenceEngine:
         is not loaded."""
         if not self.adapters_enabled:
             return False
-        with self._step_lock:
+        with self._between_steps():
             with self._adapter_lock:
                 row = self._adapter_rows.get(name)
                 if row is None:
@@ -1010,6 +1033,11 @@ class InferenceEngine:
             # airlint: disable=CC001 — GIL-atomic stop flag; close() sets it
             # then joins this thread, so a stale read costs one iteration
             while not self._closed:
+                # airlint: disable=CC001 — GIL-atomic int read; a stale read
+                # costs one step before the waiting caller is served
+                if self._freezers:
+                    time.sleep(0.0005)
+                    continue
                 if not self.step():
                     self.scheduler.wait_for_work(0.01)
 

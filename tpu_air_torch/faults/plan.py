@@ -5,7 +5,9 @@ imports nothing of ``tpu_air``).
 A :class:`FaultPlan` is a seed plus a schedule of typed :class:`FaultSpec`
 entries.  Each hook is one ``if _faults.enabled():`` guard, so with no plan
 installed it costs one module-global read.  A spec fires on the N-th
-eligible hit of its site (per process, counted under a lock).  A plan
+eligible hit of its site (per process, counted under a lock), and
+:meth:`FaultPlan.generate` derives its schedule from ``random.Random(seed)``
+alone: the same seed gives the same ``to_json()`` as the JAX package's.  A plan
 crosses into worker processes through ``TPU_AIR_TORCH_FAULT_PLAN`` in the
 environ the runtime ships to each worker; ``_worker_main`` calls
 :func:`_sync_from_env`.
@@ -20,6 +22,11 @@ site                  actions
                       before any byte lands)
 ``actor.call``        ``delay``, ``kill`` (crash the target actor)
 ``runtime.task``      ``delay``
+``runtime.lease``     ``revoke`` (LeaseRevokedError after claim),
+                      ``notice`` (graceful preemption: the lease is
+                      granted, then ``delay_s`` later the holder's
+                      ``on_revoke`` callback fires with ``notice_s``
+                      of warning before the chips are reclaimed)
 ``proxy.request``     ``delay``, ``kill`` (crash a serving replica)
 ``proxy.poll``        ``delay``, ``kill`` (crash the pinned replica)
 ``kv.transfer``       ``delay`` (a slow KV-page extraction)
@@ -30,6 +37,9 @@ site                  actions
                       ``delay`` (stall before the manifest write)
 ``weights.swap``      ``delay``, ``error`` (the swap fails on the target
                       replica before it takes the step lock)
+``batch.runner``      ``delay``, ``kill`` (the batch-job driver dies at
+                      a chunk-commit boundary: BatchJobKilled; a rerun
+                      of the same job_id must resume exactly-once)
 ====================  ==========================================
 """
 
@@ -37,6 +47,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import threading
 import time
 from dataclasses import asdict, dataclass, field
@@ -46,6 +57,7 @@ __all__ = [
     "FaultInjectedError",
     "FaultPlan",
     "FaultSpec",
+    "LeaseRevokedError",
     "clear",
     "enabled",
     "hit",
@@ -62,17 +74,30 @@ class FaultInjectedError(Exception):
     """An explicitly injected error (action ``error``)."""
 
 
+class LeaseRevokedError(Exception):
+    """An injected chip-lease revocation (action ``revoke``)."""
+
+
 @dataclass(frozen=True)
 class FaultSpec:
     """One scheduled fault.
 
     ``site``     — hook name (see module docstring table).
-    ``action``   — what to do there: delay/slow/drop/error/kill.
+    ``action``   — what to do there: delay/slow/drop/error/revoke/kill/
+                   notice.
     ``at``       — fire on the N-th eligible hit of the site (1-based,
                    counted per process).
     ``count``    — keep firing for this many consecutive hits (gray
                    failures are sustained slowness, not a single blip).
-    ``delay_s``  — sleep duration for delay/slow actions.
+    ``delay_s``  — sleep duration for delay/slow actions; for ``notice``
+                   it is how long after the lease grant the revocation
+                   notice is delivered (preemption lands mid-decode, not
+                   at acquisition time).
+    ``notice_s`` — advance warning carried by a ``notice`` action: how
+                   long the holder has between the ``on_revoke`` callback
+                   and the chips actually being reclaimed.  ``0`` means
+                   "no time to migrate": the drain falls back to journal
+                   replay.
     ``match``    — optional substring filter on the hit key (e.g. an
                    actor id or object id); empty matches everything.
     """
@@ -82,10 +107,12 @@ class FaultSpec:
     at: int = 1
     count: int = 1
     delay_s: float = 0.0
+    notice_s: float = 0.0
     match: str = ""
 
     def __post_init__(self):
-        if self.at < 1 or self.count < 1 or self.delay_s < 0:
+        if self.at < 1 or self.count < 1 or self.delay_s < 0 \
+                or self.notice_s < 0:
             raise ValueError(f"bad fault spec: {self}")
 
 
@@ -107,6 +134,46 @@ class FaultPlan:
         d = json.loads(raw)
         return cls(seed=int(d.get("seed", 0)),
                    specs=[FaultSpec(**s) for s in d.get("specs", [])])
+
+    @classmethod
+    def generate(cls, seed: int,
+                 sites: Optional[List[str]] = None) -> "FaultPlan":
+        """Derive a schedule from the seed alone.  Each site template gets
+        a randomized trigger point (and delay where meaningful) from a
+        private ``random.Random(seed)``, so every run of a seed replays the
+        identical schedule.  The templates are the JAX package's, sites the
+        port has no hook for included, so one seed is one plan in both."""
+        rng = random.Random(seed)
+        templates = {
+            "object_store.get": lambda: FaultSpec(
+                "object_store.get", "delay", at=rng.randint(2, 8),
+                delay_s=round(rng.uniform(0.05, 0.3), 3)),
+            "prefill.worker": lambda: FaultSpec(
+                "prefill.worker", "kill", at=rng.randint(1, 3)),
+            "proxy.poll": lambda: FaultSpec(
+                "proxy.poll", "kill", at=rng.randint(2, 6)),
+            "proxy.request": lambda: FaultSpec(
+                "proxy.request", "delay", at=rng.randint(1, 4),
+                delay_s=round(rng.uniform(0.01, 0.1), 3)),
+            "runtime.lease": lambda: FaultSpec(
+                "runtime.lease", "notice", at=rng.randint(1, 2),
+                delay_s=round(rng.uniform(0.2, 0.8), 3),
+                notice_s=round(rng.uniform(2.0, 5.0), 3)),
+            "train.report": lambda: FaultSpec(
+                "train.report", "kill", at=rng.randint(2, 4)),
+            "weights.publish": lambda: FaultSpec(
+                "weights.publish", "corrupt", at=rng.randint(1, 6)),
+            "weights.swap": lambda: FaultSpec(
+                "weights.swap", "delay", at=rng.randint(1, 3),
+                delay_s=round(rng.uniform(0.01, 0.1), 3)),
+        }
+        chosen = sites if sites is not None else sorted(templates)
+        specs = []
+        for site in chosen:
+            if site not in templates:
+                raise ValueError(f"no generator template for site {site!r}")
+            specs.append(templates[site]())
+        return cls(seed=seed, specs=specs)
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +250,12 @@ def perturb(site: str, key: str = "") -> Optional[FaultSpec]:
 
     ``delay``/``slow`` sleep here; ``drop`` raises ``TimeoutError`` (the
     same error a real store timeout produces); ``error`` raises
-    :class:`FaultInjectedError`.  ``kill`` is returned to the caller — only
-    the hook site knows what dying means there (``crash_actor`` from the
-    driver)."""
+    :class:`FaultInjectedError`; ``revoke`` raises
+    :class:`LeaseRevokedError`.  ``kill`` and ``notice`` are returned to
+    the caller: only the hook site knows what dying means there
+    (``crash_actor`` from the driver), and only the lease site can schedule
+    an advance-warning revocation against the handle it is about to
+    return."""
     spec = hit(site, key)
     if spec is None:
         return None
@@ -196,6 +266,8 @@ def perturb(site: str, key: str = "") -> Optional[FaultSpec]:
             f"airfault: injected drop at {site} (key={key!r})")
     elif spec.action == "error":
         raise FaultInjectedError(f"airfault: injected error at {site}")
+    elif spec.action == "revoke":
+        raise LeaseRevokedError(f"airfault: lease revoked at {site}")
     return spec
 
 

@@ -3,9 +3,8 @@ from ``tpu_air/observability/dashboard.py`` (the port imports nothing of
 ``tpu_air``; the routes, payloads and ``tpu_air_*`` metric families are the
 JAX package's).  What the port lacks shows as the JAX package shows it
 without that part: ``/api/cluster``'s ``gcs`` is ``{"address": None,
-"nodes": []}`` (no GCS daemon, ROADMAP Queue 1 item 11), ``/api/objects``
-has no ``arena`` key (the file store only, item 11), and ``/api/batch`` has
-no jobs (the batch lane, item 15).
+"nodes": []}`` (no GCS daemon, ROADMAP Queue 1 item 11), and
+``/api/objects`` has no ``arena`` key (the file store only, item 11).
 
 Endpoints (default 127.0.0.1:8265, the reference's dashboard address —
 Install_locally.md:64-67):
@@ -24,8 +23,10 @@ Install_locally.md:64-67):
   /api/watch        airwatch state: scrape/anomaly counters, recent
                     watch.anomaly events (with trace exemplars), detector
                     baselines, time-series store tiers
-  /api/batch        airbatch job progress, one entry per registered BatchJob
-                    (none: the batch lane is ROADMAP Queue 1 item 15)
+  /api/batch        airbatch job progress (tpu_air_torch/batch): rows
+                    done/total, rows-per-second, in-flight window, borrowed
+                    replicas, shed retries — one entry per registered
+                    BatchJob
   /api/version      framework version
   /metrics          prometheus text exposition (OpenMetrics-style HELP/TYPE
                     headers; engine TTFT histograms carry trace exemplars)
@@ -229,9 +230,10 @@ def watch_payload() -> Dict[str, Any]:
 
 def batch_payload() -> Dict[str, Any]:
     """The /api/batch payload: every registered batch job's progress
-    snapshot.  The port has no batch lane yet (ROADMAP Queue 1 item 15:
-    ``tpu_air/batch``), so no job is registered."""
-    return {"jobs": {}}
+    snapshot (tpu_air_torch/batch/job.py ``jobs_stats``)."""
+    from tpu_air_torch.batch import jobs_stats
+
+    return {"jobs": jobs_stats()}
 
 
 # every non-engine family /metrics can emit, with its exposition type and
@@ -305,7 +307,7 @@ _TENANT_FAMILIES = [
     ("tpu_air_tenant_chip_seconds_per_1k_tokens", "gauge",
      "Attributed chip-seconds per 1000 tokens, by tenant."),
 ]
-# airbatch job progress, labelled by job — the counters
+# airbatch job progress (tpu_air_torch/batch), labelled by job — the counters
 # are per-incarnation (a resumed driver restarts them; rows_done carries
 # the epoch-level position via rows_resumed)
 _BATCH_FAMILIES = [

@@ -36,16 +36,21 @@ WeightsController` (``weights_swap``, ``weights_rollback``,
 JAX package's T5 replica does: its window engine takes no adapter, has no
 weights to swap or roll back, and migration raises ``ValueError``.
 
-What the port refuses, each with ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: ``mesh=`` and ``disagg=`` (items 6b and 9); the borrow return
-over a revocable lease (item 11).  The replica attaches no revocable lease,
-so ``preempt_status`` reports no notice, as a JAX replica does whose lease
-was never revoked, and what would deliver one to the
-:class:`~tpu_air_torch.serve.supervisor.PreemptionWatcher` waits for item 11.
+When it builds its engine a replica attaches the lease it was placed on
+(:func:`~tpu_air_torch.core.runtime.attach_chip_lease`): a revocation
+notice, from the ``runtime.lease`` fault site or from ``borrow_return``
+(how the batch lane hands a borrowed replica back), freezes the engine's
+admission, and ``preempt_status`` tells the
+:class:`~tpu_air_torch.serve.supervisor.PreemptionWatcher`, which migrates
+the live streams or replays them from its journal.
+
+What the port refuses, with ``NotImplementedError`` naming its ROADMAP
+Queue 1 items: ``mesh=`` and ``disagg=`` (items 6b and 9).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 from .deployment import Deployment
@@ -89,6 +94,9 @@ class _EngineServer:
         # that delivered `done` still answers (insertion-ordered, bounded)
         self._finished: Dict[int, Any] = {}
         self._draining = False
+        self._lease = None
+        self._preempt_notice_s: Optional[float] = None
+        self._preempt_at: Optional[float] = None
 
     def _ensure_engine(self):
         if self._engine is None:
@@ -104,7 +112,25 @@ class _EngineServer:
             else:
                 self._engine = InferenceEngine(model, self._engine_config or EngineConfig(),
                                                name=self._engine_name)
+            # attach the lease this actor was placed on: a revocation notice
+            # freezes admission at once, and the supervisor's watcher sees
+            # it through preempt_status and migrates or replays from the
+            # driver's side
+            from tpu_air_torch.core.runtime import attach_chip_lease
+
+            self._lease = attach_chip_lease()
+            self._lease.on_revoke(self._on_preempt)
         return self._engine
+
+    def _on_preempt(self, notice_s: float) -> None:
+        """Lease-revocation callback (the revoker's thread): stamp the
+        notice and freeze engine admission.  The queued backlog stays
+        queued: the notice window belongs to LIVE slots."""
+        self._preempt_notice_s = float(notice_s)
+        self._preempt_at = time.monotonic()
+        engine = self._engine
+        if engine is not None and hasattr(engine, "preempt"):
+            engine.preempt()
 
     def close(self) -> None:
         """Stop the engine's thread and fail what it still holds (the
@@ -295,8 +321,16 @@ class _EngineServer:
         return stream.request_id
 
     def borrow_return(self, notice_s: float = 5.0) -> bool:
-        _refuse("borrow_return over a revocable chip lease (attach_chip_lease)",
-                "ROADMAP Queue 1 item 11")
+        """Elastic borrowing (tpu_air_torch/batch): hand this replica's
+        device back THROUGH the preemption path by delivering a revocation
+        notice to its own lease, which freezes admission and lets the
+        driver-side watcher drain or migrate live slots exactly as a real
+        preemption would.  Returns False when there is no lease to revoke
+        (the engine was never built: nothing to return)."""
+        if self._lease is None:
+            return False
+        self._lease.deliver_notice(float(notice_s))
+        return True
 
     # -- draining (zero-downtime rollout / scale-down) ------------------------
     def drain(self) -> None:
@@ -320,9 +354,18 @@ class _EngineServer:
         }
 
     def preempt_status(self) -> Dict[str, Any]:
-        """The watcher's poll surface: no revocable lease is attached
-        (ROADMAP Queue 1 item 11), so no notice ever arrives."""
-        return {"preempting": False}
+        """Cheap poll surface for the driver-side watcher.  Never forces
+        the lazy engine build; ``notice_left_s`` is how much of the
+        revocation window remains (the watcher's migrate-vs-replay
+        input)."""
+        if self._preempt_notice_s is None:
+            return {"preempting": False}
+        left = self._preempt_notice_s - (time.monotonic() - self._preempt_at)
+        return {
+            "preempting": True,
+            "notice_s": self._preempt_notice_s,
+            "notice_left_s": max(0.0, left),
+        }
 
     def stats(self) -> Dict[str, Any]:
         """The engine's metrics snapshot, its device and this process's

@@ -1,7 +1,5 @@
 """HTTP proxy + serve.run/shutdown, copied from ``tpu_air/serve/proxy.py``
-over the port's runtime (the port imports nothing of ``tpu_air``).  The
-JAX package's batch lane is not ported yet (ROADMAP Queue 1 item 15), so
-its ``route_control`` surface and ``/-/stats`` entry are not here.
+over the port's runtime (the port imports nothing of ``tpu_air``).
 
 Request path (SURVEY.md §3.5): client POST :8000 → proxy → route match →
 SLO admission (priority class + token budget, serve/admission.py) →
@@ -596,6 +594,26 @@ def replica_engine_stats() -> Dict[str, Dict[str, Any]]:
     return out
 
 
+def route_control(route_prefix: str) -> Dict[str, Any]:
+    """The driver-side control surface for one deployed route: its
+    deployment handle, admission controller, autoscaler (or None),
+    preemption watcher, and the shared request journal.  The batch lane's
+    :class:`~tpu_air_torch.batch.BatchJob` drives THROUGH these: the same
+    admission path, journal replay, and preemption orchestration online
+    traffic gets, rather than a parallel offline stack."""
+    with _state.lock:
+        handle = _state.routes.get(route_prefix)
+        if handle is None:
+            raise KeyError(f"no deployment at route {route_prefix!r}")
+        return {
+            "handle": handle,
+            "admission": _state.admission.get(route_prefix),
+            "autoscaler": _state.autoscalers.get(route_prefix),
+            "watcher": _state.watchers.get(route_prefix),
+            "journal": _state.journal,
+        }
+
+
 def serve_control_stats() -> Dict[str, Any]:
     """Per-route serve-plane control state (the ``/-/stats`` payload):
     admission outcomes + gauges, autoscaler decisions.  The dashboard folds
@@ -628,6 +646,13 @@ def serve_control_stats() -> Dict[str, Any]:
     weights = controller_stats()
     if weights:
         out["weights"] = weights
+    # batch lane (tpu_air_torch/batch): per-job progress and borrowing
+    # gauges ride the same bare-key convention as "recovery" and "weights"
+    from tpu_air_torch.batch import jobs_stats
+
+    batch = jobs_stats()
+    if batch:
+        out["batch"] = batch
     return out
 
 

@@ -1,10 +1,10 @@
 """Self-healing serve plane: proxy-side request journal + stream replay.
-Copied from ``tpu_air/serve/supervisor.py`` over the port's runtime.  The
-:class:`PreemptionWatcher`'s migration reaches working RPCs
-(``EngineDeployment``'s ``migrate_out`` and ``submit_migrated``), but the
-port's replicas attach no revocable lease (ROADMAP Queue 1 item 11), so no
-notice starts it on its own today; the journal replay serves every stream
-whose replica dies.
+Copied from ``tpu_air/serve/supervisor.py`` over the port's runtime.  A
+replica's lease notice (the ``runtime.lease`` fault site, or the batch
+lane's ``borrow_return``) starts the :class:`PreemptionWatcher`, which
+migrates the live streams through ``EngineDeployment``'s ``migrate_out``
+and ``submit_migrated``; the journal replay serves every stream whose
+replica dies.
 
 The deployment layer already *respawns* crashed replicas
 (``DeploymentHandle._control_tick`` prunes dead replicas and re-spawns the
