@@ -2,12 +2,20 @@
 """Drive the PyTorch/CUDA port (``tpu_air_torch``) on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs a CUDA card and ``nvcc``; it imports nothing of JAX or ``tpu_air``.
+It needs a CUDA card, ``nvcc`` and ``g++``; it imports nothing of JAX or
+``tpu_air``.  Every runtime it starts runs on the port's default path: the
+C++ shared-memory object arena and, where ``protoc``, the protobuf headers
+and Python protobuf are installed, the GCS control-plane daemon.
 
 Phases, each fatal on failure:
 
-1. build    — compile every kernel of ``tpu_air_torch/ops/csrc`` (one nvcc per
-              source, started together) and print, from ``ptxas -v``, each
+1. build    — print the native toolchain (g++, protoc, protobuf headers,
+              Python protobuf) and whether the GCS daemon can be built here;
+              compile every kernel of ``tpu_air_torch/ops/csrc`` (one nvcc per
+              source, started together) and, beside them, the arena library
+              and (where the toolchain allows) the GCS daemon into
+              ``tpu_air_torch/_build/`` (a native build failure is fatal);
+              print, from ``ptxas -v``, each
               kernel's registers, shared memory and spills, and the card's
               name and power limit; then, from ``cuobjdump -sass``, each
               kernel's count of tensor-core instructions (HMMA for
@@ -115,7 +123,10 @@ Phases, each fatal on failure:
               must equal the in-process predictor's row for row; wall time,
               generated tokens/s, the share of the wall outside the actor's
               predict, f16 finiteness, and how many tokens the kernel-free
-              plain path in f16 matches (not asserted);
+              plain path in f16 matches (not asserted); the runtime's arena
+              must have taken the phase's objects (live objects and sealed
+              bytes grew, ``leaked_bytes`` 0) and its GCS list this host
+              alive;
 16. w2       — W2 as the reference runs it: ``tune.Tuner(T5Trainer(...))``
               over FLAN-T5-base (full width and depth, dropout 0.1, bf16 on
               f32 parameters, random weights from numpy seed 0 in every
@@ -193,12 +204,12 @@ Phases, each fatal on failure:
               ``InferenceEngine(EngineConfig(num_slots=16, slot_len=1024,
               page_len=16, max_new_tokens=64, eos_token_id=None))``, paged,
               32 prompts of 64-512 tokens (8 behind one 256-token prefix)
-              as a burst and trickled 4 in flight: the two runs' tokens must
-              be identical per prompt; TTFT, decode step, tokens/s, prefix
+              as a burst and the first 16 trickled 4 in flight: the two
+              runs' tokens must be identical per prompt; TTFT, decode step, tokens/s, prefix
               hits, copy-on-write copies, peak pool pages, the profiled
               decode step's idle share; (c) the slab engine, burst: tokens
-              agreeing with (b) and with per-prompt offline ``generate``,
-              printed; (d) ``EngineDeployment`` over the checkpoint, one
+              agreeing with (b) and with per-prompt offline ``generate`` of
+              the first 8 prompts, printed; (d) ``EngineDeployment`` over the checkpoint, one
               replica leasing the card: 16 of the prompts as two blocking
               POSTs of 8 and as submit/poll streams from 4 client threads,
               every answer equal to (b)'s; the replica's device, launches,
@@ -208,7 +219,8 @@ Phases, each fatal on failure:
               six token streams equal; (f) the decode kernel timed at the
               engine's shape (b 16, L 1024, 8 x 128, bf16, per-row mask)
               beside its bound, its plain version and SDPA.  Cuts: 32 engine
-              prompts and 64 new tokens (the phase runs in about 90 s).
+              prompts and 64 new tokens, (b)'s trickle 16 and (c)'s offline
+              generate 8 of them (the phase runs in about 80 s).
 23. lm live — live weights, LoRA head-delta adapters and migration on
               phase 22's checkpoint, engine configuration and prompts, bf16,
               every 1-token step through the decode kernel: (a) the paged
@@ -216,7 +228,8 @@ Phases, each fatal on failure:
               tenants, the 32 prompts as one burst, a quarter on each
               tenant and on the base: the base rows equal phase 22 (b)'s
               burst (the zero row is exact), each tenant changes some
-              tokens; agreement with per-tenant ``offline_greedy``, the
+              tokens; agreement with per-tenant ``offline_greedy`` on each
+              tenant's first 2 rows, the
               decode step against phase 22's, the step with the banks and
               without in turns from one state, and the launches are
               printed;
@@ -293,9 +306,25 @@ Phases, each fatal on failure:
               into B's process, every stream equal to phase 22's, one borrow
               return, no replica spawned in A's place, no prefill chunk
               re-run on B; pages, bytes and ms a page; (d) ``/api/batch``,
-              ``/metrics`` and ``/-/stats`` report the job.  Borrowing on a
+              ``/metrics`` and ``/-/stats`` report the job, ``/api/objects``
+              the arena and ``/api/cluster`` this host's node; the arena took
+              the phase's objects with ``leaked_bytes`` 0.  Borrowing on a
               trough waits for a whole free card, so with one card it runs
-              only in the CPU tests.
+              only in the CPU tests;
+26. native   — the object arena and the GCS daemon under a leased card
+              actor, in runtimes of their own: (a) the toolchain line; (b)
+              the actor makes phase 25's payload shape on its card (one 0.5
+              MiB K/V page, and 135 pages in one object; as
+              ``migrate_out``'s tensors and as one byte array), copies it to
+              the host and puts it; the driver gets it, moves it back to the
+              card and checks it bitwise against the same seed's payload:
+              through the arena (the default runtime), then through the file
+              store (a second runtime whose arena is too small for either),
+              ms an object and a page for each, the pins of the arena's
+              values 0 once they die, no block leaked; (c) where the daemon
+              builds: ``nodes()`` lists host-0 alive with 1 card, the actor
+              is in the GCS actor directory on card 0 and marked dead after
+              ``kill``, and the KV round-trips.
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
@@ -328,6 +357,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import functools
 from functools import partial
 
 import numpy as np
@@ -414,6 +444,10 @@ LM_GEN_PROMPTS, LM_GEN_LEN, LM_GEN_NEW = 16, 512, 128
 LM_ENGINE = {"num_slots": 16, "slot_len": 1024, "page_len": 16, "max_new_tokens": 64,
              "eos_token_id": None}
 LM_ENGINE_PROMPTS, LM_PREFIX_LEN, LM_PREFIX_PROMPTS, LM_TRICKLE = 32, 256, 8, 4
+# depth cuts of phase 22: (b)'s trickled run takes the first 16 prompts (the
+# burst keeps all 32, the yardstick of phases 23-25), (c)'s per-prompt
+# offline generate the first 8
+LM_TRICKLE_PROMPTS, LM_OFFLINE_PROMPTS = 16, 8
 LM_PROMPT_LENS = (64, 512)
 LM_SERVED, LM_SERVE_PARITY_LAYERS, LM_SERVE_PARITY_PROMPTS, LM_SERVE_PARITY_NEW = 16, 2, 8, 32
 # LM live dials (phase 23), phase 22's checkpoint, engine and prompts: (a) 3
@@ -422,6 +456,9 @@ LM_SERVED, LM_SERVE_PARITY_LAYERS, LM_SERVE_PARITY_PROMPTS, LM_SERVE_PARITY_NEW 
 # migrated after 8 decode steps; (d) 4 canary probes of 64 tokens -> 8 new
 LM_LIVE_TENANTS, LM_LIVE_RANK, LM_LIVE_SCALE, LM_LIVE_SWAP_AT = 3, 4, (1 / 32, 0.5), 24
 LM_LIVE_MIGRATED, LM_LIVE_MIGRATE_AFTER, LM_LIVE_PROBES, LM_LIVE_PROBE_NEW = 16, 8, 4, 8
+# depth cut of phase 23 (a): per-tenant offline_greedy agreement (printed,
+# not asserted) on each tenant's first 2 rows
+LM_LIVE_OFFLINE_ROWS = 2
 # observability dials: [lm] (c) traces LM_TRACE_STEPS train steps and prints
 # the LM_TRACE_GAPS longest device-idle gaps; [obs serve]'s airwatch scrapes
 # every OBS_WATCH_S seconds, its traced POST carries OBS_POST prompts, and
@@ -434,6 +471,11 @@ OBS_WATCH_S, OBS_POST, OBS_LAST_STREAMS = 0.5, 8, 4
 # commit; (c) 16 streams, replica A returned with a 5 s notice after 8 tokens
 LANE_REPLICA_CHIPS, LANE_BLOCKS, LANE_SHARDS, LANE_CHUNK_ROWS, LANE_WINDOW = 0.5, 4, 2, 4, 8
 LANE_KILL_AT, LANE_STREAMS, LANE_RETURN_AFTER, LANE_NOTICE_S = 3, 16, 8, 5.0
+# native dials (phase 26): phase 25's migration payload shape (0.5 MiB a K/V
+# page over the LM's 8 layers) as 1 page and as phase 25's 135 pages in one
+# object, NATIVE_REPS round trips each; the file-store runtime's arena is
+# NATIVE_SMALL_ARENA bytes, too small for either
+NATIVE_PAGES, NATIVE_REPS, NATIVE_SMALL_ARENA = (1, 135), 3, 64 << 10
 
 
 def model_config():
@@ -879,13 +921,47 @@ def build() -> dict:
     """Phase 1.  Returns {kernel instantiation: {"regs", "spill", "HMMA",
     "HGMMA", "UBLKCP"}}."""
     import shutil
+    import threading
 
+    from tpu_air_torch import _native
     from tpu_air_torch.ops import _build
 
+    tools, missing = native_toolchain()
+    log(f"[native] toolchain: g++ {tools['g++']!r}, protoc {tools['protoc']!r}, protobuf "
+        f"headers {tools['protobuf_headers']!r}, Python protobuf {tools['python_protobuf']!r}")
+    log("[native] gcs: buildable here" if missing is None
+        else f"[native] gcs: not buildable here ({missing})")
+    native, native_err = {}, []
+
+    def build_native():     # g++ beside the nvcc processes
+        try:
+            t = time.perf_counter()
+            native["arena"] = _native.build_store()
+            native["arena_s"] = time.perf_counter() - t
+            if missing is None:
+                t = time.perf_counter()
+                native["gcs"] = _native.build_gcs()
+                native["gcs_s"] = time.perf_counter() - t
+        except Exception as e:  # noqa: BLE001 — raised below, after nvcc
+            native_err.append(e)
+
+    native_thread = threading.Thread(target=build_native, name="native-build")
     names = _build.sources()
     t0 = time.perf_counter()
-    logs = _build.build(names)
+    native_thread.start()
+    try:
+        logs = _build.build(names)
+    finally:
+        native_thread.join()
     log(f"[build] {names} built for sm_90a in {time.perf_counter() - t0:.1f} s")
+    if native_err:
+        raise AssertionError(f"[build] the native parts failed to build: {native_err[0]}")
+    _native.load_store_lib()
+    log(f"[build] native: arena library {os.path.basename(native['arena'])} "
+        f"({native['arena_s']:.1f} s, loaded); GCS daemon "
+        + (f"{os.path.basename(native['gcs'])} ({native['gcs_s']:.1f} s)" if missing is None
+           else f"not built ({missing})")
+        + f", both in {os.path.relpath(_native.BUILD_DIR)}")
     spills, built, serialised = {}, {}, []
     for src, report in sorted(logs.items()):    # registers, static smem, spill stores
         usage = ptxas_usage(report)
@@ -2558,6 +2634,58 @@ def write_w3_checkpoint(dev, path: str) -> float:
     return os.path.getsize(os.path.join(path, "params.msgpack")) / 1e6
 
 
+@functools.lru_cache(maxsize=None)
+def native_toolchain() -> tuple:
+    """(the native toolchain found here, why the GCS daemon cannot be built
+    and driven here or None): checked once a run, printed by phase 1."""
+    from tpu_air_torch import _native
+
+    tools = _native.toolchain()
+    return tools, _native.gcs_missing(tools)
+
+
+def gcs_expected() -> bool:
+    """Whether this machine can build and drive the GCS daemon."""
+    return native_toolchain()[1] is None
+
+
+def runtime_native(phase: str) -> dict:
+    """The driver runtime's arena stats and GCS membership.  Fails where the
+    runtime's store has no arena or, where the daemon is buildable, where
+    ``nodes()`` does not list this host alive with the runtime's cards."""
+    from tpu_air_torch.core.runtime import get_runtime
+
+    rt = get_runtime()
+    if rt.store._arena is None:
+        raise AssertionError(f"[{phase}] the runtime's object store has no arena")
+    nodes = rt.nodes()
+    if gcs_expected():
+        host = [n for n in nodes if n["node_id"] == rt.node_id]
+        if not (rt.gcs_address and host and host[0]["alive"]
+                and host[0]["num_chips"] == rt.num_chips):
+            raise AssertionError(f"[{phase}] the GCS at {rt.gcs_address} lists {nodes}, not "
+                                 f"{rt.node_id} alive with {rt.num_chips} cards")
+    return {"arena": rt.store._arena.stats(), "gcs_address": rt.gcs_address, "nodes": nodes}
+
+
+def check_native(phase: str, before: dict, after: dict) -> dict:
+    """Print the arena's stats at a phase's end against its start and the
+    GCS's nodes; fails unless the phase's objects went into the arena (live
+    objects and sealed bytes grew) and no block was leaked."""
+    a, b = after["arena"], before["arena"]
+    log(f"[{phase}] on the arena: live objects {a['live_objects']} "
+        f"(+{a['live_objects'] - b['live_objects']}), sealed bytes {a['sealed_bytes']} "
+        f"(+{a['sealed_bytes'] - b['sealed_bytes']}), used {a['used']} of {a['capacity']}, "
+        f"free-list bytes {a['free_bytes']}, leaked_bytes {a['leaked_bytes']}; GCS "
+        f"{after['gcs_address']}: nodes {after['nodes']}")
+    if not (a["live_objects"] > b["live_objects"] and a["sealed_bytes"] > b["sealed_bytes"]):
+        raise AssertionError(f"[{phase}] nothing went into the arena: {b} -> {a}")
+    if a["leaked_bytes"] != 0:
+        raise AssertionError(f"[{phase}] the arena leaked {a['leaked_bytes']} bytes")
+    return {"arena": a, "arena_at_start": b, "gcs_address": after["gcs_address"],
+            "nodes": after["nodes"]}
+
+
 def batch_path(dev, path: str) -> dict:
     """W3 as the reference runs it: FLAN-T5-base width and depth, random
     weights from numpy seed 0, written as the JAX package's checkpoint
@@ -2591,6 +2719,7 @@ def batch_path(dev, path: str) -> dict:
     tpu_air_torch.init()
     init_s = time.perf_counter() - t0
     try:
+        native_start = runtime_native("batch")
         bp = BatchPredictor.from_checkpoint(Checkpoint.from_directory(path),
                                             counting_predictor(), tokenizer=IdTokenizer(),
                                             dtype="float16")
@@ -2599,6 +2728,7 @@ def batch_path(dev, path: str) -> dict:
                          max_new_tokens=new, feature_columns=feats,
                          keep_columns=["idx"]).to_pandas()
         wall = time.perf_counter() - t0
+        native = check_native("batch", native_start, runtime_native("batch"))
     finally:
         tpu_air_torch.shutdown()
     out = out.sort_values("idx").reset_index(drop=True)
@@ -2681,7 +2811,7 @@ def batch_path(dev, path: str) -> dict:
             "in_process_tokens_per_s": emitted_tokens(again, cfg) / inproc_s,
             "params_msgpack_mb": mb, "finite": finite,
             "plain_tokens_equal": match, "tokens": int(toks.size),
-            "plain_first_diff_steps": first}
+            "plain_first_diff_steps": first, "native": native}
 
 
 # -- phase 16 ----------------------------------------------------------------------
@@ -3948,15 +4078,17 @@ def lm_serve_path(dev, ckpt_dir: str, port: int) -> dict:
     # (b) the paged engine in process, burst then trickle
     ps = lm_serve_prompts(LM_ENGINE_PROMPTS, cfg.vocab_size, SEED + 42)
     decode_attention.launches = 0
-    runs = {sched: lm_engine_run(model, ps, "paged", sched) for sched in ("burst", "trickle")}
+    runs = {"burst": lm_engine_run(model, ps, "paged", "burst"),
+            "trickle": lm_engine_run(model, ps[:LM_TRICKLE_PROMPTS], "paged", "trickle")}
     paged_launches = decode_attention.launches
-    same = runs["burst"]["tokens"] == runs["trickle"]["tokens"]
+    same = runs["burst"]["tokens"][:LM_TRICKLE_PROMPTS] == runs["trickle"]["tokens"]
     idle = lm_decode_idle_share(model, ps)
     for sched, r in runs.items():
         ttft = np.array(r["ttft_s"]) * 1e3
         step = r["metrics"]["step_latency_s"]
         n_tok = sum(map(len, r["tokens"]))
-        log(f"[lm serve] (b) paged InferenceEngine({LM_ENGINE}), {sched}: {len(ps)} prompts "
+        log(f"[lm serve] (b) paged InferenceEngine({LM_ENGINE}), {sched}: "
+            f"{len(r['tokens'])} prompts "
             f"of {LM_PROMPT_LENS[0]}-{LM_PROMPT_LENS[1]} tokens ({LM_PREFIX_PROMPTS} behind a "
             f"{LM_PREFIX_LEN}-token prefix) in "
             f"{r['wall_s']:.3f} s over {r['steps']} steps, {n_tok / r['wall_s']:.1f} generated "
@@ -3966,7 +4098,8 @@ def lm_serve_path(dev, ckpt_dir: str, port: int) -> dict:
             f"steps (the engine's histogram); prefix hits {r['pool']['prefix_hits']}, "
             f"copy-on-write copies {r['pool']['cow_copies']}, peak pool pages "
             f"{r['peak_pages']} of {r['pool']['pages_total']}")
-    log(f"[lm serve] (b) burst and trickle tokens identical per prompt: {same}; decode "
+    log(f"[lm serve] (b) burst and trickle tokens identical per prompt (the trickle's "
+        f"{LM_TRICKLE_PROMPTS}): {same}; decode "
         f"launches over both runs {paged_launches} ({cfg.n_layers} a step); the decode step "
         f"under the profiler ({LM_ENGINE['num_slots']} slots decoding): "
         f"{idle['wall_ms_per_step']:.3f} ms a step, "
@@ -3991,19 +4124,21 @@ def lm_serve_path(dev, ckpt_dir: str, port: int) -> dict:
     slab = lm_engine_run(model, ps, "slab", "burst")
     out["launches"]["lm_engine_slab"] = decode_attention.launches
     offline = [generate(model, [p], max_new_tokens=LM_ENGINE["max_new_tokens"])[0].tolist()
-               for p in ps]
+               for p in ps[:LM_OFFLINE_PROMPTS]]
 
     def agree(a, b):
         return sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
 
     total = sum(map(len, slab["tokens"]))
+    n_off = sum(map(len, offline))
     agree_b, agree_off = agree(slab["tokens"], runs["burst"]["tokens"]), agree(slab["tokens"], offline)
     agree_b_off = agree(runs["burst"]["tokens"], offline)
     log(f"[lm serve] (c) slab InferenceEngine, burst: {slab['wall_s']:.3f} s over "
         f"{slab['steps']} steps, {total / slab['wall_s']:.1f} generated tokens/s, decode "
         f"launches {out['launches']['lm_engine_slab']}; tokens agreeing with (b) "
-        f"{agree_b}/{total}, with per-prompt offline generate {agree_off}/{total}, (b) with "
-        f"offline {agree_b_off}/{total} (bf16: the prefill shapes differ, so this is printed, "
+        f"{agree_b}/{total}, with per-prompt offline generate (the first "
+        f"{LM_OFFLINE_PROMPTS} prompts) {agree_off}/{n_off}, (b) with offline "
+        f"{agree_b_off}/{n_off} (bf16: the prefill shapes differ, so this is printed, "
         "not asserted)")
     out["slab"] = {"wall_s": slab["wall_s"], "steps": slab["steps"], "tokens": total,
                    "agree_with_paged": agree_b, "agree_with_offline": agree_off,
@@ -4349,7 +4484,7 @@ def lm_live_path(dev, ckpt_dir: str, port: int, work: str, served: dict) -> dict
         rows = [i for i, t in enumerate(who) if t == name]
         total[name] = len(rows) * new
         changed[name] = sum(x != y for i in rows for x, y in zip(toks[i], base[i]))
-        agree[name] = sum(x == y for i in rows for x, y in zip(
+        agree[name] = sum(x == y for i in rows[:LM_LIVE_OFFLINE_ROWS] for x, y in zip(
             toks[i], offline_greedy(model, ps[i], new, *tenants[name])))
     log(f"[lm live] (a) paged InferenceEngine({LM_ENGINE}, adapter_slots=4, adapter_rank="
         f"{LM_LIVE_RANK}), bf16: {len(names)} tenants of rank {LM_LIVE_RANK} (a ~ N(0, "
@@ -4358,7 +4493,8 @@ def lm_live_path(dev, ckpt_dir: str, port: int, work: str, served: dict) -> dict
         f"base rows equal to phase 22 (b)'s burst: {not bad}; tokens each tenant changed "
         f"against the base model's {changed} of {total}; adapter rows agreeing with per-tenant "
         f"offline_greedy (bf16: prefill shapes differ, printed, not asserted) {agree} of "
-        f"{total}; decode step p50 {step['p50'] * 1e3:.3f} ms, p95 {step['p95'] * 1e3:.3f} ms "
+        f"{LM_LIVE_OFFLINE_ROWS * new} a tenant (its first {LM_LIVE_OFFLINE_ROWS} rows); "
+        f"decode step p50 {step['p50'] * 1e3:.3f} ms, p95 {step['p95'] * 1e3:.3f} ms "
         f"(phase 22 (b) burst: p50 {base_step['p50'] * 1e3:.3f} ms, p95 "
         f"{base_step['p95'] * 1e3:.3f} ms); decode launches {launches}; card: {card_line()}")
     if bad:
@@ -4914,6 +5050,7 @@ def batch_lane_path(dev, ckpt_dir: str, served: dict) -> dict:
     try:
         # (a) two replicas sharing the card
         tpu_air_torch.init(include_dashboard=True, dashboard_port=0)
+        native_start = runtime_native("batch lane")
         url = dashboard.start_dashboard(port=0)
         w = watch.install(watch.WatchConfig(seed=0, interval_s=OBS_WATCH_S))
         port = free_port()
@@ -5066,7 +5203,8 @@ def batch_lane_path(dev, ckpt_dir: str, served: dict) -> dict:
             f" (B {b._actor_id}); B's migrations {mg}; moved {pages} pages, "
             f"{pages * page_bytes} bytes ({page_bytes} a page over {cfg.n_layers} layers, k "
             f"and v), notice seen to A out of rotation {ws['preemption_recovery_ms']:.3f} ms, "
-            f"{ms_page:.3f} ms a page; tokens equal to phase 22's burst "
+            f"{ms_page:.3f} ms a page through the arena (13.063 ms a page through the file "
+            f"store in an earlier run, PERF.md §5); tokens equal to phase 22's burst "
             f"{tokens == burst[:LANE_STREAMS]}; A's launches just after its notice {a_launches}, "
             f"B's {snap_b['kernel_launches']}; airwatch preemption.recovered "
             f"{recovered[-1] if recovered else None}")
@@ -5105,15 +5243,28 @@ def batch_lane_path(dev, ckpt_dir: str, served: dict) -> dict:
                   if ln.startswith('tpu_air_batch_rows_done{job="chip-batch"}')]
         _, body = get_url(f"http://127.0.0.1:{port}/-/stats")
         section = json.loads(body).get("batch", {}).get("chip-batch", {})
+        _, body = get_url(url + "/api/objects")
+        objects = json.loads(body)
+        _, body = get_url(url + "/api/cluster")
+        gcs = json.loads(body)["gcs"]
         log(f"[batch lane] (d) /api/batch chip-batch rows_done {api.get('rows_done')} of "
             f"{api.get('rows_total')}, state {api.get('state')}; /metrics "
             f"{sorted(f for f in fams if f.startswith('tpu_air_batch_'))}, {sample}; /-/stats "
-            f"batch chip-batch rows_done {section.get('rows_done')}")
+            f"batch chip-batch rows_done {section.get('rows_done')}; /api/objects arena "
+            f"{objects.get('arena')}, file objects {objects.get('file_objects')}; /api/cluster "
+            f"gcs {gcs}; /metrics arena families "
+            f"{sorted(f for f in fams if f.startswith('tpu_air_arena_'))}")
         if not (api.get("rows_done") == api.get("rows_total") == len(ps)
                 and sample and float(sample[0].rsplit(" ", 1)[1]) == len(ps)
                 and section.get("rows_done") == len(ps)):
             raise AssertionError(f"[batch lane] (d) /api/batch {api}, /metrics {sample}, "
                                  f"/-/stats {section}")
+        listed = [n for n in gcs["nodes"] if n["node_id"] == "host-0" and n["alive"]]
+        if "arena" not in objects or "tpu_air_arena_live_objects" not in fams or (
+                gcs_expected() and not listed):
+            raise AssertionError(f"[batch lane] (d) /api/objects {objects}, /api/cluster gcs "
+                                 f"{gcs}")
+        out["native"] = check_native("batch lane", native_start, runtime_native("batch lane"))
     finally:
         faults.clear()
         tracing.disable()
@@ -5122,6 +5273,237 @@ def batch_lane_path(dev, ckpt_dir: str, served: dict) -> dict:
         tpu_air_torch.shutdown()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[batch lane] phase {out['phase_s']:.1f} s (runtime start and stop included)")
+    return out
+
+
+# -- phase 26 ----------------------------------------------------------------------
+
+
+def kv_payload(pages: int, seed: int, dev, form: str = "tensors"):
+    """Phase 25's migration payload shape on ``dev``: ``pages`` K/V pages of
+    the 136M LM in bf16 (0.5 MiB a page over its 8 layers), from a seeded
+    generator on the card, so the same seed gives the same bits in any
+    process.  ``tensors``: ``migrate_out``'s form, ``{layer path: {"k", "v":
+    [pages, page_len, h*d]}}``; ``bytes``: the same pages as one flat uint8
+    tensor (what the store carries out of band, read zero-copy)."""
+    cfg = lm_config()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (pages, LM_ENGINE["page_len"], cfg.n_heads * cfg.head_dim)
+    payload = {f"layer_{i}/attn": {kv: torch.randn(shape, generator=g, device=dev,
+                                                   dtype=torch.bfloat16)
+                                   for kv in ("k", "v")}
+               for i in range(cfg.n_layers)}
+    if form == "tensors":
+        return payload
+    return torch.cat([t.reshape(-1) for d in payload.values() for t in d.values()]).view(
+        torch.uint8)
+
+
+class PagePutter:
+    """Phase 26's actor on its leased card: makes a payload there from a
+    seed, copies it to the host and puts it into the object store; the ms
+    of the copy and of the put on its own clock."""
+
+    def __init__(self):
+        from tpu_air_torch.device import resolve_device
+
+        self.dev = resolve_device(None)
+        torch.zeros(1, device=self.dev)          # the CUDA context, before any timing
+
+    def device(self) -> str:
+        return str(self.dev)
+
+    def put(self, pages: int, seed: int, form: str) -> dict:
+        import tpu_air_torch
+
+        payload = kv_payload(pages, seed, self.dev, form)
+        torch.cuda.synchronize(self.dev)
+        t0 = time.perf_counter()
+        if form == "tensors":
+            host = {p: {kv: t.cpu() for kv, t in d.items()} for p, d in payload.items()}
+        else:
+            host = payload.cpu().numpy()
+        t1 = time.perf_counter()
+        ref = tpu_air_torch.put(host)
+        return {"ref": [ref], "copy_ms": (t1 - t0) * 1e3,
+                "put_ms": (time.perf_counter() - t1) * 1e3}
+
+
+def native_round_trips(dev, actor, where: str) -> dict:
+    """``NATIVE_REPS`` round trips of each payload form and size: the actor
+    puts, the driver gets, moves the value back to the card and checks it
+    bitwise against the same seed's payload made there; then the value dies
+    (its pins must be 0) and the object is deleted.  ``where`` is where the
+    objects must lie: ``arena`` or ``files``.  Medians of the ms."""
+    import gc
+    import warnings
+
+    from tpu_air_torch import get
+    from tpu_air_torch.core.runtime import get_runtime
+
+    store = get_runtime().store
+    out = {}
+    for form in ("tensors", "bytes"):
+        for pages in NATIVE_PAGES:
+            reps = []
+            for r in range(NATIVE_REPS):
+                seed = SEED + 60 + r
+                res = get(actor.put.remote(pages, seed, form), timeout=600)
+                oid = res["ref"][0].id
+                in_arena = store._arena is not None and store._arena.contains(oid)
+                as_file = os.path.exists(os.path.join(store.root, oid))
+                t0 = time.perf_counter()
+                val = get(res["ref"][0], timeout=600)
+                t1 = time.perf_counter()
+                if form == "tensors":
+                    on_card = {p: {kv: t.to(dev) for kv, t in d.items()} for p, d in val.items()}
+                else:
+                    with warnings.catch_warnings():  # a read-only view of the store
+                        warnings.simplefilter("ignore", UserWarning)
+                        on_card = torch.from_numpy(val).to(dev)
+                torch.cuda.synchronize(dev)
+                t2 = time.perf_counter()
+                want = kv_payload(pages, seed, dev, form)
+                if form == "tensors":
+                    equal = val.keys() == want.keys() and all(
+                        torch.equal(on_card[p][kv].view(torch.int16),
+                                    want[p][kv].view(torch.int16))
+                        for p in want for kv in ("k", "v"))
+                else:
+                    equal = torch.equal(on_card, want)
+                pins_alive = store._arena.pins(oid) if in_arena else None
+                del val, on_card, want
+                gc.collect()
+                pins_dead = store._arena.pins(oid) if in_arena else None
+                store.delete(oid)
+                reps.append({"put_ms": res["copy_ms"] + res["put_ms"], "copy_ms": res["copy_ms"],
+                             "get_ms": (t1 - t0) * 1e3, "to_card_ms": (t2 - t1) * 1e3,
+                             "equal": equal, "in_arena": in_arena, "as_file": as_file,
+                             "pins_alive": pins_alive, "pins_dead": pins_dead})
+            med = {k: float(np.median([x[k] for x in reps]))
+                   for k in ("put_ms", "copy_ms", "get_ms", "to_card_ms")}
+            med["ms"] = med["put_ms"] + med["get_ms"] + med["to_card_ms"]
+            med["ms_per_page"] = med["ms"] / pages
+            placed = all(x["in_arena"] and not x["as_file"] if where == "arena"
+                         else x["as_file"] and not x["in_arena"] for x in reps)
+            pins = [(x["pins_alive"], x["pins_dead"]) for x in reps]
+            log(f"[native] (b) through the {where}: {form}, {pages} page(s) "
+                f"({pages * (1 << 19)} bytes), median of {NATIVE_REPS}: the actor's copy to the "
+                f"host {med['copy_ms']:.3f} ms + put {med['put_ms'] - med['copy_ms']:.3f} ms, the "
+                f"driver's get {med['get_ms']:.3f} ms, back to {dev} {med['to_card_ms']:.3f} ms: "
+                f"{med['ms']:.3f} ms an object, {med['ms_per_page']:.3f} ms a page; bitwise equal "
+                f"{all(x['equal'] for x in reps)}; in the {where} {placed}; pins (value alive, "
+                f"dead) {pins if where == 'arena' else 'n/a'}")
+            if not all(x["equal"] for x in reps) or not placed:
+                raise AssertionError(f"[native] (b) {where}, {form}, {pages} pages: {reps}")
+            if where == "arena" and any(dead != 0 for _, dead in pins):
+                raise AssertionError(f"[native] (b) pins held after the values died: {pins}")
+            if where == "arena" and form == "bytes" and any(alive != 1 for alive, _ in pins):
+                raise AssertionError(f"[native] (b) a zero-copy value holds no pin: {pins}")
+            out[f"{form}_{pages}"] = {**med, "pins": pins}
+    return out
+
+
+def native_path(dev) -> dict:
+    """Phase 26 (a)-(c): the native object arena and the GCS daemon on the
+    card's path, in runtimes of their own.  (a) the toolchain; (b) a leased
+    actor on the card puts phase 25's payload shape (1 page and 135 pages,
+    as ``migrate_out``'s tensors and as one zero-copy byte array) and the
+    driver gets it back onto the card, bitwise equal: through the arena
+    (the default runtime), then through the file store (a second runtime
+    whose arena, ``TPU_AIR_ARENA_BYTES`` = ``NATIVE_SMALL_ARENA``, holds
+    neither), the same ``put``/``get``; (c) with the GCS (where it builds):
+    ``nodes()`` lists host-0 alive with the card, the leased actor is in
+    the actor directory on card 0, marked dead after ``kill``, and the KV
+    round-trips."""
+    import tpu_air_torch
+    from tpu_air_torch import get
+    from tpu_air_torch.core.runtime import get_runtime
+
+    t_phase = time.perf_counter()
+    tools, missing = native_toolchain()
+    log(f"[native] (a) toolchain: g++ {tools['g++']!r}, protoc {tools['protoc']!r}, protobuf "
+        f"headers {tools['protobuf_headers']!r}, Python protobuf {tools['python_protobuf']!r}; "
+        + ("the GCS daemon builds and runs here" if missing is None
+           else f"gcs: not buildable here ({missing}), (c) not run"))
+    out = {"toolchain": tools, "gcs_missing": missing}
+    Putter = tpu_air_torch.remote(num_chips=1)(PagePutter)
+
+    # (b) through the arena, and (c), in the default runtime
+    tpu_air_torch.init()
+    try:
+        start = runtime_native("native")
+        actor = Putter.remote()
+        device = get(actor.device.remote(), timeout=600)
+        if device != str(dev):
+            raise AssertionError(f"[native] the leased actor is on {device}")
+        out["arena"] = native_round_trips(dev, actor, "arena")
+        end = runtime_native("native")
+        a = end["arena"]
+        log(f"[native] (b) the arena after the round trips, every payload deleted (the "
+            f"actor's small replies stay): {a}")
+        # no payload left (the least is half a MiB) and no block leaked
+        if a["leaked_bytes"] != 0 or \
+                a["sealed_bytes"] - start["arena"]["sealed_bytes"] >= NATIVE_PAGES[0] << 19:
+            raise AssertionError(f"[native] (b) the arena kept or leaked blocks: "
+                                 f"{start['arena']} -> {a}")
+        out["arena_stats"] = a
+        if missing is None:
+            from tpu_air_torch.control import GcsClient
+
+            rt = get_runtime()
+            client = GcsClient(rt.gcs_address)
+            try:
+                nodes = tpu_air_torch.nodes()
+                info = client.lookup_actor(actor._actor_id)
+                tpu_air_torch.kill(actor)
+                dead = client.lookup_actor(actor._actor_id)
+                client.kv_put("chip_smoke/native", b"\x00card\xff")
+                kv = client.kv_get("chip_smoke/native")
+                client.kv_del("chip_smoke/native")
+            finally:
+                client.close()
+            log(f"[native] (c) GCS {rt.gcs_address}: nodes {nodes}; the leased actor in the "
+                f"directory {info}; after kill {dead}; KV round trip {kv!r}")
+            host = [n for n in nodes if n["node_id"] == "host-0"]
+            if not (host and host[0]["alive"] and host[0]["num_chips"] == 1
+                    and info and info["chip_ids"] == [0] and info["node_id"] == "host-0"
+                    and not info["dead"] and dead and dead["dead"] and kv == b"\x00card\xff"):
+                raise AssertionError(f"[native] (c) nodes {nodes}, actor {info}, dead {dead}, "
+                                     f"kv {kv!r}")
+            out["gcs"] = {"address": rt.gcs_address, "nodes": nodes, "actor": info,
+                          "after_kill": dead}
+        else:
+            tpu_air_torch.kill(actor)
+    finally:
+        tpu_air_torch.shutdown()
+
+    # (b) through the file store: an arena too small for either size
+    saved = os.environ.get("TPU_AIR_ARENA_BYTES")
+    os.environ["TPU_AIR_ARENA_BYTES"] = str(NATIVE_SMALL_ARENA)
+    try:
+        tpu_air_torch.init()
+        try:
+            cap = get_runtime().store._arena.stats()["capacity"]
+            actor = Putter.remote()
+            out["files"] = native_round_trips(dev, actor, "files")
+            tpu_air_torch.kill(actor)
+        finally:
+            tpu_air_torch.shutdown()
+    finally:
+        if saved is None:
+            os.environ.pop("TPU_AIR_ARENA_BYTES", None)
+        else:
+            os.environ["TPU_AIR_ARENA_BYTES"] = saved
+    big = f"tensors_{NATIVE_PAGES[-1]}"
+    log(f"[native] (b) {NATIVE_PAGES[-1]} pages as tensors (phase 25's migration payload): "
+        f"{out['arena'][big]['ms_per_page']:.3f} ms a page through the arena, "
+        f"{out['files'][big]['ms_per_page']:.3f} through the file store (its arena "
+        f"{cap} bytes); as bytes: {out['arena'][f'bytes_{NATIVE_PAGES[-1]}']['ms_per_page']:.3f} "
+        f"and {out['files'][f'bytes_{NATIVE_PAGES[-1]}']['ms_per_page']:.3f}; card: "
+        f"{card_line()}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[native] phase {out['phase_s']:.1f} s (two runtimes' start and stop included)")
     return out
 
 
@@ -5292,6 +5674,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
         f"{time.perf_counter() - t_serve:.1f} s")
     obs_stats = obs_serve_path(dev, lm_stats["checkpoint_dir"], work, lm_serve_stats)
     lane_stats = batch_lane_path(dev, lm_stats["checkpoint_dir"], lm_serve_stats)
+    native_stats = native_path(dev)
     del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     row = next(r for r in kernels if r["name"] == "decode_attention")
@@ -5315,7 +5698,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
                       "batch": batch_stats, "w2": w2_stats, "w7": w7_stats, "w6": w6_stats,
                       "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats,
                       "lm_live": lm_live_stats, "obs_serve": obs_stats,
-                      "batch_lane": lane_stats}),
+                      "batch_lane": lane_stats, "native": native_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

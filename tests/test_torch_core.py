@@ -215,9 +215,7 @@ def test_start_method_never_forks_after_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"TPU_AIR_GCS": "127.0.0.1:1"}, "GCS"),
     ({"TPU_AIR_COORDINATOR": "127.0.0.1:1"}, "rendezvous"),
-    ({"TPU_AIR_ARENA_BYTES": "1024"}, "arena"),
 ])
 def test_unported_branches_refuse(env, match, monkeypatch):
     """Every branch of the JAX package's runtime that the port did not copy
@@ -227,18 +225,86 @@ def test_unported_branches_refuse(env, match, monkeypatch):
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP|ROADMAP.*{match}"):
         rt.Runtime(num_cpus=1, num_chips=0)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        rt.Runtime(num_cpus=1, num_chips=0)
+
+
+def test_gcs_env_joins_a_running_daemon(monkeypatch):
+    """``TPU_AIR_GCS`` joins a daemon that is already running instead of
+    being refused: the runtime starts none of its own, publishes its actors
+    there, and leaves the daemon running at shutdown."""
+    from tpu_air_torch import _native
+
+    if _native.gcs_missing():
+        pytest.skip(f"gcs unavailable: {_native.gcs_missing()}")
+    from tpu_air_torch.control import GcsClient, start_gcs
+
+    proc, port = start_gcs()
+    client = GcsClient(f"127.0.0.1:{port}")
+    monkeypatch.setenv("TPU_AIR_GCS", f"127.0.0.1:{port}")
+    monkeypatch.setattr(rt, "_runtime", None)
+    try:
+        runtime = tpu_air_torch.init(num_cpus=1, num_chips=1)
+        try:
+            assert runtime.gcs_address == f"127.0.0.1:{port}" and runtime._gcs_proc is None
+
+            @tpu_air_torch.remote(num_chips=1)
+            class Probe:
+                def ping(self):
+                    return "pong"
+
+            a = Probe.options(name="joined-probe").remote()
+            assert tpu_air_torch.get(a.ping.remote(), timeout=60) == "pong"
+            info = client.lookup_actor("joined-probe")
+            assert info["chip_ids"] == [0] and info["node_id"] == "host-0", info
+            tpu_air_torch.kill(a)
+            assert client.lookup_actor(a._actor_id)["dead"] is True
+        finally:
+            tpu_air_torch.shutdown()
+        assert proc.poll() is None, "shutdown killed a daemon it did not start"
+    finally:
+        client.close()
+        proc.kill()
+        proc.wait()
+
+
+def test_arena_bytes_sets_capacity(monkeypatch):
+    """``TPU_AIR_ARENA_BYTES`` sizes the runtime's shared-memory arena
+    instead of being refused; what fits lives there, what does not goes to
+    a file."""
+    import numpy as np
+
+    monkeypatch.setenv("TPU_AIR_ARENA_BYTES", str(1 << 20))
+    monkeypatch.setenv("TPU_AIR_NO_GCS", "1")
+    runtime = rt.Runtime(num_cpus=1, num_chips=0)
+    try:
+        arena = runtime.store._arena
+        assert arena is not None and arena.stats()["capacity"] == 1 << 20
+        small = runtime.put(np.arange(1000))
+        big = runtime.put(np.zeros(2 << 20, dtype=np.uint8))
+        assert arena.contains(small.id) and not arena.contains(big.id)
+        assert os.path.exists(os.path.join(runtime.store_root, big.id))
+        assert runtime.get(big).nbytes == 2 << 20
+        assert int(runtime.get(small).sum()) == 499500
+    finally:
+        runtime.shutdown()
 
 
 @pytest.mark.parametrize("how", ["argument", "env"])
 def test_dashboard_starts(how, monkeypatch, capsys):
     """``init(include_dashboard=True)`` or ``TPU_AIR_DASHBOARD=1`` starts
     the dashboard and prints its URL; ``/api/cluster`` answers with the new
-    runtime's state and no GCS.  The test's runtime is its own: the module's
-    stays in place for the tests after it."""
+    runtime's state and its GCS node.  The test's runtime is its own: the
+    module's stays in place for the tests after it."""
     import json
     import re
     import urllib.request
 
+    from tpu_air_torch import _native
+
+    gcs = _native.gcs_missing() is None
+    if gcs:
+        _native.build_gcs()     # built: init() launches the daemon synchronously
     monkeypatch.setattr(rt, "_runtime", None)
     kwargs = {"include_dashboard": True} if how == "argument" else {}
     if how == "env":
@@ -252,7 +318,12 @@ def test_dashboard_starts(how, monkeypatch, capsys):
         tpu_air_torch.shutdown()
     assert cluster["initialized"] and cluster["session_id"] == runtime.session_id
     assert cluster["resources"]["cpu"] == 1 and cluster["resources"]["chip"] == 0
-    assert cluster["gcs"] == {"address": None, "nodes": []}
+    if gcs:
+        assert cluster["gcs"]["address"] == runtime.gcs_address is not None
+        assert [(n["node_id"], n["alive"], n["num_chips"])
+                for n in cluster["gcs"]["nodes"]] == [("host-0", True, 0)]
+    else:
+        assert cluster["gcs"] == {"address": None, "nodes": []}
     from tpu_air_torch.observability import dashboard
 
     assert dashboard._server is None           # shutdown stopped it
@@ -260,9 +331,10 @@ def test_dashboard_starts(how, monkeypatch, capsys):
 
 def test_runtime_accepts_postmortem_dir(monkeypatch, tmp_path):
     """``TPU_AIR_POSTMORTEM_DIR`` arms the flight recorder instead of being
-    refused; the runtime reports no GCS, as the JAX package does without
-    one."""
+    refused; with ``TPU_AIR_NO_GCS=1`` the runtime reports no GCS, as the
+    JAX package does without one."""
     monkeypatch.setenv("TPU_AIR_POSTMORTEM_DIR", str(tmp_path))
+    monkeypatch.setenv("TPU_AIR_NO_GCS", "1")
     runtime = rt.Runtime(num_cpus=1, num_chips=0)
     try:
         assert runtime.nodes() == [] and runtime.gcs_address is None

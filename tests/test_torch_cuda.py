@@ -1120,3 +1120,44 @@ def test_borrow_return_migrates_streams_between_replicas_sharing_the_card(dev, t
     finally:
         serve.shutdown()
         tpu_air_torch.shutdown()
+
+
+def _put_card_bytes(root, oid, q):
+    """In another process: a seeded bf16 tensor made on the card, its bytes
+    put into the store (the arena, which holds them)."""
+    from tpu_air_torch.core.object_store import ObjectStore
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    t = torch.randn(8, 16, 1024, generator=g, device="cuda", dtype=torch.bfloat16)
+    ObjectStore(root).put(t.cpu().view(torch.uint8).numpy(), object_id=oid)
+    q.put("done")
+
+
+def test_card_tensor_bytes_cross_processes_through_the_arena(dev, tmp_path):
+    """A CUDA tensor's bytes, put into the shared-memory arena by a spawned
+    process, are read here zero-copy from the arena and, back on the card,
+    equal the same seed's tensor bit for bit."""
+    import multiprocessing
+    import os
+
+    from tpu_air_torch.core.object_store import ObjectStore, new_object_id
+
+    store = ObjectStore(str(tmp_path / "store"), create=True)
+    try:
+        assert store._arena is not None
+        ctx = multiprocessing.get_context("spawn")
+        oid, q = new_object_id(), ctx.Queue()
+        p = ctx.Process(target=_put_card_bytes, args=(store.root, oid, q))
+        p.start()
+        val = store.get(oid, timeout=120)
+        assert q.get(timeout=60) == "done"
+        p.join(timeout=60)
+        assert not p.is_alive() and p.exitcode == 0
+        assert store._arena.contains(oid) and not os.path.exists(os.path.join(store.root, oid))
+        assert not val.flags["OWNDATA"] and store._arena.pins(oid) == 1
+        got = torch.from_numpy(np.array(val)).to(dev).view(torch.bfloat16).view(8, 16, 1024)
+        g = torch.Generator(device=dev).manual_seed(7)
+        want = torch.randn(8, 16, 1024, generator=g, device=dev, dtype=torch.bfloat16)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    finally:
+        store.destroy()

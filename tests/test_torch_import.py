@@ -66,7 +66,10 @@ def test_importing_every_module_leaves_jax_and_tpu_air_out():
                 "tpu_air_torch.observability.timeseries", "tpu_air_torch.observability.watch",
                 "tpu_air_torch.observability.dashboard",
                 "tpu_air_torch.observability.trace_export",
-                "tpu_air_torch.observability.postmortem"):
+                "tpu_air_torch.observability.postmortem",
+                "tpu_air_torch.control", "tpu_air_torch.control.client",
+                "tpu_air_torch.control.gcs_pb2", "tpu_air_torch._native",
+                "tpu_air_torch.core.shm_arena"):
         assert new in mods, new
     code = (
         "import importlib, sys\n"

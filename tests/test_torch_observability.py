@@ -335,6 +335,10 @@ def dash():
     """A port runtime of this file's own, with its dashboard on a free port:
     the runtime another file left in place (if any) is set aside and put
     back, so no file's state leaks into this one or out of it."""
+    from tpu_air_torch import _native
+
+    if _native.gcs_missing() is None:
+        _native.build_gcs()                      # built: init() starts the GCS at once
     saved = rt._runtime
     rt._runtime = None
     runtime = tpu_air_torch.init(num_cpus=2, num_chips=1, include_dashboard=True,
@@ -374,6 +378,7 @@ def test_dashboard_serves_every_route(dash, monkeypatch):
     # on /api/batch
     monkeypatch.setattr(tbatch, "_registry", {})
     url, runtime = dash
+    held = tpu_air_torch.put(np.arange(1000))    # an object in the store's arena
     tslo.install(None)
     twatch.install(twatch.WatchConfig(seed=0)).scrape_once()
     ttracing.enable()
@@ -392,8 +397,19 @@ def test_dashboard_serves_every_route(dash, monkeypatch):
     assert data["/api/cluster"]["initialized"]
     assert data["/api/cluster"]["session_id"] == runtime.session_id
     assert data["/api/cluster"]["resources"] == {"cpu": 2, "chip": 1, "chips_per_host": 1}
-    assert data["/api/cluster"]["gcs"] == {"address": None, "nodes": []}
-    assert "arena" not in data["/api/objects"] and "spill" in data["/api/objects"]
+    gcs = data["/api/cluster"]["gcs"]
+    if runtime.gcs_address is None:             # no protobuf toolchain here
+        from tpu_air_torch import _native
+
+        assert _native.gcs_missing() and gcs == {"address": None, "nodes": []}
+    else:
+        assert gcs["address"] == runtime.gcs_address
+        assert [(n["node_id"], n["alive"], n["num_chips"]) for n in gcs["nodes"]] == [
+            ("host-0", True, 1)]
+    arena = data["/api/objects"]["arena"]
+    assert arena == {**arena, "capacity": 256 << 20, "leaked_bytes": 0}
+    assert runtime.store._arena.contains(held.id) and arena["live_objects"] >= 1
+    assert "spill" in data["/api/objects"]
     assert data["/api/objects"]["store_root"] == runtime.store_root
     assert data["/api/batch"] == {"jobs": {}}
     assert data["/api/version"] == {"version": tpu_air_torch.__version__}
@@ -478,6 +494,7 @@ def test_metrics_families_match_jax(dash, monkeypatch):
         assert any(f.startswith("tpu_air_engine_") for f in tfam)
         assert any(f.startswith("tpu_air_slo_") for f in tfam)
         assert "tpu_air_watch_scrapes" in tfam and "tpu_air_cpus_total" in tfam
+        assert {"tpu_air_arena_live_objects", "tpu_air_arena_leaked_bytes"} <= tfam
     finally:
         jmetrics.unregister("obs-engine")
         tmetrics.unregister("obs-engine")

@@ -427,8 +427,14 @@ def test_hard_trial_crash_is_isolated(tair, tmp_path):
     assert grid.get_best_result().metrics["score"] == 3.0
     rt = trt.get_runtime()
     assert rt.avail["chip"] == float(rt.num_chips) and rt.free_chips == [0]
-    # the sweep's report, ack and stop keys are gone from the store
+    # the sweep's report, ack and stop keys are gone from the store: its
+    # files and its arena
     assert not [k for k in os.listdir(rt.store_root) if k.startswith("Tuner_")]
+    tids = [os.path.basename(r.path) for r in grid]
+    assert len(tids) == 3 and all(t.startswith("Tuner_") for t in tids), tids
+    assert not [k for t in tids for k in [f"{t}-stop"] + [
+        f"{t}-{kind}-{i}" for kind in ("report", "ack") for i in range(1, 4)]
+        if rt.store.contains(k)]
 
 
 def test_trials_that_would_spawn_workers_are_refused(tair, tmp_path):

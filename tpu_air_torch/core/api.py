@@ -35,9 +35,9 @@ def get(ref, timeout: Optional[float] = None):
 
 
 def nodes() -> List[dict]:
-    """Cluster membership (``ray.nodes()`` analog): ``[]``, since the port
-    has no GCS control-plane daemon (ROADMAP Queue 1 item 11); the JAX
-    package returns the same without one."""
+    """Cluster membership with heartbeat liveness, from the GCS control
+    plane (``ray.nodes()`` analog): ``[{"node_id", "address", "num_chips",
+    "alive"}, ...]``; ``[]`` when the GCS is off or unavailable."""
     return rt.get_runtime().nodes()
 
 

@@ -8,11 +8,16 @@ driver and its worker processes on one host through files in ``/dev/shm``
 readers ``mmap`` the sealed file and rebuild numpy payloads zero-copy over
 the mapping.
 
-The port takes this file store only.  The JAX package's C++ arena
-(``tpu_air/_native``) is a later item of the port (ROADMAP Queue 1 item
-11); the port
-neither imports nor loads it, and ``TPU_AIR_ARENA_BYTES``, the arena's
-size, is refused rather than ignored.  Store and spill directories carry
+The port's C++ shared-memory arena (``tpu_air_torch/_native/store.cpp``,
+wrapped by shm_arena.py) is the preferred home of every object that fits,
+as in the JAX package: one ``__arena__`` file in the store directory,
+``TPU_AIR_ARENA_BYTES`` large (256 MiB by default).  The arena owns object
+lifecycle in native code: zero-copy reads hold a cross-process PIN
+refcount, ``delete`` parks pinned objects in a zombie state, and the last
+unpin reclaims the block into a shared free list for reuse — the plasma
+ownership contract.  The file store remains for objects that do not fit
+(and spills them past ``TPU_AIR_STORE_BYTES``), and for a store whose
+arena does not build (no compiler).  Store and spill directories carry
 the prefix ``tpu_air_torch-``, so a port runtime and a JAX package runtime
 in one process never share one.
 """
@@ -71,14 +76,16 @@ class ObjectStore:
     """
 
     def __init__(self, root: str, create: bool = False):
-        if os.environ.get("TPU_AIR_ARENA_BYTES"):
-            raise NotImplementedError(
-                "TPU_AIR_ARENA_BYTES sizes the C++ shared-memory arena, which the "
-                "port has not ported (ROADMAP Queue 1 item 11: the native object arena); "
-                "unset it to use the port's file store")
         self.root = root
         if create:
             os.makedirs(root, exist_ok=True)
+        # C++ shared-memory arena (plasma analog): preferred home for objects
+        # that fit; the file-per-object path remains for large objects,
+        # arena-full fallback, and compiler-less environments.
+        from . import shm_arena
+
+        self._arena = shm_arena.open_arena(root, create)
+        self._arena_retry_at = 0.0
         # Spilling (reference: "efficient memory usage, object spilling",
         # Introduction_to_Ray_AI_Runtime.ipynb:cc-3): the store root lives in
         # tmpfs (RAM); when file objects exceed TPU_AIR_STORE_BYTES, sealed
@@ -129,8 +136,8 @@ class ObjectStore:
         try:
             with os.scandir(self.root) as it:
                 for e in it:
-                    if e.name.startswith("."):
-                        continue  # tmp files
+                    if e.name.startswith((".", "__")):
+                        continue  # tmp files / __arena__
                     try:
                         st = e.stat()
                     except OSError:
@@ -217,6 +224,8 @@ class ObjectStore:
         return ObjectRef(object_id)
 
     def put_serialized(self, chunks, object_id: str) -> None:
+        if self._arena is not None and self._arena.put_chunks(object_id, chunks):
+            return
         target_root = self.root
         if self._file_budget:
             need = sum(
@@ -238,8 +247,27 @@ class ObjectStore:
         os.chmod(tmp, 0o444)  # immutability contract
         os.rename(tmp, os.path.join(target_root, object_id))
 
+    def _maybe_reopen_arena(self) -> None:
+        """Heal a failed arena open.  Writers put arena-resident objects with
+        no file fallback, so a process whose first open failed (e.g. it raced
+        the .so build) must be able to recover — otherwise its gets would
+        block forever on objects that only exist in the arena."""
+        if self._arena is not None:
+            return
+        now = time.monotonic()
+        if now < self._arena_retry_at:
+            return
+        self._arena_retry_at = now + 0.5  # rate-limit
+        if os.path.exists(os.path.join(self.root, "__arena__")):
+            from . import shm_arena
+
+            self._arena = shm_arena.open_arena(self.root, create=False)
+
     # -- read -------------------------------------------------------------
     def contains(self, object_id: str) -> bool:
+        self._maybe_reopen_arena()
+        if self._arena is not None and self._arena.contains(object_id):
+            return True
         if os.path.exists(self._path(object_id)):
             return True
         return bool(self._file_budget) and os.path.exists(self._spill_path(object_id))
@@ -262,6 +290,10 @@ class ObjectStore:
             _faults.perturb("object_store.get", key=object_id)
         if not self.wait_for(object_id, timeout):
             raise TimeoutError(f"object {object_id} not available after {timeout}s")
+        if self._arena is not None:
+            pinned = self._arena.lookup_pin(object_id)
+            if pinned is not None:
+                return self._get_pinned(object_id, *pinned)
         # root first, spill-dir fallback; a concurrent _make_room may move
         # the object between ANY two syscalls here, so both the stat and the
         # open must tolerate disappearance and retry the other location
@@ -291,7 +323,51 @@ class ObjectStore:
         # valid exactly as long as the value references it.
         return serialization.deserialize(m, zero_copy=True)
 
+    def _get_pinned(self, object_id: str, view, offset: int) -> Any:
+        """Deserialize an arena object under a read pin (native ownership:
+        the C++ arena won't reclaim the bytes while the pin is held).
+
+        The pin is released when the LAST out-of-band buffer holder dies
+        (``serialization.deserialize_pinned``), not when the top-level value
+        dies: a derived object that escapes its container — a Series pulled
+        out of a DataFrame, an array extracted from a dict — keeps its
+        holder alive through the buffer-protocol chain, so ``delete`` +
+        block reuse can never invalidate memory anything still references.
+        A value holding no views (nbuf == 0) unpins immediately.
+        """
+        import weakref
+
+        try:
+            value, holders = serialization.deserialize_pinned(view)
+        except BaseException:  # unpin on ANY failure (even KeyboardInterrupt), then surface
+            self._arena.unpin(object_id, offset)
+            raise
+        if not holders:
+            self._arena.unpin(object_id, offset)
+            return value
+        import threading
+
+        # finalizers run in whichever thread drops the last reference, so
+        # the countdown must be atomic
+        lock = threading.Lock()
+        remaining = [len(holders)]
+        unpin = self._arena.unpin
+
+        def _release(lock=lock, remaining=remaining, unpin=unpin,
+                     object_id=object_id, offset=offset):
+            with lock:
+                remaining[0] -= 1
+                last = remaining[0] == 0
+            if last:
+                unpin(object_id, offset)
+
+        for h in holders:
+            weakref.finalize(h, _release)
+        return value
+
     def delete(self, object_id: str) -> None:
+        if self._arena is not None:
+            self._arena.delete(object_id)
         for path in (self._path(object_id), self._spill_path(object_id)):
             try:  # chmod best-effort: files are sealed 0o444
                 os.chmod(path, 0o644)
@@ -303,6 +379,9 @@ class ObjectStore:
                 pass
 
     def destroy(self) -> None:
+        if self._arena is not None:
+            self._arena.close()
+            self._arena = None
         for d in (self.root, self._spill_dir):
             try:
                 for name in os.listdir(d):

@@ -35,12 +35,23 @@ name ``cuda:<id>`` as ``resolve_device`` does), :func:`attach_chip_lease`
 wraps the devices an actor was placed on, and a lease's ``on_revoke``
 callbacks fire when :meth:`Runtime.revoke_lease` or the ``runtime.lease``
 fault site delivers a notice (how the serve plane drains and migrates a
-replica).  Not ported, and refused when asked for
-(``NotImplementedError`` naming the ROADMAP item): the GCS control-plane
-daemon (``TPU_AIR_GCS``) and multi-host rendezvous
-(``TPU_AIR_COORDINATOR``); without them :meth:`Runtime.nodes` is ``[]``
-and ``gcs_address`` is ``None``, which is what the JAX package reports
-without a GCS.  The C++ object arena is refused by object_store.py.
+replica).
+
+The control plane is on the default path, as in the JAX package: ``init()``
+starts the port's C++ GCS daemon (``tpu_air_torch/_native/gcs_server.cpp``,
+client in ``tpu_air_torch/control``), registers this host as node
+``host-0`` with its card count and heartbeats it, publishes every placed
+actor with its card ids to the actor directory and marks it dead when it is
+killed or its worker dies; :meth:`Runtime.nodes` reads membership and
+liveness from it.  ``TPU_AIR_GCS=<host:port>`` joins a running daemon
+instead, ``TPU_AIR_NO_GCS=1`` turns the control plane off.  It is
+best-effort, as there: where the daemon is not built yet it is built on a
+background thread, and a missing protobuf toolchain or a dead daemon leaves
+``gcs_address`` ``None`` and ``nodes()`` ``[]``, never an error.  The
+object store puts what fits into the C++ shared-memory arena
+(object_store.py).  Multi-host rendezvous (``TPU_AIR_COORDINATOR``) is not
+ported and raises ``NotImplementedError`` naming its ROADMAP item (Queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -491,7 +502,7 @@ def _sweep_stale_sessions(base: str, spill_base: str = "/var/tmp") -> None:
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
-        f"{what} is not ported to tpu_air_torch (ROADMAP Queue 1 item 11: {item})")
+        f"{what} is not ported to tpu_air_torch (ROADMAP Queue 1 item 9: {item})")
 
 
 def _cuda_initialized() -> bool:
@@ -509,11 +520,9 @@ class Runtime:
         start_method: Optional[str] = None,
         store_root: Optional[str] = None,
     ):
-        for var, what, item in (
-                ("TPU_AIR_GCS", "the GCS control-plane daemon", "the GCS daemon"),
-                ("TPU_AIR_COORDINATOR", "multi-host rendezvous", "multi-host rendezvous")):
-            if os.environ.get(var):
-                _refuse(f"{what} ({var} is set)", item)
+        if os.environ.get("TPU_AIR_COORDINATOR"):
+            _refuse("multi-host rendezvous (TPU_AIR_COORDINATOR is set)",
+                    "multi-host rendezvous")
         if num_chips is None:
             import torch
 
@@ -532,7 +541,6 @@ class Runtime:
         self.num_chips = num_chips
         self.free_chips: List[int] = list(range(self.num_chips))
         self.avail = {"cpu": float(self.num_cpus), "chip": float(self.num_chips)}
-        self.gcs_address: Optional[str] = None  # no GCS daemon in the port
         method = start_method or os.environ.get("TPU_AIR_START_METHOD", "forkserver")
         self.mp_ctx = mp.get_context(method)
         if method == "forkserver":
@@ -574,9 +582,108 @@ class Runtime:
         self._placement_thread.start()
         self._listener = threading.Thread(target=self._listen, daemon=True)
         self._listener.start()
+        # GCS control plane on the DEFAULT path, as in the JAX package: a
+        # single-host run gets the same membership / actor-directory /
+        # liveness machinery as a multi-host one
+        self.node_id = f"host-{os.environ.get('TPU_AIR_PROCESS_ID', '0')}"
+        self.gcs_address: Optional[str] = None
+        self._gcs_proc = None
+        self._gcs_heartbeat = None
+        self._gcs_client = None
+        self._gcs_lock = threading.Lock()
+        if os.environ.get("TPU_AIR_NO_GCS", "0") != "1":
+            self._start_gcs()
         self._min_idle = min(2, self.num_cpus)
         for _ in range(self._min_idle):
             self._spawn_worker()
+
+    # -- GCS control plane ---------------------------------------------------
+    def _start_gcs(self):
+        """Start (or join) the C++ control-plane daemon.  Best-effort: a
+        missing protobuf toolchain degrades to ``gcs_address=None`` and every
+        directory call becomes a no-op."""
+        existing = os.environ.get("TPU_AIR_GCS")
+        if existing:
+            # a running cluster's daemon: join it — membership and
+            # heartbeats belong to whoever started it
+            self.gcs_address = existing
+            return
+        from tpu_air_torch import _native
+
+        try:
+            built = os.path.exists(_native.gcs_binary_path())
+        except RuntimeError:  # no protoc: _launch_gcs_daemon reports it
+            built = False
+        if built:
+            self._launch_gcs_daemon()  # binary ready: ~ms, synchronous
+        else:
+            # first use on a fresh checkout: protoc + g++ take seconds to
+            # minutes — init() must not block on it; the control plane comes
+            # up late and everything degrades gracefully until then
+            threading.Thread(
+                target=self._launch_gcs_daemon, daemon=True,
+                name="tpu_air_torch-gcs-build",
+            ).start()
+
+    def _launch_gcs_daemon(self):
+        try:
+            import atexit
+
+            from tpu_air_torch.control import HeartbeatThread, start_gcs
+
+            proc, port = start_gcs(dead_after_ms=3000)
+            if self._stop.is_set():  # runtime shut down mid-build
+                proc.kill()
+                return
+            # airlint: disable=CC001 — build-thread publish vs shutdown
+            # read: the _stop check above plus the atexit kill below close
+            # the race (worst case the daemon dies at exit, not shutdown)
+            self._gcs_proc = proc
+            # the daemon must not outlive this process even when an
+            # exception skips shutdown(): an orphan daemon holds the
+            # inherited stderr pipe open, wedging any parent reading it
+            atexit.register(_kill_quietly, proc)
+            # airlint: disable=CC001 — best-effort control plane: readers
+            # treat a not-yet-published address as None and no-op
+            self.gcs_address = f"127.0.0.1:{port}"
+            self._gcs("register_node", self.node_id, address="",
+                      num_chips=self.num_chips)
+            # airlint: disable=CC001 — shutdown may miss a heartbeat that
+            # starts mid-build; the thread is daemonic and its daemon is
+            # killed at exit anyway
+            self._gcs_heartbeat = HeartbeatThread(
+                self.gcs_address, self.node_id, interval=0.5,
+                num_chips=self.num_chips,
+            )
+            self._gcs_heartbeat.start()
+        except Exception as e:  # noqa: BLE001 — control plane is best-effort
+            print(f"tpu_air_torch: gcs control plane unavailable: {e}", file=sys.stderr)
+            self.gcs_address = None
+
+    def _gcs(self, method: str, *args, **kwargs):
+        """Resilient GCS RPC: reconnect on failure (the daemon may restart),
+        never raise into the scheduler.  The client is shared across the
+        listener/placement/driver threads — create/teardown under a lock so
+        one thread can't close a socket another is about to use."""
+        if self.gcs_address is None:
+            return None
+        with self._gcs_lock:
+            try:
+                if self._gcs_client is None:
+                    from tpu_air_torch.control import GcsClient
+
+                    self._gcs_client = GcsClient(self.gcs_address)
+                return getattr(self._gcs_client, method)(*args, **kwargs)
+            except (ConnectionError, OSError, RuntimeError):
+                if self._gcs_client is not None:
+                    self._gcs_client.close()
+                self._gcs_client = None
+                return None
+
+    def nodes(self) -> List[Dict]:
+        """Cluster membership with heartbeat liveness, from the control plane
+        (``ray.nodes()`` analog).  [] when the GCS is unavailable."""
+        return self._gcs("list_nodes") or []
 
     # -- worker management -------------------------------------------------
     def _pick_ctx(self):
@@ -699,15 +806,10 @@ class Runtime:
         elif kind == "kill_actor":
             self.kill_actor(msg[1], no_restart=True)
 
-    def nodes(self) -> List[Dict]:
-        """Cluster membership (``ray.nodes()`` analog): ``[]``, as the JAX
-        package reports when its GCS is unavailable; the port has no GCS
-        daemon (ROADMAP Queue 1 item 11)."""
-        return []
-
     def _on_worker_death(self, worker: _WorkerState):
         crashed_traces = []
         chip_ids: List[int] = []
+        dead_actor = None
         with self.lock:
             worker.alive = False
             outstanding = [
@@ -737,6 +839,7 @@ class Runtime:
                 # twice inflates avail until free_chips.pop underflows
                 if not st.dead:
                     st.dead = True
+                    dead_actor = worker.actor_id
                     if st.name:
                         self.named_actors.pop(st.name, None)
                     # release the FULL claim (cpu + chip), exactly like
@@ -748,6 +851,8 @@ class Runtime:
                     self.free_chips.extend(st.chip_ids)
                     st.chip_ids = []
             self.workers.pop(worker.worker_id, None)
+        if dead_actor:
+            self._gcs("mark_actor_dead", dead_actor)
         # flight recorder (outside the lock: dump() scrapes snapshot()/
         # engine_stats(), which re-take it); no-op unless
         # TPU_AIR_POSTMORTEM_DIR is set, and dump() never raises.  The
@@ -1163,6 +1268,10 @@ class Runtime:
                         )
                     )
                 self.pending_actors.pop(actor_id, None)
+            # publish to the GCS actor directory (outside the lock: localhost
+            # RPC, best-effort, must never stall the placement thread's lock)
+            self._gcs("register_actor", actor_id, node_id=self.node_id,
+                      name=rec["name"] or "", chip_ids=list(chip_ids))
 
     def submit_actor_task(self, actor_id, method, args, kwargs,
                           trace_ctx: Optional[Dict[str, str]] = None) -> ObjectRef:
@@ -1284,6 +1393,7 @@ class Runtime:
             worker = st.worker
             worker.alive = False
             self.workers.pop(worker.worker_id, None)
+        self._gcs("mark_actor_dead", actor_id)
         try:
             worker.conn.send(("shutdown",))
         except OSError:
@@ -1378,6 +1488,18 @@ class Runtime:
             if w.proc.is_alive():
                 w.proc.kill()
                 w.proc.join(timeout=10)
+        if self._gcs_heartbeat is not None:
+            self._gcs_heartbeat.stop()
+        # airlint: disable=CC001 — shutdown-time teardown: _gcs() holds
+        # _gcs_lock for create/use and tolerates a concurrently closed
+        # client (reconnect-or-None path), so an unlocked read is safe here
+        if self._gcs_client is not None:
+            self._gcs_client.close()
+            self._gcs_client = None
+        if self._gcs_proc is not None:
+            self._gcs_proc.kill()
+            self._gcs_proc.wait()
+            self._gcs_proc = None
         self.store.destroy()
 
 

@@ -77,6 +77,26 @@ def _parse_wire(buf) -> Tuple[memoryview, List[memoryview]]:
     return payload, pieces
 
 
+def deserialize_pinned(buf) -> Tuple[Any, List[Any]]:
+    """Zero-copy deserialize returning weakref-able out-of-band holders.
+
+    Each out-of-band piece is wrapped in a uint8 ndarray *holder* and the
+    holders are handed to ``pickle.loads`` as the buffers.  Anything pickle
+    reconstructs over a piece keeps its holder alive through the
+    buffer-protocol chain (reconstructed array → base memoryview → exporter
+    = holder), including objects later *derived* from the value — a Series
+    pulled out of a DataFrame, an array extracted from a dict.  A resource
+    pinned until every returned holder is garbage therefore outlives every
+    object that can still reach the underlying bytes, which a finalizer on
+    the top-level value alone cannot guarantee.
+    """
+    import numpy as np
+
+    payload, pieces = _parse_wire(buf)
+    holders = [np.frombuffer(p, dtype=np.uint8) for p in pieces]
+    return pickle.loads(payload, buffers=holders), holders
+
+
 def dumps(value: Any) -> bytes:
     """One-shot contiguous serialization (control-plane messages)."""
     out = bytearray()

@@ -1,16 +1,17 @@
 """Dashboard: HTTP status service over the port's driver runtime, copied
 from ``tpu_air/observability/dashboard.py`` (the port imports nothing of
 ``tpu_air``; the routes, payloads and ``tpu_air_*`` metric families are the
-JAX package's).  What the port lacks shows as the JAX package shows it
-without that part: ``/api/cluster``'s ``gcs`` is ``{"address": None,
-"nodes": []}`` (no GCS daemon, ROADMAP Queue 1 item 11), and
-``/api/objects`` has no ``arena`` key (the file store only, item 11).
+JAX package's).  ``/api/cluster``'s ``gcs`` holds the GCS daemon's address
+and its nodes with their liveness (``{"address": None, "nodes": []}`` with
+the control plane off), ``/api/objects`` the shared-memory arena's stats
+under ``arena`` (absent where the arena did not build), and ``/metrics``
+their ``tpu_air_arena_*`` gauges.
 
 Endpoints (default 127.0.0.1:8265, the reference's dashboard address —
 Install_locally.md:64-67):
   /                 tiny HTML overview
   /api/cluster      resources, workers, actors, queue depth
-  /api/objects      object-store + spill stats
+  /api/objects      object-store + arena + spill stats
   /api/engines      per-engine gauges (queue depth, occupancy, tokens/s, TTFT),
                     driver-local engines merged with serve-replica snapshots
   /api/traces       recent trace summaries; ?trace_id=... for one trace's spans
@@ -85,7 +86,7 @@ def snapshot() -> Dict[str, Any]:
             "workers": workers,
             "actors": actors,
         }
-    # control-plane membership/liveness: none without the GCS daemon
+    # control-plane membership/liveness (outside the lock: GCS RPC)
     out["gcs"] = {"address": rt.gcs_address, "nodes": rt.nodes()}
     return out
 
@@ -113,6 +114,8 @@ def object_stats() -> Dict[str, Any]:
         "file_objects": files,
         "file_bytes": file_bytes,
     }
+    if rt.store._arena is not None:
+        out["arena"] = rt.store._arena.stats()
     out["spill"] = rt.store.spill_stats()
     return out
 
@@ -350,7 +353,7 @@ _WATCH_FAMILIES = [
 
 def _prometheus_text() -> str:
     from tpu_air_torch.engine.metrics import prometheus_lines
-    from tpu_air_torch.utils.metrics import ExpositionBuilder
+    from tpu_air_torch.utils.metrics import ExpositionBuilder, sanitize_metric_name
 
     b = ExpositionBuilder()
     for fam, mtype, help_text in (_CLUSTER_FAMILIES + _SERVE_FAMILIES
@@ -370,6 +373,13 @@ def _prometheus_text() -> str:
         ost = object_stats()
         b.sample("tpu_air_store_file_objects", {}, ost.get("file_objects", 0))
         b.sample("tpu_air_store_file_bytes", {}, ost.get("file_bytes", 0))
+        if "arena" in ost:
+            for k, v in ost["arena"].items():
+                # arena stat keys are free-form (may carry dots/dashes);
+                # they must still land as valid prometheus identifiers
+                fam = f"tpu_air_arena_{sanitize_metric_name(k)}"
+                b.declare(fam, "gauge", f"Shared-memory arena stat {k}.")
+                b.sample(fam, {}, v)
     # engine gauges live OUTSIDE the initialized check: an engine embedded
     # in this process (tests, bench, notebook) exports metrics even when the
     # cluster runtime was never brought up.  engine_stats() also folds in
