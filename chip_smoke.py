@@ -324,7 +324,32 @@ Phases, each fatal on failure:
               values 0 once they die, no block leaked; (c) where the daemon
               builds: ``nodes()`` lists host-0 alive with 1 card, the actor
               is in the GCS actor directory on card 0 and marked dead after
-              ``kill``, and the KV round-trips.
+              ``kill``, and the KV round-trips;
+27. ring     — long-context attention split over sp ranks, at the ``[lm]``
+              phase's width (B 1, H 8, D 128, global L 8192): every rank of
+              a sequence held in this process, rotated in memory, through
+              ``ring_attention_in_memory`` (the hops, merges and kernels of
+              the point-to-point ring, which needs a card a rank): (a) bf16
+              and f32, sp 2 and 4, causal and not: the output and dq, dk,
+              dv (the backward of a seeded ``dO``), put together over the
+              ranks, against one whole-sequence call of the kernels and
+              against the plain versions on the same card tensors, each
+              tensor within ``NORM_TOL`` of its norm and ``TOL`` scaled;
+              (b) the forward, dq and dk/dv launches over (a) equal the
+              live hops, P(P+1)/2 causal and P^2 not (a masked hop launches
+              nothing); (c) bf16: each hop type alone at L/sp (the diagonal
+              causal, the visible hop non-causal) through the three kernels
+              beside its bound, its plain version and SDPA, and the whole
+              causal ring's forward and forward + backward beside the
+              whole-sequence kernels'; (d) ``LMTrainer.fit()`` with
+              ``optimizer="adafactor"`` at the 136M width, sp 1, 3 one-step
+              epochs of 8192 tokens: finite losses, 8 launches of each
+              flash kernel a step, step ms; (e)
+              ``LMTrainer(scaling_config=ScalingConfig(num_workers=1,
+              sequence_parallel=2)).fit()`` raises ``check_devices``'s
+              error (2 cards needed, 1 visible) before any rank starts, no
+              kernel launched.  The NCCL ring between cards needs a card a
+              rank, so it runs only in the CPU tests (gloo).
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
@@ -336,7 +361,8 @@ around the batch it scores, and W2's trials' in each trial's actor, around
 its training function, and the serve replicas' in each replica (a fresh
 process) over its whole life, phase 24's replica and phase 25's two too
 (the returned one's read just after its notice: the watcher ends its
-process after the migration).  The SegFormer
+process after the migration), and phase 27's around each ring's forward
+and backward in (a) and around (d)'s fit.  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -5594,6 +5620,306 @@ def lm_live_parity(dev) -> dict:
     return {"checks": checks, "kernel_launches": launched["kernel"]}
 
 
+# -- phase 27 ----------------------------------------------------------------------
+
+# ring dials: the [lm] phase's attention (B 1, H 8, D 128, L 8192) split over sp
+# ranks held in this process; (d) LMTrainer with Adafactor, sp 1, 3 one-step epochs
+RING_SPS, RING_DTYPES, RING_ADAFACTOR_STEPS = (2, 4), (torch.bfloat16, torch.float32), 3
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def zero_flash_counts() -> None:
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    flash_attention.launches = 0
+    flash_attention_backward.dq_launches = 0
+    flash_attention_backward.dkv_launches = 0
+
+
+def ring_inputs(rng, dtype, dev):
+    """q, k, v, do of the LM's attention, (1, H, L, D) views of [1, L, H, D]
+    tensors as the model lays them out."""
+    cfg = lm_config()
+
+    def t():
+        x = rng.standard_normal((1, LM_LEN, cfg.n_heads, cfg.head_dim), dtype=np.float32)
+        return torch.from_numpy(x).to(dev, dtype).transpose(1, 2)
+
+    return t(), t(), t(), t()
+
+
+def ring_run(q, k, v, do, sp: int, causal: bool):
+    """The in-memory ring over sp ranks, forward then backward of ``do``:
+    (out, dq, dk, dv) put together in rank order, and the flash kernels'
+    launches over the two."""
+    from tpu_air_torch.ops.ring_attention import ring_attention_in_memory
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    shards = [list(x.chunk(sp, dim=2)) for x in leaves]
+    if any(s.shape[2] != LM_LEN // sp for s in shards[0]):
+        raise AssertionError(f"[ring] shards of {[s.shape for s in shards[0]]}")
+    zero_flash_counts()
+    outs = ring_attention_in_memory(*shards, causal=causal)
+    torch.autograd.backward(outs, list(do.chunk(sp, dim=2)))
+    torch.cuda.synchronize()
+    counts = {n: kernel_counts()[n] for n in FLASH_KERNELS}
+    return (torch.cat([o.detach() for o in outs], dim=2), *(x.grad for x in leaves)), counts
+
+
+def ring_compare(dev) -> dict:
+    """27 (a) and (b): the ring against one whole-sequence call of the kernels
+    and against the plain versions, and its launches against its live hops."""
+    from tpu_air_torch.ops.flash_attention import (flash_attention_backward,
+                                                   flash_attention_backward_reference,
+                                                   flash_attention_reference,
+                                                   flash_attention_with_lse)
+    from tpu_air_torch.ops.ring_attention import live_hops
+
+    cfg = lm_config()
+    h, d, L = cfg.n_heads, cfg.head_dim, LM_LEN
+    scale = d ** -0.5
+    rng = np.random.default_rng(SEED + 50)
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    errs = {}
+    for dtype in RING_DTYPES:
+        tag = TAG[dtype]
+        q, k, v, do = ring_inputs(rng, dtype, dev)
+
+        def flat(x):
+            return x.reshape(h, L, d)
+
+        for causal in (True, False):
+            with torch.no_grad():
+                out_w, lse_w = flash_attention_with_lse(q, k, v, causal=causal)
+            whole = (out_w, *flash_attention_backward(q, k, v, None, out_w, lse_w, do, None,
+                                                      scale, causal))
+            out_p, lse_p = flash_attention_reference(flat(q), flat(k), flat(v), None, None,
+                                                     scale, causal)
+            plain = (out_p, *flash_attention_backward_reference(
+                flat(q), flat(k), flat(v), None, out_p, lse_p, flat(do), None, scale, causal))
+            del out_w, lse_w, out_p, lse_p
+            for sp in RING_SPS:
+                name = f"{tag} sp{sp} {'causal' if causal else 'non-causal'}"
+                got, counts = ring_run(q, k, v, do, sp, causal)
+                live = live_hops(sp, causal)
+                log(f"[ring] {name}: launches {counts} (live hops {live}; "
+                    f"{sp * sp - live} masked)")
+                if any(n != live for n in counts.values()):
+                    raise AssertionError(f"[ring] {name}: launches {counts} != {live} live hops")
+                for n in FLASH_KERNELS:
+                    launches[n] += counts[n]
+                row = {}
+                for t_name, g, w_k, w_p in zip(("out", "dq", "dk", "dv"), got, whole, plain):
+                    g = flat(g)
+                    if not torch.isfinite(g.float()).all():
+                        raise AssertionError(f"[ring] {name} {t_name}: non-finite")
+                    for ref_name, w in (("kernels", flat(w_k)), ("plain", w_p)):
+                        rel, sc = norm_err(g, w), scaled_err(g, w)
+                        row[f"{t_name} vs {ref_name}"] = {"max_abs_err": max_err(g, w),
+                                                          "scaled": sc, "norm": rel}
+                        if not (rel < NORM_TOL[dtype] and sc < TOL[dtype]):
+                            raise AssertionError(
+                                f"[ring] {name} {t_name} against the whole-sequence "
+                                f"{ref_name}: ||err|| / ||ref|| {rel:.2e} (tol "
+                                f"{NORM_TOL[dtype]:.0e}), scaled max err {sc:.2e} (tol "
+                                f"{TOL[dtype]:.0e})")
+                log(f"[ring] {name}: " + "; ".join(
+                    f"{k} max abs {e['max_abs_err']:.2e} norm {e['norm']:.2e}"
+                    for k, e in row.items()) + f" (tol norm {NORM_TOL[dtype]:.0e}, "
+                    f"scaled {TOL[dtype]:.0e})")
+                errs[name] = row
+                del got
+            del whole, plain
+            torch.cuda.empty_cache()
+        del q, k, v, do
+    return {"launches": launches, "errors": errs}
+
+
+def ring_timing(dev) -> dict:
+    """27 (c), bf16: each hop type alone at L/sp (the diagonal causal, the
+    visible hop non-causal) through the forward, dq and dk/dv kernels beside
+    their bounds, their plain versions and SDPA; then the whole causal ring,
+    forward and forward + backward, beside the whole-sequence kernels."""
+    from tpu_air_torch.ops.flash_attention import (flash_attention_backward,
+                                                   flash_attention_reference,
+                                                   flash_attention_with_lse)
+    from tpu_air_torch.ops.ring_attention import ring_attention_in_memory
+
+    cfg = lm_config()
+    h, d, L = cfg.n_heads, cfg.head_dim, LM_LEN
+    scale = d ** -0.5
+    q, k, v, do = ring_inputs(np.random.default_rng(SEED + 51), torch.bfloat16, dev)
+    hops = []
+    for sp in RING_SPS:
+        n = L // sp
+        qh, kh, vh, doh = (x[:, :, :n] for x in (q, k, v, do))
+        elt, lse_bytes = h * n * d * 2, h * n * 4
+        for kind, causal in (("diagonal", True), ("visible", False)):
+            pairs = h * (n * (n + 1) // 2 if causal else n * n)
+            with torch.no_grad():
+                out_h, lse_h = flash_attention_with_lse(qh, kh, vh, causal=causal)
+            calls = bwd_kernel_calls(qh, kh, vh, doh, out_h, lse_h, scale, causal)
+            kernel_ms = {
+                "flash_attention": device_ms(
+                    lambda: flash_attention_with_lse(qh, kh, vh, causal=causal), 10),
+                **{name: device_ms(call, 10) for name, call in calls.items()}}
+            flat = [x.reshape(h, n, d) for x in (qh, kh, vh)]
+            plain_fwd = time_ms(lambda: flash_attention_reference(*flat, None, None, scale,
+                                                                  causal), 2, 1)
+            plain_bwd = time_ms(lambda: backward_plain(qh, kh, vh, None, out_h, lse_h, doh,
+                                                       None, scale, causal), 2, 1)
+            leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal, scale=scale)
+            # queued behind the sleep kernel as the kernels are: at these
+            # shapes one call's host dispatch outlasts its device time
+            sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal, scale=scale), 10)
+            sdpa_bwd = device_ms(lambda: torch.autograd.grad(sdpa_out, leaves, doh,
+                                                             retain_graph=True), 10)
+            # forward: reads q, k, v, writes out and lse; 2 products of 2*d
+            # flops a live pair.  dq: reads q, k, v, do, lse, delta, writes dq;
+            # 3 products.  dk/dv: the same inputs, writes dk and dv; 4 products.
+            for name, nbytes, flops, plain_ms, lib_ms in (
+                    ("flash_attention", 4 * elt + lse_bytes, 4 * d * pairs, plain_fwd, sdpa_fwd),
+                    ("flash_attention_bwd_dq", 5 * elt + 2 * lse_bytes, 6 * d * pairs,
+                     plain_bwd, sdpa_bwd),
+                    ("flash_attention_bwd_dkv", 6 * elt + 2 * lse_bytes, 8 * d * pairs,
+                     plain_bwd, sdpa_bwd)):
+                b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
+                hops.append({"name": name, "sp": sp, "hop": kind,
+                             "shape": f"B1 H{h} L{n} D{d} {'causal' if causal else 'non-causal'} bf16",
+                             "ms": kernel_ms[name], "bound_ms": b_ms, "bound_by": b_by,
+                             "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes,
+                             "flops": flops})
+                log(f"[ring timing] sp{sp} {kind} hop, {name} at L/sp = {n}: kernel "
+                    f"{kernel_ms[name]:.4f} ms (device_ms), bound {b_ms:.4f} ms by {b_by}, "
+                    f"plain {plain_ms:.3f} ms, SDPA {'forward' if name == 'flash_attention' else 'backward'} "
+                    f"{lib_ms:.4f} ms")
+            del out_h, lse_h, calls, leaves, sdpa_out
+    torch.cuda.empty_cache()
+    whole = {}
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def whole_fwd():
+        with torch.no_grad():
+            return flash_attention_with_lse(q, k, v, causal=True)
+
+    def whole_fwd_bwd():
+        out, lse = whole_fwd()
+        return flash_attention_backward(q, k, v, None, out, lse, do, None, scale, True)
+
+    whole["whole-sequence kernels"] = (time_ms(whole_fwd, 3, 1), time_ms(whole_fwd_bwd, 3, 1))
+    for sp in RING_SPS:
+        shards = [list(x.chunk(sp, dim=2)) for x in leaves]
+        dos = list(do.chunk(sp, dim=2))
+
+        def ring_fwd():
+            with torch.no_grad():
+                return ring_attention_in_memory(*shards, causal=True)
+
+        def ring_fwd_bwd():
+            torch.autograd.backward(ring_attention_in_memory(*shards, causal=True), dos)
+
+        whole[f"ring sp{sp}"] = (time_ms(ring_fwd, 3, 1), time_ms(ring_fwd_bwd, 3, 1))
+    for name, (f_ms, fb_ms) in whole.items():
+        log(f"[ring timing] causal L{L}, {name}: forward {f_ms:.3f} ms, forward + backward "
+            f"{fb_ms:.3f} ms (CUDA events over back-to-back calls, host included)")
+    del q, k, v, do, leaves
+    torch.cuda.empty_cache()
+    return {"hops": hops, "whole_ms": {k: {"forward": f, "forward_backward": fb}
+                                       for k, (f, fb) in whole.items()}}
+
+
+def ring_adafactor(dev, storage: str) -> dict:
+    """27 (d): ``LMTrainer.fit()`` with ``optimizer="adafactor"`` at the 136M
+    width, sp 1, 3 one-step epochs of 8192 tokens, through the kernels."""
+    import pandas as pd
+
+    from tpu_air_torch.train import LMTrainer, RunConfig, TrainingArguments
+
+    cfg = lm_config()
+    steps = RING_ADAFACTOR_STEPS
+    rows = pd.DataFrame({"input_ids": list(lm_rows(1, LM_LEN, SEED + 52))})
+    args = TrainingArguments(learning_rate=1e-2, per_device_train_batch_size=1,
+                             num_train_epochs=steps, seed=SEED, optimizer="adafactor",
+                             evaluation_strategy="no", save_strategy="no")
+    trainer = LMTrainer(model_config=cfg, training_args=args, datasets={"train": rows},
+                        run_config=RunConfig(storage_path=storage), device=dev)
+    zero_flash_counts()
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    counts = {n: kernel_counts()[n] for n in FLASH_KERNELS}
+    if result.error is not None:
+        raise AssertionError(f"[ring] (d) Adafactor fit failed: {result.error}")
+    hist = result.metrics_history
+    losses = [m["loss"] for m in hist]
+    step_ms = [LM_LEN / m["train_tokens_per_sec"] * 1e3 for m in hist]
+    log(f"[ring] (d) LMTrainer.fit, optimizer='adafactor', {cfg.d_model} wide, "
+        f"{cfg.n_layers} layers, bf16, L={LM_LEN}, sp 1: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; step ms (first is the warm-up) "
+        + ", ".join(f"{x:.1f}" for x in step_ms) + f"; launches {counts}")
+    if len(hist) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"[ring] (d) {hist}")
+    if any(n != cfg.n_layers * steps for n in counts.values()):
+        raise AssertionError(f"[ring] (d) launches {counts}, expected {cfg.n_layers} a step")
+    return {"losses": losses, "step_ms": step_ms, "launches": counts}
+
+
+def ring_refusal(dev, storage: str) -> dict:
+    """27 (e): ``sequence_parallel=2`` on one card raises ``check_devices``'s
+    error before any rank starts; nothing runs on the CPU instead."""
+    import pandas as pd
+
+    from tpu_air_torch.train import LMTrainer, RunConfig, ScalingConfig, TrainingArguments
+
+    rows = pd.DataFrame({"input_ids": list(lm_rows(1, LM_LEN, SEED + 53))})
+    trainer = LMTrainer(model_config=lm_config(), datasets={"train": rows},
+                        training_args=TrainingArguments(num_train_epochs=1),
+                        scaling_config=ScalingConfig(num_workers=1, sequence_parallel=2),
+                        run_config=RunConfig(storage_path=storage))
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit()
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"[ring] (e) sp=2 on {torch.cuda.device_count()} card(s) ran: "
+                             f"{result.metrics}, error {result.error}")
+    counts = {n: kernel_counts()[n] for n in FLASH_KERNELS}
+    want = f"needs 2 cards (rank r runs on cuda:r); {torch.cuda.device_count()} are visible"
+    log(f"[ring] (e) LMTrainer(ScalingConfig(num_workers=1, sequence_parallel=2)).fit() on "
+        f"the card: ValueError in {time.perf_counter() - t0:.2f} s: {msg}")
+    if want not in msg or any(counts.values()):
+        raise AssertionError(f"[ring] (e) {msg!r} (want {want!r}); launches {counts}")
+    return {"error": msg}
+
+
+def ring_path(dev, work: str) -> dict:
+    """Phase 27."""
+    t0 = time.perf_counter()
+    stats = ring_compare(dev)
+    stats["timing"] = ring_timing(dev)
+    stats["adafactor"] = ring_adafactor(dev, os.path.join(work, "ring_adafactor"))
+    stats["refusal"] = ring_refusal(dev, os.path.join(work, "ring_refusal"))
+    stats["wall_s"] = time.perf_counter() - t0
+    log(f"[ring] phase 27 in {stats['wall_s']:.1f} s")
+    return stats
+
+
+def add_ring_rows(kernels: list, ring: dict) -> None:
+    """Phase 27's launches (the ring's (a) runs and (d)'s fit) and hop times
+    into the flash kernels' rows."""
+    for r in kernels:
+        if r["name"] not in FLASH_KERNELS:
+            continue
+        for where, n in (("ring", ring["launches"][r["name"]]),
+                         ("lm_adafactor", ring["adafactor"]["launches"][r["name"]])):
+            r["launches_by_path"][where] = n
+            r["launches"] += n
+        r["ring_hops"] = [h for h in ring["timing"]["hops"] if h["name"] == r["name"]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -5675,6 +6001,8 @@ def run_phases(dev, work: str, t_start: float) -> int:
     obs_stats = obs_serve_path(dev, lm_stats["checkpoint_dir"], work, lm_serve_stats)
     lane_stats = batch_lane_path(dev, lm_stats["checkpoint_dir"], lm_serve_stats)
     native_stats = native_path(dev)
+    ring_stats = ring_path(dev, work)
+    add_ring_rows(kernels, ring_stats)
     del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     row = next(r for r in kernels if r["name"] == "decode_attention")
@@ -5698,7 +6026,8 @@ def run_phases(dev, work: str, t_start: float) -> int:
                       "batch": batch_stats, "w2": w2_stats, "w7": w7_stats, "w6": w6_stats,
                       "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats,
                       "lm_live": lm_live_stats, "obs_serve": obs_stats,
-                      "batch_lane": lane_stats, "native": native_stats}),
+                      "batch_lane": lane_stats, "native": native_stats,
+                      "ring": ring_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

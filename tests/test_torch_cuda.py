@@ -1161,3 +1161,40 @@ def test_card_tensor_bytes_cross_processes_through_the_arena(dev, tmp_path):
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     finally:
         store.destroy()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sp", [2, 3, 4])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_in_memory_matches_whole_sequence_kernels(dev, dtype, sp, causal):
+    """Ring attention over sp ranks held in this process, through the flash
+    kernels at L/sp, against one whole-sequence call of the same kernels:
+    output and gradients to each tensor's norm, and the launches equal to
+    the live hops (none for a masked hop)."""
+    from tpu_air_torch.ops.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_with_lse)
+    from tpu_air_torch.ops.ring_attention import live_hops, ring_attention_in_memory
+
+    rng = np.random.default_rng(sp + 10 * causal)
+    b, h, L, d = 2, 2, 384 * sp, 64
+    q, k, v, do = (_t(rng.standard_normal((b, L, h, d)), dev, dtype).transpose(1, 2)
+                   for _ in range(4))
+    with torch.no_grad():
+        out_w, lse_w = flash_attention_with_lse(q, k, v, causal=causal)
+    want = (out_w, *flash_attention_backward(q, k, v, None, out_w, lse_w, do, None,
+                                             d ** -0.5, causal))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = (flash_attention.launches, flash_attention_backward.dq_launches,
+              flash_attention_backward.dkv_launches)
+    outs = ring_attention_in_memory(*(list(x.chunk(sp, dim=2)) for x in leaves),
+                                    causal=causal)
+    torch.autograd.backward(outs, list(do.chunk(sp, dim=2)))
+    torch.cuda.synchronize()
+    after = (flash_attention.launches, flash_attention_backward.dq_launches,
+             flash_attention_backward.dkv_launches)
+    assert [a - b_ for a, b_ in zip(after, before)] == [live_hops(sp, causal)] * 3
+    got = (torch.cat(outs, dim=2), *(x.grad for x in leaves))
+    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}[dtype]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+        assert rel < tol, (name, rel)

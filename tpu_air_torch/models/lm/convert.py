@@ -6,7 +6,9 @@ numpy arrays, as ``jax.device_get`` returns it) onto the state dict of
 it imports nothing of JAX.  Flax ``Dense`` kernels are ``[in, out]`` and
 become ``nn.Linear`` weights ``[out, in]``; the embedding ``[vocab,
 d_model]`` (tied to the head unless ``lm_head`` is present) and the RMSNorm
-weights carry over as they are.  ``params_to_jax`` is the inverse.
+weights carry over as they are.  ``params_to_jax`` is the inverse, and
+``jax_layouts`` reports the layout of each parameter for the optimizers
+whose rule reads it (Adafactor's factoring).
 
 ``cache_from_jax`` / ``cache_to_jax`` carry a decode cache both ways: the
 Flax ``"cache"`` collection (``{"layer_i": {"attn": {cached_key,
@@ -17,12 +19,13 @@ one step of each decode branch can run on both packages from one state.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from .modeling import AttnCache
+from .config import LMConfig
+from .modeling import AttnCache, CausalLM
 
 
 def _tensor(a) -> torch.Tensor:
@@ -44,6 +47,20 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if "lm_head" in params:
         sd["lm_head.weight"] = _tensor(np.asarray(params["lm_head"]["kernel"]).T)
     return sd
+
+
+def jax_layouts(config: LMConfig) -> Dict[str, Tuple[bool, Tuple[int, ...]]]:
+    """Per port parameter, how the JAX package holds it: whether its kernel
+    is the transpose of the port's weight (every Dense kernel, ``[in,
+    out]``), and the kernel's shape.  The embedding and the norms keep
+    theirs.  The counterpart of ``models/t5/convert.py::jax_layouts``."""
+    model = CausalLM(config, device="meta")
+    out = {}
+    for name, p in model.state_dict().items():
+        shape = tuple(p.shape)
+        dense = name.endswith(".weight") and "norm" not in name
+        out[name] = (True, shape[::-1]) if dense else (False, shape)
+    return out
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:

@@ -4,9 +4,12 @@
 Architecture: pre-RMSNorm, RoPE attention (interleaved pairs), SwiGLU MLP,
 tied embeddings.  Without a cache, attention is causal flash attention
 through the port's kernels by device: the forward and both backward kernels
-on a CUDA tensor, their plain versions on a CPU tensor.  The model is
-applied deterministically (no dropout), as every training path of the JAX
-package applies it.
+on a CUDA tensor, their plain versions on a CPU tensor.  Given a
+``sequence_group`` of two or more ranks (the input is then this rank's
+shard of each sequence, ``positions`` its global positions), attention is
+ring attention over that group through the same kernels, the JAX package's
+``attention="ring"`` branch.  The model is applied deterministically (no
+dropout), as every training path of the JAX package applies it.
 
 With ``decode=True`` the model reads and writes a KV cache: one
 :class:`AttnCache` per layer, Flax's mutable ``"cache"`` collection made
@@ -53,6 +56,7 @@ from tpu_air_torch.device import DeviceLike, resolve_device
 from tpu_air_torch.models.layers import Dense
 from tpu_air_torch.ops.decode_attention import decode_attention, gather_pages
 from tpu_air_torch.ops.flash_attention import flash_attention
+from tpu_air_torch.ops.ring_attention import ring_attention
 
 from .config import LMConfig
 
@@ -131,6 +135,15 @@ def step_mask(cache: AttnCache, b: int) -> torch.Tensor:
     return (keys[None, :] <= i[:, None]).float()
 
 
+def _ring_size(group) -> int:
+    """Ranks of a sequence group (1 for None)."""
+    if group is None:
+        return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
+
+
 def _dense_causal_attention(q, k, v, scale, q_offset=0):
     """(B, H, L, D) attention with f32 scores and a causal mask whose
     queries start at ``q_offset`` (an int or a 0-d tensor); the JAX
@@ -161,7 +174,7 @@ class CausalSelfAttention(nn.Module):
         self.q_scale = float(torch.tensor(self.scale, dtype=dt, device="cpu"))
 
     def forward(self, x, positions, cache: Optional[AttnCache] = None,
-                kv_mask: Optional[torch.Tensor] = None):
+                kv_mask: Optional[torch.Tensor] = None, sequence_group=None):
         cfg = self.config
         b, l, _ = x.shape
         h, d = cfg.n_heads, cfg.head_dim
@@ -175,7 +188,11 @@ class CausalSelfAttention(nn.Module):
             v = self.v(x)
             kflat = k.transpose(1, 2).reshape(b, l, h * d)
             return self.o(self._decode(q, kflat, v, cache, kv_mask))
-        o = flash_attention(q, k, heads(self.v(x)), scale=self.scale, causal=True)
+        v = heads(self.v(x))
+        if _ring_size(sequence_group) > 1:
+            o = ring_attention(q, k, v, sequence_group, scale=self.scale, causal=True)
+        else:
+            o = flash_attention(q, k, v, scale=self.scale, causal=True)
         return self.o(o.transpose(1, 2).reshape(b, l, h * d))
 
     def _step(self, q, ks, vs, kv_mask):
@@ -266,8 +283,8 @@ class Block(nn.Module):
         self.mlp = SwiGLU(config)
 
     def forward(self, x, positions, cache: Optional[AttnCache] = None,
-                kv_mask: Optional[torch.Tensor] = None):
-        x = x + self.attn(self.attn_norm(x), positions, cache, kv_mask)
+                kv_mask: Optional[torch.Tensor] = None, sequence_group=None):
+        x = x + self.attn(self.attn_norm(x), positions, cache, kv_mask, sequence_group)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -280,7 +297,10 @@ class CausalLM(nn.Module):
     to 0..L-1.  ``return_hidden=True`` returns the final-norm hidden states
     instead of the logits, for :func:`lm_chunked_loss_with_targets` and the
     generate loops.  ``decode=True`` reads and writes ``cache``, one
-    :class:`AttnCache` per layer (``models/lm/generate.py`` builds them)."""
+    :class:`AttnCache` per layer (``models/lm/generate.py`` builds them).
+    ``sequence_group``: a ``torch.distributed`` group of two or more ranks,
+    each calling with its shard of the same sequences, attends through ring
+    attention over it (training only, no cache)."""
 
     def __init__(self, config: LMConfig, device: DeviceLike = None):
         super().__init__()
@@ -313,11 +333,13 @@ class CausalLM(nn.Module):
 
     def forward(self, input_ids, positions: Optional[torch.Tensor] = None,
                 return_hidden: bool = False, decode: bool = False,
-                cache: Optional[List[AttnCache]] = None):
+                cache: Optional[List[AttnCache]] = None, sequence_group=None):
         cfg = self.config
         b, l = input_ids.shape
         if l > cfg.max_seq_len:
             raise ValueError(f"sequence length {l} exceeds max_seq_len {cfg.max_seq_len}")
+        if decode and _ring_size(sequence_group) > 1:
+            raise ValueError("decode=True runs on whole sequences, not over a sequence group")
         if decode and (cache is None or len(cache) != cfg.n_layers):
             raise ValueError(f"decode=True needs one AttnCache per layer ({cfg.n_layers})")
         if not decode:
@@ -329,7 +351,7 @@ class CausalLM(nn.Module):
         kv_mask = step_mask(cache[0], b) if decode and l == 1 else None
         x = self.embedding[input_ids].to(torch_dtype(cfg.dtype))
         for layer, c in zip(self.layers, cache):
-            x = layer(x, positions, c, kv_mask)
+            x = layer(x, positions, c, kv_mask, sequence_group)
         x = self.final_norm(x)
         if return_hidden:
             return x

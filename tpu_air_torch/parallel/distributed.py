@@ -94,19 +94,19 @@ def all_reduce_grads(params: Sequence[torch.nn.Parameter]) -> None:
 
 
 def check_devices(num_workers: int, device: torch.device) -> None:
-    """N workers on CUDA need N cards: rank r runs on ``cuda:r``."""
+    """N ranks on CUDA need N cards: rank r runs on ``cuda:r``."""
     if device.type == "cuda" and torch.cuda.device_count() < num_workers:
         raise ValueError(
-            f"num_workers={num_workers} on CUDA needs {num_workers} cards (rank r runs on "
-            f"cuda:r); {torch.cuda.device_count()} are visible")
+            f"a run of {num_workers} ranks on CUDA needs {num_workers} cards (rank r runs "
+            f"on cuda:r); {torch.cuda.device_count()} are visible")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"no worker group for device {device}")
 
 
 def _worker(rank: int, world_size: int, store: str, device_type: str, threads: int,
-            payload: bytes, out_dir: str) -> None:
+            payload: str, out_dir: str) -> None:
     """One worker: join the group, run ``fn(rank, world_size, device,
-    *args)`` from the payload and write its result to ``out_dir/<rank>``.
+    *args)`` from the payload file and write its result to ``out_dir/<rank>``.
     A result that holds an error raises after it is written, so that
     ``start_processes`` stops the workers still running (one may wait in a
     collective for the failed rank)."""
@@ -120,7 +120,8 @@ def _worker(rank: int, world_size: int, store: str, device_type: str, threads: i
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
                             init_method=f"file://{store}", world_size=world_size, rank=rank)
     try:
-        fn, args = pickle.loads(payload)
+        with open(payload, "rb") as f:
+            fn, args = pickle.load(f)
         out = fn(rank, world_size, device, *args)
     finally:
         dist.destroy_process_group()
@@ -157,11 +158,17 @@ def run_workers(fn: Callable[..., Dict[str, Any]], args: tuple, num_workers: int
     threads = max(1, torch.get_num_threads() // num_workers)
     failure = ""
     try:
+        # through a file, not the process arguments: spawn writes those to
+        # each child's pipe, and a write larger than the pipe blocks until
+        # that child has imported its main module, so the children would
+        # start one after another
+        with open(os.path.join(work, "payload"), "wb") as f:
+            f.write(payload)
         try:
             group = tmp.start_processes(
                 _worker, nprocs=num_workers, start_method="spawn", join=False,
                 args=(num_workers, os.path.join(work, "store"), device.type, threads,
-                      payload, work))
+                      os.path.join(work, "payload"), work))
             # when one worker fails, the others get 30 s to fail in their
             # collectives and write their own results (rank 0's names the
             # latest checkpoint a retry resumes from) before they are stopped

@@ -16,13 +16,16 @@ class ScalingConfig:
     on the CPU (``gloo``) or one card each (``nccl``, rank r on ``cuda:r``);
     1 trains in the calling process.  ``use_gpu`` picks the device when the
     trainer is given none (``False``: the CPU) and must agree with it when
-    it is.  ``num_chips_per_worker`` is 1: a worker over several cards needs
-    tensor parallelism.  ``model_parallel`` is the tensor-parallel and
+    it is.  ``model_parallel`` is the tensor-parallel and
     ``sequence_parallel`` the sequence-parallel degree inside each worker;
-    the trainers raise for either above 1 and name the ROADMAP item that
-    ports it.  ``total_chips`` is the lease a Tune trial holds.  The JAX
-    package's ``use_tpu``, ``topology`` and ``resources_per_worker`` are
-    left out: nothing in the port reads them.
+    a worker's devices cover their product, so ``num_chips_per_worker``
+    given as 1 becomes ``model_parallel x sequence_parallel``, as in the JAX
+    package.  ``LMTrainer`` runs one rank a device for
+    ``sequence_parallel > 1``; tensor parallelism, and a worker over more
+    devices than its axes use, are not ported (ROADMAP Queue 1 item 9).
+    ``total_chips`` (``num_workers x num_chips_per_worker``) is the lease a
+    Tune trial holds.  The JAX package's ``use_tpu``, ``topology`` and
+    ``resources_per_worker`` are left out: nothing in the port reads them.
     """
 
     num_workers: int = 1
@@ -34,10 +37,6 @@ class ScalingConfig:
     def __post_init__(self):
         if self.num_workers < 1:
             raise ValueError("num_workers must be >= 1")
-        if self.num_chips_per_worker != 1:
-            raise NotImplementedError(
-                f"num_chips_per_worker={self.num_chips_per_worker}: a worker over several "
-                "cards needs tensor parallelism, not ported yet (ROADMAP Queue 1 item 9)")
         # validate BEFORE the `or 1` defaulting: an explicit 0 must raise
         if self.model_parallel is not None and self.model_parallel < 1:
             raise ValueError("model_parallel must be >= 1")
@@ -45,6 +44,20 @@ class ScalingConfig:
             raise ValueError("sequence_parallel must be >= 1")
         self.model_parallel = self.model_parallel or 1
         self.sequence_parallel = self.sequence_parallel or 1
+        # a worker's chips cover the PRODUCT of its in-worker axes
+        axes = self.model_parallel * self.sequence_parallel
+        if self.num_chips_per_worker == 1:
+            self.num_chips_per_worker = axes
+        elif self.num_chips_per_worker % axes != 0:
+            raise ValueError(
+                f"num_chips_per_worker={self.num_chips_per_worker} is not a "
+                f"multiple of model_parallel x sequence_parallel = {axes}"
+            )
+        elif self.num_chips_per_worker != axes:
+            raise NotImplementedError(
+                f"num_chips_per_worker={self.num_chips_per_worker} beyond model_parallel x "
+                f"sequence_parallel = {axes}: a worker over more cards than its axes use "
+                "needs the device mesh, not ported yet (ROADMAP Queue 1 item 9)")
 
     @property
     def total_chips(self) -> int:

@@ -1,17 +1,26 @@
 """LMTrainer — long-context causal-LM training through the Trainer API (the
-port's counterpart of ``tpu_air/train/lm_trainer.py``, its one-card path).
+port's counterpart of ``tpu_air/train/lm_trainer.py``).
 
-``LMTrainer(...).fit()`` runs :func:`lm_train_loop`: the
-``sequence_parallel == 1`` step of ``parallel/sequence_parallel.py``
-(causal flash attention, forward and backward through the port's kernels on
-a CUDA device; the chunked lm-head CE), AdamW as ``_make_optimizer`` builds
-it, and a per-epoch report with a checkpoint.  A sequence split over several
-cards (ROADMAP Queue 1 item 8), tensor parallelism (item 9), data
-parallelism over several workers (item 8) and Adafactor, whose factoring
-needs the JAX package's parameter layouts (item 8), raise.
+``LMTrainer(...).fit()`` runs :func:`lm_train_loop`, the step of
+``parallel/sequence_parallel.py`` (flash attention, or ring attention over
+the sequence group, forward and backward through the port's kernels on a
+CUDA device; the chunked lm-head CE), AdamW or Adafactor as
+``_make_optimizer`` builds them (Adafactor reads the JAX package's
+parameter layouts, ``models/lm/convert.py::jax_layouts``), and a per-epoch
+report with a checkpoint.
+
+Sequence parallelism is a config change: ``ScalingConfig(num_workers=dp,
+sequence_parallel=sp)`` runs ``dp x sp`` ranks, one device each (gloo on
+the CPU, nccl with rank r on ``cuda:r``), the JAX package's ``(data,
+sequence)`` mesh over ``num_workers x num_chips_per_worker`` devices.  Each
+rank reads the whole global batch and keeps its block (its data row's
+rows, its sequence column's tokens); the loss and the eval sums are
+all-reduced over every rank, and rank 0 writes the checkpoint.  Tensor
+parallelism (``model_parallel > 1``) is not ported (ROADMAP Queue 1 item 9).
 
 Datasets: rows with an ``input_ids`` column (fixed-length token lists).
-Targets are the global next-token shift, computed on the host.
+Targets are the global next-token shift, computed on the host before the
+sequence is split.
 """
 
 from __future__ import annotations
@@ -30,7 +39,10 @@ from .trainer import BaseTrainer
 def lm_train_loop(config: Dict[str, Any]) -> None:
     from tpu_air_torch.device import resolve_device
     from tpu_air_torch.models.lm import CausalLM, LMConfig
-    from tpu_air_torch.parallel.sequence_parallel import make_sp_train_step, sp_local_loss
+    from tpu_air_torch.models.lm.convert import jax_layouts
+    from tpu_air_torch.parallel.distributed import all_reduce_sum
+    from tpu_air_torch.parallel.sequence_parallel import (make_sp_mesh, make_sp_train_step,
+                                                          shard_batch, sp_local_loss)
 
     from . import session
 
@@ -43,19 +55,16 @@ def lm_train_loop(config: Dict[str, Any]) -> None:
     sc = config.get("_scaling_config")
     sp = getattr(sc, "sequence_parallel", None) or 1
     mp = getattr(sc, "model_parallel", None) or 1
-    dp = getattr(sc, "num_workers", None) or 1
+    if mp > 1 and sp > 1:
+        raise ValueError(
+            "LMTrainer: model_parallel and sequence_parallel cannot be "
+            "combined yet — pick one axis per run (the SP step runs inside "
+            "shard_map; TP rides pjit shardings)"
+        )
     if mp > 1:
         raise NotImplementedError(
             f"LMTrainer: model_parallel={mp}: tensor parallelism is not ported yet "
             "(ROADMAP Queue 1 item 9)")
-    if dp > 1:
-        raise NotImplementedError(
-            f"LMTrainer: num_workers={dp}: the LM step's data parallelism is not "
-            "ported yet (ROADMAP Queue 1 item 8)")
-    if args.optimizer == "adafactor":
-        raise NotImplementedError(
-            "LMTrainer: optimizer='adafactor' needs the LM's JAX parameter layouts "
-            "for its factoring, not ported yet (ROADMAP Queue 1 item 8)")
     device = resolve_device(config.get("_device"))
     pad = model_config.pad_token_id
 
@@ -63,6 +72,18 @@ def lm_train_loop(config: Dict[str, Any]) -> None:
     if train_ds is None:
         raise ValueError("LMTrainer requires a 'train' dataset")
     eval_ds = session.get_dataset_shard("evaluation") or session.get_dataset_shard("eval")
+    for ds in (train_ds, eval_ds):
+        sample = None if ds is None else next(ds.iter_batches(batch_size=1), None)
+        length = 0 if sample is None else collate(sample, ["input_ids"])["input_ids"].shape[1]
+        if length % sp:
+            # the JAX package's text, raised there by device_put
+            raise ValueError(
+                f"LMTrainer: sequence_parallel={sp} implies that the global size of "
+                f"dimension 1 should be divisible by {sp}, but it is equal to {length} "
+                f"(full shape: {(len(sample), length)})")
+    mesh = make_sp_mesh(sp=sp)
+    dp = mesh.dp
+    rank = session.get_world_rank()
 
     global_bs = args.per_device_train_batch_size * dp
     steps_per_epoch = max(1, train_ds.count() // global_bs)
@@ -75,14 +96,19 @@ def lm_train_loop(config: Dict[str, Any]) -> None:
         model.load_state_dict(Checkpoint.from_directory(resume_dir).get_params())
     else:
         model.init_weights(args.seed)
-    opt = _make_optimizer(args, steps_per_epoch * args.num_train_epochs, model.parameters())
-    step = make_sp_train_step(model, opt, sp=sp)
+    layouts = jax_layouts(model_config)
+    opt = _make_optimizer(args, steps_per_epoch * args.num_train_epochs,
+                          [p for _, p in model.named_parameters()],
+                          [layouts[n] for n, _ in model.named_parameters()])
+    step = make_sp_train_step(model, opt, mesh)
 
     def batches(ds, bs, drop_last=True):
+        """This rank's block of each global batch, on its device."""
         for df in ds.iter_batches(batch_size=bs, batch_format="pandas",
                                   drop_last=drop_last):
             ids = collate(df, ["input_ids"])["input_ids"]
-            # global next-token shift on the host (shift_targets semantics)
+            # global next-token shift on the host, before the sequence is split
+            # (shift_targets semantics)
             tgt = np.concatenate(
                 [ids[:, 1:], np.full((ids.shape[0], 1), pad, ids.dtype)], axis=1
             )
@@ -92,15 +118,17 @@ def lm_train_loop(config: Dict[str, Any]) -> None:
                 need = bs - len(ids) % bs
                 ids = np.concatenate([ids, np.full((need, ids.shape[1]), pad, ids.dtype)])
                 tgt = np.concatenate([tgt, np.full((need, tgt.shape[1]), pad, tgt.dtype)])
-            yield (torch.from_numpy(ids).to(device, torch.long),
-                   torch.from_numpy(tgt).to(device, torch.long))
+            ids, tgt = shard_batch(mesh, ids, tgt)
+            yield (torch.from_numpy(np.ascontiguousarray(ids)).to(device, torch.long),
+                   torch.from_numpy(np.ascontiguousarray(tgt)).to(device, torch.long),
+                   len(ids) * ids.shape[1] * dp * sp)
 
     for epoch in range(int(args.num_train_epochs)):
         t0 = time.time()
         losses, tokens, nsteps = [], 0, 0
-        for ids, tgt in batches(train_ds, global_bs):
+        for ids, tgt, n_tokens in batches(train_ds, global_bs):
             losses.append(step(ids, tgt))  # device scalar; host sync deferred to epoch end
-            tokens += ids.shape[0] * ids.shape[1]
+            tokens += n_tokens
             nsteps += 1
             if args.max_steps_per_epoch and nsteps >= args.max_steps_per_epoch:
                 break
@@ -118,23 +146,26 @@ def lm_train_loop(config: Dict[str, Any]) -> None:
         }
         if eval_ds is not None and args.evaluation_strategy == "epoch":
             ebs = args.per_device_eval_batch_size * dp
+            # the train step's local loss, summed over every rank per batch;
+            # one host sync after the loop
             with torch.no_grad():
-                parts = [sp_local_loss(model, ids, tgt)
-                         for ids, tgt in batches(eval_ds, ebs, drop_last=False)]
-            tot = sum(float(s) for s, _ in parts)
-            cnt = sum(int(c) for _, c in parts)
-            if cnt:
-                metrics["eval_loss"] = tot / cnt
+                parts = [all_reduce_sum(torch.stack(sp_local_loss(model, ids, tgt, mesh)))
+                         for ids, tgt, _ in batches(eval_ds, ebs, drop_last=False)]
+            if parts:
+                tot, cnt = torch.stack(parts).double().sum(0).tolist()
+                if cnt:
+                    metrics["eval_loss"] = tot / cnt
         ckpt = None
-        if args.save_strategy == "epoch":
+        if args.save_strategy == "epoch" and rank == 0:
             ckpt = Checkpoint.from_model(model_config=model_config,
                                          params=model.state_dict(), metrics=metrics)
         session.report(metrics, checkpoint=ckpt)
 
 
 class LMTrainer(BaseTrainer):
-    """Long-context causal-LM trainer on one card (``device``, ``cuda:0`` by
-    default)."""
+    """Long-context causal-LM trainer: ``device`` (``cuda:0`` by default)
+    for one rank; ``ScalingConfig(num_workers=dp, sequence_parallel=sp)``
+    runs ``dp x sp`` ranks, rank r on ``cuda:r`` (or each on the CPU)."""
 
     _name_prefix = "LMTrainer"
 
@@ -153,6 +184,12 @@ class LMTrainer(BaseTrainer):
 
     def _training_fn(self):
         return lm_train_loop
+
+    def _num_ranks(self) -> int:
+        """One rank a device of the ``(data, sequence)`` grid; a
+        tensor-parallel config raises in the loop, in this process."""
+        sc = self.scaling_config
+        return 1 if sc.model_parallel > 1 else sc.num_workers * sc.sequence_parallel
 
     def _train_loop_config(self) -> Dict[str, Any]:
         return {

@@ -120,12 +120,16 @@ def segformer_train_loop(config: Dict[str, Any]) -> None:
     preprocessor = config.get("_preprocessor")
     feature_extractor = config.get("feature_extractor")
     sc = config.get("_scaling_config")
-    for what, item in (("model_parallel", 9), ("sequence_parallel", 8)):
+    # SegFormer has no sequence axis: the JAX package's loop reads neither
+    # degree and trains data-parallel over every device the config leases
+    # (num_workers x num_chips_per_worker); the port runs one device a worker
+    for what in ("model_parallel", "sequence_parallel"):
         degree = getattr(sc, what, None) or 1
         if degree > 1:
             raise NotImplementedError(
                 f"SegformerTrainer: {what}={degree}: the port trains SegFormer data-parallel "
-                f"only (ROADMAP Queue 1 item {item})")
+                "over num_workers, one device a worker; a worker over several devices "
+                "needs the device mesh (ROADMAP Queue 1 item 9)")
     dp, rank = session.get_world_size(), session.get_world_rank()
     device = resolve_device(config.get("_device"))
     ignore = model_config.semantic_loss_ignore_index

@@ -7,6 +7,8 @@ An attempt runs one of two ways:
   device, or, with ``ScalingConfig(num_workers=N > 1)``, in N spawned
   worker processes joined in one ``torch.distributed`` group
   (``parallel/distributed.py``), whose rank 0 reports and checkpoints.
+  A trainer whose step spans several devices a worker (``LMTrainer`` with
+  ``sequence_parallel``) starts one rank a device: ``_num_ranks()``.
   The JAX package runs ``fit()``'s attempts in a trial actor that holds a
   chip lease; the port keeps them in process (ROADMAP Queue 1 item 13),
   which the W1 loop and its gloo workers rely on.
@@ -256,6 +258,10 @@ class BaseTrainer:
     def _training_fn(self) -> Callable[[Dict[str, Any]], None]:
         raise NotImplementedError
 
+    def _num_ranks(self) -> int:
+        """Processes an attempt runs in: one a data-parallel worker."""
+        return self.scaling_config.num_workers
+
     def _train_loop_config(self) -> Dict[str, Any]:
         return {}
 
@@ -288,7 +294,7 @@ class BaseTrainer:
                       datasets: Dict[str, Any]) -> Result:
         rc = self.run_config
         resume = self.resume_from_checkpoint
-        workers = self.scaling_config.num_workers
+        workers = self._num_ranks()
         attempt = 0
         while True:
             if resume is not None:
