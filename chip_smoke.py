@@ -204,7 +204,7 @@ Phases, each fatal on failure:
               ``InferenceEngine(EngineConfig(num_slots=16, slot_len=1024,
               page_len=16, max_new_tokens=64, eos_token_id=None))``, paged,
               32 prompts of 64-512 tokens (8 behind one 256-token prefix)
-              as a burst and the first 16 trickled 4 in flight: the two
+              as a burst and the first 8 trickled 4 in flight: the two
               runs' tokens must be identical per prompt; TTFT, decode step, tokens/s, prefix
               hits, copy-on-write copies, peak pool pages, the profiled
               decode step's idle share; (c) the slab engine, burst: tokens
@@ -219,8 +219,8 @@ Phases, each fatal on failure:
               six token streams equal; (f) the decode kernel timed at the
               engine's shape (b 16, L 1024, 8 x 128, bf16, per-row mask)
               beside its bound, its plain version and SDPA.  Cuts: 32 engine
-              prompts and 64 new tokens, (b)'s trickle 16 and (c)'s offline
-              generate 8 of them (the phase runs in about 80 s).
+              prompts and 64 new tokens, (b)'s trickle 8 and (c)'s offline
+              generate 8 of them (the phase runs in about 70 s).
 23. lm live — live weights, LoRA head-delta adapters and migration on
               phase 22's checkpoint, engine configuration and prompts, bf16,
               every 1-token step through the decode kernel: (a) the paged
@@ -229,7 +229,7 @@ Phases, each fatal on failure:
               tenant and on the base: the base rows equal phase 22 (b)'s
               burst (the zero row is exact), each tenant changes some
               tokens; agreement with per-tenant ``offline_greedy`` on each
-              tenant's first 2 rows, the
+              tenant's first row, the
               decode step against phase 22's, the step with the banks and
               without in turns from one state, and the launches are
               printed;
@@ -254,7 +254,7 @@ Phases, each fatal on failure:
               rollback and a migration equal the unswapped and unmigrated
               tokens, and the exact-fingerprint canary gate passes on an
               in-process replica's ``weights_probe``.  Cuts: as phase 22's,
-              4 probe prompts of 64 tokens (the phase aims at 90 s).
+              2 probe prompts of 64 tokens (the phase aims at 80 s).
 24. obs serve — the observability plane over phase 22's served engine, in a
               runtime of its own: ``init(include_dashboard=True,
               dashboard_port=0)`` with ``TPU_AIR_TRACE=1`` and
@@ -349,7 +349,43 @@ Phases, each fatal on failure:
               sequence_parallel=2)).fit()`` raises ``check_devices``'s
               error (2 cards needed, 1 visible) before any rank starts, no
               kernel launched.  The NCCL ring between cards needs a card a
-              rank, so it runs only in the CPU tests (gloo).
+              rank, so it runs only in the CPU tests (gloo);
+28. dist     — sharded and disaggregated serving over phase 22's checkpoint,
+              engine configuration and 32 prompts in bf16: (a)
+              ``MeshEngine`` with every shard on the one card, bursts of
+              the first 16 prompts: dp 2 x tp 1 (admissions per replica
+              printed) must equal the single-card engine's at 8 slots, a
+              replica's rows (a row's bf16 tokens depend on the batch shape
+              it rides in, not on its neighbours); tp 2 and dp 2 x tp 2,
+              decode launches layers x shards x replicas a step at 4 heads
+              of 128; each mesh's share of prompts equal to phase 22 (b)'s
+              and the first differing positions are printed; the first
+              decode step over 8 prompts: the tp meshes' f32 logits against
+              the single-card bf16 engine's (printed) and against the same
+              weights in f32, which must be within twice the single-card
+              bf16 engine's own distance from f32;
+              then f32 at 2 layers: tp 2 and dp 2 x tp 2 through the kernel
+              and through ``decode_attention_reference`` equal the
+              single-card f32 engine's streams, their first decode step's
+              logits within the scaled 1e-4 of its; (b) in a runtime of its own
+              (arena on, ``TPU_AIR_TRACE=1``) ``DisaggRouter`` with 2
+              ``PrefillWorker`` actors on the card (each worker's device
+              printed, and ``cuda``): the burst equals phase 22 (b)'s with 32
+              handoffs, no fallback and no re-route; pages and bytes shipped,
+              ms a handoff (``engine.kv_transfer`` spans), TTFT p50 beside
+              phase 22 (b)'s, each request one trace id with its prefill in
+              a worker's process; then a router whose worker 0 dies at its
+              first prefill and worker 1 at its second (``prefill.worker``
+              faults): a re-route, then fallbacks, every stream equal; (c)
+              ``EngineDeployment`` through ``serve.run`` with
+              ``disagg={"prefill_replicas": 2}`` in that runtime, then with
+              ``mesh=(2, 2)`` in a runtime of 4 chip slots on the one card:
+              one blocking POST of 8 prompts each, equal to (b)'s and (a)'s,
+              the replica's stats empty before it and carrying
+              ``topology`` (and ``disagg``) after; (d) the decode kernel at
+              the meshes' shard shapes (dp 2: b 8, 8 heads; tp 2: b 16, 4
+              heads; tp 4: b 16, 2 heads; L 1024, d 128) beside its bound,
+              its plain version and SDPA.
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
@@ -361,8 +397,10 @@ around the batch it scores, and W2's trials' in each trial's actor, around
 its training function, and the serve replicas' in each replica (a fresh
 process) over its whole life, phase 24's replica and phase 25's two too
 (the returned one's read just after its notice: the watcher ends its
-process after the migration), and phase 27's around each ring's forward
-and backward in (a) and around (d)'s fit.  The SegFormer
+process after the migration), phase 27's around each ring's forward
+and backward in (a) and around (d)'s fit, and phase 28's around each of
+(a)'s engine runs, around (b)'s burst in the decode engine (this process)
+and in (c)'s replicas over their lives.  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -470,21 +508,22 @@ LM_GEN_PROMPTS, LM_GEN_LEN, LM_GEN_NEW = 16, 512, 128
 LM_ENGINE = {"num_slots": 16, "slot_len": 1024, "page_len": 16, "max_new_tokens": 64,
              "eos_token_id": None}
 LM_ENGINE_PROMPTS, LM_PREFIX_LEN, LM_PREFIX_PROMPTS, LM_TRICKLE = 32, 256, 8, 4
-# depth cuts of phase 22: (b)'s trickled run takes the first 16 prompts (the
-# burst keeps all 32, the yardstick of phases 23-25), (c)'s per-prompt
-# offline generate the first 8
-LM_TRICKLE_PROMPTS, LM_OFFLINE_PROMPTS = 16, 8
+# depth cuts of phase 22: (b)'s trickled run takes the first 8 prompts (the
+# burst keeps all 32, the yardstick of phases 23-25 and 28), (c)'s
+# per-prompt offline generate the first 8
+LM_TRICKLE_PROMPTS, LM_OFFLINE_PROMPTS = 8, 8
 LM_PROMPT_LENS = (64, 512)
 LM_SERVED, LM_SERVE_PARITY_LAYERS, LM_SERVE_PARITY_PROMPTS, LM_SERVE_PARITY_NEW = 16, 2, 8, 32
 # LM live dials (phase 23), phase 22's checkpoint, engine and prompts: (a) 3
 # tenants of rank 4 in a bank of 4 rows, a and b drawn at LM_LIVE_SCALE; (b) the
 # swaps after LM_LIVE_SWAP_AT engine steps of the burst; (c) 16 prompts
-# migrated after 8 decode steps; (d) 4 canary probes of 64 tokens -> 8 new
+# migrated after 8 decode steps; (d) 2 canary probes of 64 tokens -> 8 new
+# (a depth cut: 4 before phase 28 was added)
 LM_LIVE_TENANTS, LM_LIVE_RANK, LM_LIVE_SCALE, LM_LIVE_SWAP_AT = 3, 4, (1 / 32, 0.5), 24
-LM_LIVE_MIGRATED, LM_LIVE_MIGRATE_AFTER, LM_LIVE_PROBES, LM_LIVE_PROBE_NEW = 16, 8, 4, 8
+LM_LIVE_MIGRATED, LM_LIVE_MIGRATE_AFTER, LM_LIVE_PROBES, LM_LIVE_PROBE_NEW = 16, 8, 2, 8
 # depth cut of phase 23 (a): per-tenant offline_greedy agreement (printed,
-# not asserted) on each tenant's first 2 rows
-LM_LIVE_OFFLINE_ROWS = 2
+# not asserted) on each tenant's first row
+LM_LIVE_OFFLINE_ROWS = 1
 # observability dials: [lm] (c) traces LM_TRACE_STEPS train steps and prints
 # the LM_TRACE_GAPS longest device-idle gaps; [obs serve]'s airwatch scrapes
 # every OBS_WATCH_S seconds, its traced POST carries OBS_POST prompts, and
@@ -502,6 +541,18 @@ LANE_KILL_AT, LANE_STREAMS, LANE_RETURN_AFTER, LANE_NOTICE_S = 3, 16, 8, 5.0
 # object, NATIVE_REPS round trips each; the file-store runtime's arena is
 # NATIVE_SMALL_ARENA bytes, too small for either
 NATIVE_PAGES, NATIVE_REPS, NATIVE_SMALL_ARENA = (1, 135), 3, 64 << 10
+# sharded and disaggregated serving dials (phase 28), phase 22's checkpoint,
+# engine configuration and 32 prompts: (a) MeshEngine meshes on the one card
+# in bf16 (16 prefill chunks a step: tokens do not depend on the schedule),
+# every burst over the first DIST_MESH_PROMPTS prompts (a depth cut: 32
+# took 75-100 s of the run's 1200)
+# and in f32 at phase 22 (e)'s cut depth; (b) the router's fault run over the
+# first DIST_FAULT_PROMPTS prompts; (c) one POST of DIST_POST prompts a
+# deployment; (d) the decode kernel at (label, b, h) of the meshes' shards
+DIST_ENGINE = {**LM_ENGINE, "prefill_chunks_per_step": 16}
+DIST_BF16_MESHES, DIST_F32_MESHES = ((2, 1), (1, 2), (2, 2)), ((1, 2), (2, 2))
+DIST_FAULT_PROMPTS, DIST_POST, DIST_FIRST, DIST_MESH_PROMPTS = 6, 8, 8, 16
+DIST_TIMING = (("dp 2", 8, 8), ("tp 2", 16, 4), ("tp 4", 16, 2))
 
 
 def model_config():
@@ -4278,19 +4329,18 @@ def lm_serve_parity(dev) -> dict:
     return {"identical": True, "streams": list(streams), "kernel_launches": launched["kernel"]}
 
 
-def lm_serve_timing(dev, kernels: list, stats: dict) -> list:
-    """Phase 22 (f): the decode kernel at the LM engine's shape (b 16 slots,
-    L 1024, 8 heads of 128, bf16, a per-row mask with rows at varied
-    positions, one at 0) beside its bound (the live K/V bytes, q, the
-    output and the mask over 3.35 TB/s), its plain version and SDPA on the
-    same inputs; the slabs are cycled through ``COLD_BYTES`` as the L2
-    would find them cold.  The launches the phase counted are added to the
-    decode kernel's row."""
+def decode_shape_timing(dev, b: int, h: int, seed: int, tag: str) -> dict:
+    """The decode kernel at an LM engine shape (b rows, L ``slot_len``, h
+    heads of 128, bf16, a per-row mask with rows at varied positions, one
+    at 0) beside its bound (the live K/V bytes, q, the output and the mask
+    over 3.35 TB/s), its plain version and SDPA on the same inputs; the
+    slabs are cycled through ``COLD_BYTES`` as the L2 would find them cold.
+    The comparison's launches are not counted."""
     from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
 
-    b, L, h, d = LM_ENGINE["num_slots"], LM_ENGINE["slot_len"], 8, 128
+    L, d = LM_ENGINE["slot_len"], 128
     dt = torch.bfloat16
-    rng = np.random.default_rng(SEED + 44)
+    rng = np.random.default_rng(seed)
     pos = rng.integers(L // 16, L, b)
     pos[0] = 0
     mask_np = (np.arange(L)[None] <= pos[:, None]).astype(np.float32)
@@ -4324,18 +4374,25 @@ def lm_serve_timing(dev, kernels: list, stats: dict) -> list:
     flops = 4 * keys * h * d
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
     if not err < TOL[dt]:
-        raise AssertionError(f"[lm serve timing] kernel against plain {err} >= {TOL[dt]}")
-    log(f"[lm serve] (f) decode_attention at the LM engine's shape, b {b}, L {L}, h {h}, "
-        f"d {d}, bf16, per-row mask ({keys} live keys of {b * L}): kernel {ms:.4f} ms device "
-        f"time, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+        raise AssertionError(f"{tag} kernel against plain {err} >= {TOL[dt]}")
+    log(f"{tag} decode_attention at b {b}, L {L}, h {h}, d {d}, bf16, per-row mask "
+        f"({keys} live keys of {b * L}): kernel {ms:.4f} ms device time, plain "
+        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
         f"({nbytes / 1e6:.2f} MB); kernel against plain {err:.3e} (tolerance {TOL[dt]}), SDPA "
         f"against plain {lib_err:.3e}; card: {card_line()}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, "bytes": nbytes, "flops": flops,
+            "live_keys": keys, "shape": f"b {b} L {L} h {h} d {d} bf16 per-row mask"}
+
+
+def lm_serve_timing(dev, kernels: list, stats: dict) -> list:
+    """Phase 22 (f): the decode kernel at the LM engine's shape (b 16 slots,
+    8 heads of 128; :func:`decode_shape_timing`).  The launches the phase
+    counted are added to the decode kernel's row."""
+    timed = decode_shape_timing(dev, LM_ENGINE["num_slots"], 8, SEED + 44, "[lm serve] (f)")
     row = next(r for r in kernels if r["name"] == "decode_attention")
     row.setdefault("launches_by_path", {})
-    row["lm_engine_shape"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-                              "bytes": nbytes, "flops": flops, "live_keys": keys,
-                              "shape": f"b {b} L {L} h {h} d {d} bf16 per-row mask"}
+    row["lm_engine_shape"] = timed
     for where, n in stats["launches"].items():
         row["launches_by_path"][where] = n
         row["launches"] += n
@@ -5920,6 +5977,483 @@ def add_ring_rows(kernels: list, ring: dict) -> None:
         r["ring_hops"] = [h for h in ring["timing"]["hops"] if h["name"] == r["name"]]
 
 
+def token_agreement(got: list, want: list) -> tuple:
+    """(prompts whose tokens are equal, the first differing position of each
+    other prompt)."""
+    same = sum(a == b for a, b in zip(got, want))
+    first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+             for a, b in zip(got, want) if a != b]
+    return same, first
+
+
+def manual_burst(engine, prompts_: list) -> dict:
+    """Every prompt submitted at once to a manual-step engine, then steps
+    until it is idle: tokens, steps, decode steps, wall and the engine's
+    step p50.  The engine is closed after."""
+    try:
+        streams = [engine.submit(p) for p in prompts_]
+        t0 = time.perf_counter()
+        steps = 0
+        while not engine.idle():
+            engine.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = engine.metrics.snapshot()
+        return {"tokens": [s.result(0) for s in streams], "steps": steps, "wall_s": wall,
+                "decode_steps": snap["step_latency_s"]["count"],
+                "step_p50_ms": snap["step_latency_s"]["p50"] * 1e3}
+    finally:
+        engine.close()
+
+
+def capture_first_decode(engine) -> dict:
+    """Wrap an engine's decode step: at its first call, record the f32
+    logits of the rows decoding by their prompts, computed from the same
+    cache as the step (which then writes the same K/V again): through
+    ``paged_decode_logits`` on a MeshEngine, through the model as the
+    single-card paged step runs it otherwise.  The capture's own kernel
+    launches are not counted."""
+    from tpu_air_torch.engine import MeshEngine
+    from tpu_air_torch.engine.dist.sharded import paged_decode_logits
+    from tpu_air_torch.models.lm import head_weight
+    from tpu_air_torch.ops.decode_attention import decode_attention
+
+    seen = {}
+    step = engine._decode_step
+
+    def logits_of(cache, tok, pos, table):
+        if isinstance(engine, MeshEngine):
+            return paged_decode_logits(engine.sharded, cache, tok, pos, table)
+        with torch.inference_mode():
+            for c in cache:
+                c.cache_index, c.block_table = pos, table
+            h = engine.model(tok[:, None], pos[:, None], return_hidden=True, decode=True,
+                             cache=cache)
+            return h[:, -1].float() @ head_weight(engine.model).float()
+
+    def wrapped(cache, tok, pos, table, *banks):
+        if not seen:
+            before = decode_attention.launches
+            logits = logits_of(cache, tok, pos, table).cpu()
+            decode_attention.launches = before
+            for s in engine.slots.active_slots():
+                if not s.prefilling:
+                    seen[tuple(s.request.prompt)] = (s.request.stream.tokens_so_far()[0],
+                                                     logits[s.index])
+        return step(cache, tok, pos, table, *banks)
+
+    engine._decode_step = wrapped
+    return seen
+
+
+def first_decode_logits(engine, prompts_: list) -> dict:
+    """An engine's first decode step over a burst of ``prompts_``, every one
+    prefilled in the step before (:func:`capture_first_decode`; the engine
+    takes all its chunks in one step); the engine is closed once it has
+    stepped."""
+    seen = capture_first_decode(engine)
+    try:
+        for p in prompts_:
+            engine.submit(p)
+        while not seen:
+            engine.step()
+    finally:
+        engine.close()
+    if len(seen) != len(prompts_):
+        raise AssertionError(f"[dist] {len(seen)} of {len(prompts_)} rows at the first step")
+    return seen
+
+
+def logits_err(got: dict, want: dict) -> float:
+    """The largest scaled error of one engine's first-step logits against
+    another's, over the prompts whose first token the two agree on (a row
+    whose first token differs decodes another input)."""
+    errs = [scaled_err(got[p][1], want[p][1]) for p in want if got[p][0] == want[p][0]]
+    if len(errs) * 2 < len(want):
+        raise AssertionError(f"[dist] first tokens agree on {len(errs)} of {len(want)} rows")
+    return max(errs)
+
+
+def dist_meshes(dev, model, ps: list, burst: list, ckpt) -> dict:
+    """Phase 28 (a): ``MeshEngine`` with every shard on the one card (see
+    the module docstring)."""
+    from tpu_air_torch.engine import EngineConfig, InferenceEngine, MeshEngine
+    from tpu_air_torch.engine.dist import sharded
+    from tpu_air_torch.models.lm import CausalLM
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+
+    cfg = model.config
+    out = {"bf16": {}, "f32": {}, "f32_first_step_err": {}, "launches": 0}
+    mesh_ps = ps[:DIST_MESH_PROMPTS]
+    decode_attention.launches = 0
+    yard8 = manual_burst(InferenceEngine(model, EngineConfig(**{**DIST_ENGINE, "num_slots": 8}),
+                                         auto_start=False, name="dist-single-8"), mesh_ps)
+    yard_launches = decode_attention.launches
+    if yard_launches != cfg.n_layers * yard8["decode_steps"]:
+        raise AssertionError(f"[dist] (a) single-card 8-slot launches {yard_launches}")
+    same8, first8 = token_agreement(yard8["tokens"], burst[:len(mesh_ps)])
+    log(f"[dist] (a) single-card paged engine at 8 slots (a dp 2 replica's rows), the first "
+        f"{len(mesh_ps)} prompts: {yard8['wall_s']:.3f} s over {yard8['steps']} steps; prompts "
+        f"equal to phase 22 (b)'s 16-slot burst {same8}/{len(mesh_ps)}, first differing "
+        f"positions {first8}")
+    out["single_8_slots"] = {k: v for k, v in yard8.items() if k != "tokens"}
+    # the first decode step over DIST_FIRST prompts: the single-card engine
+    # at 16 slots in bf16 (the yardstick) and at 8 slots (how far the batch
+    # shape alone moves bf16), and the same weights in f32 at full depth
+    first_cfg = {**LM_ENGINE, "prefill_chunks_per_step": 1 << 10}
+    first_ps = ps[:DIST_FIRST]
+    single_first = first_decode_logits(
+        InferenceEngine(model, EngineConfig(**first_cfg), auto_start=False), first_ps)
+    noise = logits_err(first_decode_logits(
+        InferenceEngine(model, EngineConfig(**{**first_cfg, "num_slots": 8}), auto_start=False),
+        first_ps), single_first)
+    full32 = ckpt.get_model(dtype="float32")
+    f32_first = first_decode_logits(
+        InferenceEngine(full32, EngineConfig(**first_cfg), auto_start=False), first_ps)
+    del full32
+    torch.cuda.empty_cache()
+    single_vs_f32 = logits_err(single_first, f32_first)
+    out["first_step"] = {"shape_noise": noise, "single_bf16_vs_f32": single_vs_f32}
+    log(f"[dist] (a) the single-card engine's first decode step over {len(first_ps)} prompts, "
+        f"f32 logits: at 8 slots against 16, scaled {noise:.3e} apart (what the batch shape "
+        f"alone moves in bf16); bf16 against the same weights in f32, {single_vs_f32:.3e}")
+    for dp, tp in DIST_BF16_MESHES:
+        engine = MeshEngine(model, EngineConfig(**DIST_ENGINE), dp=dp, tp=tp,
+                            devices=[dev] * (dp * tp), auto_start=False, name=f"dist-{dp}x{tp}")
+        admits = [0] * dp
+        admit = engine.pool.admit
+
+        def counting_admit(slot, *a, _admit=admit, _pool=engine.pool, **kw):
+            admits[_pool.replica_of(slot)] += 1
+            return _admit(slot, *a, **kw)
+
+        engine.pool.admit = counting_admit
+        n_attn = engine.sharded.n_attn
+        decode_attention.launches = 0
+        run = manual_burst(engine, mesh_ps)
+        launches = decode_attention.launches
+        want_launches = cfg.n_layers * n_attn * dp * run["decode_steps"]
+        same, firsts = token_agreement(run["tokens"], burst[:len(mesh_ps)])
+        rec = {k: v for k, v in run.items() if k != "tokens"}
+        rec.update(admits_per_replica=admits, launches=launches, equal_to_22b=same,
+                   first_differing=firsts, heads_per_shard=cfg.n_heads // n_attn)
+        log(f"[dist] (a) MeshEngine dp {dp} x tp {tp} on {dev} ({dp * tp} shards, "
+            f"{cfg.n_heads // n_attn} heads of {cfg.head_dim} a shard), bf16, {len(mesh_ps)} "
+            f"prompts as a burst: {run['wall_s']:.3f} s over {run['steps']} steps, step p50 "
+            f"{run['step_p50_ms']:.3f} ms; admissions per replica {admits}; decode launches "
+            f"{launches} ({cfg.n_layers} layers x {n_attn} shards x {dp} replicas x "
+            f"{run['decode_steps']} steps); prompts equal to phase 22 (b)'s burst "
+            f"{same}/{len(mesh_ps)}, first differing positions {firsts}")
+        if launches != want_launches or not launches:
+            raise AssertionError(f"[dist] (a) {dp}x{tp} decode launches {launches}, "
+                                 f"expect {want_launches}")
+        if dp > 1 and sum(a > 0 for a in admits) != dp:
+            raise AssertionError(f"[dist] (a) {dp}x{tp} admissions per replica {admits}")
+        if tp == 1 and run["tokens"] != yard8["tokens"]:
+            raise AssertionError(f"[dist] (a) dp {dp} tokens differ from the single-card "
+                                 f"engine at the replica's 8 slots: "
+                                 f"{token_agreement(run['tokens'], yard8['tokens'])}")
+        if tp > 1:
+            first = first_decode_logits(MeshEngine(model, EngineConfig(**first_cfg), dp=dp, tp=tp,
+                                                   devices=[dev] * (dp * tp), auto_start=False),
+                                        first_ps)
+            err, err32 = logits_err(first, single_first), logits_err(first, f32_first)
+            rec.update(first_step_vs_single=err, first_step_vs_f32=err32)
+            # the mesh's bf16 rounds other products than the single card's:
+            # it is held to be as close to the f32 model as the single
+            # card's bf16 is, within a factor of two
+            bound = 2 * single_vs_f32
+            log(f"[dist] (a) {dp}x{tp} first decode step over the {len(first_ps)} prompts, f32 "
+                f"logits: against the single-card bf16 engine's, scaled {err:.3e} (the scaled "
+                f"{TOL[torch.bfloat16]} of one kernel's rounding: {err < TOL[torch.bfloat16]}); "
+                f"against the f32 model's, {err32:.3e} (bound {bound:.3e}, twice the single "
+                f"card's {single_vs_f32:.3e})")
+            if not err32 <= bound:
+                raise AssertionError(f"[dist] (a) {dp}x{tp} first-step logits {err32} from f32, "
+                                     f"bound {bound}")
+        out["bf16"][f"{dp}x{tp}"] = rec
+        out["launches"] += launches
+        if (dp, tp) == (2, 2):
+            out["tokens_2x2"] = run["tokens"]
+    # f32, depth cut: the kernel and its plain version in the shards
+    m32 = CausalLM(lm_config("float32", LM_SERVE_PARITY_LAYERS), device=dev).init_weights(SEED)
+    ps32 = lm_serve_prompts(LM_SERVE_PARITY_PROMPTS, cfg.vocab_size, SEED + 43)
+    e32 = {**DIST_ENGINE, "max_new_tokens": LM_SERVE_PARITY_NEW}
+    ref = manual_burst(InferenceEngine(m32, EngineConfig(**e32), auto_start=False), ps32)["tokens"]
+    first32 = first_decode_logits(InferenceEngine(m32, EngineConfig(**first_cfg),
+                                                  auto_start=False), ps32)
+    saved = sharded.decode_attention
+    launched = {}
+    for path in ("kernel", "plain"):
+        sharded.decode_attention = saved if path == "kernel" else decode_attention_reference
+        try:
+            decode_attention.launches = 0
+            for dp, tp in DIST_F32_MESHES:
+                got = manual_burst(MeshEngine(m32, EngineConfig(**e32), dp=dp, tp=tp,
+                                              devices=[dev] * (dp * tp), auto_start=False),
+                                   ps32)["tokens"]
+                out["f32"][f"{path} {dp}x{tp}"] = got == ref
+                if path == "kernel":
+                    out["f32_first_step_err"][f"{dp}x{tp}"] = logits_err(first_decode_logits(
+                        MeshEngine(m32, EngineConfig(**first_cfg), dp=dp, tp=tp,
+                                   devices=[dev] * (dp * tp), auto_start=False), ps32), first32)
+            launched[path] = decode_attention.launches
+        finally:
+            sharded.decode_attention = saved
+    out["launches"] += launched["kernel"]
+    log(f"[dist] (a) f32, {LM_SERVE_PARITY_LAYERS} layers at full width, {len(ps32)} prompts -> "
+        f"{LM_SERVE_PARITY_NEW} tokens, MeshEngine {DIST_F32_MESHES} through the kernel "
+        f"({launched['kernel']} launches) and the plain version ({launched['plain']}): equal to "
+        f"the single-card engine's streams: {out['f32']}; first decode step's logits against "
+        f"the single-card engine's, scaled {out['f32_first_step_err']} (tolerance "
+        f"{TOL[torch.float32]})")
+    if launched["plain"] or not launched["kernel"] or not all(out["f32"].values()) or \
+            not max(out["f32_first_step_err"].values()) < TOL[torch.float32]:
+        raise AssertionError(f"[dist] (a) f32: {out['f32']}, launches {launched}")
+    del m32
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_router(dev, ckpt, ps: list, burst: list, ttft_22b: list) -> dict:
+    """Phase 28 (b): ``DisaggRouter`` with 2 ``PrefillWorker`` replicas on
+    the card, in the runtime ``dist_path`` started (see the module
+    docstring)."""
+    from tpu_air_torch.engine import DisaggRouter, EngineConfig
+    from tpu_air_torch.faults import plan as faults
+    from tpu_air_torch.observability import tracing
+    from tpu_air_torch.ops.decode_attention import decode_attention
+
+    out = {}
+    n_layers = ckpt.get_model_config().n_layers
+    router = DisaggRouter(ckpt, EngineConfig(**LM_ENGINE), prefill_replicas=2,
+                          dtype="bfloat16", name="chip-disagg")
+    try:
+        t0 = time.perf_counter()
+        warm = [router.submit(p[:64], 2) for p in ps[:2]]     # one a worker: each builds
+        [s.result(600) for s in warm]
+        start_s = time.perf_counter() - t0
+        st0 = router.stats()
+        devices = [w.get("device") for w in st0["workers"]]
+        log(f"[dist] (b) DisaggRouter(EngineConfig({LM_ENGINE}), prefill_replicas=2, "
+            f"dtype=\"bfloat16\"): 2 PrefillWorker actors and the decode engine in this "
+            f"process; workers' devices {devices}; start + 2 warm-up requests {start_s:.3f} s")
+        if not all(str(d).startswith("cuda") for d in devices):
+            raise AssertionError(f"[dist] (b) prefill workers on {devices}")
+        h0 = (router.handoffs, router.reroutes, router.fallbacks)
+        tracing.recorder().clear()
+        decode_attention.launches = 0
+        n = len(ps)
+        streams, roots, t_sub, ttft = [], [], [], [None] * n
+        t0 = time.perf_counter()
+        for p in ps:
+            with tracing.span("client.request") as root:
+                roots.append(root.trace_id)
+                t_sub.append(time.perf_counter())
+                streams.append(router.submit(p))
+        while not all(s.done for s in streams):
+            now = time.perf_counter()
+            for i, s in enumerate(streams):
+                if ttft[i] is None and s.tokens_so_far():
+                    ttft[i] = now - t_sub[i]
+            time.sleep(0.001)
+        tokens = [s.result(0) for s in streams]
+        wall = time.perf_counter() - t0
+        launches = decode_attention.launches
+        st = router.stats()
+        counts = (router.handoffs - h0[0], router.reroutes - h0[1], router.fallbacks - h0[2])
+        pages = sum(w["pages_shipped"] for w in st["workers"]) - \
+            sum(w["pages_shipped"] for w in st0["workers"])
+        nbytes = sum(w["bytes_shipped"] for w in st["workers"]) - \
+            sum(w["bytes_shipped"] for w in st0["workers"])
+        decode_steps = st["engine"]["step_latency_s"]["count"] - \
+            st0["engine"]["step_latency_s"]["count"]
+        spans, deadline = {}, time.monotonic() + 30
+        while time.monotonic() < deadline:
+            spans = {}
+            for sp in tracing.recorder().recent(limit=0):
+                spans.setdefault(sp.trace_id, []).append(sp)
+            if all({"engine.prefill", "engine.kv_transfer", "engine.decode"}
+                   <= {x.name for x in spans.get(t, [])} for t in roots):
+                break
+            time.sleep(0.2)
+        one_trace = all(
+            {x.pid for x in spans.get(t, []) if x.name == "engine.prefill"} - {os.getpid()}
+            and {x.pid for x in spans.get(t, []) if x.name in ("engine.kv_transfer",
+                                                                  "engine.decode")}
+            == {os.getpid()} for t in roots)
+        xfer = sorted((x.end_ns - x.start_ns) / 1e6 for t in roots for x in spans.get(t, [])
+                      if x.name == "engine.kv_transfer")
+        ttft_ms = np.array([t for t in ttft if t is not None]) * 1e3
+        same, firsts = token_agreement(tokens, burst)
+        out["clean"] = {"wall_s": wall, "handoffs": counts[0], "reroutes": counts[1],
+                        "fallbacks": counts[2], "pages": pages, "bytes": nbytes,
+                        "kv_transfer_ms_p50": float(np.median(xfer)) if xfer else None,
+                        "ttft_p50_ms": float(np.percentile(ttft_ms, 50)),
+                        "ttft_p50_ms_22b": float(np.percentile(np.array(ttft_22b) * 1e3, 50)),
+                        "launches": launches, "decode_steps": decode_steps,
+                        "one_trace": bool(one_trace), "devices": devices, "start_s": start_s}
+        log(f"[dist] (b) burst of {n} prompts through the router: {wall:.3f} s, "
+            f"{sum(map(len, tokens)) / wall:.1f} generated tokens/s; handoffs {counts[0]}, "
+            f"re-routes {counts[1]}, fallbacks {counts[2]}; {pages} pages, "
+            f"{nbytes / 1e6:.1f} MB shipped through the object store, engine.kv_transfer "
+            f"p50 {out['clean']['kv_transfer_ms_p50']} ms a handoff over {len(xfer)} spans; "
+            f"TTFT p50 {out['clean']['ttft_p50_ms']:.3f} ms (client clock; phase 22 (b)'s "
+            f"{out['clean']['ttft_p50_ms_22b']:.3f}); decode launches {launches} "
+            f"({decode_steps} decode steps); one trace id a request with its prefill in a "
+            f"worker's process and its transfer and decode in this one: {one_trace}; prompts "
+            f"equal to phase 22 (b)'s {same}/{n}, first differing positions {firsts}")
+        if tokens != burst or counts != (n, 0, 0) or not one_trace:
+            raise AssertionError(f"[dist] (b) tokens equal {same}/{n}, counts {counts}, "
+                                 f"one trace {one_trace}")
+        if launches != decode_steps * n_layers or not launches:
+            raise AssertionError(f"[dist] (b) decode launches {launches}, steps {decode_steps}")
+    finally:
+        router.close()
+    # the prefill.worker fault: replica 0 dies at its first prefill, replica
+    # 1 at its second; a request re-routes, then every later one falls back
+    name = "chip-disagg-fault"
+    faults.install(faults.FaultPlan(seed=0, specs=[
+        faults.FaultSpec("prefill.worker", "kill", at=1, match=f"{name}-prefill-0"),
+        faults.FaultSpec("prefill.worker", "kill", at=2, match=f"{name}-prefill-1")]))
+    router = DisaggRouter(ckpt, EngineConfig(**LM_ENGINE), prefill_replicas=2,
+                          dtype="bfloat16", name=name)
+    try:
+        sub = ps[:DIST_FAULT_PROMPTS]
+        t0 = time.perf_counter()
+        got = [router.submit(sub[0]).result(600)]
+        rerouted = (router.reroutes, router.fallbacks, router.live_prefill_replicas())
+        got += [s.result(600) for s in [router.submit(p) for p in sub[1:]]]
+        out["faults"] = {"after_first": rerouted, "reroutes": router.reroutes,
+                         "fallbacks": router.fallbacks, "handoffs": router.handoffs,
+                         "live": router.live_prefill_replicas(),
+                         "equal": got == burst[:len(sub)], "wall_s": time.perf_counter() - t0}
+        log(f"[dist] (b) prefill.worker kill faults: after the first request (re-routes, "
+            f"fallbacks, live replicas) {rerouted}; after {len(sub)} requests re-routes "
+            f"{router.reroutes}, fallbacks {router.fallbacks}, handoffs {router.handoffs}, live "
+            f"replicas {router.live_prefill_replicas()}; every stream equal to phase 22 (b)'s: "
+            f"{out['faults']['equal']}")
+        if rerouted[0] < 1 or rerouted[1] or router.fallbacks < 1 or not out["faults"]["equal"]:
+            raise AssertionError(f"[dist] (b) faults: {out['faults']}")
+    finally:
+        router.close()
+        faults.clear()
+    return out
+
+
+def dist_serve(ckpt, ps: list, kind: str, want: list) -> dict:
+    """Phase 28 (c): ``EngineDeployment`` through ``serve.run`` with
+    ``disagg=`` or ``mesh=(2, 2)`` in the running runtime: one blocking POST
+    of ``DIST_POST`` prompts equal to ``want``'s, the replica's stats lazy
+    before it and carrying the topology (and the router's counts) after."""
+    from tpu_air_torch import get, serve
+    from tpu_air_torch.engine import EngineConfig
+    from tpu_air_torch.serve import EngineDeployment
+
+    port = free_port()
+    chips, extra = ((1, {"disagg": {"prefill_replicas": 2}}) if kind == "disagg"
+                    else (4, {"mesh": (2, 2)}))
+    try:
+        t0 = time.perf_counter()
+        h = serve.run(EngineDeployment.options(name=f"lm-{kind}", route_prefix=f"/lm{kind}",
+                                               num_chips=chips)
+                      .bind(ckpt, EngineConfig(**LM_ENGINE), dtype="bfloat16", **extra),
+                      port=port)
+        before = get(h.method("stats")())
+        res, _ = post_json(port, f"/lm{kind}", {"prompts": ps[:DIST_POST]})
+        wall = time.perf_counter() - t0
+        toks = [r["tokens"] for r in res["results"]]
+        snap = get(h.method("stats")())
+    finally:
+        serve.shutdown()
+    rec = {"before_build": before, "topology": snap.get("topology"),
+           "disagg": snap.get("disagg"), "device": snap["device"],
+           "launches": snap["kernel_launches"]["decode_attention"],
+           "equal": toks == want[:DIST_POST], "wall_s": wall}
+    log(f"[dist] (c) EngineDeployment({kind}={extra[kind]}), num_chips={chips}: replica stats "
+        f"before the first request {before}; one blocking POST of {DIST_POST} prompts equal "
+        f"to ({'b' if kind == 'disagg' else 'a'})'s: {rec['equal']}; replica stats topology "
+        f"{rec['topology']}, disagg {rec['disagg']}, device {rec['device']}, decode launches "
+        f"{rec['launches']}; serve.run + POST {wall:.3f} s")
+    ok = before == {} and rec["equal"] and rec["launches"] > 0 and bool(rec["topology"])
+    if kind == "disagg":
+        ok = ok and rec["topology"].get("disagg") == "on" and \
+            rec["disagg"]["handoffs"] >= DIST_POST and rec["disagg"]["fallbacks"] == 0
+    else:
+        ok = ok and rec["topology"].get("mesh") == "2x2" and rec["disagg"] is None
+    if not ok:
+        raise AssertionError(f"[dist] (c) {kind}: {rec}")
+    return rec
+
+
+def dist_path(dev, ckpt_dir: str, served: dict) -> dict:
+    """Phase 28 (``[dist]``): sharded and disaggregated LM serving over
+    phase 22's checkpoint, engine configuration and prompts (``served`` is
+    phase 22's result; its burst tokens are the yardstick).  See the module
+    docstring."""
+    import tpu_air_torch
+    from tpu_air_torch import serve
+    from tpu_air_torch.observability import tracing
+    from tpu_air_torch.train import Checkpoint
+
+    t_phase = time.perf_counter()
+    ckpt = Checkpoint.from_directory(ckpt_dir)
+    model = ckpt.get_model(dtype="bfloat16")
+    ps = lm_serve_prompts(LM_ENGINE_PROMPTS, model.config.vocab_size, SEED + 42)
+    burst = served["burst_tokens"]
+    out = {"a": dist_meshes(dev, model, ps, burst, ckpt)}
+    tokens_2x2 = out["a"].pop("tokens_2x2")
+    del model
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    os.environ["TPU_AIR_TRACE"] = "1"          # workers and replicas inherit it
+    tpu_air_torch.init()
+    try:
+        native = runtime_native("dist")
+        tracing.enable()
+        out["b"] = dist_router(dev, ckpt, ps, burst, served["paged"]["burst"]["ttft_s"])
+        out["c"] = {"disagg": dist_serve(ckpt, ps, "disagg", burst)}
+        arena = runtime_native("dist")["arena"]
+        log(f"[dist] (b)-(c) the runtime's arena at the start {native['arena']}, at the end "
+            f"{arena}")
+        if arena["leaked_bytes"]:
+            raise AssertionError(f"[dist] the arena leaked {arena['leaked_bytes']} bytes")
+        out["arena"] = arena
+    finally:
+        tracing.disable()
+        os.environ.pop("TPU_AIR_TRACE", None)
+        serve.shutdown()
+        tpu_air_torch.shutdown()
+    tpu_air_torch.init(num_chips=4)            # 4 chip slots, every one on the card
+    try:
+        out["c"]["mesh"] = dist_serve(ckpt, ps, "mesh", tokens_2x2)
+    finally:
+        serve.shutdown()
+        tpu_air_torch.shutdown()
+    t_bc = time.perf_counter()
+    out["d"] = [dict(decode_shape_timing(dev, b, h, SEED + 46 + i, f"[dist] (d) {label}:"),
+                     label=label) for i, (label, b, h) in enumerate(DIST_TIMING)]
+    out["launches"] = {"dist_mesh_engine": out["a"]["launches"],
+                       "dist_router_decode": out["b"]["clean"]["launches"],
+                       "dist_serve_replicas": sum(out["c"][k]["launches"] for k in out["c"])}
+    out["part_s"] = {"a": t_a - t_phase, "b+c": t_bc - t_a, "d": time.perf_counter() - t_bc}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dist] phase 28 {out['phase_s']:.1f} s: "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in out["part_s"].items()))
+    return out
+
+
+def add_dist_rows(kernels: list, dist: dict) -> None:
+    """Phase 28's decode launches and its timed shapes into the decode
+    kernel's row."""
+    row = next(r for r in kernels if r["name"] == "decode_attention")
+    for where, n in dist["launches"].items():
+        row["launches_by_path"][where] = n
+        row["launches"] += n
+    row["dist_shapes"] = dist["d"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -6003,6 +6537,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     native_stats = native_path(dev)
     ring_stats = ring_path(dev, work)
     add_ring_rows(kernels, ring_stats)
+    dist_stats = dist_path(dev, lm_stats["checkpoint_dir"], lm_serve_stats)
     del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     row = next(r for r in kernels if r["name"] == "decode_attention")
@@ -6013,6 +6548,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     row["launches"] += obs_stats["launches"]["decode_attention"]
     row["launches_by_path"]["batch_lane_replicas"] = lane_stats["launches"]["decode_attention"]
     row["launches"] += lane_stats["launches"]["decode_attention"]
+    add_dist_rows(kernels, dist_stats)
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)
@@ -6027,7 +6563,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
                       "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats,
                       "lm_live": lm_live_stats, "obs_serve": obs_stats,
                       "batch_lane": lane_stats, "native": native_stats,
-                      "ring": ring_stats}),
+                      "ring": ring_stats, "dist": dist_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

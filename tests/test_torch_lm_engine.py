@@ -54,6 +54,7 @@ from tpu_air_torch.engine import (  # noqa: E402
     ResponseStream,
     Scheduler,
 )
+from tpu_air_torch.engine.dist import extract_kv_pages  # noqa: E402
 from tpu_air_torch.engine.kvpool.allocator import NULL_PAGE  # noqa: E402
 from tpu_air_torch.models import lm as tlm  # noqa: E402
 from tpu_air_torch.observability import tracing  # noqa: E402
@@ -659,8 +660,26 @@ def test_close_fails_what_is_still_queued(lm):
             s.result(1.0)
 
 
+def _prefilled(model):
+    """The disaggregated handoff: one engine prefills a prompt, its pages
+    and first token land on another through ``submit_prefilled``, which
+    runs no chunk and decodes the tokens the prompt gives anywhere."""
+    want = _run(_manual(model), [1, 2, 3])
+    src, dst = _manual(model), _manual(model)
+    stream = src.submit([1, 2, 3], 3)
+    src.step()                                   # the prompt's one chunk, then a decode
+    slot = src.slots.active_slots()[0]
+    pages = extract_kv_pages(src.cache, src.pool.prompt_page_ids(slot.index, 3))
+    moved = dst.submit_prefilled([1, 2, 3], stream.tokens_so_far()[0], pages, 3)
+    while not dst.idle():
+        dst.step()
+    return moved.result(0) == want and dst._chunks_run == 0
+
+
+# the branch the engine refused until the disaggregated handoff was ported:
+# each case now runs
 REFUSED = {
-    "submit_prefilled": lambda m: _manual(m).submit_prefilled([1], 2, {}),
+    "submit_prefilled": _prefilled,
 }
 
 
@@ -671,8 +690,7 @@ def _manual(model, **kw):
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_engine_branches_refuse_naming_their_item(lm, case):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 items 6b and 9"):
-        REFUSED[case](lm[2])
+    assert REFUSED[case](lm[2])
 
 
 def _run(engine, prompt, **kw):

@@ -51,7 +51,7 @@ background thread, and a missing protobuf toolchain or a dead daemon leaves
 object store puts what fits into the C++ shared-memory arena
 (object_store.py).  Multi-host rendezvous (``TPU_AIR_COORDINATOR``) is not
 ported and raises ``NotImplementedError`` naming its ROADMAP item (Queue 1
-item 9).
+item 9b).
 """
 
 from __future__ import annotations
@@ -502,7 +502,7 @@ def _sweep_stale_sessions(base: str, spill_base: str = "/var/tmp") -> None:
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
-        f"{what} is not ported to tpu_air_torch (ROADMAP Queue 1 item 9: {item})")
+        f"{what} is not ported to tpu_air_torch (ROADMAP Queue 1 item 9b: {item})")
 
 
 def _cuda_initialized() -> bool:

@@ -11,12 +11,18 @@ decode entry points.  Both run on the model's device, where every decode
 step runs the decode-attention kernel (T5's prefill the flash-attention
 kernel too).  The LM engine also serves multi-tenant LoRA head-delta
 adapters, swaps its weights live and migrates its decoding streams' KV
-pages to another engine (``dist/kv_transfer.py``).  The distributed engines
-(ROADMAP Queue 1 items 6b and 9) are not ported: asking this package for one
-of them raises ``NotImplementedError`` naming its item.
+pages to another engine (``dist/kv_transfer.py``).  ``dist/`` holds the
+distributed engines: :class:`MeshEngine` over a ``(dp, tp)`` device mesh and
+:class:`DisaggRouter` with its :class:`PrefillWorker` replicas.
 """
 
-from .dist import UNPORTED, KVTransferError
+from .dist import (
+    DisaggRouter,
+    KVTransferError,
+    MeshEngine,
+    PrefillWorker,
+    ShardedPagedPool,
+)
 from .engine import InferenceEngine
 from .kvpool import (
     AdmitPlan,
@@ -41,16 +47,10 @@ from .types import (
 )
 
 
-def __getattr__(name):
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"tpu_air_torch.engine.{name} is not ported yet ({UNPORTED[name]})")
-    raise AttributeError(f"module 'tpu_air_torch.engine' has no attribute '{name}'")
-
-
 __all__ = [
     "AdmitPlan",
     "BlockAllocator",
+    "DisaggRouter",
     "EngineClosedError",
     "EngineConfig",
     "EngineDrainingError",
@@ -59,13 +59,16 @@ __all__ = [
     "InferenceEngine",
     "KVPoolOOMError",
     "KVTransferError",
+    "MeshEngine",
     "PagedKVPool",
+    "PrefillWorker",
     "PrefixCache",
     "PrefixMatch",
     "Request",
     "RequestValidationError",
     "ResponseStream",
     "Scheduler",
+    "ShardedPagedPool",
     "Slot",
     "SlotManager",
     "T5Engine",

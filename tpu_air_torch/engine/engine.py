@@ -58,8 +58,13 @@ lock:
   :meth:`~InferenceEngine.submit_migrated` lands one on another engine,
   which continues the stream token for token and runs no prefill chunk.
 
-Refused with ``NotImplementedError`` naming its ROADMAP Queue 1 items:
-``submit_prefilled``, the disaggregated handoff (items 6b and 9).
+The disaggregated handoff (paged only): :meth:`~InferenceEngine.
+submit_prefilled` queues a request whose prefill ran on a
+:class:`~tpu_air_torch.engine.dist.PrefillWorker`; admission writes the
+shipped pages into unshared pages, emits the worker's first token and goes
+straight to decode.  The sharded engine
+(:class:`~tpu_air_torch.engine.dist.MeshEngine`) is this engine over other
+storage: it overrides the hooks marked "sharded-layout hooks" below.
 """
 
 from __future__ import annotations
@@ -101,8 +106,6 @@ from .types import (
     RequestValidationError,
     ResponseStream,
 )
-
-_ITEM_6B_9 = "ROADMAP Queue 1 items 6b and 9: engine/dist/, the disaggregated handoff"
 
 
 class InferenceEngine:
@@ -230,6 +233,7 @@ class InferenceEngine:
                 self.model, cfg.slot_len, adapters=self.adapters_enabled)
             self._chunk_fn = make_lm_prefill_chunk_fn(
                 self.model, cfg.page_len, cfg.slot_len, adapters=self.adapters_enabled)
+            self._copy_fn = page_copy
         else:
             self._decode_step = make_lm_decode_step_fn(self.model, cfg.slot_len)
 
@@ -343,9 +347,29 @@ class InferenceEngine:
                 self.step()
         return [s.result(timeout) for s in streams]
 
-    def submit_prefilled(self, *_: Any, **__: Any) -> ResponseStream:
-        raise NotImplementedError("submit_prefilled (the DisaggRouter handoff) is not "
-                                  f"ported to tpu_air_torch ({_ITEM_6B_9})")
+    def submit_prefilled(self, prompt: Sequence[int], first_token: int,
+                         kv_pages: Dict[str, Any],
+                         max_new_tokens: Optional[int] = None, *,
+                         priority: str = "interactive",
+                         stream: Optional[ResponseStream] = None,
+                         deadline_ms: Optional[float] = None) -> ResponseStream:
+        """Queue a request whose prefill ALREADY RAN elsewhere (a
+        :class:`~tpu_air_torch.engine.dist.PrefillWorker` replica):
+        ``kv_pages`` is the ``extract_kv_pages`` payload covering the whole
+        prompt, of this package's worker or the JAX package's, and
+        ``first_token`` the prefill's greedy first token.  Admission
+        allocates unshared pages, inserts the shipped K/V, emits
+        ``first_token`` and goes straight to decode: the same capacity gate
+        and deferral as a normal submit, so pool exhaustion queues the
+        handoff instead of dropping it."""
+        if not self.paged:
+            raise ValueError("submit_prefilled requires a paged engine (kv_mode='paged')")
+        # a handoff rides through a drain: the router admitted it before the
+        # drain started and its prefill already ran on another replica
+        req = self._make_request(prompt, max_new_tokens, stream, priority,
+                                 admit_while_draining=True, deadline_ms=deadline_ms)
+        req.prefilled = {"first_token": int(first_token), "pages": kv_pages}
+        return self._enqueue(req)
 
     # -- the engine loop -----------------------------------------------------
     @contextlib.contextmanager
@@ -372,7 +396,7 @@ class InferenceEngine:
         is decoding.  Returns True if any work happened."""
         with self._step_lock:
             worked = False
-            self._round_reserved = 0
+            self._begin_admission_round()
             self._round_admits = 0
             # airlint: disable=CC001 — _preempting is a GIL-atomic monotonic
             # bool; a round racing the flip admits one last batch
@@ -463,7 +487,7 @@ class InferenceEngine:
                 page_ids = self.pool.prompt_page_ids(slot.index, p)
                 # airlint: disable=CC003 — the only sleep here is an injected
                 # kv.transfer delay; the loop is frozen by design meanwhile
-                pages = extract_kv_pages(self.cache, page_ids)
+                pages = self._extract_shipped_pages(page_ids)
                 payloads.append({
                     "request_id": req.request_id,
                     "prompt": [int(t) for t in req.prompt],
@@ -504,7 +528,7 @@ class InferenceEngine:
                 f"streamed={len(streamed)} pos={pos} budget_left={budget_left}")
         # airlint: disable=CC001 — a geometry-only read: the pools are
         # written in place, never rebound
-        validate_kv_payload(self.cache, range(-(-pos // self.config.page_len)),
+        validate_kv_payload(self._kv_geometry(), range(-(-pos // self.config.page_len)),
                             payload["pages"])
         # the cache holds positions 0..pos-1: the prompt and every streamed
         # token but the last (the cursor token, computed but not yet
@@ -544,6 +568,11 @@ class InferenceEngine:
         return gate
 
     # -- paged admission -----------------------------------------------------
+    def _begin_admission_round(self) -> None:
+        """Reset the per-round reservation before ``pop_admissible`` probes
+        the queue (the MeshEngine tracks reservations PER dp REPLICA)."""
+        self._round_reserved = 0
+
     def _can_admit(self, req: Request) -> bool:
         """Page-capacity gate: can the pool cover the request's WORST CASE
         (no prefix sharing — a prior admit's eviction may invalidate a
@@ -566,6 +595,9 @@ class InferenceEngine:
         slot = self.slots.acquire()
         slot.request = req
         self._adapter_ids_host[slot.index] = req.adapter_row
+        if req.prefilled is not None:
+            self._admit_prefilled(slot, req)
+            return
         if req.migrated is not None:
             self._admit_migrated(slot, req)
             return
@@ -575,6 +607,35 @@ class InferenceEngine:
         # before eviction: work the machine already did once
         if slot.plan.reprefill_tokens:
             self.metrics.record_goodput("reprefill_cache_miss", slot.plan.reprefill_tokens)
+
+    def _admit_prefilled(self, slot: Slot, req: Request) -> None:
+        """Land a disaggregated handoff: UNSHARED pages (the shipped K/V is
+        written into them, and a write must never touch a prefix-shared
+        page), the pages inserted, the worker's first token emitted, the
+        slot handed straight to decode.  ``register`` then publishes the
+        populated prompt pages to this engine's prefix cache, so later
+        local submits share them."""
+        n = len(req.prompt)
+        slot.plan = self.pool.admit(slot.index, req.prompt, req.max_new_tokens, share=False)
+        slot.plan.chunks_done = len(slot.plan.chunk_starts)   # nothing to run
+        page_ids = self.pool.prompt_page_ids(slot.index, n)
+        try:
+            self._insert_shipped_pages(page_ids, req.prefilled["pages"])
+        except ValueError as e:   # KVTransferError: the payload does not fit
+            self._fail_admission(slot, req, e)
+            return
+        first = int(req.prefilled["first_token"])
+        req.first_token_at = time.monotonic()
+        if req.t_submit_ns:
+            # t_first == t_admit: the prefill ran on the worker, whose own
+            # span reports it
+            req.t_first_ns = req.t_admit_ns
+        self.metrics.record_ttft(req.first_token_at - req.submitted_at, req.priority,
+                                 trace_id=(req.trace_ctx or {}).get("trace_id"))
+        req.stream._emit(first)
+        self.metrics.record_tokens(1)
+        self.pool.register(slot.index, req.prompt)
+        self._start_decode(slot, first)
 
     def _admit_migrated(self, slot: Slot, req: Request) -> None:
         """Land a migrated stream: unshared pages sized for the whole
@@ -591,7 +652,7 @@ class InferenceEngine:
         slot.plan.chunks_done = len(slot.plan.chunk_starts)
         page_ids = self.pool.prompt_page_ids(slot.index, p)
         try:
-            insert_kv_pages(self.cache, page_ids, m["pages"])
+            self._insert_shipped_pages(page_ids, m["pages"])
         except ValueError as e:   # KVTransferError: the payload does not fit
             self._fail_admission(slot, req, e)
             return
@@ -621,6 +682,26 @@ class InferenceEngine:
         from corrupt pages."""
         self._release(slot)
         req.stream._finish(error)
+
+    # -- sharded-layout hooks (MeshEngine overrides them) --------------------
+    def _kv_geometry(self):
+        """The per-layer caches a shipped payload is checked against."""
+        return self.cache
+
+    def _extract_shipped_pages(self, page_ids):
+        """Pages ``page_ids`` as a flat ``h*d`` payload (``migrate_out``)."""
+        return extract_kv_pages(self.cache, page_ids)
+
+    def _insert_shipped_pages(self, page_ids, payload) -> None:
+        """Write a shipped payload's pages (a handoff or a migrated stream)
+        into ``page_ids`` of the pools, in place."""
+        insert_kv_pages(self.cache, page_ids, payload)
+
+    def _null_entry(self, slot_index: int) -> int:
+        """The page id a non-decoding slot's table row is masked with: the
+        single-card pool's null page; the MeshEngine's is the slot's own
+        replica's."""
+        return NULL_PAGE
 
     def _prefill_quantum(self) -> bool:
         """Run up to ``prefill_chunks_per_step`` chunk calls,
@@ -680,7 +761,7 @@ class InferenceEngine:
         cow = self.pool.resolve_cow(slot.index)
         if cow is not None:
             dst, src = cow
-            self.cache = page_copy(self.cache, dst, src)
+            self.cache = self._copy_fn(self.cache, dst, src)
         self._start_decode(slot, first)
 
     def _start_decode(self, slot: Slot, first: int) -> None:
@@ -904,7 +985,7 @@ class InferenceEngine:
             table = self.pool.block_table.copy()
             for s in self.slots.slots:
                 if not s.active or s.prefilling:
-                    table[s.index] = NULL_PAGE
+                    table[s.index] = self._null_entry(s.index)
             # each slot's LoRA row goes in the way the table does: one host
             # array, row 0 the exact-zero delta
             banks = ((self._adapter_a, self._adapter_b, self._tensor(self._adapter_ids_host))

@@ -30,6 +30,8 @@ site                  actions
 ``proxy.request``     ``delay``, ``kill`` (crash a serving replica)
 ``proxy.poll``        ``delay``, ``kill`` (crash the pinned replica)
 ``kv.transfer``       ``delay`` (a slow KV-page extraction)
+``prefill.worker``    ``slow`` (gray failure: alive, past the router's
+                      timeout), ``kill`` (the worker exits at once)
 ``weights.publish``   ``kill`` (torn publish: shards land, the manifest
                       never does), ``corrupt`` (tensor VALUES flipped
                       before checksumming: the crc is valid and the

@@ -3,7 +3,7 @@ the model and its training losses, KV-cache decoding, ``generate`` and the
 continuous-batching engines' entry points."""
 
 from .config import LMConfig
-from .convert import cache_from_jax, cache_to_jax, params_from_jax
+from .convert import cache_from_jax, cache_to_jax, params_from_jax, shard_params_from_jax
 from .generate import (
     generate,
     init_cache,
@@ -46,4 +46,5 @@ __all__ = [
     "make_lm_prefill_fn",
     "page_copy",
     "params_from_jax",
+    "shard_params_from_jax",
 ]

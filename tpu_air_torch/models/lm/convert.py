@@ -8,7 +8,9 @@ become ``nn.Linear`` weights ``[out, in]``; the embedding ``[vocab,
 d_model]`` (tied to the head unless ``lm_head`` is present) and the RMSNorm
 weights carry over as they are.  ``params_to_jax`` is the inverse, and
 ``jax_layouts`` reports the layout of each parameter for the optimizers
-whose rule reads it (Adafactor's factoring).
+whose rule reads it (Adafactor's factoring).  ``shard_params_from_jax``
+carries the tree straight onto a ``(data, model)`` mesh: the conversion,
+then ``parallel.sharding.shard_params`` under the JAX package's LM rule.
 
 ``cache_from_jax`` / ``cache_to_jax`` carry a decode cache both ways: the
 Flax ``"cache"`` collection (``{"layer_i": {"attn": {cached_key,
@@ -47,6 +49,15 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if "lm_head" in params:
         sd["lm_head.weight"] = _tensor(np.asarray(params["lm_head"]["kernel"]).T)
     return sd
+
+
+def shard_params_from_jax(params: Dict[str, Any], mesh) -> np.ndarray:
+    """Flax param tree (numpy leaves) -> every mesh device's slice of the
+    port's state dict (``shard_params`` with ``lm_param_spec``): an object
+    array in the mesh's shape of state dicts on their devices."""
+    from tpu_air_torch.parallel.sharding import lm_param_spec, shard_params
+
+    return shard_params(params_from_jax(params), mesh, lm_param_spec)
 
 
 def jax_layouts(config: LMConfig) -> Dict[str, Tuple[bool, Tuple[int, ...]]]:

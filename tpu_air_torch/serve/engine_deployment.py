@@ -7,7 +7,15 @@ device (``cuda:<first leased id>`` when the deployment leases the card,
 :class:`tpu_air_torch.engine.InferenceEngine` over a causal LM when the
 ``engine_config`` is an ``EngineConfig`` or None, a
 :class:`tpu_air_torch.engine.T5Engine` when it is a ``T5EngineConfig`` (the
-config type selects the engine family).  Two client surfaces:
+config type selects the engine family).  Distributed serving composes with
+the LM engine: ``mesh=(dp, tp)`` builds a
+:class:`~tpu_air_torch.engine.MeshEngine` over the replica's leased
+devices (``cuda:<id>``, the ids wrapping onto the cards there are: one
+card can hold a 2 x 2 mesh), and ``disagg=`` (the keyword arguments of a
+:class:`~tpu_air_torch.engine.DisaggRouter`, e.g. ``{"prefill_replicas":
+2}``) puts the router in front of the engine, its prefill workers actors
+of their own.  ``stats()`` then carries ``topology`` and ``disagg``.  Two
+client surfaces:
 
 * blocking HTTP: ``POST {"prompts": [[ids...], ...], "max_new_tokens": n,
   "priority": "interactive"}`` → ``{"results": [{"request_id": ...,
@@ -43,9 +51,6 @@ notice, from the ``runtime.lease`` fault site or from ``borrow_return``
 admission, and ``preempt_status`` tells the
 :class:`~tpu_air_torch.serve.supervisor.PreemptionWatcher`, which migrates
 the live streams or replays them from its journal.
-
-What the port refuses, with ``NotImplementedError`` naming its ROADMAP
-Queue 1 items: ``mesh=`` and ``disagg=`` (items 6b and 9).
 """
 
 from __future__ import annotations
@@ -55,17 +60,13 @@ from typing import Any, Dict, Optional
 
 from .deployment import Deployment
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported to tpu_air_torch ({item})")
-
 
 class _EngineServer:
     """The engine itself is built LAZILY on the first request, not in
     ``__init__``: the runtime round-trips a replica instance through the
     (pickle-based) object store at actor creation, and a live engine holds a
     thread, locks and device tensors.  The constructor keeps only the
-    picklable recipe (checkpoint + config), and refuses what the port has
-    not ported before any replica serves."""
+    picklable recipe (checkpoint + config)."""
 
     def __init__(
         self,
@@ -79,16 +80,19 @@ class _EngineServer:
         mesh: Optional[tuple] = None,
         disagg: Optional[Dict[str, Any]] = None,
     ):
-        if mesh is not None or disagg is not None:
-            _refuse("mesh= and disagg= serving (MeshEngine, DisaggRouter)",
-                    "ROADMAP Queue 1 items 6b and 9")
         self._checkpoint = checkpoint
         self._engine_config = engine_config
         self._dtype = dtype
         self._device = device
         self._engine_name = engine_name
         self._join_timeout = join_timeout
+        # distributed serving (engine/dist): mesh=(dp, tp) builds a
+        # MeshEngine, disagg= (DisaggRouter keyword arguments) routes
+        # prefill through worker actors; the two compose
+        self._mesh = tuple(mesh) if mesh is not None else None
+        self._disagg = dict(disagg) if disagg is not None else None
         self._engine = None
+        self._router = None
         self._streams: Dict[int, Any] = {}
         # recently retired streams' full token lists: a poll AFTER the one
         # that delivered `done` still answers (insertion-ordered, bounded)
@@ -108,10 +112,29 @@ class _EngineServer:
             # the window engine, any EngineConfig (or None) the causal-LM
             # slot/page engine
             if isinstance(self._engine_config, T5EngineConfig):
+                if self._mesh or self._disagg:
+                    raise ValueError(
+                        "mesh/disagg serving supports the causal-LM paged "
+                        "engine only")
                 self._engine = T5Engine(model, self._engine_config, name=self._engine_name)
+            elif self._mesh is not None:
+                from tpu_air_torch.engine import MeshEngine
+
+                dp, tp = self._mesh
+                self._engine = MeshEngine(
+                    model, self._engine_config or EngineConfig(), dp=dp, tp=tp,
+                    devices=None if self._device is None else [self._device] * (dp * tp),
+                    name=self._engine_name)
             else:
                 self._engine = InferenceEngine(model, self._engine_config or EngineConfig(),
                                                name=self._engine_name)
+            if self._disagg is not None:
+                from tpu_air_torch.engine import DisaggRouter
+
+                self._router = DisaggRouter(
+                    self._checkpoint, self._engine_config or EngineConfig(),
+                    engine=self._engine, dtype=self._dtype, device=self._device,
+                    name=self._engine_name, **self._disagg)
             # attach the lease this actor was placed on: a revocation notice
             # freezes admission at once, and the supervisor's watcher sees
             # it through preempt_status and migrates or replays from the
@@ -132,10 +155,19 @@ class _EngineServer:
         if engine is not None and hasattr(engine, "preempt"):
             engine.preempt()
 
+    def _front(self):
+        """The submit surface: the disagg router when configured (prefill
+        on worker actors), else the engine itself."""
+        self._ensure_engine()
+        return self._router if self._router is not None else self._engine
+
     def close(self) -> None:
-        """Stop the engine's thread and fail what it still holds (the
-        replica's process ending stops it too)."""
-        if self._engine is not None:
+        """Stop the engine's thread and fail what it still holds, and stop
+        the router's prefill workers (the replica's process ending stops
+        them too)."""
+        if self._router is not None:
+            self._router.close()
+        elif self._engine is not None:
             self._engine.close()
 
     # -- HTTP path (blocking generate + streaming actions) --------------------
@@ -168,12 +200,12 @@ class _EngineServer:
             raise ValueError('payload needs "prompt" or a non-empty "prompts"')
         max_new = payload.get("max_new_tokens")
         priority = payload.get("priority", "interactive")
-        engine = self._ensure_engine()
-        kw = self._labels(engine, payload.get("deadline_ms"), None)
+        front = self._front()
+        kw = self._labels(front, payload.get("deadline_ms"), None)
         if payload.get("adapter_id") is not None:
             kw["adapter_id"] = str(payload["adapter_id"])
         # submit ALL before joining ANY — concurrent prompts share decode steps
-        streams = [engine.submit(p, max_new, priority=priority, **kw) for p in prompts]
+        streams = [front.submit(p, max_new, priority=priority, **kw) for p in prompts]
         return {
             "results": [
                 {"request_id": s.request_id,
@@ -193,26 +225,33 @@ class _EngineServer:
         # relabels billing); the LM engine takes both.  An adapter changes
         # the tokens, so it goes to either engine, and the T5 engine's
         # submit refuses it (TypeError), as the JAX package's does
-        engine = self._ensure_engine()
-        kw = self._labels(engine, deadline_ms, tenant)
+        front = self._front()
+        kw = self._labels(front, deadline_ms, tenant)
         if adapter_id is not None:
+            if self._router is not None:
+                from tpu_air_torch.engine import RequestValidationError
+
+                raise RequestValidationError(
+                    "adapter_id is not supported with disaggregated "
+                    "serving (prefill workers hold no adapter bank)")
             kw["adapter_id"] = str(adapter_id)
-        stream = engine.submit(prompt, max_new_tokens, priority=priority, **kw)
+        stream = front.submit(prompt, max_new_tokens, priority=priority, **kw)
         self._streams[stream.request_id] = stream
         return stream.request_id
 
     @staticmethod
-    def _labels(engine, deadline_ms, tenant) -> Dict[str, Any]:
+    def _labels(front, deadline_ms, tenant) -> Dict[str, Any]:
         """The deadline and tenant label, for the LM engine, which takes
-        them; the T5 window engine takes neither."""
-        from tpu_air_torch.engine import InferenceEngine
+        both; the disagg router takes the deadline only (dropping the label
+        degrades billing, never a submit), the T5 window engine neither."""
+        from tpu_air_torch.engine import DisaggRouter, InferenceEngine
 
-        if not isinstance(engine, InferenceEngine):
+        if not isinstance(front, (InferenceEngine, DisaggRouter)):
             return {}
         kw: Dict[str, Any] = {}
         if deadline_ms is not None:
             kw["deadline_ms"] = float(deadline_ms)
-        if tenant is not None:
+        if tenant is not None and isinstance(front, InferenceEngine):
             kw["tenant"] = str(tenant)
         return kw
 
@@ -338,8 +377,9 @@ class _EngineServer:
         pollable.  Never forces the lazy engine build — a replica that
         served nothing drains instantly."""
         self._draining = True
-        if self._engine is not None:
-            self._engine.drain()
+        front = self._router if self._router is not None else self._engine
+        if front is not None:
+            front.drain()
 
     def drain_status(self) -> Dict[str, Any]:
         """``drained`` means: drain was requested, the engine retired all
@@ -369,8 +409,9 @@ class _EngineServer:
 
     def stats(self) -> Dict[str, Any]:
         """The engine's metrics snapshot, its device and this process's
-        launches of the two inference kernels; ``{}`` before the engine is
-        built (a scrape never forces the build)."""
+        launches of the two inference kernels, with the router's
+        ``topology`` keys and ``disagg`` counts when it routes; ``{}``
+        before the engine is built (a scrape never forces the build)."""
         if self._engine is None:
             return {}
         from tpu_air_torch.ops.decode_attention import decode_attention
@@ -380,6 +421,15 @@ class _EngineServer:
         snap["device"] = str(self._engine.device)
         snap["kernel_launches"] = {"flash_attention": flash_attention.launches,
                                    "decode_attention": decode_attention.launches}
+        if self._router is not None:
+            rst = self._router.stats()
+            snap.setdefault("topology", {}).update(
+                disagg="on",
+                prefill_replicas=rst["prefill_replicas"],
+                live_prefill_replicas=rst["live_prefill_replicas"],
+            )
+            snap["disagg"] = {k: rst[k] for k in
+                              ("handoffs", "reroutes", "fallbacks", "retries", "breakers")}
         return snap
 
 

@@ -22,7 +22,7 @@ class ScalingConfig:
     given as 1 becomes ``model_parallel x sequence_parallel``, as in the JAX
     package.  ``LMTrainer`` runs one rank a device for
     ``sequence_parallel > 1``; tensor parallelism, and a worker over more
-    devices than its axes use, are not ported (ROADMAP Queue 1 item 9).
+    devices than its axes use, are not ported (ROADMAP Queue 1 item 9b).
     ``total_chips`` (``num_workers x num_chips_per_worker``) is the lease a
     Tune trial holds.  The JAX package's ``use_tpu``, ``topology`` and
     ``resources_per_worker`` are left out: nothing in the port reads them.
@@ -57,7 +57,7 @@ class ScalingConfig:
             raise NotImplementedError(
                 f"num_chips_per_worker={self.num_chips_per_worker} beyond model_parallel x "
                 f"sequence_parallel = {axes}: a worker over more cards than its axes use "
-                "needs the device mesh, not ported yet (ROADMAP Queue 1 item 9)")
+                "needs the device mesh, not ported yet (ROADMAP Queue 1 item 9b)")
 
     @property
     def total_chips(self) -> int:

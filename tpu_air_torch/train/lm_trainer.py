@@ -16,7 +16,7 @@ sequence)`` mesh over ``num_workers x num_chips_per_worker`` devices.  Each
 rank reads the whole global batch and keeps its block (its data row's
 rows, its sequence column's tokens); the loss and the eval sums are
 all-reduced over every rank, and rank 0 writes the checkpoint.  Tensor
-parallelism (``model_parallel > 1``) is not ported (ROADMAP Queue 1 item 9).
+parallelism (``model_parallel > 1``) is not ported (ROADMAP Queue 1 item 9b).
 
 Datasets: rows with an ``input_ids`` column (fixed-length token lists).
 Targets are the global next-token shift, computed on the host before the
@@ -64,7 +64,7 @@ def lm_train_loop(config: Dict[str, Any]) -> None:
     if mp > 1:
         raise NotImplementedError(
             f"LMTrainer: model_parallel={mp}: tensor parallelism is not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+            "(ROADMAP Queue 1 item 9b)")
     device = resolve_device(config.get("_device"))
     pad = model_config.pad_token_id
 

@@ -129,7 +129,7 @@ def segformer_train_loop(config: Dict[str, Any]) -> None:
             raise NotImplementedError(
                 f"SegformerTrainer: {what}={degree}: the port trains SegFormer data-parallel "
                 "over num_workers, one device a worker; a worker over several devices "
-                "needs the device mesh (ROADMAP Queue 1 item 9)")
+                "needs the device mesh (ROADMAP Queue 1 item 9b)")
     dp, rank = session.get_world_size(), session.get_world_rank()
     device = resolve_device(config.get("_device"))
     ignore = model_config.semantic_loss_ignore_index

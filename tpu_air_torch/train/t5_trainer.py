@@ -338,7 +338,7 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
     if mp > 1:
         raise NotImplementedError(
             f"T5Trainer: model_parallel={mp}: tensor parallelism is not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+            "(ROADMAP Queue 1 item 9b)")
     dp, rank = session.get_world_size(), session.get_world_rank()
     device = resolve_device(config.get("_device"))
     pad_id = model_config.pad_token_id
