@@ -204,7 +204,7 @@ Phases, each fatal on failure:
               ``InferenceEngine(EngineConfig(num_slots=16, slot_len=1024,
               page_len=16, max_new_tokens=64, eos_token_id=None))``, paged,
               32 prompts of 64-512 tokens (8 behind one 256-token prefix)
-              as a burst and the first 8 trickled 4 in flight: the two
+              as a burst and the first 4 trickled 4 in flight: the two
               runs' tokens must be identical per prompt; TTFT, decode step, tokens/s, prefix
               hits, copy-on-write copies, peak pool pages, the profiled
               decode step's idle share; (c) the slab engine, burst: tokens
@@ -219,13 +219,13 @@ Phases, each fatal on failure:
               six token streams equal; (f) the decode kernel timed at the
               engine's shape (b 16, L 1024, 8 x 128, bf16, per-row mask)
               beside its bound, its plain version and SDPA.  Cuts: 32 engine
-              prompts and 64 new tokens, (b)'s trickle 8 and (c)'s offline
+              prompts and 64 new tokens, (b)'s trickle 4 and (c)'s offline
               generate 8 of them (the phase runs in about 70 s).
 23. lm live — live weights, LoRA head-delta adapters and migration on
               phase 22's checkpoint, engine configuration and prompts, bf16,
               every 1-token step through the decode kernel: (a) the paged
               engine with a bank of 4 adapter rows of rank 4 and 3 seeded
-              tenants, the 32 prompts as one burst, a quarter on each
+              tenants, the first 16 prompts as one burst, a quarter on each
               tenant and on the base: the base rows equal phase 22 (b)'s
               burst (the zero row is exact), each tenant changes some
               tokens; agreement with per-tenant ``offline_greedy`` on each
@@ -254,7 +254,8 @@ Phases, each fatal on failure:
               rollback and a migration equal the unswapped and unmigrated
               tokens, and the exact-fingerprint canary gate passes on an
               in-process replica's ``weights_probe``.  Cuts: as phase 22's,
-              2 probe prompts of 64 tokens (the phase aims at 80 s).
+              (a)'s burst 16 prompts, 2 probe prompts of 64 tokens (the
+              phase aims at 80 s).
 24. obs serve — the observability plane over phase 22's served engine, in a
               runtime of its own: ``init(include_dashboard=True,
               dashboard_port=0)`` with ``TPU_AIR_TRACE=1`` and
@@ -385,7 +386,30 @@ Phases, each fatal on failure:
               ``topology`` (and ``disagg``) after; (d) the decode kernel at
               the meshes' shard shapes (dp 2: b 8, 8 heads; tp 2: b 16, 4
               heads; tp 4: b 16, 2 heads; L 1024, d 128) beside its bound,
-              its plain version and SDPA.
+              its plain version and SDPA;
+29. tp       — tensor-parallel training, every shard on the one card (lease
+              ids 0 and 1 wrap onto it): (a) ``LMTrainer(scaling_config=
+              ScalingConfig(num_workers=1, model_parallel=2)).fit()`` at the
+              ``[lm]`` phase's width, rows and type, 3 one-step epochs:
+              finite losses (beside ``[lm]``'s), ``mesh_model`` 2,
+              ``params_bytes_per_device`` under ``params_bytes_total``, the
+              checkpoint's logical parameters, and the forward, dq and dk/dv
+              launches each layers x shards x steps; the step's ms beside the
+              tp 1 step's (the shards run in turn: no speedup on one card);
+              then two f32 steps at ``[lm parity]``'s cut depth and length at
+              tp 2 and 4 against the single-card step: losses to 1e-5
+              relative, step-1 gradients to 1e-5 of their norm, launches
+              layers x shards x steps; (b) ``T5Trainer`` at tp 2 on W1's
+              width, rows and arguments, 3 steps (dropout: the dense path)
+              timed on the device clock beside ``[w1]``'s median step,
+              its eval (the flash forward per shard: its launches equal the
+              attention calls x 2) and generation from its checkpoint in
+              bf16; (c) the kernels at the tp 2 shard shapes: the flash
+              forward, dq and dk/dv at B1 H4 L8192 D128 causal, the flash
+              forward at W1's encoder shard (B8 H6 L512 D64, bias, key mask),
+              each against its plain version and beside its bound and SDPA,
+              and the decode kernel at the 2 x 2 mesh's shard (b 8, 4 heads,
+              L 1024, d 128).
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
@@ -400,7 +424,8 @@ process) over its whole life, phase 24's replica and phase 25's two too
 process after the migration), phase 27's around each ring's forward
 and backward in (a) and around (d)'s fit, and phase 28's around each of
 (a)'s engine runs, around (b)'s burst in the decode engine (this process)
-and in (c)'s replicas over their lives.  The SegFormer
+and in (c)'s replicas over their lives, and phase 29's around (a)'s fit,
+around each of its f32 steps and around (b)'s fit and generation.  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -508,10 +533,10 @@ LM_GEN_PROMPTS, LM_GEN_LEN, LM_GEN_NEW = 16, 512, 128
 LM_ENGINE = {"num_slots": 16, "slot_len": 1024, "page_len": 16, "max_new_tokens": 64,
              "eos_token_id": None}
 LM_ENGINE_PROMPTS, LM_PREFIX_LEN, LM_PREFIX_PROMPTS, LM_TRICKLE = 32, 256, 8, 4
-# depth cuts of phase 22: (b)'s trickled run takes the first 8 prompts (the
-# burst keeps all 32, the yardstick of phases 23-25 and 28), (c)'s
-# per-prompt offline generate the first 8
-LM_TRICKLE_PROMPTS, LM_OFFLINE_PROMPTS = 8, 8
+# depth cuts of phase 22: (b)'s trickled run takes the first 4 prompts (8
+# before phase 29 was added; the burst keeps all 32, the yardstick of phases
+# 23-25 and 28), (c)'s per-prompt offline generate the first 8
+LM_TRICKLE_PROMPTS, LM_OFFLINE_PROMPTS = 4, 8
 LM_PROMPT_LENS = (64, 512)
 LM_SERVED, LM_SERVE_PARITY_LAYERS, LM_SERVE_PARITY_PROMPTS, LM_SERVE_PARITY_NEW = 16, 2, 8, 32
 # LM live dials (phase 23), phase 22's checkpoint, engine and prompts: (a) 3
@@ -521,9 +546,11 @@ LM_SERVED, LM_SERVE_PARITY_LAYERS, LM_SERVE_PARITY_PROMPTS, LM_SERVE_PARITY_NEW 
 # (a depth cut: 4 before phase 28 was added)
 LM_LIVE_TENANTS, LM_LIVE_RANK, LM_LIVE_SCALE, LM_LIVE_SWAP_AT = 3, 4, (1 / 32, 0.5), 24
 LM_LIVE_MIGRATED, LM_LIVE_MIGRATE_AFTER, LM_LIVE_PROBES, LM_LIVE_PROBE_NEW = 16, 8, 2, 8
-# depth cut of phase 23 (a): per-tenant offline_greedy agreement (printed,
-# not asserted) on each tenant's first row
-LM_LIVE_OFFLINE_ROWS = 1
+# depth cuts of phase 23 (a): per-tenant offline_greedy agreement (printed,
+# not asserted) on each tenant's first row; the mixed-tenant burst over the
+# first 16 prompts (32 before phase 29 was added; a row's tokens do not
+# depend on the prompts after it at 16 slots)
+LM_LIVE_OFFLINE_ROWS, LM_LIVE_ADAPTER_PROMPTS = 1, 16
 # observability dials: [lm] (c) traces LM_TRACE_STEPS train steps and prints
 # the LM_TRACE_GAPS longest device-idle gaps; [obs serve]'s airwatch scrapes
 # every OBS_WATCH_S seconds, its traced POST carries OBS_POST prompts, and
@@ -553,6 +580,12 @@ DIST_ENGINE = {**LM_ENGINE, "prefill_chunks_per_step": 16}
 DIST_BF16_MESHES, DIST_F32_MESHES = ((2, 1), (1, 2), (2, 2)), ((1, 2), (2, 2))
 DIST_FAULT_PROMPTS, DIST_POST, DIST_FIRST, DIST_MESH_PROMPTS = 6, 8, 8, 16
 DIST_TIMING = (("dp 2", 8, 8), ("tp 2", 16, 4), ("tp 4", 16, 2))
+# tensor-parallel training dials (phase 29): (a) the [lm] phase's LM and rows
+# at tp 2, TP_LM_STEPS one-step epochs (the first a warm-up), and its f32 step
+# at [lm parity]'s cut depth and length at each tp of TP_PARITY; (b) W1 at tp
+# 2 for TP_W1_STEPS steps of the [w1] phase's rows, then its eval and
+# generation from its checkpoint
+TP_LM_STEPS, TP_PARITY, TP_W1_STEPS = 3, (2, 4), 3
 
 
 def model_config():
@@ -2212,36 +2245,13 @@ def w1_batch(rows, dev) -> dict:
             for k in ("input_ids", "attention_mask", "labels")}
 
 
-def w1_main_path(dev) -> dict:
-    """``T5Trainer.fit()`` (one epoch of W1_STEPS steps, eval, checkpoint),
-    then generation from the best checkpoint.  Each step's loss and its end
-    on the device clock are recorded by wrapping the step the loop builds
-    (``make_t5_train_step``); the loop itself syncs once, at the epoch's end."""
-    import shutil
-    import tempfile
+@contextlib.contextmanager
+def recorded_t5_steps():
+    """Within the block, every step ``make_t5_train_step`` builds records
+    its loss and, on the device clock, its end: yields ``[(None, start),
+    (loss, end), ...]``.  The loop itself syncs once, at the epoch's end."""
+    from tpu_air_torch.train import t5_trainer
 
-    from tpu_air_torch.models.tokenizer import ByteTokenizer
-    from tpu_air_torch.ops.decode_attention import decode_attention
-    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
-    from tpu_air_torch.predict.predictors import T5GenerativePredictor
-    from tpu_air_torch.train import (CheckpointConfig, RunConfig, T5Trainer,
-                                     TrainingArguments, t5_trainer)
-
-    def counts():
-        return {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches,
-                "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
-                "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches}
-
-    cfg = w1_config()
-    train = w1_rows(W1_BATCH * W1_STEPS, cfg.vocab_size, SEED + 40)
-    evaluation = w1_rows(W1_EVAL_ROWS, cfg.vocab_size, SEED + 41)
-    storage = tempfile.mkdtemp(prefix="chip_smoke-w1-")
-    # W1's own arguments (examples/flan_t5_batch_inference.py): AdamW, lr
-    # 2e-5, weight decay 0.01; the per-device batch and the epoch cut to size
-    args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
-                             per_device_train_batch_size=W1_BATCH, num_train_epochs=1,
-                             seed=SEED)
     marks = []
     make_step = t5_trainer.make_t5_train_step
 
@@ -2258,6 +2268,42 @@ def w1_main_path(dev) -> dict:
             return loss
         return rec
 
+    t5_trainer.make_t5_train_step = recording_step
+    try:
+        yield marks
+    finally:
+        t5_trainer.make_t5_train_step = make_step
+
+
+def w1_main_path(dev) -> dict:
+    """``T5Trainer.fit()`` (one epoch of W1_STEPS steps, eval, checkpoint),
+    then generation from the best checkpoint; each step's loss and end on
+    the device clock through :func:`recorded_t5_steps`."""
+    import shutil
+    import tempfile
+
+    from tpu_air_torch.models.tokenizer import ByteTokenizer
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from tpu_air_torch.predict.predictors import T5GenerativePredictor
+    from tpu_air_torch.train import (CheckpointConfig, RunConfig, T5Trainer,
+                                     TrainingArguments)
+
+    def counts():
+        return {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches,
+                "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
+                "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches}
+
+    cfg = w1_config()
+    train = w1_rows(W1_BATCH * W1_STEPS, cfg.vocab_size, SEED + 40)
+    evaluation = w1_rows(W1_EVAL_ROWS, cfg.vocab_size, SEED + 41)
+    storage = tempfile.mkdtemp(prefix="chip_smoke-w1-")
+    # W1's own arguments (examples/flan_t5_batch_inference.py): AdamW, lr
+    # 2e-5, weight decay 0.01; the per-device batch and the epoch cut to size
+    args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                             per_device_train_batch_size=W1_BATCH, num_train_epochs=1,
+                             seed=SEED)
     trainer = T5Trainer(
         model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
         datasets={"train": train, "evaluation": evaluation},
@@ -2269,12 +2315,9 @@ def w1_main_path(dev) -> dict:
     flash_attention_backward.dq_launches = flash_attention_backward.dkv_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    t5_trainer.make_t5_train_step = recording_step
     t0 = time.perf_counter()
-    try:
+    with recorded_t5_steps() as marks:
         result = trainer.fit()
-    finally:
-        t5_trainer.make_t5_train_step = make_step
     fit_wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     fit_launches = counts()
@@ -4553,7 +4596,8 @@ def lm_live_path(dev, ckpt_dir: str, port: int, work: str, served: dict) -> dict
         engine.load_adapter(name, a, b)
     decode_attention.launches = 0
     t0 = time.perf_counter()
-    streams = [engine.submit(p, adapter_id=t) for p, t in zip(ps, who)]
+    burst = who[:LM_LIVE_ADAPTER_PROMPTS]
+    streams = [engine.submit(p, adapter_id=t) for p, t in zip(ps, burst)]
     drain(engine)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4561,17 +4605,18 @@ def lm_live_path(dev, ckpt_dir: str, port: int, work: str, served: dict) -> dict
     step = engine.metrics.snapshot()["step_latency_s"]
     engine.close()
     toks = [s.result(0) for s in streams]
-    bad = [i for i, t in enumerate(who) if t is None and toks[i] != base[i]]
+    bad = [i for i, t in enumerate(burst) if t is None and toks[i] != base[i]]
     changed, agree, total = {}, {}, {}
     for name in names:
-        rows = [i for i, t in enumerate(who) if t == name]
+        rows = [i for i, t in enumerate(burst) if t == name]
         total[name] = len(rows) * new
         changed[name] = sum(x != y for i in rows for x, y in zip(toks[i], base[i]))
         agree[name] = sum(x == y for i in rows[:LM_LIVE_OFFLINE_ROWS] for x, y in zip(
             toks[i], offline_greedy(model, ps[i], new, *tenants[name])))
     log(f"[lm live] (a) paged InferenceEngine({LM_ENGINE}, adapter_slots=4, adapter_rank="
         f"{LM_LIVE_RANK}), bf16: {len(names)} tenants of rank {LM_LIVE_RANK} (a ~ N(0, "
-        f"{LM_LIVE_SCALE[0]:.4f}), b ~ N(0, {LM_LIVE_SCALE[1]})), {len(ps)} prompts as one burst, "
+        f"{LM_LIVE_SCALE[0]:.4f}), b ~ N(0, {LM_LIVE_SCALE[1]})), the first {len(burst)} "
+        f"prompts as one burst, "
         f"a quarter on each tenant and on the base: {wall:.3f} s over {n_steps} decode steps; "
         f"base rows equal to phase 22 (b)'s burst: {not bad}; tokens each tenant changed "
         f"against the base model's {changed} of {total}; adapter rows agreeing with per-tenant "
@@ -4679,7 +4724,7 @@ def lm_live_path(dev, ckpt_dir: str, port: int, work: str, served: dict) -> dict
     a, b = tenants[names[0]]
     tprobe = compute_probe(model, probes, LM_LIVE_PROBE_NEW, adapter_a=a, adapter_b=b,
                            with_logits=True, logit_tolerance=0.0)
-    rows = [i for i, t in enumerate(who) if t == names[0]]
+    rows = [i for i, t in enumerate(burst) if t == names[0]]
     try:
         t0 = time.perf_counter()
         h = serve.run(EngineDeployment.options(name="lm-live", route_prefix="/lmlive",
@@ -6454,6 +6499,364 @@ def add_dist_rows(kernels: list, dist: dict) -> None:
     row["dist_shapes"] = dist["d"]
 
 
+# -- phase 29 ------------------------------------------------------------------
+
+
+def tp_lm_fit(dev, work: str, lm_stats: dict) -> dict:
+    """Phase 29 (a): ``LMTrainer`` at tp 2 over lease ids 0 and 1, both on
+    the card, at the ``[lm]`` phase's width and rows."""
+    import pandas as pd
+
+    from tpu_air_torch.train import (CheckpointConfig, LMTrainer, RunConfig, ScalingConfig,
+                                     TrainingArguments)
+
+    cfg = lm_config()
+    rows = pd.DataFrame({"input_ids": list(lm_rows(1, LM_LEN, SEED + 20))})
+    args = TrainingArguments(learning_rate=3e-4, per_device_train_batch_size=1,
+                             num_train_epochs=TP_LM_STEPS, seed=SEED, evaluation_strategy="no")
+    trainer = LMTrainer(model_config=cfg, training_args=args, datasets={"train": rows},
+                        scaling_config=ScalingConfig(num_workers=1, model_parallel=2),
+                        run_config=RunConfig(storage_path=os.path.join(work, "tp_lm"),
+                                             checkpoint_config=CheckpointConfig(num_to_keep=1)),
+                        device=dev)
+    os.environ["TPU_AIR_CHIP_IDS"] = "0,1"      # the worker's 2 devices: cuda:0 twice
+    zero_flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit()
+    finally:
+        os.environ.pop("TPU_AIR_CHIP_IDS", None)
+    wall = time.perf_counter() - t0
+    launches = flash_counts()
+    if result.error is not None:
+        raise AssertionError(f"[tp] (a) fit failed: {result.error}")
+    hist = result.metrics_history
+    m = hist[-1]
+    losses = [h["loss"] for h in hist]
+    step_ms = [LM_LEN / h["train_tokens_per_sec"] * 1e3 for h in hist]
+    want = cfg.n_layers * 2 * TP_LM_STEPS
+    med = float(np.median(step_ms[1:]))
+    log(f"[tp] (a) LMTrainer(ScalingConfig(num_workers=1, model_parallel=2)).fit: the [lm] "
+        f"phase's LM ({cfg.d_model} wide, {cfg.n_layers} layers, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}), bf16 on f32, L={LM_LEN}, {len(hist)} one-step "
+        f"epochs in {wall:.1f} s; mesh data {m['mesh_data']} x model {m['mesh_model']} on "
+        f"{dev} twice; params {m['params_bytes_total'] / 1e6:.1f} MB logical, "
+        f"{m['params_bytes_per_device'] / 1e6:.1f} MB on the first device")
+    log("[tp] (a) loss per step: " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; tp 1 ([lm]): " + ", ".join(f"{x:.4f}" for x in lm_stats["losses"][:len(hist)]))
+    log(f"[tp] (a) step ms (first is the warm-up): " + ", ".join(f"{x:.1f}" for x in step_ms)
+        + f"; median after the first {med:.1f} ms against the tp 1 step's "
+        f"{lm_stats['step_ms_median']:.1f} ms ([lm]): both shards run on the one card, in "
+        f"turn, so tp 2 here is no speedup")
+    log(f"[tp] (a) launches {launches} (expect layers x shards x steps = {want} each)")
+    if len(hist) != TP_LM_STEPS or any(h["steps"] != 1 for h in hist) or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"[tp] (a) history {hist}")
+    if m["mesh_model"] != 2 or not m["params_bytes_per_device"] < m["params_bytes_total"]:
+        raise AssertionError(f"[tp] (a) metrics {m}")
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"[tp] (a) launches {launches}, want {want} each")
+    params = result.checkpoint.get_params()
+    if "layers.0.attn.q.weight" not in params or \
+            tuple(params["layers.0.attn.q.weight"].shape) != (cfg.n_heads * cfg.head_dim,
+                                                              cfg.d_model):
+        raise AssertionError("[tp] (a) the checkpoint does not hold the logical parameters")
+    del trainer, result, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+            "tp1_step_ms_median": lm_stats["step_ms_median"], "fit_wall_s": wall,
+            "params_bytes_total": m["params_bytes_total"],
+            "params_bytes_per_device": m["params_bytes_per_device"]}
+
+
+def flash_counts() -> dict:
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
+            "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches}
+
+
+def tp_lm_parity(dev) -> dict:
+    """Phase 29 (a): two f32 steps at ``[lm parity]``'s cut depth and
+    length through the single-card step and through the tensor-parallel
+    step at tp 2 and 4 (every shard on the card), from the same weights:
+    the losses to 1e-5 relative and each step-1 gradient, put back
+    together, to 1e-5 of its norm (the CPU tests' tolerances,
+    tests/test_torch_tp_train.py)."""
+    from tpu_air_torch.models.lm import CausalLM
+    from tpu_air_torch.models.lm.convert import tp_split_dims
+    from tpu_air_torch.parallel.mesh import worker_mesh
+    from tpu_air_torch.parallel.sequence_parallel import make_sp_train_step, shift_targets
+    from tpu_air_torch.parallel.sharding import logical_parameters, shard_module
+    from tpu_air_torch.train.lm_trainer import make_lm_tp_train_step
+    from tpu_air_torch.train.t5_trainer import TrainingArguments, _make_optimizer
+
+    cfg = lm_config("float32", LM_PARITY_LAYERS)
+    ids = torch.from_numpy(lm_rows(1, LM_PARITY_LEN, SEED + 22)).to(dev, torch.long)
+    tgt = shift_targets(ids, cfg.pad_token_id)
+    runs = {}
+    for tp in (1,) + TP_PARITY:
+        model = CausalLM(cfg, device=dev).init_weights(SEED)
+        mesh = worker_mesh([dev] * tp, tp)
+        shard_module(model, list(mesh.devices[0]), tp_split_dims(cfg, tp))
+        logical = logical_parameters(model)
+        opt = _make_optimizer(TrainingArguments(learning_rate=1e-3), 2,
+                              [(shards, dim) for _, shards, dim in logical])
+        grads = []
+        adamw_step = opt.step
+
+        def snapshot_then_step():
+            grads.append({n: (s[0].grad if d is None else torch.cat([p.grad for p in s], d))
+                          .detach().clone() for n, s, d in logical})
+            adamw_step()
+
+        opt.step = snapshot_then_step
+        step = make_sp_train_step(model, opt) if tp == 1 else \
+            make_lm_tp_train_step(model, opt, mesh)
+        zero_flash_counts()
+        losses = [float(step(ids, tgt)) for _ in range(2)]
+        runs[tp] = (losses, grads[0], flash_counts())
+        del model, opt, step, logical
+        torch.cuda.empty_cache()
+    base_losses, base_grads, _ = runs[1]
+    out = {}
+    for tp in TP_PARITY:
+        losses, grads, launches = runs[tp]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+        grad_rel = max(norm_err(grads[n], base_grads[n]) for n in base_grads)
+        want = cfg.n_layers * tp * 2
+        log(f"[tp] (a) f32 parity, {cfg.d_model} wide, depth cut to {cfg.n_layers} layers, "
+            f"L={LM_PARITY_LEN}, tp {tp} (every shard on {dev}): losses {losses} against the "
+            f"single-card step's {base_losses} (max rel diff {loss_rel:.2e}); step-1 gradients "
+            f"max |diff| / |single-card| over tensors {grad_rel:.2e}; launches {launches}")
+        if not (loss_rel < 1e-5 and grad_rel < 1e-5):
+            raise AssertionError(f"[tp] (a) tp {tp}: loss rel {loss_rel}, grad rel {grad_rel}")
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"[tp] (a) tp {tp} launches {launches}, want {want} each")
+        out[f"tp{tp}"] = {"losses": losses, "loss_max_rel_diff": loss_rel,
+                          "grad_max_norm_rel_diff": grad_rel, "launches": launches}
+    out["single_card_losses"] = base_losses
+    return out
+
+
+def tp_w1(dev, work: str, w1_stats: dict) -> dict:
+    """Phase 29 (b): W1 at tp 2: ``T5Trainer(scaling_config=ScalingConfig(
+    model_parallel=2))`` over lease ids 0 and 1 at FLAN-T5-base width for
+    TP_W1_STEPS steps of W1_BATCH x W1_LEN rows (the ``[w1]`` phase's first
+    ones), its eval (the flash forward per shard: dropout keeps the train
+    steps on the dense path), then generation from its checkpoint."""
+    from tpu_air_torch.models.tokenizer import ByteTokenizer
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention
+    from tpu_air_torch.predict.predictors import T5GenerativePredictor
+    from tpu_air_torch.train import RunConfig, ScalingConfig, T5Trainer, TrainingArguments
+
+    def counts():
+        return {**flash_counts(), "decode_attention": decode_attention.launches}
+
+    cfg = w1_config()
+    train = w1_rows(W1_BATCH * W1_STEPS, cfg.vocab_size, SEED + 40)
+    evaluation = w1_rows(W1_BATCH, cfg.vocab_size, SEED + 41)
+    args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                             per_device_train_batch_size=W1_BATCH, num_train_epochs=1,
+                             max_steps_per_epoch=TP_W1_STEPS, seed=SEED)
+    trainer = T5Trainer(model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
+                        scaling_config=ScalingConfig(model_parallel=2),
+                        datasets={"train": train, "evaluation": evaluation},
+                        run_config=RunConfig(storage_path=os.path.join(work, "tp_w1")),
+                        device=dev)
+    os.environ["TPU_AIR_CHIP_IDS"] = "0,1"
+    zero_flash_counts()
+    decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with recorded_t5_steps() as marks:
+            result = trainer.fit()
+    finally:
+        os.environ.pop("TPU_AIR_CHIP_IDS", None)
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for (_, a), (_, b) in zip(marks, marks[1:])]
+    fit_launches = counts()
+    if result.error is not None:
+        raise AssertionError(f"[tp] (b) fit failed: {result.error}")
+    m = result.metrics
+    attn = cfg.num_layers + 2 * cfg.num_decoder_layers
+    log(f"[tp] (b) T5Trainer at tp 2: FLAN-T5-base width and depth, dropout "
+        f"{cfg.dropout_rate}, bf16 on f32, {m['steps']} steps of {W1_BATCH} x {W1_LEN}, eval "
+        f"of {W1_BATCH} rows, in {wall:.1f} s; loss {m['loss']:.4f} (tp 1's first "
+        f"{TP_W1_STEPS} steps, [w1]: {w1_stats['losses'][:TP_W1_STEPS]}), eval_loss "
+        f"{m['eval_loss']:.4f}; mesh data {m['mesh_data']} x model {m['mesh_model']}; params "
+        f"{m['params_bytes_total'] / 1e6:.1f} MB logical, {m['params_bytes_per_device'] / 1e6:.1f}"
+        f" MB on the first device; step ms (device clock, the first a warm-up) "
+        + ", ".join(f"{x:.1f}" for x in step_ms)
+        + f" against the tp 1 step's median {w1_stats['step_ms_median']:.1f} ([w1]); launches "
+        f"{fit_launches} (eval: {attn} attention calls x 2 shards)")
+    if m["steps"] != TP_W1_STEPS or m["mesh_model"] != 2 or \
+            not np.isfinite([m["loss"], m["eval_loss"]]).all() or \
+            not m["params_bytes_per_device"] < m["params_bytes_total"]:
+        raise AssertionError(f"[tp] (b) metrics {m}")
+    if fit_launches["flash_attention"] != attn * 2 or fit_launches["decode_attention"] or \
+            fit_launches["flash_attention_bwd_dq"]:
+        raise AssertionError(f"[tp] (b) fit launches {fit_launches}")
+    predictor = T5GenerativePredictor.from_checkpoint(result.checkpoint, dtype="bfloat16",
+                                                      device=dev, tokenizer=ByteTokenizer)
+    ids, mask = prompts(W1_PROMPTS, W1_LEN, cfg.vocab_size, SEED + 42)
+    before = counts()
+    out = predictor.predict({"input_ids": ids, "attention_mask": mask}, max_new_tokens=W1_NEW)
+    gen = {k: counts()[k] - before[k] for k in before}
+    log(f"[tp] (b) generate from the tp 2 checkpoint (logical parameters, loaded at tp 1 in "
+        f"bf16): {len(out)} rows x {W1_NEW} new tokens; launches {gen}")
+    if len(out) != W1_PROMPTS or gen["flash_attention"] != cfg.num_layers or \
+            gen["decode_attention"] <= 0:
+        raise AssertionError(f"[tp] (b) generation: {len(out)} rows, {gen}")
+    del predictor, trainer, result
+    torch.cuda.empty_cache()
+    return {"fit_launches": fit_launches, "generate_launches": gen,
+            "launches": {k: fit_launches[k] + gen[k] for k in gen}, "loss": m["loss"],
+            "eval_loss": m["eval_loss"], "fit_wall_s": wall, "step_ms": step_ms,
+            "tp1_step_ms_median": w1_stats["step_ms_median"],
+            "params_bytes_total": m["params_bytes_total"],
+            "params_bytes_per_device": m["params_bytes_per_device"]}
+
+
+def tp_timing(dev) -> dict:
+    """Phase 29 (c): the kernels at the tp 2 shard shapes beside their
+    bounds, plain versions and SDPA: the flash forward, dq and dk/dv at the
+    LM's B1 H4 L8192 D128 causal (bf16), the flash forward at W1's encoder
+    shard B8 H6 L512 D64 (bias, key mask), and the decode kernel at the
+    2 x 2 mesh's shard (b 8, 4 heads).  These calls are not counted."""
+    from tpu_air_torch.ops.flash_attention import (flash_attention, flash_attention_backward,
+                                                   flash_attention_reference)
+
+    counted = flash_counts()
+    rng = np.random.default_rng(SEED + 47)
+    h, L, d = lm_config().n_heads // 2, LM_LEN, lm_config().head_dim
+    scale = d ** -0.5
+    q, k, v, do, _, out, lse, _ = backward_inputs(rng, 1, h, L, d, torch.bfloat16, dev,
+                                                  mask=False, causal=True)
+    flat = [x.reshape(h, L, d) for x in (q, k, v)]
+    want_out = flash_attention_reference(*flat, None, None, scale, True)[0].reshape(q.shape)
+    got = flash_attention_backward(q, k, v, None, out, lse, do, None, scale, True)
+    want = backward_plain(q, k, v, None, out, lse, do, None, scale, True)
+    errs = {"flash_attention": (max_err(out, want_out), norm_err(out, want_out)),
+            "flash_attention_bwd_dq": (max_err(got[0], want[0].reshape(got[0].shape)),
+                                       norm_err(got[0], want[0].reshape(got[0].shape))),
+            "flash_attention_bwd_dkv": tuple(
+                max(f(got[i], want[i].reshape(got[i].shape)) for i in (1, 2))
+                for f in (max_err, norm_err))}
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=scale)
+    calls = bwd_kernel_calls(q, k, v, do, out, lse, scale, True)
+    pairs = h * L * (L + 1) // 2
+    elt = h * L * d * 2
+    lse_bytes = h * L * 4
+    plain_bwd_ms = time_ms(lambda: backward_plain(q, k, v, None, out, lse, do, None, scale,
+                                                  True), 2, 1)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                                      retain_graph=True), 5, 2)
+    shape = f"B1 H{h} L{L} D{d} causal bf16 (the tp 2 shard of the [lm] shape)"
+    rows = {}
+    for name, call, plain_ms, lib_ms, nbytes, flops in (
+        ("flash_attention", lambda: flash_attention(q, k, v, scale=scale, causal=True),
+         time_ms(lambda: flash_attention_reference(*flat, None, None, scale, True), 2, 1),
+         time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale),
+                 5, 2), 4 * elt + lse_bytes, 4 * d * pairs),
+        ("flash_attention_bwd_dq", calls["flash_attention_bwd_dq"], plain_bwd_ms, sdpa_bwd_ms,
+         5 * elt + 2 * lse_bytes, 6 * d * pairs),
+        ("flash_attention_bwd_dkv", calls["flash_attention_bwd_dkv"], plain_bwd_ms,
+         sdpa_bwd_ms, 6 * elt + 2 * lse_bytes, 8 * d * pairs),
+    ):
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
+        err, rel = errs[name]
+        rows[name] = {"ms": device_ms(call, 5), "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                      "err_norm_over_plain_norm": rel, "norm_tol": NORM_TOL[torch.bfloat16],
+                      "bytes": nbytes, "flops": flops, "shape": shape}
+        r = rows[name]
+        log(f"[tp] (c) {name} {shape}: kernel {r['ms']:.4f} ms device time, plain "
+            f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; kernel "
+            f"against plain {err:.3e} (norm {rel:.2e}, tolerance {NORM_TOL[torch.bfloat16]})")
+        if not rel < NORM_TOL[torch.bfloat16]:
+            raise AssertionError(f"[tp] (c) {name} against plain: {rel}")
+    del q, k, v, do, out, lse, qs, ks, vs, sdpa_out, calls, got, want, want_out, flat
+    torch.cuda.empty_cache()
+
+    cfg = w1_config()
+    H, D, B, Lw = cfg.num_heads // 2, cfg.d_kv, W1_BATCH, W1_LEN
+    q, k, v, bias, mask = flash_inputs(rng, B, H, Lw, D, torch.bfloat16, dev)
+    got = flash_attention(q, k, v, bias, kv_mask=mask, scale=1.0)
+    want = flash_plain(q, k, v, bias, mask)
+    lens = needed_keys(mask, Lw)
+    nbytes = (2 * B * H * Lw * D * 2 + 2 * H * D * 2 * int(lens.sum())
+              + H * Lw * int(lens.max()) * 4 + B * Lw * 4 + B * H * Lw * 4)
+    flops = 4 * H * D * Lw * int(lens.sum())
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
+    lib_mask = (bias + ((1.0 - mask) * -1e30)[:, None, None, :]).to(torch.bfloat16)
+    enc = {"ms": device_ms(lambda: flash_attention(q, k, v, bias, kv_mask=mask, scale=1.0), 10),
+           "plain_ms": device_ms(lambda: flash_plain(q, k, v, bias, mask), 5),
+           "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=lib_mask, scale=1.0), 10),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+           "max_abs_err": max_err(got, want), "tol": TOL[torch.bfloat16],
+           "shape": f"B{B} H{H} L{Lw} D{D} bf16, bias [1,H,L,L] f32, source key mask "
+                    "(the tp 2 shard of W1's encoder)"}
+    log(f"[tp] (c) flash_attention {enc['shape']}: kernel {enc['ms']:.4f} ms device time, "
+        f"plain {enc['plain_ms']:.4f} ms, SDPA {enc['library_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by}; kernel against plain {enc['max_abs_err']:.3e}")
+    if not enc["max_abs_err"] < TOL[torch.bfloat16]:
+        raise AssertionError(f"[tp] (c) W1 encoder shard: {enc['max_abs_err']}")
+    del q, k, v, bias, mask, lib_mask, got, want
+    torch.cuda.empty_cache()
+    decode = decode_shape_timing(dev, 8, 4, SEED + 48, "[tp] (c) 2 x 2 mesh shard:")
+    # the comparisons' and timings' launches are not counted
+    flash_attention.launches = counted["flash_attention"]
+    flash_attention_backward.dq_launches = counted["flash_attention_bwd_dq"]
+    flash_attention_backward.dkv_launches = counted["flash_attention_bwd_dkv"]
+    return {"lm_shard": rows, "w1_encoder_shard": enc, "decode_2x2": decode}
+
+
+def tp_path(dev, work: str, lm_stats: dict, w1_stats: dict) -> dict:
+    """Phase 29 (``[tp]``): tensor-parallel training on the card.  See the
+    module docstring."""
+    t_phase = time.perf_counter()
+    out = {"a": tp_lm_fit(dev, work, lm_stats)}
+    out["a"]["parity"] = tp_lm_parity(dev)
+    t_a = time.perf_counter()
+    out["b"] = tp_w1(dev, work, w1_stats)
+    t_b = time.perf_counter()
+    out["c"] = tp_timing(dev)
+    out["part_s"] = {"a": t_a - t_phase, "b": t_b - t_a, "c": time.perf_counter() - t_b}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp] phase 29 {out['phase_s']:.1f} s: "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in out["part_s"].items()))
+    return out
+
+
+def add_tp_rows(kernels: list, tp: dict) -> None:
+    """Phase 29's launches (the tp fit, its f32 steps and W1 at tp 2) and
+    its timed shard shapes into the kernels' rows."""
+    parity = tp["a"]["parity"]
+    for r in kernels:
+        name = r["name"]
+        by = r.setdefault("launches_by_path", {})
+        new = {"tp_lm_fit": tp["a"]["launches"].get(name, 0),
+               "tp_lm_f32_steps": sum(parity[f"tp{n}"]["launches"].get(name, 0)
+                                      for n in TP_PARITY),
+               "tp_w1_fit_generate": tp["b"]["launches"].get(name, 0)}
+        for where, n in new.items():
+            by[where] = n
+            r["launches"] += n
+        if name in tp["c"]["lm_shard"]:
+            r["tp_lm_shard_shape"] = tp["c"]["lm_shard"][name]
+    fwd = next(r for r in kernels if r["name"] == "flash_attention")
+    fwd["tp_w1_encoder_shard_shape"] = tp["c"]["w1_encoder_shard"]
+    dec = next(r for r in kernels if r["name"] == "decode_attention")
+    dec["tp_2x2_shard_shape"] = tp["c"]["decode_2x2"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -6538,6 +6941,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     ring_stats = ring_path(dev, work)
     add_ring_rows(kernels, ring_stats)
     dist_stats = dist_path(dev, lm_stats["checkpoint_dir"], lm_serve_stats)
+    tp_stats = tp_path(dev, work, lm_stats, w1_stats)
     del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     row = next(r for r in kernels if r["name"] == "decode_attention")
@@ -6549,6 +6953,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     row["launches_by_path"]["batch_lane_replicas"] = lane_stats["launches"]["decode_attention"]
     row["launches"] += lane_stats["launches"]["decode_attention"]
     add_dist_rows(kernels, dist_stats)
+    add_tp_rows(kernels, tp_stats)
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)
@@ -6563,7 +6968,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
                       "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats,
                       "lm_live": lm_live_stats, "obs_serve": obs_stats,
                       "batch_lane": lane_stats, "native": native_stats,
-                      "ring": ring_stats, "dist": dist_stats}),
+                      "ring": ring_stats, "dist": dist_stats, "tp": tp_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1198,3 +1198,55 @@ def test_ring_in_memory_matches_whole_sequence_kernels(dev, dtype, sp, causal):
     for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
         rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
         assert rel < tol, (name, rel)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_lm_tp_step_on_one_card_matches_the_single_card_step(dev, tp):
+    """The LM's tensor-parallel train step with every shard on ``cuda:0``
+    against the single-card step, f32, from the same weights: two steps'
+    losses to 1e-5 relative, the step-1 gradients (shards put back
+    together) to 1e-5 of each tensor's norm, and the flash forward, dq and
+    dk/dv launched once a layer, shard and step."""
+    from tpu_air_torch.models.lm import CausalLM, LMConfig
+    from tpu_air_torch.models.lm.convert import tp_split_dims
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from tpu_air_torch.parallel.mesh import worker_mesh
+    from tpu_air_torch.parallel.sequence_parallel import make_sp_train_step, shift_targets
+    from tpu_air_torch.parallel.sharding import logical_parameters, shard_module
+    from tpu_air_torch.train.lm_trainer import make_lm_tp_train_step
+    from tpu_air_torch.train.t5_trainer import TrainingArguments, _make_optimizer
+
+    cfg = LMConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4, head_dim=64,
+                   max_seq_len=512)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(1, 512, (2, 512))).to(dev)
+    tgt = shift_targets(ids, cfg.pad_token_id)
+    runs = {}
+    for n in (1, tp):
+        model = CausalLM(cfg, device=dev).init_weights(0)
+        mesh = worker_mesh([dev] * n, n)
+        shard_module(model, list(mesh.devices[0]), tp_split_dims(cfg, n))
+        logical = logical_parameters(model)
+        opt = _make_optimizer(TrainingArguments(learning_rate=1e-3), 2,
+                              [(s, d) for _, s, d in logical])
+        grads, adamw_step = [], opt.step
+
+        def snapshot_then_step(logical=logical, adamw_step=adamw_step, grads=grads):
+            grads.append({name: (s[0].grad if d is None else torch.cat([p.grad for p in s], d))
+                          .clone() for name, s, d in logical})
+            adamw_step()
+
+        opt.step = snapshot_then_step
+        step = make_sp_train_step(model, opt) if n == 1 else \
+            make_lm_tp_train_step(model, opt, mesh)
+        before = (flash_attention.launches, flash_attention_backward.dq_launches,
+                  flash_attention_backward.dkv_launches)
+        losses = [float(step(ids, tgt)) for _ in range(2)]
+        after = (flash_attention.launches, flash_attention_backward.dq_launches,
+                 flash_attention_backward.dkv_launches)
+        assert [a - b for a, b in zip(after, before)] == [cfg.n_layers * n * 2] * 3
+        runs[n] = losses, grads[0]
+    (want_l, want_g), (got_l, got_g) = runs[1], runs[tp]
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-5)
+    for name, w in want_g.items():
+        rel = ((got_g[name] - w).norm() / w.norm()).item()
+        assert rel < 1e-5, (name, rel)

@@ -660,6 +660,66 @@ def test_disagg_end_to_end_trace_and_parity(lm, ckpt, tair, _clean):
         router.close()
 
 
+def _store_level():
+    """The runtime store's live objects and bytes: the arena's, and the
+    files beside it (objects too big for the arena, or spilled)."""
+    store = rt.get_runtime().store
+    arena = store._arena.stats() if store._arena is not None else dict.fromkeys(
+        ("live_objects", "sealed_bytes", "used", "free_bytes"), 0)
+    files = [e for d in (store.root, store._spill_dir) if os.path.isdir(d)
+             for e in os.scandir(d) if e.is_file() and not e.name.startswith(("__", "."))]
+    return {"arena_objects": arena["live_objects"], "arena_sealed": arena["sealed_bytes"],
+            # blocks off the free list: the live objects' and any still pinned
+            "arena_held": arena["used"] - arena["free_bytes"],
+            "files": len(files), "file_bytes": sum(e.stat().st_size for e in files)}
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+def test_router_handoffs_leave_no_payload_in_the_store(lm, ckpt, tair, _clean, deferred):
+    """Every handoff's payload (and the worker's reply) is deleted once the
+    engine has copied its pages into the pool: after the router's handoffs
+    the store is back at its level before them, tokens equal to in-process
+    decoding.  With ``deferred`` the pool holds one 16-token prompt at a
+    time and every handoff is submitted while the engine is held between
+    two steps, so all but one wait in the admission queue holding their
+    payloads, which must still be in the store, until they land."""
+    model = lm[2]
+    if deferred:
+        ecfg = EngineConfig(num_slots=2, slot_len=32, max_new_tokens=4, page_len=8,
+                            num_pages=5, prefix_cache=False, reorder_window=0)
+        prompts, max_new = [[i + 1] * 16 for i in range(3)], 4
+    else:
+        ecfg = EngineConfig(num_slots=4, slot_len=64, max_new_tokens=6, page_len=8)
+        prompts, max_new = _prompts(seed=5, n=5), 6
+    want = [_offline(model, p, max_new) for p in prompts]
+    router = DisaggRouter(ckpt, ecfg, prefill_replicas=2, prefill_timeout=WAIT_S,
+                          device="cpu", name=f"disagg-leak-{int(deferred)}")
+    try:
+        router.submit(prompts[0], max_new).result(WAIT_S)     # the replicas are up
+        before = _store_level()
+        if deferred:
+            with router.engine._between_steps():
+                streams = [router.submit(p, max_new) for p in prompts]
+                deadline = time.monotonic() + WAIT_S
+                while router.handoffs < len(prompts) + 1:
+                    assert time.monotonic() < deadline, "the handoffs did not arrive"
+                    time.sleep(0.005)
+                assert router.engine.scheduler.depth() == len(prompts)
+                held = _store_level()
+                assert held["arena_objects"] + held["files"] == \
+                    before["arena_objects"] + before["files"] + len(prompts)
+        else:
+            streams = [router.submit(p, max_new) for p in prompts]
+        assert [s.result(WAIT_S) for s in streams] == want
+        assert router.handoffs == len(prompts) + 1 and router.fallbacks == 0
+        deadline = time.monotonic() + 10.0
+        while _store_level() != before and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert _store_level() == before
+    finally:
+        router.close()
+
+
 def test_prefill_worker_fault_reroutes_then_falls_back(lm, ckpt, tair, _clean):
     """Idle replicas take requests in turn (0, 1, 0, 1).  Replica 0 dies at
     its second prefill (the ``prefill.worker`` fault): that request

@@ -245,11 +245,10 @@ def test_lm_trainer_reports_eval_and_retries_from_checkpoint(tmp_path):
 @pytest.mark.parametrize("what", ["sequence_parallel", "model_parallel", "num_workers",
                                   "adafactor"])
 def test_lm_paths_not_ported_yet_raise(what, tmp_path):
-    """Tensor parallelism, which needs the device mesh, raises naming ROADMAP
-    Queue 1 item 9 rather than training something else.  The paths this
-    test once refused run now: the sequence split over 2 gloo ranks, 2
-    data-parallel workers and Adafactor each train one epoch with a
-    finite loss and report their mesh."""
+    """The paths this test once refused run now: the sequence split over 2
+    gloo ranks, tensor parallelism over a worker's 2 devices, 2
+    data-parallel workers and Adafactor each train one epoch with a finite
+    loss and report their mesh."""
     sc = {"sequence_parallel": ScalingConfig(sequence_parallel=2),
           "model_parallel": ScalingConfig(model_parallel=2),
           "num_workers": ScalingConfig(num_workers=2)}.get(what)
@@ -260,14 +259,12 @@ def test_lm_paths_not_ported_yet_raise(what, tmp_path):
         datasets={"train": pd.DataFrame({"input_ids": list(_rows(2, seed=6))})},
         run_config=RunConfig(storage_path=str(tmp_path)), device="cpu",
     ).fit()
-    if what == "model_parallel":
-        assert isinstance(result.error, RuntimeError)
-        assert "NotImplementedError" in str(result.error)
-        assert "ROADMAP Queue 1 item 9" in str(result.error)
-        return
     assert result.error is None, result.error
     m = result.metrics
     assert np.isfinite(m["loss"])
+    if what == "model_parallel":
+        assert (m["mesh_model"], m["mesh_sequence"]) == (2, 1)
+        assert m["params_bytes_per_device"] < m["params_bytes_total"]
     mesh = {"sequence_parallel": (1, 2), "num_workers": (2, 1)}.get(what, (1, 1))
     assert (m["mesh_data"], m["mesh_sequence"]) == mesh
     assert m["steps"] == 2 // mesh[0]
@@ -299,12 +296,18 @@ def test_decode_runs_a_one_token_step(jax_params):
 ])
 def test_config_fields_the_port_does_not_read_are_refused(cls, field, value):
     """A JAX-package config field that nothing in the port reads is refused at
-    construction rather than accepted and ignored; the fields the port keeps
-    are all fields of the JAX package's class of the same name."""
+    construction rather than accepted and ignored (``tensor_parallelism``,
+    which the T5 loop now reads, is accepted); the fields the port keeps are
+    all fields of the JAX package's class of the same name."""
     from tpu_air.train import config as jconfig
 
-    with pytest.raises(TypeError, match=field):
-        cls(**{field: value})
+    if field == "tensor_parallelism":
+        # read now: the T5 loop's tensor-parallel degree, with the JAX default
+        assert cls(**{field: value}).tensor_parallelism == value
+        assert cls().tensor_parallelism == jtrain.TrainingArguments().tensor_parallelism == 1
+    else:
+        with pytest.raises(TypeError, match=field):
+            cls(**{field: value})
     jcls = jtrain.TrainingArguments if cls is TrainingArguments else getattr(jconfig, cls.__name__)
     assert {f.name for f in dataclasses.fields(cls)} <= {f.name for f in dataclasses.fields(jcls)}
 

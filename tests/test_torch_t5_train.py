@@ -557,19 +557,16 @@ def test_dropout_keeps_and_scales_like_flax():
                                   "logging_strategy", "disable_tqdm", "tensor_parallelism",
                                   "workers_beyond_the_cards", "use_gpu_on_cpu"])
 def test_t5_paths_not_ported_or_not_read_are_refused(what, jax_params, tmp_path, monkeypatch):
-    """A worker over several cards and tensor parallelism raise, naming the
-    ROADMAP item; TrainingArguments fields nothing reads are refused; N
-    workers on CUDA with fewer than N cards raise before any starts; a
-    ``use_gpu`` that disagrees with the device raises."""
-    fields = {"remat": True, "logging_strategy": "steps", "disable_tqdm": False,
-              "tensor_parallelism": 2}
+    """TrainingArguments fields nothing reads are refused; N workers on CUDA
+    with fewer than N cards raise before any starts; a ``use_gpu`` that
+    disagrees with the device raises.  The paths this test once refused run
+    now: a worker over 2 devices trains them as its data axis, and
+    ``model_parallel=2`` or ``tensor_parallelism=2`` split the model over
+    them (beyond the worker's devices, with the JAX loop's text)."""
+    fields = {"remat": True, "logging_strategy": "steps", "disable_tqdm": False}
     if what in fields:
         with pytest.raises(TypeError, match=what):
             TrainingArguments(**{what: fields[what]})
-        return
-    if what == "num_chips_per_worker":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            ScalingConfig(num_chips_per_worker=2)
         return
     if what == "use_gpu_on_cpu":
         with pytest.raises(ValueError, match="use_gpu"):
@@ -586,10 +583,23 @@ def test_t5_paths_not_ported_or_not_read_are_refused(what, jax_params, tmp_path,
         with pytest.raises(ValueError, match="needs 2 cards"):
             T5Trainer(scaling_config=ScalingConfig(num_workers=2), device="cuda", **kw).fit()
         return
-    result = T5Trainer(scaling_config=ScalingConfig(model_parallel=2), device="cpu", **kw).fit()
-    assert isinstance(result.error, RuntimeError)
-    assert "NotImplementedError" in str(result.error)
-    assert "ROADMAP Queue 1 item 9" in str(result.error)
+    if what == "tensor_parallelism":
+        kw["training_args"] = TrainingArguments(num_train_epochs=1, tensor_parallelism=2)
+        result = T5Trainer(device="cpu", **kw).fit()
+        assert "model_parallel=2 exceeds the 1 visible devices of this run's chip lease" in \
+            str(result.error)
+        sc, mesh = ScalingConfig(num_chips_per_worker=2), (1, 2)
+    elif what == "num_chips_per_worker":
+        kw["training_args"] = TrainingArguments(num_train_epochs=1, per_device_train_batch_size=1)
+        sc, mesh = ScalingConfig(num_chips_per_worker=2), (2, 1)
+    else:
+        sc, mesh = ScalingConfig(model_parallel=2), (1, 2)
+    result = T5Trainer(scaling_config=sc, device="cpu", **kw).fit()
+    assert result.error is None, result.error
+    m = result.metrics
+    assert (m["mesh_data"], m["mesh_model"]) == mesh and m["steps"] == 1
+    assert np.isfinite(m["loss"])
+    assert (m["params_bytes_per_device"] < m["params_bytes_total"]) == (mesh[1] == 2)
 
 
 def test_resume_and_tune_style_overrides(jax_params, tmp_path):

@@ -12,7 +12,11 @@ thread a request then
 2. under an ``engine.kv_transfer`` span, takes the finished KV pages out of
    the object store and lands them on the decode engine through
    ``submit_prefilled``: the decode engine's own capacity gate applies, so
-   pool exhaustion defers the handoff in its admission queue;
+   pool exhaustion defers the handoff in its admission queue.  Once the
+   engine has copied the pages into its pool (or the request ended
+   without them), the payload's object is deleted from the store: the
+   arena keeps a block that a zero-copy read still pins until that view
+   dies, and a deleted file stays mapped where it is read;
 3. on a replica's death (``ActorDiedError``/``RemoteError``) marks it dead
    and re-routes, at most two passes over the replicas, with
    capped-exponential backoff and jitter between failures, never past the
@@ -51,6 +55,15 @@ from tpu_air_torch.faults.retry import (
 )
 
 from ..types import EngineConfig, ResponseStream
+
+
+def _delete_object(ref) -> None:
+    """Delete an object of this process's store (the runtime's, or this
+    worker's)."""
+    from tpu_air_torch.core import runtime as rt
+
+    ctx = rt.current_worker()
+    (ctx.store if ctx is not None else rt.get_runtime().store).delete(ref.id)
 
 
 class DisaggRouter:
@@ -240,6 +253,7 @@ class DisaggRouter:
             try:
                 ref = self._workers[i].prefill.remote(prompt, carrier)
                 result = tpu_air_torch.get(ref, timeout=self._prefill_timeout)
+                _delete_object(ref)        # the reply is read: only its payload stays
                 self._breakers[i].record_success()
             except (ActorDiedError, RemoteError):
                 # confirmed death: out of rotation permanently (respawn is
@@ -284,7 +298,8 @@ class DisaggRouter:
             # parent: decode joins the same trace as prefill + transfer
             self.engine.submit_prefilled(
                 prompt, result["first_token"], payload, max_new,
-                stream=stream, priority=priority, deadline_ms=deadline_ms)
+                stream=stream, priority=priority, deadline_ms=deadline_ms,
+                release=lambda ref=result["kv"]: _delete_object(ref))
         with self._lock:
             self.handoffs += 1
 

@@ -47,7 +47,11 @@ from tpu_air_torch.faults import plan as _faults
 from tpu_air_torch.models.lm.modeling import AttnCache, _dense_causal_attention, rope, torch_dtype
 from tpu_air_torch.ops.decode_attention import decode_attention, gather_pages
 from tpu_air_torch.parallel.mesh import Mesh
-from tpu_air_torch.parallel.sharding import lm_param_spec, shard_params
+from tpu_air_torch.parallel.sharding import lm_attention_shards as attention_shards
+from tpu_air_torch.parallel.sharding import lm_mlp_shards as mlp_shards
+from tpu_air_torch.parallel.sharding import lm_unit_spec as engine_param_spec
+from tpu_air_torch.parallel.sharding import shard_params
+from tpu_air_torch.parallel.tensor_parallel import column_linear, reduce_partials, row_partial
 
 from .kv_transfer import _as_tensor, validate_kv_payload
 
@@ -64,16 +68,6 @@ class PoolShard(NamedTuple):
     head1: int
 
 
-def attention_shards(config, tp: int) -> int:
-    """Shards the attention heads are split over: tp when it divides them,
-    else 1 (the replicated attention runs once)."""
-    return tp if config.n_heads % tp == 0 else 1
-
-
-def mlp_shards(config, tp: int) -> int:
-    return tp if config.d_ff % tp == 0 else 1
-
-
 def paged_cache_shardings(config, mesh: Mesh) -> List[List[PoolShard]]:
     """The layout of the paged caches over ``mesh``: per dp replica, per
     attention shard, its device and heads."""
@@ -81,19 +75,6 @@ def paged_cache_shardings(config, mesh: Mesh) -> List[List[PoolShard]]:
     hs = config.n_heads // n
     return [[PoolShard(mesh.devices[r, a], a * hs, (a + 1) * hs) for a in range(n)]
             for r in range(_axis(mesh, "data"))]
-
-
-def engine_param_spec(config, tp: int) -> Callable:
-    """``lm_param_spec`` over whole units: a part whose heads (or ff
-    columns) tp does not divide replicates."""
-    def spec(path, leaf=None):
-        parent = str(path[-2]) if len(path) >= 2 else ""
-        if parent in ("q", "k", "v", "o") and attention_shards(config, tp) == 1:
-            return ()
-        if parent in ("gate", "up", "down") and mlp_shards(config, tp) == 1:
-            return ()
-        return lm_param_spec(path, leaf)
-    return spec
 
 
 class ShardedPagedCache:
@@ -211,34 +192,13 @@ class ShardedLM:
         var = xf.square().mean(-1, keepdim=True)
         return (w * xf * torch.rsqrt(var + self.config.rmsnorm_eps)).to(self.dt)
 
-    def _linear(self, x, w):
-        return F.linear(x.to(self.dt), w.to(self.dt))
-
-    def _partial(self, x, w, shards: int):
-        """One shard's part of a row-split product (o, down): with one shard
-        the single-card product; with several, f32 from the model-type
-        operands, left for :meth:`_reduce` to round once."""
-        if shards == 1:
-            return self._linear(x, w)
-        return F.linear(x.to(self.dt).float(), w.to(self.dt).float())
-
-    def _reduce(self, parts: List[torch.Tensor]) -> torch.Tensor:
-        """The shards' partial outputs, on the replica's first device,
-        summed in f32 in shard order and rounded once."""
-        if len(parts) == 1:
-            return parts[0]
-        acc = parts[0]
-        for p in parts[1:]:
-            acc = acc + p
-        return acc.to(self.dt)
-
     def forward(self, r: int, ids: torch.Tensor, positions: torch.Tensor,
                 attend: Callable) -> torch.Tensor:
         """Replica ``r``'s final-norm hidden states ``(b, l, d_model)`` for
         ``ids`` at ``positions`` (both on its first device).  ``attend(a, i,
         q, kflat, vflat)`` writes layer ``i``'s new K/V of attention shard
         ``a`` and returns its attention output ``(b, l, heads*d)``."""
-        cfg, w0 = self.config, self.shards[r, 0]
+        cfg, w0, dt = self.config, self.shards[r, 0], self.dt
         b, l = ids.shape
         d = cfg.head_dim
         home = self.home(r)
@@ -251,24 +211,24 @@ class ShardedLM:
             for a in range(self.n_attn):
                 ws, dev = self.shards[r, a], self.mesh.devices[r, a]
                 ha = h.to(dev)
-                q = self._linear(ha, ws[pre + "attn.q.weight"])
+                q = column_linear(ha, ws[pre + "attn.q.weight"], dt)
                 hs = q.shape[-1] // d
                 q = rope(q.view(b, l, hs, d).transpose(1, 2), pos[a], cfg.rope_theta)
-                k = rope(self._linear(ha, ws[pre + "attn.k.weight"]).view(b, l, hs, d)
+                k = rope(column_linear(ha, ws[pre + "attn.k.weight"], dt).view(b, l, hs, d)
                          .transpose(1, 2), pos[a], cfg.rope_theta)
                 kflat = k.transpose(1, 2).reshape(b, l, hs * d)
-                o = attend(a, i, q, kflat, self._linear(ha, ws[pre + "attn.v.weight"]))
-                parts.append(self._partial(o, ws[pre + "attn.o.weight"], self.n_attn).to(home))
-            x = x + self._reduce(parts)
+                o = attend(a, i, q, kflat, column_linear(ha, ws[pre + "attn.v.weight"], dt))
+                parts.append(row_partial(o, ws[pre + "attn.o.weight"], dt, self.n_attn))
+            x = x + reduce_partials(parts, home, dt)
             h = self._rms(x, w0[pre + "mlp_norm.weight"])
             parts = []
             for s in range(self.n_mlp):
                 ws = self.shards[r, s]
                 hm = h.to(self.mesh.devices[r, s])
-                g = F.silu(self._linear(hm, ws[pre + "mlp.gate.weight"]))
-                u = self._linear(hm, ws[pre + "mlp.up.weight"])
-                parts.append(self._partial(g * u, ws[pre + "mlp.down.weight"], self.n_mlp).to(home))
-            x = x + self._reduce(parts)
+                g = F.silu(column_linear(hm, ws[pre + "mlp.gate.weight"], dt))
+                u = column_linear(hm, ws[pre + "mlp.up.weight"], dt)
+                parts.append(row_partial(g * u, ws[pre + "mlp.down.weight"], dt, self.n_mlp))
+            x = x + reduce_partials(parts, home, dt)
         return self._rms(x, w0["final_norm.weight"])
 
 

@@ -72,7 +72,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -106,6 +106,21 @@ from .types import (
     RequestValidationError,
     ResponseStream,
 )
+
+
+def _once(fn: Callable[[], None]) -> Callable[[], None]:
+    """``fn`` to be called at most once, from whichever thread comes first."""
+    lock = threading.Lock()
+    done = [False]
+
+    def call() -> None:
+        with lock:
+            if done[0]:
+                return
+            done[0] = True
+        fn()
+
+    return call
 
 
 class InferenceEngine:
@@ -352,7 +367,8 @@ class InferenceEngine:
                          max_new_tokens: Optional[int] = None, *,
                          priority: str = "interactive",
                          stream: Optional[ResponseStream] = None,
-                         deadline_ms: Optional[float] = None) -> ResponseStream:
+                         deadline_ms: Optional[float] = None,
+                         release: Optional[Callable[[], None]] = None) -> ResponseStream:
         """Queue a request whose prefill ALREADY RAN elsewhere (a
         :class:`~tpu_air_torch.engine.dist.PrefillWorker` replica):
         ``kv_pages`` is the ``extract_kv_pages`` payload covering the whole
@@ -361,7 +377,10 @@ class InferenceEngine:
         allocates unshared pages, inserts the shipped K/V, emits
         ``first_token`` and goes straight to decode: the same capacity gate
         and deferral as a normal submit, so pool exhaustion queues the
-        handoff instead of dropping it."""
+        handoff instead of dropping it.  ``release`` is called once the
+        engine is done with ``kv_pages``: when admission has copied them
+        into the pool, or when the request ends without landing them (a
+        deferred submit holds them until then)."""
         if not self.paged:
             raise ValueError("submit_prefilled requires a paged engine (kv_mode='paged')")
         # a handoff rides through a drain: the router admitted it before the
@@ -369,6 +388,9 @@ class InferenceEngine:
         req = self._make_request(prompt, max_new_tokens, stream, priority,
                                  admit_while_draining=True, deadline_ms=deadline_ms)
         req.prefilled = {"first_token": int(first_token), "pages": kv_pages}
+        if release is not None:
+            req.prefilled["release"] = _once(release)
+            req.stream._on_finish.append(req.prefilled["release"])
         return self._enqueue(req)
 
     # -- the engine loop -----------------------------------------------------
@@ -624,6 +646,12 @@ class InferenceEngine:
         except ValueError as e:   # KVTransferError: the payload does not fit
             self._fail_admission(slot, req, e)
             return
+        finally:
+            # the pages are in the pool (or refused): the payload is done with
+            req.prefilled["pages"] = None
+            release = req.prefilled.pop("release", None)
+            if release is not None:
+                release()
         first = int(req.prefilled["first_token"])
         req.first_token_at = time.monotonic()
         if req.t_submit_ns:

@@ -16,7 +16,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
 
 from tpu_air_torch.core.runtime import TpuAirError
 
@@ -191,6 +191,9 @@ class ResponseStream:
         self._tokens: List[int] = []
         self._done = threading.Event()
         self._error: Optional[BaseException] = None
+        # engine-side callbacks run once the stream has finished (a
+        # handoff's payload release, when its pages never landed)
+        self._on_finish: List[Callable[[], None]] = []
 
     # -- engine side ---------------------------------------------------------
     def _emit(self, token: int) -> None:
@@ -201,6 +204,8 @@ class ResponseStream:
         self._error = error
         self._done.set()
         self._q.put(_DONE)
+        for fn in self._on_finish:
+            fn()
 
     # -- caller side ---------------------------------------------------------
     def __iter__(self) -> Iterator[int]:

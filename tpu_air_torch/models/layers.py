@@ -25,12 +25,24 @@ def torch_dtype(name) -> torch.dtype:
     return _DTYPES[name]
 
 
+def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """The keep mask :func:`dropout` draws for a tensor of ``shape``: a
+    tensor-parallel layer draws it at the logical shape and slices it, so
+    its masks are the single-device layer's."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def apply_dropout(x, keep: torch.Tensor, rate: float):
+    """``x`` through a keep mask: kept elements scaled by 1 / (1 - rate)."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dropout(x, rate: float, generator: Optional[torch.Generator]):
     """Flax's ``nn.Dropout``: keep each element with probability 1 - rate
     and scale it by 1 / (1 - rate), in x's type.  The mask comes from
     ``generator`` (on x's device), so a seed fixes every mask of a step."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+    return apply_dropout(x, dropout_mask(x.shape, rate, generator, x.device), rate)
 
 
 def _cast(t: Optional[torch.Tensor], dt: torch.dtype) -> Optional[torch.Tensor]:

@@ -21,7 +21,7 @@ one step of each decode branch can run on both packages from one state.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +71,23 @@ def jax_layouts(config: LMConfig) -> Dict[str, Tuple[bool, Tuple[int, ...]]]:
         shape = tuple(p.shape)
         dense = name.endswith(".weight") and "norm" not in name
         out[name] = (True, shape[::-1]) if dense else (False, shape)
+    return out
+
+
+def tp_split_dims(config: LMConfig, tp: int) -> Dict[str, Optional[int]]:
+    """Per port parameter, the dim a ``model`` axis of ``tp`` splits (None:
+    it stays whole): ``lm_param_spec`` on the Flax kernel, over whole heads
+    and whole ff columns (``lm_unit_spec``), as the sharded engine splits
+    them.  Adafactor reads a split parameter's logical layout in
+    :func:`jax_layouts`."""
+    from tpu_air_torch.parallel.sharding import lm_flax_path, lm_unit_spec, port_split_dim
+
+    spec = lm_unit_spec(config, tp)
+    out = {}
+    for name, (transposed, kshape) in jax_layouts(config).items():
+        path, _ = lm_flax_path(name)
+        shape = kshape[::-1] if transposed else kshape
+        out[name] = port_split_dim(shape, kshape, transposed, spec(path), tp)
     return out
 
 

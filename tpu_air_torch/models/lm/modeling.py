@@ -8,7 +8,10 @@ on a CUDA tensor, their plain versions on a CPU tensor.  Given a
 ``sequence_group`` of two or more ranks (the input is then this rank's
 shard of each sequence, ``positions`` its global positions), attention is
 ring attention over that group through the same kernels, the JAX package's
-``attention="ring"`` branch.  The model is applied deterministically (no
+``attention="ring"`` branch.  Split over a worker's ``model`` axis
+(``parallel/sharding.py::shard_module``), attention and the SwiGLU run per
+shard, at h/tp heads and d_ff/tp columns, through the same kernels
+(``parallel/tensor_parallel.py``).  The model is applied deterministically (no
 dropout), as every training path of the JAX package applies it.
 
 With ``decode=True`` the model reads and writes a KV cache: one
@@ -57,6 +60,7 @@ from tpu_air_torch.models.layers import Dense
 from tpu_air_torch.ops.decode_attention import decode_attention, gather_pages
 from tpu_air_torch.ops.flash_attention import flash_attention
 from tpu_air_torch.ops.ring_attention import ring_attention
+from tpu_air_torch.parallel.tensor_parallel import ShardedDense, broadcast
 
 from .config import LMConfig
 
@@ -176,6 +180,11 @@ class CausalSelfAttention(nn.Module):
     def forward(self, x, positions, cache: Optional[AttnCache] = None,
                 kv_mask: Optional[torch.Tensor] = None, sequence_group=None):
         cfg = self.config
+        if isinstance(self.q, ShardedDense):
+            if cache is not None or _ring_size(sequence_group) > 1:
+                raise ValueError("a tensor-parallel LM trains on whole sequences: no cache, "
+                                 "no sequence group")
+            return self._forward_shards(x, positions)
         b, l, _ = x.shape
         h, d = cfg.n_heads, cfg.head_dim
 
@@ -194,6 +203,25 @@ class CausalSelfAttention(nn.Module):
         else:
             o = flash_attention(q, k, v, scale=self.scale, causal=True)
         return self.o(o.transpose(1, 2).reshape(b, l, h * d))
+
+    def _forward_shards(self, x, positions):
+        """Split over the model axis: each shard projects its heads, runs
+        causal flash attention over them and its part of o, which is
+        reduced on ``x``'s device."""
+        cfg = self.config
+        b, l, _ = x.shape
+        d = cfg.head_dim
+        xs = broadcast(x, self.q.devices)
+        outs = []
+        for q, k, v in zip(self.q(xs), self.k(xs), self.v(xs)):
+            hs = q.shape[-1] // d
+            pos = positions.to(q.device)
+            q = rope(q.view(b, l, hs, d).transpose(1, 2), pos, cfg.rope_theta)
+            k = rope(k.view(b, l, hs, d).transpose(1, 2), pos, cfg.rope_theta)
+            o = flash_attention(q, k, v.view(b, l, hs, d).transpose(1, 2), scale=self.scale,
+                                causal=True)
+            outs.append(o.transpose(1, 2).reshape(b, l, hs * d))
+        return self.o(outs, x.device)
 
     def _step(self, q, ks, vs, kv_mask):
         """One query token per row through the decode kernel (its plain
@@ -270,6 +298,10 @@ class SwiGLU(nn.Module):
         self.down = Dense(config.d_ff, config.d_model, dt)
 
     def forward(self, x):
+        if isinstance(self.gate, ShardedDense):
+            xs = broadcast(x, self.gate.devices)
+            return self.down([F.silu(g) * u for g, u in zip(self.gate(xs), self.up(xs))],
+                             x.device)
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 

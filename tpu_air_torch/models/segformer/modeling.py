@@ -17,7 +17,8 @@ NHWC logits at 1/4 of the input resolution.
 - The decode head's :class:`BatchNorm` is Flax's ``nn.BatchNorm(momentum=0.9,
   epsilon=1e-5)``: the running variance takes the *biased* batch variance
   (``torch.nn.BatchNorm2d`` takes the unbiased one), and in a group of
-  workers the batch moments are those of the global batch
+  workers (and over a worker's in-process replicas) the batch moments are
+  those of the global batch
   (:func:`tpu_air_torch.parallel.distributed.cross_replica_sum`), as the JAX
   package computes them over its sharded batch.
 - ``train()`` mode is Flax's ``deterministic=False``: dropout, drop-path and
@@ -83,7 +84,7 @@ class BatchNorm(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        from tpu_air_torch.parallel.distributed import cross_replica_sum
+        from tpu_air_torch.parallel.distributed import cross_replica_sum, local_replica
 
         xf = x.float()
         c = xf.shape[-1]
@@ -94,11 +95,14 @@ class BatchNorm(nn.Module):
             n = sums[-1]
             mean = sums[:c] / n
             var = torch.clamp(sums[c:2 * c] / n - mean.square(), min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(mean.detach(),
-                                                           alpha=1.0 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(var.detach(),
-                                                          alpha=1.0 - self.momentum)
+            # every in-process replica sees the same global moments: the
+            # first one moves the running stats
+            if local_replica() == 0:
+                with torch.no_grad():
+                    self.running_mean.mul_(self.momentum).add_(mean.detach(),
+                                                               alpha=1.0 - self.momentum)
+                    self.running_var.mul_(self.momentum).add_(var.detach(),
+                                                              alpha=1.0 - self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight

@@ -19,7 +19,7 @@ parameter of the port's model, ``params_to_jax`` inverts it, and
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +64,21 @@ def jax_layouts(config: T5Config) -> Dict[str, Tuple[bool, Tuple[int, ...]]]:
     optimizer whose rule depends on a parameter's shape, as Adafactor's
     factoring does, reads it here."""
     return {n: _layout(n, s, config) for n, s in _shapes(config).items()}
+
+
+def tp_split_dims(config: T5Config, tp: int) -> Dict[str, Optional[int]]:
+    """Per port parameter, the dim a ``model`` axis of ``tp`` splits (None:
+    it stays whole): ``t5_param_spec`` on the Flax kernel, whose heads,
+    d_ff or vocab tp must divide (``_param_shardings``).  Adafactor reads
+    a split parameter's logical layout in :func:`jax_layouts`."""
+    from tpu_air_torch.parallel.sharding import port_split_dim, t5_param_spec
+
+    out = {}
+    for name, shape in _shapes(config).items():
+        transposed, kshape = _layout(name, shape, config)
+        spec = t5_param_spec(_flax_path(name, transposed))
+        out[name] = port_split_dim(shape, kshape, transposed, spec, tp)
+    return out
 
 
 def params_from_jax(params: Dict[str, Any], config: T5Config) -> Dict[str, torch.Tensor]:

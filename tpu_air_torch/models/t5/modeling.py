@@ -22,6 +22,13 @@ take the kernels' plain versions.  Module names follow the Flax tree
 :func:`tpu_air_torch.models.t5.convert.params_from_jax` is a rename and a
 transpose.
 
+Split over a worker's ``model`` axis (``parallel/sharding.py::shard_module``
+with ``t5_param_spec``), attention runs per shard over its heads and its
+slice of the position bias, the feed-forward over its d_ff columns, and the
+head over its vocab columns, whose cross entropy combines the shards'
+log-sum-exp (``parallel/tensor_parallel.py``); dropout masks are drawn at the
+logical shape and sliced, so a split model drops what the whole one drops.
+
 Decode caches are flat ``[b, L, h*d]`` slabs (optionally int8 with scales)
 held in :class:`DecodeCache` and written in place, one position per step.
 """
@@ -37,9 +44,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_air_torch.device import DeviceLike, resolve_device
-from tpu_air_torch.models.layers import Dense, Embed, dropout, torch_dtype  # noqa: F401
+from tpu_air_torch.models.layers import (Dense, Embed, apply_dropout, dropout,  # noqa: F401
+                                         dropout_mask, torch_dtype)
 from tpu_air_torch.ops.decode_attention import decode_attention
 from tpu_air_torch.ops.flash_attention import flash_attention
+from tpu_air_torch.parallel.tensor_parallel import ShardedDense, broadcast
 
 from .config import T5Config
 
@@ -172,8 +181,9 @@ class Attention(nn.Module):
         self.o = Dense(inner, config.d_model, dt)
 
     def _heads(self, x):
+        """``[b, L, h*d]`` as ``[b, L, h, d]`` (h: all heads, or a shard's)."""
         b, L, _ = x.shape
-        return x.view(b, L, self.config.num_heads, self.config.d_kv)
+        return x.view(b, L, -1, self.config.d_kv)
 
     def forward(self, hidden, kv_hidden, mask=None, position_bias=None,
                 kv_mask=None, causal=False, generator=None):
@@ -184,40 +194,86 @@ class Attention(nn.Module):
         the dense path, whose probabilities it drops, as the JAX package
         does."""
         cfg = self.config
+        drop = self.training and cfg.dropout_rate > 0
+        if isinstance(self.q, ShardedDense):
+            return self._forward_shards(hidden, kv_hidden, mask, position_bias, kv_mask,
+                                        causal, generator, drop)
         q = self._heads(self.q(hidden))                    # [b, q, h, d]
         k = self._heads(self.k(kv_hidden))
         v = self._heads(self.v(kv_hidden))
+        keep = None
+        if drop:
+            keep = dropout_mask((q.shape[0], cfg.num_heads, q.shape[1], k.shape[1]),
+                                cfg.dropout_rate, generator, q.device)
+        return self.o(self._attend(q, k, v, mask, position_bias, kv_mask, causal,
+                                   keep).reshape(q.shape[0], q.shape[1], -1))
+
+    def _attend(self, q, k, v, mask, position_bias, kv_mask, causal, keep):
+        """``[b, q, h, d]`` attention output over ``q``'s heads (all of
+        them, or a shard's, with the bias and dropout keep mask sliced to
+        them): the flash kernel for a structured mask and no dropout, else
+        the dense path."""
         b, qlen = q.shape[:2]
         klen = k.shape[1]
-        drop = self.training and cfg.dropout_rate > 0
-        if qlen > 1 and mask is None and not drop:
+        if qlen > 1 and mask is None and keep is None:
             # flash path: (b, h, L, d) views of the projections, no copies;
             # position_bias stays (1, h, q, k) and is not expanded
-            ctx = flash_attention(
+            return flash_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 None if position_bias is None else position_bias.float(),
                 kv_mask=kv_mask, causal=causal, scale=1.0,
             ).transpose(1, 2)
-        else:
-            dtype = q.dtype
-            if mask is None and (kv_mask is not None or causal):
-                mask = torch.zeros(1, 1, qlen, klen, device=q.device)
-                if kv_mask is not None:
-                    mask = mask + (1.0 - kv_mask[:, None, None, :].float()) * NEG_INF
-                if causal:
-                    c = torch.ones(qlen, klen, device=q.device).tril()
-                    mask = mask + ((1.0 - c) * NEG_INF)[None, None]
-                mask = mask.to(dtype)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
-            if position_bias is not None:
-                scores = scores + position_bias
-            if mask is not None:
-                scores = scores + mask
-            probs = torch.softmax(scores.float(), dim=-1).to(dtype)
-            if drop:
-                probs = dropout(probs, cfg.dropout_rate, generator)
-            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.o(ctx.reshape(b, qlen, -1))
+        dtype = q.dtype
+        if mask is None and (kv_mask is not None or causal):
+            mask = torch.zeros(1, 1, qlen, klen, device=q.device)
+            if kv_mask is not None:
+                mask = mask + (1.0 - kv_mask[:, None, None, :].float()) * NEG_INF
+            if causal:
+                c = torch.ones(qlen, klen, device=q.device).tril()
+                mask = mask + ((1.0 - c) * NEG_INF)[None, None]
+            mask = mask.to(dtype)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if position_bias is not None:
+            scores = scores + position_bias
+        if mask is not None:
+            scores = scores + mask
+        probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+        if keep is not None:
+            probs = apply_dropout(probs, keep, self.config.dropout_rate)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+    def _forward_shards(self, hidden, kv_hidden, mask, position_bias, kv_mask, causal,
+                        generator, drop):
+        """Split over the model axis: each shard projects its heads and
+        attends over them, with its heads' slice of the position bias and
+        of a dropout mask drawn at the logical ``[b, h, q, k]`` shape (the
+        single-device layer's masks); its part of o is reduced on
+        ``hidden``'s device."""
+        cfg = self.config
+        devices = self.q.devices
+        hs = broadcast(hidden, devices)
+        ks = hs if kv_hidden is hidden else broadcast(kv_hidden, devices)
+        b, qlen = hidden.shape[:2]
+        keep = None
+        if drop:
+            keep = dropout_mask((b, cfg.num_heads, qlen, kv_hidden.shape[1]),
+                                cfg.dropout_rate, generator, hidden.device)
+        outs, h0 = [], 0
+        for q, k, v in zip(self.q(hs), self.k(ks), self.v(ks)):
+            q, k, v = self._heads(q), self._heads(k), self._heads(v)
+            h1 = h0 + q.shape[2]
+            dev = q.device
+
+            def heads(t):
+                return None if t is None else t[:, h0:h1].to(dev)
+
+            ctx = self._attend(q, k, v, None if mask is None else mask.to(dev),
+                               heads(position_bias),
+                               None if kv_mask is None else kv_mask.to(dev), causal,
+                               heads(keep))
+            outs.append(ctx.reshape(b, qlen, -1))
+            h0 = h1
+        return self.o(outs, hidden.device)
 
     def cross_cache(self, enc_hidden, enc_mask) -> LayerCache:
         """Cross-attention K/V of the encoder output, computed once per
@@ -286,12 +342,31 @@ class FeedForward(nn.Module):
         self.wo = Dense(config.d_ff, config.d_model, dt)
 
     def forward(self, x, generator=None):
-        if self.config.is_gated_act:
+        cfg = self.config
+        drop = self.training and cfg.dropout_rate > 0
+        if isinstance(self.wo, ShardedDense):
+            # split by d_ff: each shard its columns of the hidden layer and
+            # of a dropout mask drawn at the logical [b, l, d_ff] shape
+            xs = broadcast(x, self.wo.devices)
+            if cfg.is_gated_act:
+                hs = [self.act(a) * g for a, g in zip(self.wi_0(xs), self.wi_1(xs))]
+            else:
+                hs = [self.act(a) for a in self.wi(xs)]
+            if drop:
+                keep = dropout_mask(x.shape[:-1] + (cfg.d_ff,), cfg.dropout_rate, generator,
+                                    x.device)
+                c0 = 0
+                for i, h in enumerate(hs):
+                    c1 = c0 + h.shape[-1]
+                    hs[i] = apply_dropout(h, keep[..., c0:c1].to(h.device), cfg.dropout_rate)
+                    c0 = c1
+            return self.wo(hs, x.device)
+        if cfg.is_gated_act:
             h = self.act(self.wi_0(x)) * self.wi_1(x)
         else:
             h = self.act(self.wi(x))
-        if self.training and self.config.dropout_rate > 0:
-            h = dropout(h, self.config.dropout_rate, generator)
+        if drop:
+            h = dropout(h, cfg.dropout_rate, generator)
         return self.wo(h)
 
 
@@ -457,6 +532,8 @@ class T5ForConditionalGeneration(nn.Module):
         return self.encoder(self.shared(input_ids), attention_mask, generator)
 
     def _head(self, hidden):
+        """The logits; from a ``lm_head`` split over the model axis, a list
+        of the vocab shards' logits, which :func:`cross_entropy_sum` takes."""
         cfg = self.config
         if cfg.tie_word_embeddings:
             hidden = hidden * (cfg.d_model ** -0.5)
@@ -510,9 +587,37 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
     rank by the count over all of them."""
     mask = (labels != pad_token_id) & (labels != -100)
     safe = torch.where(mask, labels, torch.zeros_like(labels))
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    if isinstance(logits, (list, tuple)):
+        nll = _vocab_parallel_nll(logits, safe)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
     return (nll * mask).sum(), mask.sum()
+
+
+def _vocab_parallel_nll(shards, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position NLL from logits split over the vocab (one tensor a
+    shard, in vocab order, each on its device): the log-sum-exp combined
+    across the shards on ``targets``' device, minus the target's logit,
+    taken from the shard that holds it."""
+    home = targets.device
+    parts = [s.float() for s in shards]
+    m = torch.stack([p.detach().amax(-1).to(home) for p in parts]).amax(0)
+    se = None
+    for p in parts:
+        e = torch.exp(p - m.to(p.device)[..., None]).sum(-1).to(home)
+        se = e if se is None else se + e
+    picked = torch.zeros(targets.shape, dtype=torch.float32, device=home)
+    lo = 0
+    for p in parts:
+        hi = lo + p.shape[-1]
+        t = targets.to(p.device)
+        mine = (t >= lo) & (t < hi)
+        idx = torch.where(mine, t - lo, torch.zeros_like(t)).long()
+        got = torch.gather(p, -1, idx[..., None])[..., 0]
+        picked = picked + torch.where(mine, got, torch.zeros_like(got)).to(home)
+        lo = hi
+    return m + torch.log(se) - picked
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

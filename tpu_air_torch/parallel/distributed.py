@@ -25,6 +25,7 @@ import os
 import pickle
 import shutil
 import tempfile
+import threading
 from typing import Any, Callable, Dict, List, Sequence
 
 import torch
@@ -47,14 +48,93 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
 
 
 def cross_replica_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the workers as a differentiable op (``t`` itself
-    with one): the backward sums the cotangents over the workers too, so a
+    """``t`` summed over the workers, and over the in-process data replicas
+    of :func:`run_local_replicas`, as a differentiable op (``t`` itself
+    with one of each): the backward sums the cotangents over them too, so a
     statistic of the global batch (a batch norm's moments) gets the
-    gradient of every worker's loss.  ``torch.nn.SyncBatchNorm`` refuses
+    gradient of every replica's loss.  ``torch.nn.SyncBatchNorm`` refuses
     CPU tensors, so a gloo group cannot use it."""
+    group = getattr(_replica, "group", None)
+    if group is not None:
+        return group.sum(t, _replica.index)
+    return _world_sum(t)
+
+
+def _world_sum(t: torch.Tensor) -> torch.Tensor:
     if world()[1] == 1:
         return t
     return _CrossReplicaSum.apply(t)
+
+
+_replica = threading.local()
+
+
+def local_replica() -> int:
+    """The in-process data replica this thread runs (0 outside
+    :func:`run_local_replicas`)."""
+    return getattr(_replica, "index", 0)
+
+
+class _LocalReplicas:
+    """The in-process data replicas of one worker, each running its forward
+    pass in a thread of its own: :meth:`sum` waits for every replica's
+    tensor, adds them in replica order on the first one's device (and over
+    the workers), and hands each replica the sum on its device.  Plain
+    autograd ops, so one backward over the replicas' summed loss carries
+    every cotangent back."""
+
+    def __init__(self, n: int):
+        self.barrier = threading.Barrier(n)
+        self.slots: List[Any] = [None] * n
+        self.result = None
+
+    def sum(self, t: torch.Tensor, index: int) -> torch.Tensor:
+        self.slots[index] = t
+        if self.barrier.wait() == 0:
+            acc = self.slots[0]
+            for x in self.slots[1:]:
+                acc = acc + x.to(acc.device)
+            self.result = _world_sum(acc)
+        self.barrier.wait()
+        out = self.result.to(t.device)
+        self.barrier.wait()        # every replica has its sum before a next one starts
+        return out
+
+
+def run_local_replicas(fns: Sequence[Callable[[], Any]]) -> List[Any]:
+    """Run ``fns[r]()`` for each in-process data replica ``r``, together
+    (one thread each, under this thread's grad mode), so that their
+    :func:`cross_replica_sum` calls meet; their results in replica order.
+    One replica runs in this thread."""
+    if len(fns) == 1:
+        return [fns[0]()]
+    group = _LocalReplicas(len(fns))
+    grad = torch.is_grad_enabled()
+    results: List[Any] = [None] * len(fns)
+    errors: List[BaseException] = []
+
+    def run(r: int) -> None:
+        _replica.group, _replica.index = group, r
+        try:
+            with torch.set_grad_enabled(grad):
+                results[r] = fns[r]()
+        except BaseException as e:  # noqa: BLE001 - re-raised in the caller below
+            errors.append(e)
+            group.barrier.abort()   # the other replicas stop waiting for this one
+        finally:
+            _replica.group = None
+            _replica.index = 0
+
+    threads = [threading.Thread(target=run, args=(r,), name=f"replica-{r}")
+               for r in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    real = [e for e in errors if not isinstance(e, threading.BrokenBarrierError)]
+    if errors:
+        raise (real or errors)[0]
+    return results
 
 
 class _CrossReplicaSum(torch.autograd.Function):
@@ -104,15 +184,24 @@ def check_devices(num_workers: int, device: torch.device) -> None:
 
 
 def _worker(rank: int, world_size: int, store: str, device_type: str, threads: int,
-            payload: str, out_dir: str) -> None:
+            payload: str, out_dir: str, chips_per_worker: int = 1) -> None:
     """One worker: join the group, run ``fn(rank, world_size, device,
     *args)`` from the payload file and write its result to ``out_dir/<rank>``.
-    A result that holds an error raises after it is written, so that
-    ``start_processes`` stops the workers still running (one may wait in a
-    collective for the failed rank)."""
+    On CUDA ``device`` is the first of the worker's ``chips_per_worker``
+    devices (``mesh.worker_devices``: ``cuda:rank`` for one a worker), which
+    its training function meshes again from its rank.  A result that holds
+    an error raises after it is written, so that ``start_processes`` stops
+    the workers still running (one may wait in a collective for the failed
+    rank)."""
     if device_type == "cuda":
+        from .mesh import worker_devices
+
         check_devices(world_size, torch.device("cuda"))
-        device = torch.device("cuda", rank)
+        devices = worker_devices(rank, chips_per_worker, torch.device("cuda"))
+        if not devices:
+            raise ValueError(f"worker {rank} of {chips_per_worker} devices each has none of "
+                             f"the {torch.cuda.device_count()} visible cards")
+        device = devices[0]
         torch.cuda.set_device(device)
     else:
         device = torch.device("cpu")
@@ -132,7 +221,8 @@ def _worker(rank: int, world_size: int, store: str, device_type: str, threads: i
 
 
 def run_workers(fn: Callable[..., Dict[str, Any]], args: tuple, num_workers: int,
-                device: torch.device, cloudpickled: bool = False) -> List[Dict[str, Any]]:
+                device: torch.device, cloudpickled: bool = False,
+                chips_per_worker: int = 1) -> List[Dict[str, Any]]:
     """Run ``fn(rank, num_workers, device_of_rank, *args)`` in
     ``num_workers`` spawned processes joined in one ``torch.distributed``
     group; return each rank's result (a dict; ``{"error": ...}`` for a
@@ -168,7 +258,7 @@ def run_workers(fn: Callable[..., Dict[str, Any]], args: tuple, num_workers: int
             group = tmp.start_processes(
                 _worker, nprocs=num_workers, start_method="spawn", join=False,
                 args=(num_workers, os.path.join(work, "store"), device.type, threads,
-                      os.path.join(work, "payload"), work))
+                      os.path.join(work, "payload"), work, chips_per_worker))
             # when one worker fails, the others get 30 s to fail in their
             # collectives and write their own results (rank 0's names the
             # latest checkpoint a retry resumes from) before they are stopped

@@ -144,3 +144,58 @@ def data_parallel_mesh(num_devices: Optional[int] = None) -> Mesh:
             )
         devs = devs[:num_devices]
     return make_mesh(("data",), (len(devs),), devices=devs)
+
+
+def worker_devices(worker: int, chips_per_worker: int, device: torch.device
+                   ) -> List[torch.device]:
+    """The devices of data-parallel worker ``worker``: its
+    ``chips_per_worker`` consecutive entries of :func:`visible_devices`
+    (fewer when the lease runs out, which the loops refuse with the JAX
+    package's text).  A CPU worker's devices are the CPU, named
+    ``chips_per_worker`` times."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device] * chips_per_worker
+    return visible_devices()[worker * chips_per_worker:(worker + 1) * chips_per_worker]
+
+
+def worker_mesh(devices: Sequence[torch.device], model_parallel: int) -> Mesh:
+    """A worker's ``(data, model)`` mesh: ``model_parallel`` devices a
+    replica, the rest of ``devices`` as the in-worker data axis (the JAX
+    loops' mesh over their lease)."""
+    devs = list(devices)
+    if model_parallel > len(devs):
+        raise ValueError(
+            f"model_parallel={model_parallel} exceeds the {len(devs)} visible devices of "
+            f"this run's chip lease")
+    dp = max(1, len(devs) // model_parallel)
+    return make_mesh(("data", "model"), (dp, model_parallel),
+                     devices=devs[:dp * model_parallel])
+
+
+def batch_sharding(x, mesh: Mesh, axis: str = "data"):
+    """``x`` (a tensor, or a dict of them, ``[batch, ...]``) split into
+    contiguous row blocks over ``axis``, block ``r`` on the first device of
+    replica ``r``: the port's ``NamedSharding(mesh, P("data"))``."""
+    n = mesh.shape[axis]
+    homes = [mesh.devices[(r,) + (0,) * (mesh.devices.ndim - 1)] for r in range(n)]
+    if isinstance(x, dict):
+        parts = {k: batch_sharding(v, mesh, axis) for k, v in x.items()}
+        return [{k: v[r] for k, v in parts.items()} for r in range(n)]
+    if x.shape[0] % n:
+        raise ValueError(f"a batch of {x.shape[0]} rows does not split over {axis}={n}")
+    return [part.to(home) for part, home in zip(x.chunk(n), homes)]
+
+
+def replicated_sharding(x: torch.Tensor, mesh: Mesh) -> np.ndarray:
+    """``x`` on every device of the mesh (an object array in its shape): the
+    port's ``NamedSharding(mesh, P())``.  Entries on one device share one
+    tensor."""
+    out = np.empty(mesh.devices.shape, dtype=object)
+    placed: Dict[torch.device, torch.Tensor] = {}
+    for idx in np.ndindex(mesh.devices.shape):
+        dev = mesh.devices[idx]
+        if dev not in placed:
+            placed[dev] = x.to(dev)
+        out[idx] = placed[dev]
+    return out

@@ -17,15 +17,27 @@ divide replicates, as ``_param_shardings`` drops it.
 :func:`shard_params` and :func:`replicate` place a state dict on every
 device of a mesh, each device's tensors its slice; the JAX package's
 multi-host ``_place`` branch comes with multi-host rendezvous.
+
+For training, :func:`shard_module` splits a model in place over a
+replica's devices: each Dense layer the rules split becomes a
+:class:`~tpu_air_torch.parallel.tensor_parallel.ShardedDense`, one
+``nn.Parameter`` a shard, and the rest stays whole on the first device.
+:func:`logical_parameters` lists the model's parameters as the JAX tree
+holds them (a shard list each), :func:`gather_state_dict` puts the logical
+state dict back together, and :func:`params_bytes` counts what the JAX
+loops report.
 """
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from torch import nn
 
 from .mesh import Mesh
 
@@ -157,3 +169,118 @@ def replicate(state_dict: Dict[str, torch.Tensor], mesh: Mesh) -> np.ndarray:
     for idx in np.ndindex(mesh.devices.shape):
         out[idx] = {name: t.to(mesh.devices[idx]) for name, t in state_dict.items()}
     return out
+
+
+def lm_attention_shards(config, tp: int) -> int:
+    """Shards the LM's attention heads are split over: tp when it divides
+    them, else 1 (the attention stays whole)."""
+    return tp if config.n_heads % tp == 0 else 1
+
+
+def lm_mlp_shards(config, tp: int) -> int:
+    """Shards the LM's SwiGLU is split over: tp when it divides d_ff, else 1."""
+    return tp if config.d_ff % tp == 0 else 1
+
+
+def lm_unit_spec(config, tp: int) -> Callable:
+    """``lm_param_spec`` over whole units: a part whose heads (or ff
+    columns) tp does not divide replicates."""
+    def spec(path, leaf=None):
+        parent = str(path[-2]) if len(path) >= 2 else ""
+        if parent in ("q", "k", "v", "o") and lm_attention_shards(config, tp) == 1:
+            return ()
+        if parent in ("gate", "up", "down") and lm_mlp_shards(config, tp) == 1:
+            return ()
+        return lm_param_spec(path, leaf)
+    return spec
+
+
+def port_split_dim(shape: Sequence[int], kernel_shape: Sequence[int], transposed: bool,
+                   kernel_spec: Spec, tp: int) -> Optional[int]:
+    """The dim of a port weight of ``shape`` that the ``model`` axis splits,
+    or None.  ``kernel_spec`` is the JAX rule's spec of its Flax kernel
+    (``kernel_shape``); a kernel dim tp does not divide replicates
+    (``_param_shardings``).  A transposed kernel is ``[in..., out...]`` of
+    the port's ``[out, in]``: its leading dims whose product is the port's
+    input width are the input side."""
+    if tp == 1 or "model" not in kernel_spec:
+        return None
+    kdim = list(kernel_spec).index("model")
+    if kernel_shape[kdim] % tp:
+        return None
+    if not transposed:
+        return kdim
+    n_in = 1
+    while math.prod(kernel_shape[:n_in]) != shape[-1]:
+        n_in += 1
+    return 0 if kdim >= n_in else 1
+
+
+def shard_module(model: nn.Module, devices: Sequence[torch.device],
+                 dims: Dict[str, Optional[int]]) -> nn.Module:
+    """Split ``model`` in place over ``devices`` (one a shard): every
+    bias-free Dense whose ``<name>.weight`` has a split dim in ``dims``
+    becomes a ``ShardedDense`` over the devices; every other parameter
+    moves to ``devices[0]``.  With one device this only moves the model."""
+    from tpu_air_torch.models.layers import Dense
+
+    from .tensor_parallel import ShardedDense
+
+    home = devices[0]
+    if len(devices) > 1:
+        for name, module in list(model.named_modules()):
+            dim = dims.get(f"{name}.weight")
+            if dim is None or not isinstance(module, Dense):
+                continue
+            if module.bias is not None:
+                raise ValueError(f"{name}: a Dense with a bias is not split")
+            parent, _, child = name.rpartition(".")
+            owner = model.get_submodule(parent) if parent else model
+            setattr(owner, child, ShardedDense(module.weight, dim, devices,
+                                               module.compute_dtype))
+    for name, p in model.named_parameters():
+        if ".shards." not in name and p.device != torch.device(home):
+            p.data = p.data.to(home)
+    return model
+
+
+def logical_parameters(model: nn.Module) -> List[Tuple[str, List[nn.Parameter], Optional[int]]]:
+    """The model's parameters as the unsplit model names them, in its
+    order: ``(name, shards, dim)``, one shard and dim None for a whole
+    parameter, a ShardedDense's shards and split dim for a split one."""
+    from .tensor_parallel import ShardedDense
+
+    out, seen = [], set()
+    for mname, module in model.named_modules():
+        if isinstance(module, ShardedDense):
+            out.append((f"{mname}.weight", list(module.shards), module.dim))
+            seen.update(id(p) for p in module.shards)
+            continue
+        for pname, p in module.named_parameters(recurse=False):
+            if id(p) not in seen:
+                out.append((f"{mname}.{pname}" if mname else pname, [p], None))
+                seen.add(id(p))
+    return out
+
+
+def gather_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The logical state dict of a model split by :func:`shard_module`
+    (the unsplit model's keys and shapes; a split weight is its shards
+    concatenated on the first shard's device), buffers included."""
+    out = {name: (shards[0] if dim is None else torch.cat(
+        [p.to(shards[0].device) for p in shards], dim)).detach()
+        for name, shards, dim in logical_parameters(model)}
+    out.update({n: b for n, b in model.named_buffers()})
+    return out
+
+
+def params_bytes(model: nn.Module) -> Tuple[int, int]:
+    """(bytes of the logical parameters, bytes the first device holds: a
+    whole parameter in full, a split one's first shard), as the JAX loops
+    count ``nbytes`` and ``addressable_shards[0]``."""
+    total = per_device = 0
+    for _, shards, _ in logical_parameters(model):
+        sizes = [p.numel() * p.element_size() for p in shards]
+        total += sum(sizes)
+        per_device += sizes[0]
+    return total, per_device

@@ -152,7 +152,10 @@ class Checkpoint:
         tokenizer and its preprocessor into a directory checkpoint (a new
         temporary directory unless ``path`` is given).  A GBDT or sklearn
         estimator (``sklearn_model``) goes into ``extras.pkl`` with
-        ``extras``, as the JAX package lays it out.  ``format="jax"``
+        ``extras``, as the JAX package lays it out.  ``params`` may be the
+        model itself: a model split over a ``model`` axis
+        (``parallel/sharding.py::shard_module``) writes its gathered logical
+        state dict, which loads at any tensor-parallel degree.  ``format="jax"``
         writes the JAX package's layout (``kind`` ``jax_model``, the
         parameters as a Flax tree in ``params.msgpack``, a SegFormer's
         batch-norm stats as ``extras["batch_stats"]``), which
@@ -162,6 +165,10 @@ class Checkpoint:
             raise ValueError(f"format must be 'torch' or 'jax', got {format!r}")
         if format == "jax" and params is not None and model_config is None:
             raise ValueError("format='jax' needs model_config to lay out the parameters")
+        if isinstance(params, torch.nn.Module):
+            from tpu_air_torch.parallel.sharding import gather_state_dict
+
+            params = gather_state_dict(params)
         path = path or tempfile.mkdtemp(prefix="tpu_air_torch-ckpt-")
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "kind.json"), "w") as f:

@@ -20,9 +20,10 @@ class ScalingConfig:
     ``sequence_parallel`` the sequence-parallel degree inside each worker;
     a worker's devices cover their product, so ``num_chips_per_worker``
     given as 1 becomes ``model_parallel x sequence_parallel``, as in the JAX
-    package.  ``LMTrainer`` runs one rank a device for
-    ``sequence_parallel > 1``; tensor parallelism, and a worker over more
-    devices than its axes use, are not ported (ROADMAP Queue 1 item 9b).
+    package, and a worker over more devices than its axes use takes the
+    extra ones as an in-worker data axis.  A worker is one controller over
+    its devices (``parallel/mesh.py::worker_devices``), except that
+    ``LMTrainer`` without tensor parallelism runs one rank a device.
     ``total_chips`` (``num_workers x num_chips_per_worker``) is the lease a
     Tune trial holds.  The JAX package's ``use_tpu``, ``topology`` and
     ``resources_per_worker`` are left out: nothing in the port reads them.
@@ -53,11 +54,6 @@ class ScalingConfig:
                 f"num_chips_per_worker={self.num_chips_per_worker} is not a "
                 f"multiple of model_parallel x sequence_parallel = {axes}"
             )
-        elif self.num_chips_per_worker != axes:
-            raise NotImplementedError(
-                f"num_chips_per_worker={self.num_chips_per_worker} beyond model_parallel x "
-                f"sequence_parallel = {axes}: a worker over more cards than its axes use "
-                "needs the device mesh, not ported yet (ROADMAP Queue 1 item 9b)")
 
     @property
     def total_chips(self) -> int:

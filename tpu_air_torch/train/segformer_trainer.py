@@ -19,7 +19,11 @@ summed over the workers (``parallel/distributed.py``), and the decode
 head's batch norm takes the moments of the global batch
 (``cross_replica_sum``), forward and backward.  The reference's W6 is
 ``ScalingConfig(num_workers=2, use_gpu=False)``: two gloo workers on the
-CPU; on one card, ``num_workers=1``.
+CPU; on one card, ``num_workers=1``.  A worker over several devices
+(``num_chips_per_worker``, or the ``model_parallel`` and
+``sequence_parallel`` degrees, which the JAX loop reads as devices only)
+runs a data replica on each in one controller, the batch norm's moments
+summed over them too.
 
 Expected dataset columns (produced by the image-processor BatchMapper, the
 ``images_preprocessor`` analog, cc-38,42): ``pixel_values`` (HWC float) and
@@ -71,20 +75,75 @@ def _load_variables(model, pretrained, config) -> None:
     model.load_state_dict(pretrained)
 
 
-def make_segformer_train_step(model, optimizer, generator: Optional[torch.Generator] = None,
-                              ignore_index: int = 255):
+class _Replicas:
+    """A worker's in-process data replicas of ``model``, one a device of
+    ``devices``: a replica on the first device's device runs the model
+    itself, another a copy of its own whose parameters are the model's,
+    copied onto its device at every call (differentiable, so its gradients
+    reach the model's).  :meth:`sums` runs every replica over its block of
+    the rows together (``run_local_replicas``), so that the batch norm's
+    moments are those of every replica's rows."""
+
+    def __init__(self, model, devices):
+        import copy
+
+        self.model = model
+        self.devices = list(devices)
+        home = self.devices[0]
+        self.modules = [model if d == home else copy.deepcopy(model).to(d)
+                        for d in self.devices]
+
+    def _call(self, r: int, *args):
+        module = self.modules[r]
+        if module is self.model:
+            return module(*args)
+        params = {n: p.to(self.devices[r]) for n, p in self.model.named_parameters()}
+        return torch.func.functional_call(module, params, args)
+
+    def train(self, mode: bool = True) -> None:
+        for m in {id(m): m for m in self.modules}.values():
+            m.train(mode)
+
+    def sums(self, pixel_values, labels, generators, ignore_index: int):
+        """(summed NLL, valid pixels) over the rows, on the first device."""
+        from tpu_air_torch.models.segformer.modeling import segmentation_nll
+        from tpu_air_torch.parallel.distributed import run_local_replicas
+
+        n = len(self.devices)
+        px, lb = pixel_values.chunk(n), labels.chunk(n)
+
+        def replica(r):
+            dev = self.devices[r]
+            gen = None if generators is None else generators[r]
+            return lambda: segmentation_nll(self._call(r, px[r].to(dev), gen), lb[r].to(dev),
+                                            ignore_index)
+
+        outs = run_local_replicas([replica(r) for r in range(n)])
+        home = self.devices[0]
+        return (torch.stack([t.to(home) for t, _ in outs]).sum(0),
+                torch.stack([c.to(home) for _, c in outs]).sum(0))
+
+
+def make_segformer_train_step(model, optimizer, generator=None,
+                              ignore_index: int = 255, replicas: Optional[_Replicas] = None):
     """``step(pixel_values, labels) -> loss`` (a detached device scalar,
     the global batch's mean NLL over its valid pixels): this worker's sum
     over the count of all workers, its gradient summed over them, one
     ``optimizer.step()``.  The model is in ``train()`` mode, so its batch
-    norm takes the global batch's moments."""
+    norm takes the global batch's moments.  With ``replicas`` (a worker's
+    :class:`_Replicas`) the rows are split over them, ``generator`` then one
+    a replica."""
     from tpu_air_torch.models.segformer.modeling import segmentation_nll
     from tpu_air_torch.parallel.distributed import all_reduce_grads, all_reduce_sum
 
     params = optimizer.params
 
     def step(pixel_values: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        total, count = segmentation_nll(model(pixel_values, generator), labels, ignore_index)
+        if replicas is None:
+            total, count = segmentation_nll(model(pixel_values, generator), labels,
+                                            ignore_index)
+        else:
+            total, count = replicas.sums(pixel_values, labels, generator, ignore_index)
         n = all_reduce_sum(count.float())
         loss = total / torch.clamp(n, min=1.0)
         loss.backward()
@@ -101,9 +160,9 @@ def segformer_train_loop(config: Dict[str, Any]) -> None:
     API for data, rank and reports."""
     from tpu_air_torch.device import resolve_device
     from tpu_air_torch.models.segformer import SegformerConfig
-    from tpu_air_torch.models.segformer.modeling import (SegformerForSemanticSegmentation,
-                                                         segmentation_nll)
+    from tpu_air_torch.models.segformer.modeling import SegformerForSemanticSegmentation
     from tpu_air_torch.parallel.distributed import all_reduce_sum
+    from tpu_air_torch.parallel.mesh import worker_devices
 
     from . import session
 
@@ -120,18 +179,18 @@ def segformer_train_loop(config: Dict[str, Any]) -> None:
     preprocessor = config.get("_preprocessor")
     feature_extractor = config.get("feature_extractor")
     sc = config.get("_scaling_config")
-    # SegFormer has no sequence axis: the JAX package's loop reads neither
-    # degree and trains data-parallel over every device the config leases
-    # (num_workers x num_chips_per_worker); the port runs one device a worker
-    for what in ("model_parallel", "sequence_parallel"):
-        degree = getattr(sc, what, None) or 1
-        if degree > 1:
-            raise NotImplementedError(
-                f"SegformerTrainer: {what}={degree}: the port trains SegFormer data-parallel "
-                "over num_workers, one device a worker; a worker over several devices "
-                "needs the device mesh (ROADMAP Queue 1 item 9b)")
-    dp, rank = session.get_world_size(), session.get_world_rank()
+    # SegFormer has no model or sequence axis: as the JAX package's loop, it
+    # reads neither degree and trains data-parallel over every device the
+    # config gives it (num_workers x num_chips_per_worker): a replica on
+    # each device of this worker
+    workers, rank = session.get_world_size(), session.get_world_rank()
     device = resolve_device(config.get("_device"))
+    devices = worker_devices(rank, getattr(sc, "num_chips_per_worker", 1), device)
+    if not devices:
+        raise ValueError("SegformerTrainer: this worker has none of the visible devices")
+    dpl = len(devices)
+    dp = dpl * workers
+    device = devices[0]
     ignore = model_config.semantic_loss_ignore_index
 
     train_ds = session.get_dataset_shard("train")
@@ -158,12 +217,15 @@ def segformer_train_loop(config: Dict[str, Any]) -> None:
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
     opt = _make_optimizer(args, steps_per_epoch * args.num_train_epochs, model.parameters())
-    # the JAX loop's PRNGKey(seed + 1); each rank draws the masks of its rows
-    generator = torch.Generator(device=device)
-    generator.manual_seed(args.seed + 1 + rank)
-    train_step = make_segformer_train_step(model, opt, generator, ignore)
+    # the JAX loop's PRNGKey(seed + 1); each replica draws the masks of its rows
+    generators = [torch.Generator(device=d) for d in devices]
+    for r, g in enumerate(generators):
+        g.manual_seed(args.seed + 1 + rank * dpl + r)
+    replicas = _Replicas(model, devices)
+    train_step = make_segformer_train_step(model, opt, generators, ignore, replicas)
 
-    mine = slice(rank * per_device, (rank + 1) * per_device)
+    rows = per_device * dpl
+    mine = slice(rank * rows, (rank + 1) * rows)
     for epoch in range(int(args.num_train_epochs)):
         t0 = time.time()
         losses, nsteps, nimg = [], 0, 0
@@ -189,15 +251,15 @@ def segformer_train_loop(config: Dict[str, Any]) -> None:
             # the JAX eval step: each global batch's mean over its valid
             # pixels, averaged over the batches
             parts = []
-            model.eval()
+            replicas.train(False)
             with torch.no_grad():
                 for batch_df in eval_ds.iter_batches(batch_size=global_bs,
                                                      batch_format="pandas", drop_last=True):
                     b = _to_device(_collate_images(batch_df), mine, device)
-                    total, count = segmentation_nll(model(b["pixel_values"]), b["labels"], ignore)
+                    total, count = replicas.sums(b["pixel_values"], b["labels"], None, ignore)
                     sums = all_reduce_sum(torch.stack([total, count.float()]))
                     parts.append(sums[0] / torch.clamp(sums[1], min=1.0))
-            model.train()
+            replicas.train()
             if parts:
                 metrics["eval_loss"] = float(torch.stack(parts).mean())
 

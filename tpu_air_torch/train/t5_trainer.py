@@ -10,6 +10,17 @@ N worker processes takes its contiguous rows of every global batch, as the
 JAX package's ``P("data")`` sharding hands them to device r, and the loss
 divides by the global token count (``parallel/distributed.py``).
 
+Each worker runs one controller over its ``num_chips_per_worker`` devices,
+the JAX loop's ``(data, model)`` mesh (``parallel/mesh.py::worker_mesh``):
+``ScalingConfig(model_parallel=tp)`` (or ``TrainingArguments(
+tensor_parallelism=tp)``) splits the model over ``model`` by
+``t5_param_spec`` (heads, d_ff and the vocab of ``lm_head``;
+``parallel/sharding.py::shard_module``), and the devices beyond tp are
+in-worker data replicas, each its block of the worker's rows.  The loop
+reports the JAX loop's ``mesh_data``, ``mesh_model`` and
+``params_bytes_*``; the optimizer acts on the logical parameters and the
+checkpoint holds them whole.
+
 ``_make_optimizer`` reproduces the JAX package's optax chain,
 ``clip_by_global_norm(max_grad_norm)`` then either ``adamw(schedule,
 b1=0.9, b2=0.999, eps=1e-8, weight_decay)`` with the decay on every
@@ -36,9 +47,10 @@ from .trainer import BaseTrainer
 @dataclass
 class TrainingArguments:
     """The fields of the JAX package's TrainingArguments that the port's
-    loops read.  Its tensor-parallel, remat, logging and tqdm fields are left
-    out: nothing reads them (the JAX loop reads none of the last three
-    either)."""
+    loops read.  ``tensor_parallelism`` is the T5 loop's tensor-parallel
+    degree when ``ScalingConfig.model_parallel`` is 1.  Its remat, logging
+    and tqdm fields are left out: nothing reads them (the JAX loop reads
+    none of the three either)."""
 
     learning_rate: float = 2e-5
     per_device_train_batch_size: int = 2
@@ -53,6 +65,7 @@ class TrainingArguments:
     evaluation_strategy: str = "epoch"
     save_strategy: str = "epoch"
     max_steps_per_epoch: Optional[int] = None  # test dial
+    tensor_parallelism: int = 1
 
     def __post_init__(self):
         if self.per_device_eval_batch_size is None:
@@ -116,7 +129,10 @@ class _Adafactor:
     layout (``layouts``: (transposed, shape) per parameter, None for the
     port's own): T5's q/k/v/o kernels are [d_model, h, d_kv] there, whose
     second-largest dim (d_kv) is under 128, so optax keeps their second
-    moment whole."""
+    moment whole.  A parameter split over the model axis (``(shards,
+    dim)``) is updated as its logical tensor: its gradient and value are
+    put back together on the first shard's device, and the update is
+    split back to the shards."""
 
     MIN_DIM_TO_FACTOR = 128
     DECAY = 0.8
@@ -124,13 +140,12 @@ class _Adafactor:
     CLIP = 1.0
     MIN_SCALE = 1e-3
 
-    def __init__(self, params: Sequence[torch.nn.Parameter],
-                 layouts: Optional[Sequence[Optional[Tuple[bool, Tuple[int, ...]]]]] = None):
-        self.params = list(params)
-        self.layouts = list(layouts) if layouts is not None else [None] * len(self.params)
-        if len(self.layouts) != len(self.params):
-            raise ValueError(f"{len(self.layouts)} layouts for {len(self.params)} parameters")
-        self.state: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(self.params)
+    def __init__(self, params: Sequence, layouts=None):
+        self.groups = [_group(p) for p in params]
+        self.layouts = list(layouts) if layouts is not None else [None] * len(self.groups)
+        if len(self.layouts) != len(self.groups):
+            raise ValueError(f"{len(self.layouts)} layouts for {len(self.groups)} parameters")
+        self.state: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(self.groups)
         self.count = 0
 
     @staticmethod
@@ -152,42 +167,73 @@ class _Adafactor:
         # optax computes the decay in f32 from the 0-based count
         t = torch.tensor(self.count + 1, dtype=torch.float32)
         decay = float(1.0 - t ** -self.DECAY)
-        for i, (p, layout) in enumerate(zip(self.params, self.layouts)):
-            if p.grad is None:
+        for i, ((shards, dim), layout) in enumerate(zip(self.groups, self.layouts)):
+            if shards[0].grad is None:
                 continue
-            transposed, shape = layout if layout is not None else (False, tuple(p.shape))
-
-            def logical(x):
-                return (x.t() if transposed else x).reshape(shape)
-
-            g = logical(p.grad.float())
-            g2 = g.square() + self.EPS
-            dims = self._factored_dims(shape)
-            st = self.state[i]
-            if dims is not None:
-                d1, d0 = dims
-                if st is None:
-                    st = self.state[i] = {"v_row": torch.zeros_like(g2.mean(d0)),
-                                          "v_col": torch.zeros_like(g2.mean(d1))}
-                v_row = st["v_row"].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
-                v_col = st["v_col"].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
-                reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt()
-                u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
-            else:
-                if st is None:
-                    st = self.state[i] = {"v": torch.zeros_like(g2)}
-                v = st["v"].mul_(decay).add_(g2, alpha=1.0 - decay)
-                u = g * v.rsqrt()
-            u = u / torch.clamp(self._rms(u) / self.CLIP, min=1.0)
-            u = u * lr
-            scale = self._rms(p.detach().float())
-            u = u * torch.where(scale <= self.MIN_SCALE,
-                                torch.full_like(scale, self.MIN_SCALE), scale)
-            if transposed:
-                u = u.reshape(p.shape[::-1]).t()
-            p.sub_(u.reshape(p.shape).to(p.dtype))
+            # a split parameter's update is its logical one (factored
+            # statistics, RMS clip and scale of the whole tensor), taken on
+            # the first shard's device and split back
+            home = shards[0].device
+            p = _logical(shards, dim, home, lambda s: s.detach())
+            g = _logical(shards, dim, home, lambda s: s.grad)
+            u = self._update(i, p, g, layout, decay, lr)
+            for s, part in zip(shards, [u] if dim is None else u.chunk(len(shards), dim)):
+                s.sub_(part.to(s.device, s.dtype))
         self.count += 1
+
+    def _update(self, i: int, p: torch.Tensor, grad: torch.Tensor, layout, decay: float,
+                lr: float) -> torch.Tensor:
+        """The update of parameter ``i`` (the port's layout) from its value
+        and gradient."""
+        transposed, shape = layout if layout is not None else (False, tuple(p.shape))
+
+        def logical(x):
+            return (x.t() if transposed else x).reshape(shape)
+
+        g = logical(grad.float())
+        g2 = g.square() + self.EPS
+        dims = self._factored_dims(shape)
+        st = self.state[i]
+        if dims is not None:
+            d1, d0 = dims
+            if st is None:
+                st = self.state[i] = {"v_row": torch.zeros_like(g2.mean(d0)),
+                                      "v_col": torch.zeros_like(g2.mean(d1))}
+            v_row = st["v_row"].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
+            v_col = st["v_col"].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt()
+            u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+        else:
+            if st is None:
+                st = self.state[i] = {"v": torch.zeros_like(g2)}
+            v = st["v"].mul_(decay).add_(g2, alpha=1.0 - decay)
+            u = g * v.rsqrt()
+        u = u / torch.clamp(self._rms(u) / self.CLIP, min=1.0)
+        u = u * lr
+        scale = self._rms(p.float())
+        u = u * torch.where(scale <= self.MIN_SCALE,
+                            torch.full_like(scale, self.MIN_SCALE), scale)
+        if transposed:
+            u = u.reshape(p.shape[::-1]).t()
+        return u.reshape(p.shape)
+
+
+def _group(p) -> Tuple[List[torch.nn.Parameter], Optional[int]]:
+    """A parameter as ``(shards, split dim)``: an ``nn.Parameter`` is one
+    shard (dim None); a ``(shards, dim)`` pair of ``logical_parameters``
+    is taken as it is."""
+    if isinstance(p, torch.Tensor):
+        return [p], None
+    shards, dim = p
+    return list(shards), dim
+
+
+def _logical(shards, dim, home, get) -> torch.Tensor:
+    """``get(shard)`` of every shard, put back together on ``home``."""
+    if dim is None:
+        return get(shards[0])
+    return torch.cat([get(s).to(home) for s in shards], dim)
 
 
 class _Optimizer:
@@ -195,18 +241,20 @@ class _Optimizer:
     schedule.  ``step()`` applies one update from the parameters' ``.grad``
     and clears them."""
 
-    def __init__(self, params: Iterable[torch.nn.Parameter], args: TrainingArguments,
+    def __init__(self, params: Iterable, args: TrainingArguments,
                  total_steps: int, layouts=None):
-        params = list(params)
-        keep = [i for i, p in enumerate(params) if p.requires_grad]
-        self.params = [params[i] for i in keep]
+        groups = [_group(p) for p in params]
+        keep = [i for i, (shards, _) in enumerate(groups) if shards[0].requires_grad]
+        self.groups = [groups[i] for i in keep]
+        # every shard once: AdamW and the clip's global norm are elementwise
+        self.params = [s for shards, _ in self.groups for s in shards]
         self.schedule = _make_schedule(args, total_steps)
         self.max_grad_norm = args.max_grad_norm
         self.count = 0
         self.adafactor = self.adamw = None
         if args.optimizer == "adafactor":
             self.adafactor = _Adafactor(
-                self.params, None if layouts is None else [layouts[i] for i in keep])
+                self.groups, None if layouts is None else [layouts[i] for i in keep])
         elif args.optimizer == "adamw":
             self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0),
                                            betas=(0.9, 0.999), eps=1e-8,
@@ -240,9 +288,10 @@ class _Optimizer:
 
 
 def _make_optimizer(args: TrainingArguments, total_steps: int,
-                    params: Iterable[torch.nn.Parameter], layouts=None) -> _Optimizer:
-    """The optimizer of ``args`` over ``params``; ``layouts`` (one per
-    parameter, see :class:`_Adafactor`) matter to Adafactor only."""
+                    params: Iterable, layouts=None) -> _Optimizer:
+    """The optimizer of ``args`` over ``params``, each an ``nn.Parameter`` or
+    a split parameter's ``(shards, dim)``; ``layouts`` (one per parameter,
+    see :class:`_Adafactor`) matter to Adafactor only."""
     return _Optimizer(params, args, total_steps, layouts)
 
 
@@ -287,18 +336,40 @@ def t5_local_sums(model, batch: Dict[str, torch.Tensor],
     return cross_entropy_sum(logits, labels, cfg.pad_token_id)
 
 
-def make_t5_train_step(model, optimizer, generator: Optional[torch.Generator] = None):
+def t5_mesh_sums(model, mesh, batch: Dict[str, torch.Tensor],
+                 generators: Optional[Sequence[torch.Generator]] = None):
+    """:func:`t5_local_sums` over a worker's ``(data, model)`` mesh: each
+    data replica its contiguous block of ``batch`` (and its generator),
+    the sums added in replica order on the first device."""
+    from tpu_air_torch.parallel.mesh import batch_sharding
+    from tpu_air_torch.parallel.tensor_parallel import call_replica
+
+    home = mesh.devices[0, 0]
+    totals, counts = [], []
+    for r, block in enumerate(batch_sharding(batch, mesh)):
+        gen = None if generators is None else generators[r]
+        total, count = call_replica(model, mesh, r, t5_local_sums, block, gen)
+        totals.append(total.to(home))
+        counts.append(count.to(home))
+    return torch.stack(totals).sum(0), torch.stack(counts).sum(0)
+
+
+def make_t5_train_step(model, optimizer, generator=None, mesh=None):
     """``step(batch) -> loss`` (a detached device scalar, the global batch's
     mean CE): this worker's sum over the count of all workers, its gradient
     summed over them (not DDP's mean of per-worker means), one
     ``optimizer.step()``.  ``optimizer`` is what ``_make_optimizer``
-    returns."""
+    returns.  With a worker's ``mesh`` (:func:`t5_mesh_sums`), ``generator``
+    is one generator a data replica."""
     from tpu_air_torch.parallel.distributed import all_reduce_grads, all_reduce_sum
 
     params = optimizer.params
 
     def step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        total, count = t5_local_sums(model, batch, generator)
+        if mesh is None:
+            total, count = t5_local_sums(model, batch, generator)
+        else:
+            total, count = t5_mesh_sums(model, mesh, batch, generator)
         n = all_reduce_sum(count.float())
         loss = total / torch.clamp(n, min=1.0)
         loss.backward()
@@ -315,9 +386,11 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
     data, rank and reports."""
     from tpu_air_torch.device import resolve_device
     from tpu_air_torch.models.t5.config import T5Config
-    from tpu_air_torch.models.t5.convert import jax_layouts
+    from tpu_air_torch.models.t5.convert import jax_layouts, tp_split_dims
     from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
     from tpu_air_torch.parallel.distributed import all_reduce_sum
+    from tpu_air_torch.parallel.mesh import worker_devices, worker_mesh
+    from tpu_air_torch.parallel.sharding import logical_parameters, params_bytes, shard_module
 
     from . import session
 
@@ -333,14 +406,20 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
     model_config: T5Config = config["model_config"]
     tokenizer = config.get("tokenizer")
     preprocessor = config.get("_preprocessor")
+    # the tensor-parallel degree: ScalingConfig.model_parallel when it asks
+    # for tp, else the loop-level TrainingArguments.tensor_parallelism
     sc = config.get("_scaling_config")
-    mp = getattr(sc, "model_parallel", None) or 1
-    if mp > 1:
-        raise NotImplementedError(
-            f"T5Trainer: model_parallel={mp}: tensor parallelism is not ported yet "
-            "(ROADMAP Queue 1 item 9b)")
-    dp, rank = session.get_world_size(), session.get_world_rank()
+    sc_mp = getattr(sc, "model_parallel", None) or 1
+    tp = sc_mp if sc_mp > 1 else max(1, args.tensor_parallelism)
+    workers, rank = session.get_world_size(), session.get_world_rank()
     device = resolve_device(config.get("_device"))
+    # this worker's (data, model) mesh over its devices; the extra devices
+    # are in-worker data replicas
+    mesh = worker_mesh(worker_devices(rank, getattr(sc, "num_chips_per_worker", 1), device),
+                       tp)
+    dpl = mesh.shape["data"]
+    dp = dpl * workers
+    home = mesh.devices[0, 0]
     pad_id = model_config.pad_token_id
 
     train_ds = session.get_dataset_shard("train")
@@ -355,7 +434,7 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
     sample = next(train_ds.iter_batches(batch_size=2, batch_format="pandas"))
     seq_len = collate(sample, keys)["input_ids"].shape[1]
 
-    model = T5ForConditionalGeneration(model_config, device=device)
+    model = T5ForConditionalGeneration(model_config, device=home)
     resume_dir = config.get("resume_from_checkpoint")
     pretrained = config.get("pretrained_params")
     if resume_dir:
@@ -364,23 +443,27 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
         model.load_state_dict(pretrained)
     else:
         model.init_weights(args.seed)     # numpy-seeded: Flax's init is not reproducible here
+    shard_module(model, list(mesh.devices[0]), tp_split_dims(model_config, tp))
     model.train()
 
     steps_per_epoch = max(1, train_ds.count() // global_bs)
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
     layouts = jax_layouts(model_config)
+    logical = logical_parameters(model)
     opt = _make_optimizer(args, steps_per_epoch * args.num_train_epochs,
-                          [p for _, p in model.named_parameters()],
-                          [layouts[n] for n, _ in model.named_parameters()])
-    # every rank holds the whole model (no tensor parallelism)
-    params_bytes = int(sum(p.numel() * p.element_size() for p in opt.params))
-    # the JAX loop's PRNGKey(seed + 1); each rank draws the masks of its rows
-    generator = torch.Generator(device=device)
-    generator.manual_seed(args.seed + 1 + rank)
-    train_step = make_t5_train_step(model, opt, generator)
+                          [(shards, dim) for _, shards, dim in logical],
+                          [layouts[name] for name, _, _ in logical])
+    params_bytes_total, params_bytes_per_device = params_bytes(model)
+    # the JAX loop's PRNGKey(seed + 1); each data replica draws the masks of
+    # its rows
+    generators = [torch.Generator(device=mesh.devices[r, 0]) for r in range(dpl)]
+    for r, g in enumerate(generators):
+        g.manual_seed(args.seed + 1 + rank * dpl + r)
+    train_step = make_t5_train_step(model, opt, generators, mesh)
 
-    mine = slice(rank * per_device, (rank + 1) * per_device)
+    rows = per_device * dpl
+    mine = slice(rank * rows, (rank + 1) * rows)
     for epoch in range(int(args.num_train_epochs)):
         t0 = time.time()
         tokens, nsteps, losses = 0, 0, []
@@ -388,7 +471,7 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
                                               drop_last=True):
             if len(batch_df) < global_bs:
                 continue
-            batch = _tensors(collate(batch_df, keys, seq_len), mine, device)
+            batch = _tensors(collate(batch_df, keys, seq_len), mine, home)
             losses.append(train_step(batch))    # a device scalar: no host sync per step
             tokens += global_bs * seq_len
             nsteps += 1
@@ -402,25 +485,25 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
             "loss": train_loss,
             "steps": nsteps,
             "train_tokens_per_sec": tokens / dt if dt > 0 else 0.0,
-            "train_tokens_per_sec_per_chip": (tokens / dt / dp) if dt > 0 else 0.0,
+            "train_tokens_per_sec_per_chip": (tokens / dt / (dp * tp)) if dt > 0 else 0.0,
             "mesh_data": dp,
-            "mesh_model": 1,
+            "mesh_model": tp,
             "mesh_num_hosts": 1,
-            "params_bytes_total": params_bytes,
-            "params_bytes_per_device": params_bytes,
+            "params_bytes_total": params_bytes_total,
+            "params_bytes_per_device": params_bytes_per_device,
         }
 
         if eval_ds is not None and args.evaluation_strategy == "epoch":
             ebs = args.per_device_eval_batch_size * dp
-            eval_rows = slice(rank * args.per_device_eval_batch_size,
-                              (rank + 1) * args.per_device_eval_batch_size)
+            erows = args.per_device_eval_batch_size * dpl
+            eval_rows = slice(rank * erows, (rank + 1) * erows)
             parts = []
             model.eval()
             with torch.no_grad():
                 for batch_df in eval_ds.iter_batches(batch_size=ebs, batch_format="pandas",
                                                      drop_last=False):
                     batch = _pad_rows(collate(batch_df, keys, seq_len), ebs, pad_id)
-                    total, count = t5_local_sums(model, _tensors(batch, eval_rows, device))
+                    total, count = t5_mesh_sums(model, mesh, _tensors(batch, eval_rows, home))
                     sums = all_reduce_sum(torch.stack([total, count.float()]))
                     # the JAX eval step's ntok is at least 1 per global batch
                     parts.append(torch.stack([sums[0], torch.clamp(sums[1], min=1.0)]))
@@ -431,7 +514,7 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
 
         ckpt = None
         if args.save_strategy == "epoch" and rank == 0:
-            ckpt = Checkpoint.from_model(model_config=model_config, params=model.state_dict(),
+            ckpt = Checkpoint.from_model(model_config=model_config, params=model,
                                          tokenizer=tokenizer, preprocessor=preprocessor,
                                          metrics=metrics)
         session.report(metrics, checkpoint=ckpt)

@@ -7,8 +7,10 @@ An attempt runs one of two ways:
   device, or, with ``ScalingConfig(num_workers=N > 1)``, in N spawned
   worker processes joined in one ``torch.distributed`` group
   (``parallel/distributed.py``), whose rank 0 reports and checkpoints.
-  A trainer whose step spans several devices a worker (``LMTrainer`` with
-  ``sequence_parallel``) starts one rank a device: ``_num_ranks()``.
+  A worker's rank runs over its ``num_chips_per_worker`` devices (a
+  tensor-parallel mesh, in-worker data replicas), except that ``LMTrainer``'s
+  sequence-parallel step starts one rank a device: ``_num_ranks()`` and
+  ``_devices_per_rank()``.
   The JAX package runs ``fit()``'s attempts in a trial actor that holds a
   chip lease; the port keeps them in process (ROADMAP Queue 1 item 13),
   which the W1 loop and its gloo workers rely on.
@@ -191,7 +193,7 @@ def _worker_trial(rank: int, world_size: int, device, training_fn, config, run_d
 
 
 def _run_workers_trial(training_fn, config, run_dir, datasets, checkpoint_config,
-                       num_workers: int, device) -> Dict[str, Any]:
+                       num_workers: int, device, devices_per_rank: int = 1) -> Dict[str, Any]:
     """One attempt over ``num_workers`` worker processes: rank 0's record,
     with the errors of every rank."""
     from tpu_air_torch.parallel.distributed import run_workers
@@ -199,7 +201,8 @@ def _run_workers_trial(training_fn, config, run_dir, datasets, checkpoint_config
     outs = run_workers(_worker_trial,
                        (training_fn, config, run_dir, datasets, checkpoint_config),
                        num_workers, device,
-                       cloudpickled=config.get("_preprocessor") is not None)
+                       cloudpickled=config.get("_preprocessor") is not None,
+                       chips_per_worker=devices_per_rank)
     errors = [o["error"] for o in outs if o.get("error")]
     out = dict(outs[0])
     out["error"] = "\n".join(errors) if errors else None
@@ -262,6 +265,10 @@ class BaseTrainer:
         """Processes an attempt runs in: one a data-parallel worker."""
         return self.scaling_config.num_workers
 
+    def _devices_per_rank(self) -> int:
+        """Devices each rank runs over: its worker's."""
+        return self.scaling_config.num_chips_per_worker
+
     def _train_loop_config(self) -> Dict[str, Any]:
         return {}
 
@@ -304,7 +311,8 @@ class BaseTrainer:
             if workers > 1 and self._spawns_workers:
                 out = _run_workers_trial(self._training_fn(), config, run_dir, datasets,
                                          rc.checkpoint_config, workers,
-                                         self.device or resolve_device(self._named_device))
+                                         self.device or resolve_device(self._named_device),
+                                         self._devices_per_rank())
             else:
                 out = _run_trial(self._training_fn(), config, run_dir, datasets,
                                  rc.checkpoint_config)
