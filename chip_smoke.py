@@ -365,7 +365,7 @@ Phases, each fatal on failure:
               the single-card bf16 engine's (printed) and against the same
               weights in f32, which must be within twice the single-card
               bf16 engine's own distance from f32;
-              then f32 at 2 layers: tp 2 and dp 2 x tp 2 through the kernel
+              then f32 at 2 layers: dp 2 x tp 2 through the kernel
               and through ``decode_attention_reference`` equal the
               single-card f32 engine's streams, their first decode step's
               logits within the scaled 1e-4 of its; (b) in a runtime of its own
@@ -409,7 +409,32 @@ Phases, each fatal on failure:
               forward at W1's encoder shard (B8 H6 L512 D64, bias, key mask),
               each against its plain version and beside its bound and SDPA,
               and the decode kernel at the 2 x 2 mesh's shard (b 8, 4 heads,
-              L 1024, d 128).
+              L 1024, d 128);
+30. multihost — two emulated hosts on the one card
+              (``spawn_local_cluster(2, devices_per_process=4)``: this
+              process is host 0, an agent process host 1, every host's 4
+              chip slots on ``cuda:0``, their gradients summed over a gloo
+              group of one rank a host) under a runtime of the cluster's 8
+              slots: first a line says why the GCS, and with it the
+              cross-host object plane, does not run (no ``protoc``); (a)
+              ``T5Trainer(scaling_config=ScalingConfig(num_workers=4,
+              model_parallel=2))`` on W1's width, rows and arguments at
+              per-device batch 2 (dp 4 x tp 2: each host 2 replicas of 2
+              shards), 3 steps (dropout: the dense path), host 0's steps on
+              the device clock, each host's gradient all-reduce (wall ms,
+              bytes, backend) and its launches read through
+              ``cluster.run``, then its eval (the flash forward a shard,
+              replica and attention call on each host) and generation of 8
+              prompts from its checkpoint on the card in bf16; the hosts'
+              parameter digests (sha256) must be equal; (b) the same fit in
+              f32 at depth 2+2, dropout 0, 2 steps, against one host running
+              dp 4 x tp 2 in this process before the cluster starts: losses
+              and eval losses to 1e-5 relative, every final parameter to
+              1e-5 of its norm; (c) a ``TorchTrainer`` whose 8-slot lease a
+              ``runtime.lease`` ``notice`` revokes 0.8 s after its grant:
+              both hosts stop at the same report, the run shrinks to 4 slots
+              on one host (this process, ``world() == (0, 1)``) and resumes
+              from the retained checkpoint with ``max_failures=0``.
 
 The counts of kernel launches are set to 0 just before each main path (T5
 generation, LM training, W1 fine-tuning with its generation, W2's
@@ -425,7 +450,9 @@ process after the migration), phase 27's around each ring's forward
 and backward in (a) and around (d)'s fit, and phase 28's around each of
 (a)'s engine runs, around (b)'s burst in the decode engine (this process)
 and in (c)'s replicas over their lives, and phase 29's around (a)'s fit,
-around each of its f32 steps and around (b)'s fit and generation.  The SegFormer
+around each of its f32 steps and around (b)'s fit and generation, and phase
+30's on each host (read through the agent plane) around (a)'s and (b)'s
+fits, and in this process around (a)'s generation.  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -577,7 +604,9 @@ NATIVE_PAGES, NATIVE_REPS, NATIVE_SMALL_ARENA = (1, 135), 3, 64 << 10
 # first DIST_FAULT_PROMPTS prompts; (c) one POST of DIST_POST prompts a
 # deployment; (d) the decode kernel at (label, b, h) of the meshes' shards
 DIST_ENGINE = {**LM_ENGINE, "prefill_chunks_per_step": 16}
-DIST_BF16_MESHES, DIST_F32_MESHES = ((2, 1), (1, 2), (2, 2)), ((1, 2), (2, 2))
+# f32 (kernel and plain) on the 2 x 2 mesh alone, whose replicas are tp 2
+# meshes (a depth cut: tp 2 alone ran too before phase 30 was added)
+DIST_BF16_MESHES, DIST_F32_MESHES = ((2, 1), (1, 2), (2, 2)), ((2, 2),)
 DIST_FAULT_PROMPTS, DIST_POST, DIST_FIRST, DIST_MESH_PROMPTS = 6, 8, 8, 16
 DIST_TIMING = (("dp 2", 8, 8), ("tp 2", 16, 4), ("tp 4", 16, 2))
 # tensor-parallel training dials (phase 29): (a) the [lm] phase's LM and rows
@@ -586,6 +615,10 @@ DIST_TIMING = (("dp 2", 8, 8), ("tp 2", 16, 4), ("tp 4", 16, 2))
 # 2 for TP_W1_STEPS steps of the [w1] phase's rows, then its eval and
 # generation from its checkpoint
 TP_LM_STEPS, TP_PARITY, TP_W1_STEPS = 3, (2, 4), 3
+# multi-host dials (phase 30): (a) W1 at dp 4 x tp 2 over 2 emulated hosts
+# for TP_W1_STEPS steps of the [w1] phase's rows; (b) its f32 fit at depth
+# MH_PARITY_LAYERS + MH_PARITY_LAYERS for MH_PARITY_STEPS steps
+MH_PARITY_LAYERS, MH_PARITY_STEPS = 2, 2
 
 
 def model_config():
@@ -6857,6 +6890,359 @@ def add_tp_rows(kernels: list, tp: dict) -> None:
     dec["tp_2x2_shard_shape"] = tp["c"]["decode_2x2"]
 
 
+# -- phase 30: multi-host ------------------------------------------------------------
+# These functions run on every host of the emulated cluster: they travel by
+# value (this script is __main__) and import what they use.
+
+
+def mh_zero_counts() -> None:
+    """Set this host's kernel launch counts and cross-host all-reduce
+    record to 0."""
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from tpu_air_torch.parallel.distributed import HOST_ALLREDUCE
+
+    flash_attention.launches = 0
+    flash_attention_backward.dq_launches = 0
+    flash_attention_backward.dkv_launches = 0
+    decode_attention.launches = 0
+    HOST_ALLREDUCE.update(calls=0, ms=[], bytes=0, backend=None)
+
+
+def mh_host_counts() -> dict:
+    """This host's launch counts and cross-host all-reduce record."""
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from tpu_air_torch.parallel.distributed import HOST_ALLREDUCE, process_index
+
+    return {"host": process_index(), "pid": os.getpid(),
+            "launches": {"flash_attention": flash_attention.launches,
+                         "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
+                         "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches,
+                         "decode_attention": decode_attention.launches},
+            "allreduce": dict(HOST_ALLREDUCE, ms=list(HOST_ALLREDUCE["ms"]))}
+
+
+def mh_t5_loop(config):
+    """``t5_train_loop``, then the sha256 of this host's final logical
+    parameters (names and f32 bytes, in name order) written to
+    ``config["mh_dir"]/host-<process index>``."""
+    import hashlib
+
+    from tpu_air_torch.parallel import distributed as D
+    from tpu_air_torch.parallel import sharding
+    from tpu_air_torch.train.t5_trainer import t5_train_loop
+
+    models = []
+    shard_module = sharding.shard_module
+
+    def keep(model, *args, **kwargs):
+        models.append(model)
+        return shard_module(model, *args, **kwargs)
+
+    sharding.shard_module = keep
+    try:
+        t5_train_loop(config)
+    finally:
+        sharding.shard_module = shard_module
+    state = sharding.gather_state_dict(models[-1])
+    h = hashlib.sha256()
+    for name in sorted(state):
+        h.update(name.encode())
+        h.update(state[name].detach().float().cpu().contiguous().numpy().tobytes())
+    with open(os.path.join(config["mh_dir"], f"host-{D.process_index()}"), "w") as f:
+        f.write(h.hexdigest())
+
+
+def mh_elastic_loop(config):
+    """Six paced reports with a checkpoint each, resuming from one; each
+    report sums a ones tensor on the card over the hosts (the hosts' count)
+    and appends (iteration, hosts) to ``config["trace_dir"]/host-<index>``."""
+    from tpu_air_torch.parallel import distributed as D
+    from tpu_air_torch.train import Checkpoint, session
+
+    start = 0
+    if config.get("resume_from_checkpoint"):
+        start = Checkpoint.from_directory(config["resume_from_checkpoint"]).get_metrics()["i"]
+    path = os.path.join(config["trace_dir"], f"host-{D.process_index()}")
+    dev = torch.device(config["_device"])
+    for i in range(start, 6):
+        hosts = int(D.all_reduce_sum(torch.ones(1, device=dev)).item())
+        ckpt = (Checkpoint.from_model(metrics={"i": i + 1}) if session.get_world_rank() == 0
+                else None)
+        session.report({"i": i + 1, "hosts": hosts, "world": list(D.world())}, checkpoint=ckpt)
+        with open(path, "a") as f:
+            f.write(f"{i + 1} {hosts}\n")
+        time.sleep(0.3)  # paced so the notice lands between reports
+
+
+def mh_trainer(cfg, args, rows: dict, work: str, scaling: dict, name: str, dev):
+    """A T5Trainer whose training function is :func:`mh_t5_loop`."""
+    from tpu_air_torch.models.tokenizer import ByteTokenizer
+    from tpu_air_torch.train import RunConfig, ScalingConfig, T5Trainer
+
+    class DigestT5Trainer(T5Trainer):
+        def _training_fn(self):
+            return mh_t5_loop
+
+    mh_dir = os.path.join(work, name + "_digests")
+    os.makedirs(mh_dir, exist_ok=True)
+    return DigestT5Trainer(model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
+                           scaling_config=ScalingConfig(**scaling), datasets=rows,
+                           trainer_init_config={"mh_dir": mh_dir},
+                           run_config=RunConfig(storage_path=os.path.join(work, name)),
+                           device=dev), mh_dir
+
+
+def mh_parity_args():
+    from tpu_air_torch.train import TrainingArguments
+
+    return TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                             per_device_train_batch_size=W1_BATCH // 4, num_train_epochs=1,
+                             max_steps_per_epoch=MH_PARITY_STEPS, seed=SEED)
+
+
+def mh_parity_rows(cfg) -> dict:
+    return {"train": w1_rows(W1_BATCH * MH_PARITY_STEPS, cfg.vocab_size, SEED + 60),
+            "evaluation": w1_rows(W1_BATCH, cfg.vocab_size, SEED + 61)}
+
+
+def mh_one_host(dev, work: str) -> dict:
+    """Phase 30 (b)'s yardstick, before the cluster starts: the f32 fit at
+    W1 width, depth cut to MH_PARITY_LAYERS + MH_PARITY_LAYERS, dropout 0, on
+    one host running dp 4 x tp 2 in this process (lease ids 0-7 wrap onto
+    the card)."""
+    cfg = w1_config("float32", MH_PARITY_LAYERS, dropout=0.0)
+    trainer, _ = mh_trainer(cfg, mh_parity_args(), mh_parity_rows(cfg), work, dict(
+        num_workers=1, num_chips_per_worker=8, model_parallel=2), "mh_one_host", dev)
+    os.environ["TPU_AIR_CHIP_IDS"] = ",".join(str(i) for i in range(8))
+    try:
+        result = trainer.fit()
+    finally:
+        os.environ.pop("TPU_AIR_CHIP_IDS", None)
+    if result.error is not None:
+        raise AssertionError(f"[multihost] (b) one-host fit failed: {result.error}")
+    params = result.checkpoint.get_params()
+    torch.cuda.empty_cache()
+    return {"metrics": result.metrics_history, "params": params}
+
+
+def mh_w1(dev, work: str, cluster, w1_stats: dict) -> dict:
+    """Phase 30 (a): W1 across the 2 hosts (see the module docstring)."""
+    from tpu_air_torch.models.tokenizer import ByteTokenizer
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.predict.predictors import T5GenerativePredictor
+    from tpu_air_torch.train import TrainingArguments
+
+    cfg = w1_config()
+    rows = {"train": w1_rows(W1_BATCH * W1_STEPS, cfg.vocab_size, SEED + 40),
+            "evaluation": w1_rows(W1_BATCH, cfg.vocab_size, SEED + 41)}
+    args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                             per_device_train_batch_size=W1_BATCH // 4, num_train_epochs=1,
+                             max_steps_per_epoch=TP_W1_STEPS, seed=SEED)
+    trainer, mh_dir = mh_trainer(cfg, args, rows, work, dict(num_workers=4, model_parallel=2),
+                                 "mh_w1", dev)
+    cluster.run(mh_zero_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_t5_steps() as marks:
+        result = trainer.fit()
+    wall = time.perf_counter() - t0
+    hosts = cluster.run(mh_host_counts)
+    step_ms = [a.elapsed_time(b) for (_, a), (_, b) in zip(marks, marks[1:])]
+    if result.error is not None:
+        raise AssertionError(f"[multihost] (a) fit failed: {result.error}")
+    m = result.metrics
+    digests = [open(os.path.join(mh_dir, f"host-{h}")).read() for h in range(2)]
+    attn = cfg.num_layers + 2 * cfg.num_decoder_layers
+    want_eval = attn * 2 * 2            # attention calls x 2 shards x 2 replicas a host
+    backends = sorted({h["allreduce"]["backend"] for h in hosts})
+    log(f"[multihost] (a) T5Trainer(ScalingConfig(num_workers=4, model_parallel=2)) over 2 "
+        f"hosts x 4 slots, every slot on {dev}: FLAN-T5-base width and depth, dropout "
+        f"{cfg.dropout_rate}, bf16 on f32, {m['steps']} steps of {W1_BATCH} x {W1_LEN}, eval of "
+        f"{W1_BATCH} rows, in {wall:.1f} s; mesh_num_hosts {m['mesh_num_hosts']}, mesh_data "
+        f"{m['mesh_data']}, mesh_model {m['mesh_model']}; cross-host group backend "
+        f"{backends}; loss {m['loss']:.4f} (one card's first {TP_W1_STEPS} steps, [w1]: "
+        f"{w1_stats['losses'][:TP_W1_STEPS]}), eval_loss {m['eval_loss']:.4f}; host 0's step ms "
+        f"(device clock, the first a warm-up) " + ", ".join(f"{x:.1f}" for x in step_ms)
+        + f" against one card's median {w1_stats['step_ms_median']:.1f} ([w1])")
+    for h in hosts:
+        ar = h["allreduce"]
+        log(f"[multihost] (a) host {h['host']} (pid {h['pid']}): launches {h['launches']}; "
+            f"gradient all-reduce over the hosts {ar['calls']} calls of "
+            f"{ar['bytes'] / 1e6:.1f} MB, ms " + ", ".join(f"{x:.1f}" for x in ar["ms"]))
+    log(f"[multihost] (a) parameter digests after the fit: host 0 {digests[0][:16]}..., "
+        f"host 1 {digests[1][:16]}...")
+    if (m["mesh_num_hosts"], m["mesh_data"], m["mesh_model"], m["steps"]) != \
+            (2, 4, 2, TP_W1_STEPS) or not np.isfinite([m["loss"], m["eval_loss"]]).all():
+        raise AssertionError(f"[multihost] (a) metrics {m}")
+    if digests[0] != digests[1]:
+        raise AssertionError(f"[multihost] (a) the hosts' parameters differ: {digests}")
+    for h in hosts:
+        if h["launches"]["flash_attention"] != want_eval or h["launches"]["decode_attention"] \
+                or h["launches"]["flash_attention_bwd_dq"] or \
+                h["allreduce"]["calls"] != TP_W1_STEPS or h["allreduce"]["backend"] != "gloo":
+            raise AssertionError(f"[multihost] (a) host {h['host']}: {h}")
+    predictor = T5GenerativePredictor.from_checkpoint(result.checkpoint, dtype="bfloat16",
+                                                      device=dev, tokenizer=ByteTokenizer)
+    ids, mask = prompts(W1_PROMPTS, W1_LEN, cfg.vocab_size, SEED + 62)
+    before = {**flash_counts(), "decode_attention": decode_attention.launches}
+    out = predictor.predict({"input_ids": ids, "attention_mask": mask}, max_new_tokens=W1_NEW)
+    gen = {k: v - before[k] for k, v in {**flash_counts(),
+                                         "decode_attention": decode_attention.launches}.items()}
+    texts = [str(t) for t in out["generated_output"]]
+    log(f"[multihost] (a) generate from the 2-host checkpoint on {dev} (bf16): {len(out)} rows "
+        f"x {W1_NEW} new tokens; launches {gen}; rows: "
+        + " | ".join(repr(t[:40]) for t in texts))
+    if len(out) != W1_PROMPTS or gen["flash_attention"] != cfg.num_layers or \
+            gen["decode_attention"] <= 0:
+        raise AssertionError(f"[multihost] (a) generation: {len(out)} rows, {gen}")
+    launches = {k: sum(h["launches"][k] for h in hosts) + gen.get(k, 0)
+                for k in hosts[0]["launches"]}
+    del predictor, trainer, result
+    torch.cuda.empty_cache()
+    return {"hosts": hosts, "launches": launches, "generate_launches": gen,
+            "loss": m["loss"], "eval_loss": m["eval_loss"], "fit_wall_s": wall,
+            "step_ms": step_ms, "one_card_step_ms_median": w1_stats["step_ms_median"],
+            "allreduce_ms": [h["allreduce"]["ms"] for h in hosts],
+            "allreduce_bytes": hosts[0]["allreduce"]["bytes"], "backend": backends[0],
+            "digest": digests[0], "generated": texts}
+
+
+def mh_parity(dev, work: str, cluster, one: dict) -> dict:
+    """Phase 30 (b): :func:`mh_one_host`'s fit across the 2 hosts, against
+    it: losses to 1e-5 relative, each final parameter to 1e-5 of its norm
+    (the CPU tests' bounds, tests/test_torch_multihost.py)."""
+    cfg = w1_config("float32", MH_PARITY_LAYERS, dropout=0.0)
+    trainer, mh_dir = mh_trainer(cfg, mh_parity_args(), mh_parity_rows(cfg), work, dict(
+        num_workers=4, model_parallel=2), "mh_parity", dev)
+    cluster.run(mh_zero_counts)
+    result = trainer.fit()
+    hosts = cluster.run(mh_host_counts)
+    if result.error is not None:
+        raise AssertionError(f"[multihost] (b) fit failed: {result.error}")
+    got, want = result.metrics_history, one["metrics"]
+    loss_rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)
+                   for k in ("loss", "eval_loss"))
+    params = result.checkpoint.get_params()
+    errs = {n: norm_err(params[n], one["params"][n]) for n in one["params"]}
+    worst = max(errs, key=errs.get)
+    digests = [open(os.path.join(mh_dir, f"host-{h}")).read() for h in range(2)]
+    log(f"[multihost] (b) f32 parity, {cfg.d_model} wide, depth cut to {cfg.num_layers}+"
+        f"{cfg.num_decoder_layers}, dropout 0, {MH_PARITY_STEPS} steps of {W1_BATCH} x {W1_LEN}: "
+        f"2 hosts (dp 2 x tp 2 each) loss {[g['loss'] for g in got]} eval_loss "
+        f"{[g['eval_loss'] for g in got]} against one host's dp 4 x tp 2 "
+        f"{[w['loss'] for w in want]} / {[w['eval_loss'] for w in want]} (max rel diff "
+        f"{loss_rel:.2e}); final parameters ||diff|| / ||one host|| max {errs[worst]:.2e} "
+        f"({worst}); hosts' digests equal: {digests[0] == digests[1]}; launches "
+        + "; ".join(f"host {h['host']} {h['launches']}" for h in hosts))
+    if not (loss_rel < 1e-5 and errs[worst] < 1e-5 and digests[0] == digests[1]
+            and len(got) == len(want) and got[-1]["mesh_num_hosts"] == 2):
+        raise AssertionError(f"[multihost] (b) loss rel {loss_rel}, {worst} {errs[worst]}, "
+                             f"digests {digests}")
+    del trainer, result, params
+    torch.cuda.empty_cache()
+    return {"loss_max_rel_diff": loss_rel, "param_max_norm_rel_diff": errs[worst],
+            "param_worst_tensor": worst, "losses": [g["loss"] for g in got],
+            "one_host_losses": [w["loss"] for w in want],
+            "launches": {k: sum(h["launches"][k] for h in hosts) for k in hosts[0]["launches"]}}
+
+
+def mh_elastic(dev, work: str) -> dict:
+    """Phase 30 (c): a ``runtime.lease`` notice revokes the 8-slot lease of
+    a ``TorchTrainer`` 0.8 s after its grant: both hosts stop at the same
+    report, the run shrinks to 4 slots on one host (this process) and
+    resumes from the retained checkpoint, with ``max_failures=0``."""
+    from tpu_air_torch.faults import plan as faults
+    from tpu_air_torch.train import FailureConfig, RunConfig, ScalingConfig, TorchTrainer
+
+    trace = os.path.join(work, "mh_elastic_trace")
+    os.makedirs(trace)
+    faults.install(faults.FaultPlan(seed=15, specs=[
+        faults.FaultSpec("runtime.lease", "notice", at=1, delay_s=0.8, notice_s=10.0)]))
+    t0 = time.perf_counter()
+    try:
+        r = TorchTrainer(mh_elastic_loop, train_loop_config={"trace_dir": trace},
+                         scaling_config=ScalingConfig(num_workers=2, num_chips_per_worker=4),
+                         run_config=RunConfig(storage_path=os.path.join(work, "mh_elastic"),
+                                              failure_config=FailureConfig(max_failures=0)),
+                         device=dev).fit()
+    finally:
+        faults.clear()
+    wall = time.perf_counter() - t0
+    lines = {}
+    for h in range(2):
+        with open(os.path.join(trace, f"host-{h}")) as f:
+            lines[h] = [tuple(int(x) for x in ln.split()) for ln in f.read().split("\n") if ln]
+    spanned = {h: [i for i, n in v if n == 2] for h, v in lines.items()}
+    hist = [m["i"] for m in r.metrics_history]
+    log(f"[multihost] (c) elastic shrink in {wall:.1f} s: each host's reports over 2 hosts "
+        f"{spanned}, then {[m['i'] for m in r.metrics_history]} on one host (world "
+        f"{r.metrics.get('world')}, hosts {r.metrics.get('hosts')}); error {r.error}")
+    first = hist[0] if hist else None
+    if r.error is not None or r.metrics.get("i") != 6 or r.metrics.get("hosts") != 1 or \
+            r.metrics.get("world") != [0, 1] or hist != list(range(first, 7)) or \
+            spanned[0] != spanned[1] or not spanned[0] or spanned[0][-1] != first - 2:
+        raise AssertionError(f"[multihost] (c) {r.error}, {r.metrics}, {hist}, {spanned}")
+    return {"wall_s": wall, "reports_over_2_hosts": spanned[0], "resumed_at": first,
+            "history": hist}
+
+
+def mh_path(dev, work: str, w1_stats: dict) -> dict:
+    """Phase 30 (``[multihost]``): two emulated hosts on the one card.  See
+    the module docstring."""
+    import tpu_air_torch
+    from tpu_air_torch import _native
+    from tpu_air_torch.core.runtime import get_runtime
+    from tpu_air_torch.parallel.distributed import spawn_local_cluster
+
+    t_phase = time.perf_counter()
+    one = mh_one_host(dev, work)
+    t_one = time.perf_counter()
+    cluster = spawn_local_cluster(2, devices_per_process=4)
+    try:
+        log(f"[multihost] 2 hosts x 4 chip slots on {dev} (host 1: agent pid "
+            f"{cluster.procs[0].pid}) in {time.perf_counter() - t_one:.1f} s; the GCS, and with "
+            f"it the cross-host object plane, "
+            + (f"does not run here: {cluster.gcs_missing} (toolchain: "
+               f"{_native.gcs_missing()})" if cluster.gcs_address is None else
+               f"runs at {cluster.gcs_address}: nodes {cluster.nodes()}"))
+        tpu_air_torch.init(num_cpus=1)
+        runtime = get_runtime()
+        if (runtime.num_chips, runtime.chips_per_host) != (8, 4):
+            raise AssertionError(f"[multihost] runtime slots {runtime.num_chips}, "
+                                 f"{runtime.chips_per_host} a host")
+        parts = {}
+        t = time.perf_counter()
+        out = {"a": mh_w1(dev, work, cluster, w1_stats)}
+        parts["a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["b"] = mh_parity(dev, work, cluster, one)
+        parts["b"] = time.perf_counter() - t + (t_one - t_phase)
+        t = time.perf_counter()
+        out["c"] = mh_elastic(dev, work)
+        parts["c"] = time.perf_counter() - t
+    finally:
+        tpu_air_torch.shutdown()
+        cluster.shutdown()
+    out["part_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[multihost] phase 30 {out['phase_s']:.1f} s: "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items()))
+    return out
+
+
+def add_mh_rows(kernels: list, mh: dict) -> None:
+    """Phase 30's launches (both hosts' fits and the generation after (a))
+    into the kernels' rows."""
+    for r in kernels:
+        by = r.setdefault("launches_by_path", {})
+        for where, n in (("multihost_w1_hosts_generate", mh["a"]["launches"]),
+                         ("multihost_f32_hosts", mh["b"]["launches"])):
+            by[where] = n.get(r["name"], 0)
+            r["launches"] += by[where]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -6942,6 +7328,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     add_ring_rows(kernels, ring_stats)
     dist_stats = dist_path(dev, lm_stats["checkpoint_dir"], lm_serve_stats)
     tp_stats = tp_path(dev, work, lm_stats, w1_stats)
+    mh_stats = mh_path(dev, work, w1_stats)
     del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     row = next(r for r in kernels if r["name"] == "decode_attention")
@@ -6954,6 +7341,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     row["launches"] += lane_stats["launches"]["decode_attention"]
     add_dist_rows(kernels, dist_stats)
     add_tp_rows(kernels, tp_stats)
+    add_mh_rows(kernels, mh_stats)
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)
@@ -6968,7 +7356,8 @@ def run_phases(dev, work: str, t_start: float) -> int:
                       "w8": w8_stats, "serve_t5": serve_stats, "lm_serve": lm_serve_stats,
                       "lm_live": lm_live_stats, "obs_serve": obs_stats,
                       "batch_lane": lane_stats, "native": native_stats,
-                      "ring": ring_stats, "dist": dist_stats, "tp": tp_stats}),
+                      "ring": ring_stats, "dist": dist_stats, "tp": tp_stats,
+                      "multihost": mh_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """The port's core runtime (``tpu_air_torch.core``) on the CPU: the patterns
 of tests/test_core.py that the copied modules serve, and what the port
 changed: the forkserver start method, the lease -> CUDA device mapping, the
-chip count from CUDA, and the loud refusal of every branch it has not
-ported.  The runtime comes from a fixture of the port's own
+chip count from CUDA, and ``init()`` joining the multi-host rendezvous
+first.  The runtime comes from a fixture of the port's own
 (``init(num_cpus=4, num_chips=2)``); the JAX package is not imported."""
 
 import os
@@ -214,19 +214,61 @@ def test_start_method_never_forks_after_cuda(monkeypatch):
     assert '"forkserver")' in inspect.getsource(rt.Runtime.__init__)
 
 
-@pytest.mark.parametrize("env,match", [
-    ({"TPU_AIR_COORDINATOR": "127.0.0.1:1"}, "rendezvous"),
-])
-def test_unported_branches_refuse(env, match, monkeypatch):
-    """Every branch of the JAX package's runtime that the port did not copy
-    raises NotImplementedError naming its ROADMAP item when asked for,
-    before any worker starts."""
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP|ROADMAP.*{match}"):
-        rt.Runtime(num_cpus=1, num_chips=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        rt.Runtime(num_cpus=1, num_chips=0)
+_JOIN = """
+import json, tpu_air_torch
+from tpu_air_torch.parallel import distributed as D
+runtime = tpu_air_torch.init(num_cpus=1)
+print(json.dumps([D.process_index(), D.process_count(), runtime.num_chips,
+                  runtime.chips_per_host]))
+tpu_air_torch.shutdown()
+"""
+
+
+def test_init_with_the_env_contract_joins_the_hosts_group():
+    """``init()`` under the multi-host env contract joins the rendezvous
+    first: two processes, one a host, each see the group and schedule the
+    cluster's slot pool in hosts of ``TPU_AIR_CHIPS_PER_HOST``."""
+    import json
+    import subprocess
+    import sys
+
+    from tpu_air_torch.parallel.distributed import _free_port
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPU_AIR_")}
+    env.update(TPU_AIR_NUM_PROCESSES="2", TPU_AIR_NUM_CHIPS="8", TPU_AIR_CHIPS_PER_HOST="4",
+               TPU_AIR_NO_GCS="1", TPU_AIR_RENDEZVOUS_TIMEOUT_S="60", PYTHONPATH=root)
+    for _ in range(3):
+        # the port was free when named; another process may bind it first
+        env["TPU_AIR_COORDINATOR"] = f"127.0.0.1:{_free_port()}"
+        procs = [subprocess.Popen([sys.executable, "-c", _JOIN], cwd=root, text=True,
+                                  env=dict(env, TPU_AIR_PROCESS_ID=str(pid)),
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                 for pid in (0, 1)]
+        outs = [p.communicate(timeout=120) for p in procs]
+        if "in use" not in outs[0][1].lower():
+            break
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    assert [json.loads(out.strip().splitlines()[-1]) for out, _ in outs] == [
+        [0, 2, 8, 4], [1, 2, 8, 4]]
+
+
+def test_failed_rendezvous_raises(monkeypatch):
+    """A rendezvous that cannot reach its coordinator raises out of
+    ``init()``, which starts no runtime: the host does not run alone in a
+    run shaped for several."""
+    from tpu_air_torch.parallel import distributed as D
+    from tpu_air_torch.parallel.distributed import _free_port
+
+    monkeypatch.setattr(rt, "_runtime", None)
+    monkeypatch.setenv("TPU_AIR_COORDINATOR", f"127.0.0.1:{_free_port()}")
+    monkeypatch.setenv("TPU_AIR_NUM_PROCESSES", "2")
+    monkeypatch.setenv("TPU_AIR_PROCESS_ID", "1")
+    monkeypatch.setenv("TPU_AIR_RENDEZVOUS_TIMEOUT_S", "2")
+    with pytest.raises(RuntimeError):
+        tpu_air_torch.init(num_cpus=1, num_chips=1)
+    assert rt._runtime is None and D.process_count() == 1
 
 
 def test_gcs_env_joins_a_running_daemon(monkeypatch):

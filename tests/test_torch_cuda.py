@@ -1250,3 +1250,67 @@ def test_lm_tp_step_on_one_card_matches_the_single_card_step(dev, tp):
     for name, w in want_g.items():
         rel = ((got_g[name] - w).norm() / w.norm()).item()
         assert rel < 1e-5, (name, rel)
+
+
+def test_multihost_t5_fit_on_one_card_matches_one_host(dev, tmp_path):
+    """``T5Trainer(ScalingConfig(num_workers=4, model_parallel=2))`` over 2
+    emulated hosts x 4 slots, every slot on ``cuda:0`` (this process host 0,
+    an agent process host 1, their gradients summed over gloo), against one
+    host running the same dp 4 x tp 2 in process, at ``T5Config.tiny()`` in
+    f32 from the same seed: losses to 1e-5 relative, the final parameters
+    to 1e-5 of each tensor's norm, the flash forward launched on the card."""
+    import os
+
+    import pandas as pd
+
+    import tpu_air_torch
+    from tpu_air_torch.core import runtime as rt
+    from tpu_air_torch.models.t5.config import T5Config
+    from tpu_air_torch.ops.flash_attention import flash_attention
+    from tpu_air_torch.parallel.distributed import spawn_local_cluster
+    from tpu_air_torch.train import RunConfig, ScalingConfig, T5Trainer, TrainingArguments
+
+    rng = np.random.default_rng(7)
+    n, seq = 16, 32
+    ids = rng.integers(3, 256, (n, seq)) * (np.arange(seq)[None] < rng.integers(4, seq, (n, 1)))
+    labels = rng.integers(3, 256, (n, seq)) * (np.arange(seq)[None] < rng.integers(2, 12, (n, 1)))
+    rows = pd.DataFrame({"input_ids": list(ids), "attention_mask": list((ids != 0).astype(int)),
+                         "labels": list(labels)})
+
+    def fit(name, **scaling):
+        return T5Trainer(model_config=T5Config.tiny(),
+                         training_args=TrainingArguments(learning_rate=1e-3, num_train_epochs=2,
+                                                         per_device_train_batch_size=2, seed=3),
+                         scaling_config=ScalingConfig(**scaling),
+                         datasets={"train": rows, "evaluation": rows.iloc[:5]},
+                         run_config=RunConfig(storage_path=str(tmp_path / name)),
+                         device=dev).fit()
+
+    os.environ["TPU_AIR_CHIP_IDS"] = "0,1,2,3,4,5,6,7"
+    try:
+        one = fit("one", num_chips_per_worker=8, model_parallel=2)
+    finally:
+        os.environ.pop("TPU_AIR_CHIP_IDS", None)
+    saved = rt._runtime
+    rt._runtime = None
+    cluster = spawn_local_cluster(2, devices_per_process=4)
+    try:
+        tpu_air_torch.init(num_cpus=1)
+        before = flash_attention.launches
+        two = fit("two", num_workers=4, model_parallel=2)
+        launched = flash_attention.launches - before
+    finally:
+        tpu_air_torch.shutdown()
+        cluster.shutdown()
+        rt._runtime = saved
+    assert one.error is None and two.error is None, (one.error, two.error)
+    assert launched > 0
+    assert [m["mesh_num_hosts"] for m in two.metrics_history] == [2, 2]
+    for got, want in zip(two.metrics_history, one.metrics_history):
+        assert (got["mesh_data"], got["mesh_model"]) == (want["mesh_data"], want["mesh_model"])
+        np.testing.assert_allclose([got["loss"], got["eval_loss"]],
+                                   [want["loss"], want["eval_loss"]], rtol=1e-5)
+    got_p, want_p = two.checkpoint.get_params(), one.checkpoint.get_params()
+    for name, w in want_p.items():
+        rel = ((got_p[name].float() - w.float()).norm() / w.float().norm()).item()
+        assert rel < 1e-5, (name, rel)

@@ -427,6 +427,20 @@ def test_dashboard_serves_every_route(dash, monkeypatch):
     assert _get(f"{url}/api/nothing")[0] == 404
 
 
+def test_cluster_snapshot_reports_the_runtimes_chips_per_host(monkeypatch):
+    """``/api/cluster``'s ``chips_per_host`` is the runtime's host shape
+    (``TPU_AIR_CHIPS_PER_HOST``), as the JAX package's snapshot reports it,
+    not the runtime's whole slot count."""
+    monkeypatch.setenv("TPU_AIR_CHIPS_PER_HOST", "2")
+    monkeypatch.setenv("TPU_AIR_NO_GCS", "1")
+    runtime = rt.Runtime(num_cpus=1, num_chips=4)
+    try:
+        monkeypatch.setattr(rt, "_runtime", runtime)
+        assert tdash.snapshot()["resources"] == {"cpu": 1, "chip": 4, "chips_per_host": 2}
+    finally:
+        runtime.shutdown()
+
+
 def test_dashboard_route_failure_is_a_500(dash, monkeypatch):
     """A route whose payload raises answers 500 with the error, never an
     empty 200."""

@@ -49,9 +49,16 @@ best-effort, as there: where the daemon is not built yet it is built on a
 background thread, and a missing protobuf toolchain or a dead daemon leaves
 ``gcs_address`` ``None`` and ``nodes()`` ``[]``, never an error.  The
 object store puts what fits into the C++ shared-memory arena
-(object_store.py).  Multi-host rendezvous (``TPU_AIR_COORDINATOR``) is not
-ported and raises ``NotImplementedError`` naming its ROADMAP item (Queue 1
-item 9b).
+(object_store.py).
+
+Multi-host, as in the JAX package: ``init()`` joins the rendezvous first
+when the ``TPU_AIR_COORDINATOR`` env contract is set
+(``parallel/distributed.py``; a failed one raises), and the runtime of a
+cluster's host 0 schedules the global slot pool (``TPU_AIR_NUM_CHIPS``,
+``TPU_AIR_CHIPS_PER_HOST`` slots a host: slot g is local slot
+g % chips_per_host of host g // chips_per_host) in lease SHAPES: a lease
+of at most a host's slots lives on one host, a larger one is whole hosts,
+and shape-blocked queue heads reserve the hosts they wait to recombine.
 """
 
 from __future__ import annotations
@@ -500,11 +507,6 @@ def _sweep_stale_sessions(base: str, spill_base: str = "/var/tmp") -> None:
             pass
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to tpu_air_torch (ROADMAP Queue 1 item 9b: {item})")
-
-
 def _cuda_initialized() -> bool:
     torch = sys.modules.get("torch")
     return torch is not None and torch.cuda.is_initialized()
@@ -520,13 +522,17 @@ class Runtime:
         start_method: Optional[str] = None,
         store_root: Optional[str] = None,
     ):
-        if os.environ.get("TPU_AIR_COORDINATOR"):
-            _refuse("multi-host rendezvous (TPU_AIR_COORDINATOR is set)",
-                    "multi-host rendezvous")
+        from tpu_air_torch.parallel import distributed as _dist
+
+        hosts = _dist.process_count()
+        if num_chips is None and hosts > 1:
+            # a multi-host cluster's global slot pool: the launcher's count,
+            # else every host's cards
+            num_chips = int(os.environ.get("TPU_AIR_NUM_CHIPS", "0") or 0) or None
         if num_chips is None:
             import torch
 
-            num_chips = torch.cuda.device_count()
+            num_chips = torch.cuda.device_count() * hosts
             if num_chips == 0:
                 raise RuntimeError(
                     "tpu_air_torch.init() leases CUDA devices and none is available; "
@@ -539,6 +545,13 @@ class Runtime:
         self.store = ObjectStore(self.store_root, create=True)
         self.num_cpus = num_cpus if num_cpus is not None else max(2, os.cpu_count() or 2)
         self.num_chips = num_chips
+        # Topology for lease shapes: chip g lives on host g // chips_per_host,
+        # as its local slot g % chips_per_host.  One host (the default) is
+        # chips_per_host == num_chips, and the shape policy is a no-op.
+        cph = int(os.environ.get("TPU_AIR_CHIPS_PER_HOST", "0") or 0)
+        if not 0 < cph <= num_chips:
+            cph = num_chips // hosts if hosts > 1 else 0
+        self.chips_per_host = cph or num_chips or 1
         self.free_chips: List[int] = list(range(self.num_chips))
         self.avail = {"cpu": float(self.num_cpus), "chip": float(self.num_chips)}
         method = start_method or os.environ.get("TPU_AIR_START_METHOD", "forkserver")
@@ -880,12 +893,53 @@ class Runtime:
     def _can_fit(self, res: Dict[str, float]) -> bool:
         return all(self.avail.get(k, 0.0) >= v for k, v in res.items())
 
-    def _claim_chips(self, n: int) -> List[int]:
-        """The lowest ``n`` free device ids, taken off the free list (the
-        caller checked that ``n`` fit).  One host: the JAX package's lease
-        shapes across hosts, and the reservations that keep a blocked shape
-        from starving, have nothing to do here.  Caller holds the lock."""
-        ids = sorted(self.free_chips)[:n]
+    def _claim_chips(
+        self, n: int, exclude_hosts: frozenset = frozenset()
+    ) -> Optional[List[int]]:
+        """Topology-aware lease allocation (the JAX package's).
+
+        Shapes: a lease of ``n <= chips_per_host`` devices lives entirely on
+        ONE host (best fit: the feasible host with the fewest free devices,
+        so big leases are not starved by fragmentation); a larger lease is
+        built from WHOLE free hosts (a contiguous host range preferred), so
+        it is always a sub-slice rather than an arbitrary k-subset.  Returns
+        None when the request does not tile the free topology right now
+        (the caller keeps it queued, FIFO).  ``exclude_hosts``: hosts
+        reserved for an earlier shape-blocked request in the queue (see
+        ``_claim_queued_actors``); their free devices are invisible to this
+        claim.  With one host this is the lowest ``n`` free ids.  Caller
+        holds the lock."""
+        if n == 0:
+            return []
+        cph = self.chips_per_host
+        by_host: Dict[int, List[int]] = {}
+        for c in sorted(self.free_chips):
+            if c // cph not in exclude_hosts:
+                by_host.setdefault(c // cph, []).append(c)
+        if n <= cph:
+            fitting = [h for h, f in by_host.items() if len(f) >= n]
+            if not fitting:
+                return None
+            host = min(fitting, key=lambda h: (len(by_host[h]), h))
+            ids = by_host[host][:n]
+        else:
+            if n % cph != 0:
+                return None
+            k = n // cph
+            full = sorted(h for h, f in by_host.items() if len(f) == cph)
+            if len(full) < k:
+                return None
+            # prefer a contiguous run of k hosts; fall back to any k full
+            # hosts (strict contiguity could wedge a sweep forever on a
+            # fragmented cluster)
+            chosen = None
+            for i in range(len(full) - k + 1):
+                if full[i + k - 1] - full[i] == k - 1:
+                    chosen = full[i : i + k]
+                    break
+            if chosen is None:
+                chosen = full[:k]
+            ids = [c for h in chosen for c in by_host[h]]
         for c in ids:
             self.free_chips.remove(c)
         return ids
@@ -898,40 +952,83 @@ class Runtime:
         for k, v in res.items():
             self.avail[k] = self.avail.get(k, 0.0) + v
 
-    def _queued_reservations(self) -> bool:
-        """Whether a queued actor request that fits is entitled to whole
-        devices: the JAX package's FIFO scan of the actor queue (feasible
-        requests consume from a scratch copy of ``avail``; the scan stops
-        at the first that does not fit) on one host, where a reservation
-        is the whole host.  A fractional request takes no device id and
-        reserves nothing.  Caller holds the lock."""
+    def _reserve_closest(self, nchips: int, reserved: set) -> None:
+        """Reserve the hosts a shape-blocked request is closest to
+        recombining (the whole free hosts for a multi-host span; the
+        freest host for a single-host lease).  Shared by the real queue
+        scan and its ``_queued_reservations`` simulation.  Caller holds
+        the lock; mutates ``reserved`` in place."""
+        cph = self.chips_per_host
+        free_by_host: Dict[int, int] = {}
+        for c in self.free_chips:
+            h = c // cph
+            if h not in reserved:
+                free_by_host[h] = free_by_host.get(h, 0) + 1
+        if nchips > cph:
+            need = nchips // cph
+            whole = sorted(h for h, f in free_by_host.items() if f == cph)
+            if whole:
+                # some whole hosts are free: reserve only those; partial
+                # hosts stay for the smaller shape-blocked requests behind
+                # this head to reserve for themselves
+                reserved.update(whole[:need])
+            else:
+                # no whole host free: reserve the hosts with the most free
+                # devices, the ones closest to recombining, so a stream of
+                # small leases cannot keep nibbling them
+                partial = sorted(free_by_host, key=lambda h: (-free_by_host[h], h))
+                reserved.update(partial[:need])
+        elif free_by_host:
+            reserved.add(max(free_by_host, key=lambda h: (free_by_host[h], -h)))
+
+    def _queued_reservations(self) -> set:
+        """Hosts queued actor requests are entitled to, per the same FIFO
+        scan ``_claim_queued_actors`` runs, simulated without claiming
+        (feasible requests consume devices from a scratch copy of the free
+        list; shape-blocked ones reserve recombination hosts; the scan stops
+        at the first head whose count does not fit, like the real one).
+        Driver-level ``lease_chips`` consults this so it can neither nibble
+        capacity a shape-blocked queued request waits to recombine nor
+        outrace a feasible queue head.  With one host, any queued request
+        that fits and takes a device id reserves the host.  Caller holds
+        the lock."""
+        saved = list(self.free_chips)
         avail = dict(self.avail)
-        for rec in self.actor_queue:
-            res = rec["resources"]
-            if not all(avail.get(k, 0.0) >= v for k, v in res.items()):
-                return False
-            if int(res.get("chip", 0)):
-                return True
-            for k, v in res.items():
-                avail[k] = avail.get(k, 0.0) - v
-        return False
+        reserved: set = set()
+        try:
+            for rec in self.actor_queue:
+                if not all(avail.get(kk, 0.0) >= vv for kk, vv in rec["resources"].items()):
+                    break
+                nchips = int(rec["resources"].get("chip", 0))
+                ids = self._claim_chips(nchips, frozenset(reserved))
+                if ids is None:
+                    self._reserve_closest(nchips, reserved)
+                else:
+                    for kk, vv in rec["resources"].items():
+                        avail[kk] = avail.get(kk, 0.0) - vv
+                    reserved.update(c // self.chips_per_host for c in ids)
+        finally:
+            self.free_chips = saved
+        return reserved
 
     def lease_chips(self, n: int, timeout: Optional[float] = None) -> ChipLease:
-        """Driver-level device lease for work that runs on the driver
-        itself rather than in an actor.  Blocks until ``n`` devices are
-        free, and never outraces a queued actor request that fits
-        (``_queued_reservations``).  Returns a :class:`ChipLease` (a list
-        of device ids carrying ``on_revoke`` preemption plumbing).  Pair
-        with :meth:`release_chips`."""
+        """Driver-level device lease (shape-aware) for work that runs on
+        the driver itself rather than in an actor: the multi-host trainer
+        path.  Blocks until a correctly shaped lease frees up, honouring
+        the hosts reserved for queued actor requests
+        (``_queued_reservations``), so driver leases cannot starve a
+        shape-blocked queue head nor outrace a feasible one.  Returns a
+        :class:`ChipLease` (a list of device ids carrying ``on_revoke``
+        preemption plumbing).  Pair with :meth:`release_chips`."""
         self._check_satisfiable({"chip": float(n)})
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             ids = None
             with self.lock:
-                if (self._can_fit({"chip": float(n)})
-                        and not self._queued_reservations()):
-                    ids = self._claim_chips(n)
-                    self._acquire({"chip": float(n)})
+                if self._can_fit({"chip": float(n)}):
+                    ids = self._claim_chips(n, frozenset(self._queued_reservations()))
+                    if ids is not None:
+                        self._acquire({"chip": float(n)})
             if ids is not None:
                 lease = ChipLease(ids)
                 if _faults.enabled():
@@ -977,6 +1074,11 @@ class Runtime:
                 raise TpuAirError(
                     f"resource request {res} exceeds cluster total {total}"
                 )
+        nchips = int(res.get("chip", 0))
+        if nchips > self.chips_per_host and nchips % self.chips_per_host != 0:
+            raise TpuAirError(
+                f"chip lease of {nchips} spans hosts and must be a multiple of "
+                f"chips_per_host={self.chips_per_host} (whole-host lease shapes)")
 
     # -- task submission -----------------------------------------------------
     def _pack_payload(self, payload_tuple) -> Tuple[Optional[bytes], Optional[str]]:
@@ -1160,18 +1262,37 @@ class Runtime:
 
     def _claim_queued_actors(self):
         """FAST phase, runs synchronously inside ``_schedule`` (any thread):
-        claim resources for queued actor creations that now fit, strictly
-        FIFO: if the head does not fit, later (smaller) requests do not jump
-        it, so a big lease cannot be starved by a stream of small ones.
-        Because the claim happens before ``_schedule`` dispatches tasks, a
-        stream of chip tasks cannot outrace a queued chip lease either.
-        The slow process spawn is handed to the placement thread via
-        ``_to_spawn``."""
+        claim resources for queued actor creations that now fit, FIFO with
+        one carve-out.  If the head's device COUNT does not fit, later
+        (smaller) requests do not jump it, so a big lease cannot be starved
+        by a stream of small ones; but a head whose count fits while no
+        valid lease SHAPE exists (4 devices free as 2 + 2 across hosts
+        cannot serve a 4-device single-host lease) is scanned past, so
+        fragmentation cannot stall unrelated work.  The skipped request
+        reserves the hosts closest to its shape (``_reserve_closest``),
+        which requests behind it cannot claim from; reservations are
+        recomputed on every pass in FIFO order, so the moment the shape
+        exists the blocked request claims first.  Because the claim
+        happens before ``_schedule`` dispatches tasks, a stream of chip
+        tasks cannot outrace a queued chip lease either.  The slow process
+        spawn is handed to the placement thread via ``_to_spawn``."""
         claimed = False
         with self.lock:
-            while self.actor_queue and self._can_fit(self.actor_queue[0]["resources"]):
-                rec = self.actor_queue.pop(0)
-                chip_ids = self._claim_chips(int(rec["resources"].get("chip", 0)))
+            reserved: set = set()
+            i = 0
+            while i < len(self.actor_queue):
+                rec = self.actor_queue[i]
+                if not self._can_fit(rec["resources"]):
+                    break
+                nchips = int(rec["resources"].get("chip", 0))
+                chip_ids = self._claim_chips(nchips, frozenset(reserved))
+                if chip_ids is None:
+                    # shape-blocked: reserve what it is closest to
+                    # recombining, then keep scanning
+                    self._reserve_closest(nchips, reserved)
+                    i += 1
+                    continue
+                self.actor_queue.pop(i)
                 self._acquire(rec["resources"])
                 self._to_spawn.append((rec, chip_ids))
                 claimed = True
@@ -1534,6 +1655,12 @@ def init(
         if include_dashboard:  # honor an explicit request on reinit too
             _start_dashboard(dashboard_port)
         return _runtime
+    # multi-host rendezvous first (a no-op unless the TPU_AIR_COORDINATOR
+    # env contract is set); a failed one raises rather than run this host
+    # alone in a run shaped for several
+    from tpu_air_torch.parallel import distributed as _dist
+
+    _dist.ensure_initialized()
     _runtime = Runtime(num_cpus=num_cpus, num_chips=num_chips, **kwargs)
     if include_dashboard is None:
         include_dashboard = os.environ.get("TPU_AIR_DASHBOARD", "0") == "1"

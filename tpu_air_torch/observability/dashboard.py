@@ -77,9 +77,8 @@ def snapshot() -> Dict[str, Any]:
         out = {
             "initialized": True,
             "session_id": rt.session_id,
-            # one host: every chip is on it
             "resources": {"cpu": rt.num_cpus, "chip": rt.num_chips,
-                          "chips_per_host": rt.num_chips},
+                          "chips_per_host": rt.chips_per_host},
             "available": dict(rt.avail),
             "free_chips": list(rt.free_chips),
             "queue_depth": len(rt.queue),

@@ -61,19 +61,24 @@ def visible_devices() -> List[torch.device]:
 
 def topology() -> dict:
     """The local topology: platform, device count, visible count, the
-    card's name and the process count (the ranks of an initialized
-    ``torch.distributed`` group, else 1)."""
+    card's name and the process count (the hosts of the multi-host
+    rendezvous, as ``jax.process_count()`` counts them; else the ranks of
+    an initialized ``torch.distributed`` group, else 1)."""
     import torch.distributed as dist
+
+    from .distributed import process_count
 
     devs = platform_devices()
     first = devs[0]
+    hosts = process_count()
     return {
         "platform": "gpu" if first.type == "cuda" else first.type,
         "num_devices": len(devs),
         "num_visible": len(visible_devices()),
         "device_kind": (torch.cuda.get_device_name(first) if first.type == "cuda"
                         else first.type),
-        "process_count": dist.get_world_size() if dist.is_initialized() else 1,
+        "process_count": hosts if hosts > 1 else (
+            dist.get_world_size() if dist.is_initialized() else 1),
     }
 
 

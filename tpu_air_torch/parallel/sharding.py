@@ -15,8 +15,10 @@ states which port parameter each Flax path is.  A dim the axis does not
 divide replicates, as ``_param_shardings`` drops it.
 
 :func:`shard_params` and :func:`replicate` place a state dict on every
-device of a mesh, each device's tensors its slice; the JAX package's
-multi-host ``_place`` branch comes with multi-host rendezvous.
+device of a mesh, each device's tensors its slice.  The JAX package's
+multi-host ``_place`` branch has no counterpart here: in a multi-host fit
+every host builds the same logical parameters from the same seed and
+splits them over its own devices only (:func:`shard_module`).
 
 For training, :func:`shard_module` splits a model in place over a
 replica's devices: each Dense layer the rules split becomes a

@@ -6,7 +6,8 @@ epoch; the session records the history (also appended to
 ``progress.jsonl``), retains checkpoints under the run directory by
 ``CheckpointConfig`` and tracks the best and the latest one.  In a run of
 several workers every rank has a session; rank 0's writes the progress
-file and retains the checkpoints.  In a Tune trial the session's
+file and retains the checkpoints; every host of a multi-host fit has one
+too, host 0's the real one.  In a Tune trial the session's
 ``decision_cb`` hands each report to the driver and ``report`` raises
 :class:`StopTrial` when the scheduler stops the trial.  With
 ``CheckpointConfig.publish_weights_to`` every retained checkpoint is also
@@ -47,6 +48,7 @@ class Session:
         world_size: int = 1,
         world_rank: int = 0,
         decision_cb: Optional[Callable[[Dict[str, Any], int], bool]] = None,
+        local_rank: Optional[int] = None,
     ):
         self.run_dir = run_dir
         self.checkpoint_config = checkpoint_config or CheckpointConfig()
@@ -54,6 +56,10 @@ class Session:
         self.config = config or {}
         self.world_size = world_size
         self.world_rank = world_rank
+        # this rank's index among the ranks of its machine: its worker's on
+        # one host; 0 on every host of a multi-host fit, where one
+        # controller a host runs over all of the host's devices
+        self.local_rank = world_rank if local_rank is None else local_rank
         self.decision_cb = decision_cb
         self.history: List[Dict[str, Any]] = []
         self.checkpoints: List[Tuple[str, Dict[str, Any]]] = []  # (dir, metrics)
@@ -76,17 +82,18 @@ class Session:
         self.history.append(rec)
         if _tracing.enabled():
             self._emit_iteration_span()
-        if self.world_rank != 0:
-            return
-        with open(os.path.join(self.run_dir, "progress.jsonl"), "a") as f:
-            f.write(json.dumps(rec, default=float) + "\n")
-        if checkpoint is not None:
-            self._retain(checkpoint, rec)
-            if self.checkpoint_config.publish_weights_to:
-                self._publish_weights(checkpoint, rec)
-        # the stream's sequence number is the session's own counter: user
-        # metrics may set training_iteration, but the Tune driver drains
-        # report-1, report-2, ... in order
+        if self.world_rank == 0:
+            with open(os.path.join(self.run_dir, "progress.jsonl"), "a") as f:
+                f.write(json.dumps(rec, default=float) + "\n")
+            if checkpoint is not None:
+                self._retain(checkpoint, rec)
+                if self.checkpoint_config.publish_weights_to:
+                    self._publish_weights(checkpoint, rec)
+        # every rank with a decision_cb asks it (the hosts of a multi-host
+        # fit decide together whether their lease is revoked); the stream's
+        # sequence number is the session's own counter: user metrics may
+        # set training_iteration, but the Tune driver drains report-1,
+        # report-2, ... in order
         if self.decision_cb is not None and not self.decision_cb(rec, self._iter):
             raise StopTrial(f"trial stopped by scheduler at iteration {self._iter}")
 
@@ -224,3 +231,7 @@ def get_world_size() -> int:
 
 def get_world_rank() -> int:
     return get_session().world_rank
+
+
+def get_local_rank() -> int:
+    return get_session().local_rank

@@ -21,6 +21,13 @@ reports the JAX loop's ``mesh_data``, ``mesh_model`` and
 ``params_bytes_*``; the optimizer acts on the logical parameters and the
 checkpoint holds them whole.
 
+Across hosts (a lease larger than a host, ``trainer.py``'s multi-host
+path) each host is one worker over its share of the lease: every host
+builds the same logical parameters from the same seed, iterates the same
+global batches, takes its own rows, and splits the model over its own
+devices only; the data replicas' gradients meet over the hosts' group,
+and ``mesh_num_hosts`` counts the hosts.
+
 ``_make_optimizer`` reproduces the JAX package's optax chain,
 ``clip_by_global_norm(max_grad_norm)`` then either ``adamw(schedule,
 b1=0.9, b2=0.999, eps=1e-8, weight_decay)`` with the decay on every
@@ -388,7 +395,7 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
     from tpu_air_torch.models.t5.config import T5Config
     from tpu_air_torch.models.t5.convert import jax_layouts, tp_split_dims
     from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
-    from tpu_air_torch.parallel.distributed import all_reduce_sum
+    from tpu_air_torch.parallel.distributed import all_reduce_sum, current_host_group
     from tpu_air_torch.parallel.mesh import worker_devices, worker_mesh
     from tpu_air_torch.parallel.sharding import logical_parameters, params_bytes, shard_module
 
@@ -413,10 +420,12 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
     tp = sc_mp if sc_mp > 1 else max(1, args.tensor_parallelism)
     workers, rank = session.get_world_size(), session.get_world_rank()
     device = resolve_device(config.get("_device"))
-    # this worker's (data, model) mesh over its devices; the extra devices
+    # this worker's (data, model) mesh over its devices (its host's share of
+    # the lease in a multi-host fit, one worker a host); the extra devices
     # are in-worker data replicas
-    mesh = worker_mesh(worker_devices(rank, getattr(sc, "num_chips_per_worker", 1), device),
-                       tp)
+    mesh = worker_mesh(worker_devices(session.get_local_rank(),
+                                      getattr(sc, "num_chips_per_worker", 1), device), tp)
+    hosts = current_host_group()
     dpl = mesh.shape["data"]
     dp = dpl * workers
     home = mesh.devices[0, 0]
@@ -488,7 +497,8 @@ def t5_train_loop(config: Dict[str, Any]) -> None:
             "train_tokens_per_sec_per_chip": (tokens / dt / (dp * tp)) if dt > 0 else 0.0,
             "mesh_data": dp,
             "mesh_model": tp,
-            "mesh_num_hosts": 1,
+            # the hosts the run spans: the cross-host proof of a multi-host fit
+            "mesh_num_hosts": hosts.size if hosts is not None else 1,
             "params_bytes_total": params_bytes_total,
             "params_bytes_per_device": params_bytes_per_device,
         }

@@ -23,6 +23,20 @@ An attempt runs one of two ways:
   is a daemonic process, which may not start processes, so a trial cannot
   spawn ``num_workers > 1`` workers (ROADMAP Queue 1 item 12).
 
+* Across hosts: with an active cluster (``parallel/distributed.py``'s
+  ``spawn_local_cluster`` or ``set_active_cluster``) and a lease larger
+  than a host, ``fit()`` leases the devices from the runtime of host 0 in
+  whole hosts and runs each attempt on every host of the lease through the
+  cluster's agent plane (``_run_spmd_multihost``, the JAX package's): each
+  host is one controller over its local share of the lease, a worker of
+  ``len(hosts)`` workers, its data replicas' gradients summed over a
+  group of one rank a host that lives only for the attempt.  The lease's
+  first host keeps the real session; the others' run directories are
+  thrown away.  A revoked lease stops every host at the same report and
+  shrinks the data-parallel width (an elastic preemption, budgeted apart
+  from ``max_failures``); once the lease fits one host, the remaining
+  attempts run on this host as above.
+
 The attempt loop is that of ``_run_actor_attempts``: an attempt whose
 training function raises (on any rank) is retried, up to
 ``FailureConfig.max_failures`` times, resuming from the newest checkpoint
@@ -55,10 +69,11 @@ def _default_storage() -> str:
 
 
 class _BroadcastDataset:
-    """A pandas-backed dataset: the dataset type the port's trainers take
-    (copied from the JAX package, where it carries datasets to every host of
-    a multihost run).  Covers the surface the train loops use:
-    ``iter_batches`` / ``count`` / ``to_pandas``."""
+    """A pandas-backed dataset: the dataset type the port's trainers take,
+    and what carries the datasets to every host of a multi-host attempt
+    (every host iterates the same rows in the same order).  Covers the
+    surface the train loops use: ``iter_batches`` / ``count`` /
+    ``to_pandas``."""
 
     def __init__(self, df):
         self._df = df.reset_index(drop=True)
@@ -111,6 +126,46 @@ class _BroadcastDataset:
         return _BroadcastDataset(pd.concat(outs, ignore_index=True) if outs else self._df)
 
 
+def _touch(path: str) -> None:
+    try:
+        with open(path, "w") as f:
+            f.write("revoked")
+    except OSError:
+        pass
+
+
+def _stage_resume(path: str, run_dir: str, n: int) -> str:
+    """The checkpoint a multi-host attempt resumes from, out of the way of
+    that attempt's session: a checkpoint this run retained is renamed
+    ``resume_<n>_<name>``, because the new session's first report retains
+    into ``checkpoint_000001`` again (each session counts from 1) while
+    the other hosts may still be reading the one they resume from."""
+    name = os.path.basename(os.path.normpath(path))
+    if not name.startswith("checkpoint_") or \
+            os.path.dirname(os.path.abspath(path)) != os.path.abspath(run_dir):
+        return path
+    staged = os.path.join(run_dir, f"resume_{n}_{name}")
+    os.rename(path, staged)
+    return staged
+
+
+def _shrunk_scaling(sc: ScalingConfig, chips_per_host: int) -> Optional[ScalingConfig]:
+    """The next smaller legal lease shape after a preemption: halve the
+    data-parallel degree (the model and sequence axes must survive intact:
+    a tensor-parallel model cannot lose devices) until the total is a
+    legal lease shape (whole-host multiples above one host).  None at one
+    worker: the run cannot shrink further and waits for the same shape."""
+    import dataclasses
+
+    workers = sc.num_workers
+    while workers > 1:
+        workers //= 2
+        total = workers * sc.num_chips_per_worker
+        if total <= chips_per_host or total % chips_per_host == 0:
+            return dataclasses.replace(sc, num_workers=workers)
+    return None
+
+
 def _scan_latest_checkpoint(run_dir: str):
     """Newest ``checkpoint_*`` directory under ``run_dir`` as the
     ``(path, metrics)`` pair the session would have reported: what a retry
@@ -130,13 +185,14 @@ def _scan_latest_checkpoint(run_dir: str):
 def _run_trial(training_fn: Callable[[Dict[str, Any]], None], config: Dict[str, Any],
                run_dir: str, datasets: Dict[str, Any],
                checkpoint_config: CheckpointConfig, world_size: int = 1,
-               world_rank: int = 0, decision_cb=None) -> Dict[str, Any]:
-    """One attempt in this process (one rank of it with several workers):
-    the body of the JAX package's ``_TrialRunner.run``.  A ``StopTrial``
-    from the scheduler ends it clean (``"stopped": True``)."""
+               world_rank: int = 0, decision_cb=None,
+               local_rank: Optional[int] = None) -> Dict[str, Any]:
+    """One attempt in this process (one rank of it with several workers or
+    hosts): the body of the JAX package's ``_TrialRunner.run``.  A
+    ``StopTrial`` from the scheduler ends it clean (``"stopped": True``)."""
     session = Session(run_dir=run_dir, checkpoint_config=checkpoint_config,
                       datasets=datasets, config=config, world_size=world_size,
-                      world_rank=world_rank, decision_cb=decision_cb)
+                      world_rank=world_rank, decision_cb=decision_cb, local_rank=local_rank)
     _set_active(session)
     out: Dict[str, Any] = {"error": None, "stopped": False}
     try:
@@ -299,8 +355,25 @@ class BaseTrainer:
 
     def _run_attempts(self, config: Dict[str, Any], run_dir: str,
                       datasets: Dict[str, Any]) -> Result:
+        # a lease larger than one host runs on every host it spans, through
+        # the active cluster's agent plane
+        from tpu_air_torch.parallel.distributed import active_cluster
+
+        cluster = active_cluster()
+        if cluster is not None and cluster.num_processes > 1:
+            from tpu_air_torch.core.runtime import get_runtime
+
+            rt = get_runtime()
+            if (self.scaling_config.total_chips or 0) > rt.chips_per_host:
+                return self._run_spmd_multihost(datasets, run_dir, config, cluster, rt,
+                                                self.resume_from_checkpoint)
+        return self._run_local_attempts(config, run_dir, datasets, self.resume_from_checkpoint)
+
+    def _run_local_attempts(self, config: Dict[str, Any], run_dir: str,
+                            datasets: Dict[str, Any], resume) -> Result:
+        """The attempts on this host (also where an elastic shrink of a
+        multi-host lease lands once it fits one host)."""
         rc = self.run_config
-        resume = self.resume_from_checkpoint
         workers = self._num_ranks()
         attempt = 0
         while True:
@@ -327,6 +400,117 @@ class BaseTrainer:
                 continue
             return self._assemble(out, run_dir, config, RuntimeError(err))
 
+    def _run_spmd_multihost(self, datasets, run_dir, config, cluster, rt, resume) -> Result:
+        """Run the training function on every host of the lease, in
+        lockstep, over a driver-level lease that spans hosts.  The lease's
+        first host (host 0, this process, whenever the lease holds it)
+        keeps the real session (reporting, checkpoint retention); the
+        others run throwaway replicas whose only output is their error.
+
+        ``FailureConfig`` retries a training error (an exception inside the
+        training function on any host) from the latest checkpoint, up to
+        ``max_failures``.  Infrastructure failures (a dead host agent)
+        propagate: the same dead cluster would fail every retry.
+
+        Elastic preemption: a revoked lease, cold (``LeaseRevokedError`` at
+        acquisition) or graceful (a notice mid-trial, which every host's
+        session sees at the same report), is not a training failure.  The
+        run re-leases at half the data-parallel width and resumes from the
+        newest retained checkpoint; preemption retries are budgeted apart
+        from ``max_failures``.  Once the lease fits one host, the remaining
+        attempts run on this host (``_run_local_attempts``)."""
+        import copy
+
+        from tpu_air_torch.faults.plan import LeaseRevokedError
+
+        sc = self.scaling_config
+        rc = self.run_config
+        max_failures = rc.failure_config.max_failures
+        max_preemptions = 3
+        attempt = 0
+        preemptions = 0
+        marker = os.path.join(run_dir, "_lease_revoked")
+
+        def shrink_and_resume(latest):
+            nonlocal sc, resume
+            smaller = _shrunk_scaling(sc, rt.chips_per_host)
+            if smaller is not None:
+                sc = smaller
+                config["_scaling_config"] = sc
+            if latest:
+                resume = Checkpoint.from_directory(latest[0])
+
+        while True:
+            if sc.total_chips <= rt.chips_per_host:
+                local = copy.copy(self)
+                local.scaling_config = sc
+                return local._run_local_attempts(config, run_dir, datasets, resume)
+            if resume is not None:
+                resume = _stage_resume(
+                    resume.to_directory() if isinstance(resume, Checkpoint) else resume,
+                    run_dir, attempt + preemptions)
+                config["resume_from_checkpoint"] = resume
+            try:
+                os.remove(marker)
+            except OSError:
+                pass
+            try:
+                lease = rt.lease_chips(sc.total_chips, timeout=300.0)
+            except LeaseRevokedError:
+                # cold revocation at acquisition: nothing ran, nothing is lost
+                if preemptions >= max_preemptions:
+                    raise
+                preemptions += 1
+                shrink_and_resume(_scan_latest_checkpoint(run_dir))
+                continue
+            # graceful preemption: the notice writes the marker (run_dir is
+            # on shared storage); the hosts read it together at their next
+            # report and stop at that same iteration
+            lease.on_revoke(lambda notice_s, _m=marker: _touch(_m))
+            try:
+                out, error = self._run_spmd_leased(datasets, run_dir, config, cluster, rc, sc,
+                                                   lease, rt.chips_per_host)
+            finally:
+                rt.release_chips(lease)
+            if error is None:
+                return self._assemble(out, run_dir, config, None)
+            latest = out.get("latest_checkpoint")
+            if (lease.revoking and "LeaseRevokedError" in str(error)
+                    and preemptions < max_preemptions):
+                preemptions += 1
+                shrink_and_resume(latest)
+                continue
+            if attempt < max_failures:
+                attempt += 1
+                if latest:
+                    resume = Checkpoint.from_directory(latest[0])
+                continue
+            return self._assemble(out, run_dir, config, error)
+
+    def _run_spmd_leased(self, datasets, run_dir, config, cluster, rc, sc, lease,
+                         chips_per_host: int):
+        """One multi-host attempt; returns (the session host's out dict,
+        error or None).  Each host of the lease runs one controller over
+        its local share of it (``TPU_AIR_CHIP_IDS`` = its local slots), as
+        worker ``h`` of ``len(hosts)`` workers of ``total_chips / hosts``
+        devices each (the loop's ``_scaling_config``), joined by a
+        :class:`~tpu_air_torch.parallel.distributed.HostGroup` for the
+        length of the fit; hosts outside the lease return at once."""
+        import dataclasses
+        import secrets
+
+        hosts = sorted({c // chips_per_host for c in lease})
+        share = {h: [c % chips_per_host for c in lease if c // chips_per_host == h]
+                 for h in hosts}
+        host_config = dict(config, _scaling_config=dataclasses.replace(
+            sc, num_workers=len(hosts), num_chips_per_worker=sc.total_chips // len(hosts)))
+        spmd_fit = _SpmdFit(self._training_fn(), host_config,
+                            {k: ds.to_pandas() for k, ds in datasets.items() if ds is not None},
+                            run_dir, rc.checkpoint_config, hosts, share, secrets.token_hex(8))
+        outs = cluster.run(spmd_fit)
+        errors = [o["error"] for o in outs if o.get("error")]
+        return outs[hosts[0]], (RuntimeError("\n---\n".join(errors)) if errors else None)
+
     def _assemble(self, out, run_dir, config, error) -> Result:
         best = out.get("best_checkpoint")
         history = out.get("history", [])
@@ -341,6 +525,69 @@ class BaseTrainer:
             ],
             config={k: v for k, v in config.items() if not k.startswith("_")},
         )
+
+
+class _SpmdFit:
+    """The thunk every host of a multi-host attempt runs (through
+    ``cluster.run``): the attempt's session on this host, inside the
+    lease's :class:`~tpu_air_torch.parallel.distributed.HostGroup`."""
+
+    def __init__(self, training_fn, config, dfs, run_dir, checkpoint_config, hosts, share,
+                 token):
+        self.training_fn = training_fn
+        self.config = config
+        self.dfs = dfs
+        self.run_dir = run_dir
+        self.checkpoint_config = checkpoint_config
+        self.hosts = hosts
+        self.share = share
+        self.token = token
+
+    def __call__(self) -> Dict[str, Any]:
+        import shutil
+        import tempfile
+
+        from tpu_air_torch.faults.plan import LeaseRevokedError
+        from tpu_air_torch.parallel import distributed as D
+
+        pid = D.process_index()
+        if pid not in self.share:
+            return {"error": None, "replica": pid}
+        rank = self.hosts.index(pid)
+        prev_lease = os.environ.get("TPU_AIR_CHIP_IDS")
+        os.environ["TPU_AIR_CHIP_IDS"] = ",".join(str(c) for c in self.share[pid])
+        rd = self.run_dir if rank == 0 else tempfile.mkdtemp(prefix="tpu_air_torch-spmd-replica-")
+        marker = os.path.join(self.run_dir, "_lease_revoked")
+        try:
+            group = D.HostGroup(self.hosts, self.token,
+                                resolve_device(self.config.get("_device")))
+
+            def preempt_check(rec, seq):
+                # the hosts read the marker together, so they stop at the
+                # same report
+                if group.any(os.path.exists(marker)):
+                    raise LeaseRevokedError("chip lease revoked mid-trial (preemption notice)")
+                return True
+
+            with D.host_scope(group):
+                out = _run_trial(self.training_fn, self.config, rd,
+                                 {k: _BroadcastDataset(df) for k, df in self.dfs.items()},
+                                 self.checkpoint_config, len(self.hosts), rank,
+                                 decision_cb=preempt_check, local_rank=0)
+                if out["error"]:
+                    # the other hosts may wait in a collective for this one
+                    group.close()
+        finally:
+            if prev_lease is None:
+                os.environ.pop("TPU_AIR_CHIP_IDS", None)
+            else:
+                os.environ["TPU_AIR_CHIP_IDS"] = prev_lease
+            if rank != 0:
+                # a replica's run dir holds full checkpoint copies
+                shutil.rmtree(rd, ignore_errors=True)
+        if rank != 0:
+            return {"error": out["error"], "replica": pid}
+        return out
 
 
 def _as_dataset(ds):
