@@ -131,10 +131,11 @@ Phases, each fatal on failure:
               over FLAN-T5-base (full width and depth, dropout 0.1, bf16 on
               f32 parameters, random weights from numpy seed 0 in every
               trial, W1's batch of 8 x 512/512), the reference's search space
-              (lr, epochs, weight decay) under ``trainer_init_config``, 4
-              samples, ``ASHAScheduler(max_t=16)`` on eval_loss, seed 0; each
-              trial trains in its own actor on the leased card (cut: an epoch
-              is 2 steps, evaluation 8 rows) and reports, from inside the
+              (lr, epochs, weight decay) under ``trainer_init_config``,
+              ``ASHAScheduler(max_t=16)`` on eval_loss, seed 0; each trial
+              trains in its own actor on the leased card (cut: 2 of the
+              reference's 4 samples, an epoch is 2 steps, evaluation 8 rows)
+              and reports, from inside the
               actor, its device (must be cuda:0), the card's free memory at
               its start and its launches (flash forward in every epoch's
               eval); the sweep's wall time and trained tokens/s; the best
@@ -233,8 +234,8 @@ Phases, each fatal on failure:
               decode step against phase 22's, the step with the banks and
               without in turns from one state, and the launches are
               printed;
-              (b) ``swap_params`` to byte-identical weights mid-burst
-              changes no token; a swap to v2 (the embedding E as 1 - E), then
+              (b) ``swap_params`` to byte-identical weights mid-burst (a
+              burst of the first 16 prompts) changes no token; a swap to v2 (the embedding E as 1 - E), then
               ``rollback_params``: a prompt gives phase 22's tokens again,
               and a second rollback raises; each stall printed; (c) two
               engines, each on its own copy of the checkpoint: 16 prompts
@@ -347,9 +348,9 @@ Phases, each fatal on failure:
               epochs of 8192 tokens: finite losses, 8 launches of each
               flash kernel a step, step ms; (e)
               ``LMTrainer(scaling_config=ScalingConfig(num_workers=1,
-              sequence_parallel=2)).fit()`` raises ``check_devices``'s
-              error (2 cards needed, 1 visible) before any rank starts, no
-              kernel launched.  The NCCL ring between cards needs a card a
+              sequence_parallel=2)).fit()`` raises ``check_slots``' error
+              (2 cards needed, the runtime has 1 slot) before any rank
+              starts, no kernel launched.  The NCCL ring between cards needs a card a
               rank, so it runs only in the CPU tests (gloo);
 28. dist     — sharded and disaggregated serving over phase 22's checkpoint,
               engine configuration and 32 prompts in bf16: (a)
@@ -433,13 +434,48 @@ Phases, each fatal on failure:
               1e-5 of its norm; (c) a ``TorchTrainer`` whose 8-slot lease a
               ``runtime.lease`` ``notice`` revokes 0.8 s after its grant:
               both hosts stop at the same report, the run shrinks to 4 slots
-              on one host (this process, ``world() == (0, 1)``) and resumes
-              from the retained checkpoint with ``max_failures=0``.
+              on one host (in its trial actor, ``world() == (0, 1)``) and
+              resumes from the retained checkpoint with ``max_failures=0``;
+              (d) the flash forward at (a)'s replica shard (B 2, H 6, L
+              512, D 64; bias and a source key mask, and causal with a
+              label key mask) against its plain version, beside its bound
+              and SDPA;
+31. actors   — training in runtime actors, in a runtime of 4 chip slots on
+              the one card: (a) ``Tuner(T5Trainer(scaling_config=
+              ScalingConfig(num_workers=2, use_gpu=True)))`` at FLAN-T5-base
+              width and depth, bf16 on f32, W1's global batch of 8 x
+              512/512 over 2 ranks, W2's lr and weight decay, 2 samples
+              under ASHA, epochs of 2 steps: each trial's runner leases 2
+              slots and runs its attempt on 2 rank actors placed on them
+              (gloo, both on ``cuda:0``), both trials at once; the ranks'
+              parameter digests are equal at every report, each rank's
+              eval launches the flash forward, and the best checkpoint
+              generates through the kernels with tokens equal to the plain
+              path's; (b) ``T5Trainer.fit()`` at that width over 2 ranks,
+              rank 1 dying outright (``os._exit``) at its report 2,
+              ``FailureConfig(max_failures=1)``: the retry resumes from
+              report 2's checkpoint and ends, then the 4 slots are free and
+              no rank's process is left; (c) one f32 step at ``[w1
+              parity]``'s cut depth, dropout 0, over 2 ranks (the gradient
+              all-reduce over gloo) against 1 rank at the doubled batch:
+              losses within 1e-6 relative, parameters within 1e-6 in norm;
+              (d) the flash forward at a rank's eval shape in (a) and (b)
+              (B 4, H 12, L 512, D 64; bias and a source key mask, and
+              causal with a label key mask) against its plain version,
+              beside its bound and SDPA.
+
+Every ``fit()`` runs its attempt in a trial actor of the port's runtime (a
+runtime of the card's one slot that ``fit()`` starts for it, or, for the
+tensor-parallel and one-host fits of phases 29 and 30, a runtime of 2 or 8
+slots on the card): what its training function launched, its steps on the
+device clock and its peak memory are recorded there (``actor_probe``) and
+read from the run's directory.
 
 The counts of kernel launches are set to 0 just before each main path (T5
-generation, LM training, W1 fine-tuning with its generation, W2's
-generation, each of phase 22's and phase 23's in-process paths) and read
-just after it (the ``[lm]`` phase's traced steps are counted apart, against
+generation, W1's generation, W2's generation, each of phase 22's and phase
+23's in-process paths) and read just after it, and in the trial actor of
+each ``fit()`` (LM training, W1 and W6 fine-tuning) around its training
+function (the ``[lm]`` phase's traced steps are counted apart, against
 their trace);
 the W3 batch path's are counted in its scoring actor, a fresh process,
 around the batch it scores, and W2's trials' in each trial's actor, around
@@ -447,12 +483,14 @@ its training function, and the serve replicas' in each replica (a fresh
 process) over its whole life, phase 24's replica and phase 25's two too
 (the returned one's read just after its notice: the watcher ends its
 process after the migration), phase 27's around each ring's forward
-and backward in (a) and around (d)'s fit, and phase 28's around each of
+and backward in (a) and in (d)'s trial actor, and phase 28's around each of
 (a)'s engine runs, around (b)'s burst in the decode engine (this process)
-and in (c)'s replicas over their lives, and phase 29's around (a)'s fit,
-around each of its f32 steps and around (b)'s fit and generation, and phase
-30's on each host (read through the agent plane) around (a)'s and (b)'s
-fits, and in this process around (a)'s generation.  The SegFormer
+and in (c)'s replicas over their lives, and phase 29's in (a)'s trial actor,
+around each of its f32 steps, in (b)'s trial actor and around its
+generation, and phase 30's on each host (read through the agent plane)
+around (a)'s and (b)'s fits, and in this process around (a)'s generation,
+and phase 31's in each rank actor of its sweep and fits, around its
+training function, and in this process around (a)'s generation.  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -528,11 +566,12 @@ W1_BATCH, W1_LEN, W1_STEPS, W1_EVAL_ROWS = 8, 512, 6, 16
 W1_PROMPTS, W1_NEW = 8, 32                # generation from the trained checkpoint
 W1_PARITY_LAYERS, W1_PARITY_BATCH = 2, 4  # f32 parity: full width, cut depth
 # W2 dials: the reference's sweep (Model_finetuning...ipynb cc-51-59) over W1,
-# 4 trials of 1 worker under ASHA(max_t=16) on eval_loss, its search space as
-# it is; cut: an epoch is 2 steps of W1_BATCH rows (16 rows), evaluation 8 rows
+# trials of 1 worker under ASHA(max_t=16) on eval_loss, its search space as
+# it is; cut: 2 of its 4 samples (the run's time), an epoch is 2 steps of
+# W1_BATCH rows (16 rows), evaluation 8 rows
 W2_SPACE = {"learning_rate": [2e-5, 2e-4, 2e-3, 2e-2], "epochs": [2, 4, 8, 16],
             "weight_decay": [0.01, 0.1, 1, 10]}
-W2_SAMPLES, W2_MAX_T, W2_STEPS, W2_EVAL_ROWS = 4, 16, 2, 8
+W2_SAMPLES, W2_MAX_T, W2_STEPS, W2_EVAL_ROWS = 2, 16, 2, 8
 # SegFormer dials: MiT-b0 at its published width, ADE20K's 150 labels.  W7:
 # the reference's batch inference (64 ragged images, processor size 512,
 # batches of 16, 2 actors); W6: its fine-tuning, batch 8, one 6-step epoch
@@ -578,6 +617,10 @@ LM_LIVE_MIGRATED, LM_LIVE_MIGRATE_AFTER, LM_LIVE_PROBES, LM_LIVE_PROBE_NEW = 16,
 # first 16 prompts (32 before phase 29 was added; a row's tokens do not
 # depend on the prompts after it at 16 slots)
 LM_LIVE_OFFLINE_ROWS, LM_LIVE_ADAPTER_PROMPTS = 1, 16
+# depth cut of phase 23 (b): the swap mid-burst over the first 16 prompts (all
+# 32 before phase 31 was added; at 16 slots a row's tokens do not depend on
+# the prompts after it)
+LM_LIVE_SWAP_PROMPTS = 16
 # observability dials: [lm] (c) traces LM_TRACE_STEPS train steps and prints
 # the LM_TRACE_GAPS longest device-idle gaps; [obs serve]'s airwatch scrapes
 # every OBS_WATCH_S seconds, its traced POST carries OBS_POST prompts, and
@@ -599,7 +642,8 @@ NATIVE_PAGES, NATIVE_REPS, NATIVE_SMALL_ARENA = (1, 135), 3, 64 << 10
 # engine configuration and 32 prompts: (a) MeshEngine meshes on the one card
 # in bf16 (16 prefill chunks a step: tokens do not depend on the schedule),
 # every burst over the first DIST_MESH_PROMPTS prompts (a depth cut: 32
-# took 75-100 s of the run's 1200)
+# took 75-100 s of the run's 1200; fewer than 9 leave dp 2's second replica
+# empty)
 # and in f32 at phase 22 (e)'s cut depth; (b) the router's fault run over the
 # first DIST_FAULT_PROMPTS prompts; (c) one POST of DIST_POST prompts a
 # deployment; (d) the decode kernel at (label, b, h) of the meshes' shards
@@ -619,6 +663,16 @@ TP_LM_STEPS, TP_PARITY, TP_W1_STEPS = 3, (2, 4), 3
 # for TP_W1_STEPS steps of the [w1] phase's rows; (b) its f32 fit at depth
 # MH_PARITY_LAYERS + MH_PARITY_LAYERS for MH_PARITY_STEPS steps
 MH_PARITY_LAYERS, MH_PARITY_STEPS = 2, 2
+# training in runtime actors (phase 31), in a runtime of 4 chip slots on the
+# one card: (a) W2 at W1's width and global batch over 2 ranks (per-device
+# W1_BATCH // 2, gloo), ACT_SAMPLES trials at once, W2's lr and weight decay,
+# ACT_EPOCHS epochs of W2_STEPS steps under ASHA(max_t=ACT_EPOCHS) (a depth
+# cut of W2's epochs), W2_EVAL_ROWS eval rows; (b) W1 at that width over 2
+# ranks, ACT_FIT_EPOCHS one-step epochs, rank 1 dying outright at its report
+# ACT_DIE_AT, one retry; (c) one f32 step at [w1 parity]'s cut depth, dropout
+# 0, over 2 ranks against 1 rank at the doubled batch
+ACT_SAMPLES, ACT_EPOCHS, ACT_FIT_EPOCHS, ACT_DIE_AT = 2, 2, 2, 2
+T5_STEP = "tpu_air_torch.train.t5_trainer:make_t5_train_step"
 
 
 def model_config():
@@ -879,6 +933,28 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / flop_rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_work(B: int, H: int, L: int, D: int, lens, causal: bool) -> tuple:
+    """(bytes, flops) the bf16 flash forward must spend on a batch whose
+    rows need ``lens`` keys (:func:`needed_keys`), with a [1, H, L, L] f32
+    bias: q and out, k and v of the live keys, the bias columns some row
+    reads, the key mask and the f32 lse; 4 H D flops a live (query, key)
+    pair.  Causal, query i of a row of n keys sees min(i + 1, n) of them,
+    and of the bias only min(i + 1, longest row) columns are read (the
+    kernel skips key tiles past the diagonal); otherwise every query sees
+    its row's keys and reads the bias up to the longest row."""
+    lens = np.asarray(lens, dtype=np.int64)
+    top = int(lens.max())
+    tri = np.arange(1, L + 1)
+    if causal:
+        pairs = int(sum(np.minimum(tri, int(n)).sum() for n in lens))
+        bias_cols = int(np.minimum(tri, top).sum())
+    else:
+        pairs, bias_cols = L * int(lens.sum()), L * top
+    nbytes = (2 * B * H * L * D * 2 + 2 * H * D * 2 * int(lens.sum()) + H * bias_cols * 4
+              + B * L * 4 + B * H * L * 4)
+    return nbytes, 4 * H * D * pairs
 
 
 def max_err(a, b) -> float:
@@ -1790,7 +1866,6 @@ def lm_main_path(dev, storage: str) -> dict:
     its checkpoint, and ``main`` removes the work directory at the end."""
     import pandas as pd
 
-    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
     from tpu_air_torch.train import (CheckpointConfig, LMTrainer, RunConfig,
                                      TrainingArguments)
 
@@ -1801,22 +1876,20 @@ def lm_main_path(dev, storage: str) -> dict:
     os.makedirs(storage, exist_ok=True)
     args = TrainingArguments(learning_rate=3e-4, per_device_train_batch_size=1,
                              num_train_epochs=steps, seed=SEED, evaluation_strategy="no")
-    trainer = LMTrainer(model_config=cfg, training_args=args, datasets={"train": rows},
-                        run_config=RunConfig(storage_path=storage,
-                                             checkpoint_config=CheckpointConfig(num_to_keep=1)),
-                        device=dev)
-    flash_attention.launches = 0
-    flash_attention_backward.dq_launches = 0
-    flash_attention_backward.dkv_launches = 0
+    trainer = probed(LMTrainer(model_config=cfg, training_args=args, datasets={"train": rows},
+                               run_config=RunConfig(storage_path=storage,
+                                                    checkpoint_config=CheckpointConfig(
+                                                        num_to_keep=1)),
+                               device=dev))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = trainer.fit()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "flash_attention_bwd_dq": flash_attention_backward.dq_launches,
-                "flash_attention_bwd_dkv": flash_attention_backward.dkv_launches}
     if result.error is not None:
         raise AssertionError(f"[lm] fit failed: {result.error}")
+    # counted in the fit's trial actor, around its training function
+    probe, = read_probes(result.path)
+    launches = {k: probe["launches"][k] for k in FLASH_KERNELS}
     hist = result.metrics_history
     if len(hist) != steps or any(m["steps"] != 1 for m in hist):
         raise AssertionError(f"[lm] expected {steps} one-step epochs: {hist}")
@@ -1827,7 +1900,8 @@ def lm_main_path(dev, storage: str) -> dict:
     log(f"[lm] LMTrainer.fit: {cfg.d_model} wide, {cfg.n_layers} layers, {cfg.n_heads} heads "
         f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, batch 1, "
         f"L={LM_LEN}, {steps} steps in {wall:.1f} s (checkpoint of {ckpt_keys} tensors "
-        "each epoch)")
+        f"each epoch) in its trial actor (pid {probe['pid']}, lease {probe['lease']}, "
+        f"{probe['device']}, peak {probe['peak_gb']:.2f} GB)")
     log("[lm] loss per step: " + ", ".join(f"{x:.4f}" for x in losses))
     log("[lm] step ms (first is the warm-up): " + ", ".join(f"{x:.1f}" for x in step_ms))
     if not all(np.isfinite(losses)):
@@ -2309,9 +2383,10 @@ def recorded_t5_steps():
 
 
 def w1_main_path(dev) -> dict:
-    """``T5Trainer.fit()`` (one epoch of W1_STEPS steps, eval, checkpoint),
-    then generation from the best checkpoint; each step's loss and end on
-    the device clock through :func:`recorded_t5_steps`."""
+    """``T5Trainer.fit()`` (one epoch of W1_STEPS steps, eval, checkpoint) in
+    its trial actor, then generation from the best checkpoint here; each
+    step's loss and end on the device clock, recorded in the actor by
+    :func:`actor_probe`."""
     import shutil
     import tempfile
 
@@ -2337,26 +2412,23 @@ def w1_main_path(dev) -> dict:
     args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
                              per_device_train_batch_size=W1_BATCH, num_train_epochs=1,
                              seed=SEED)
-    trainer = T5Trainer(
+    trainer = probed(T5Trainer(
         model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
         datasets={"train": train, "evaluation": evaluation},
         run_config=RunConfig(storage_path=storage, checkpoint_config=CheckpointConfig(
             num_to_keep=1, checkpoint_score_attribute="eval_loss",
             checkpoint_score_order="min")),
-        device=dev)
-    flash_attention.launches = decode_attention.launches = 0
-    flash_attention_backward.dq_launches = flash_attention_backward.dkv_launches = 0
+        device=dev), step_maker=T5_STEP)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    with recorded_t5_steps() as marks:
-        result = trainer.fit()
+    result = trainer.fit()
     fit_wall = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    fit_launches = counts()
     try:
         if result.error is not None:
             raise AssertionError(f"[w1] fit failed: {result.error}")
+        # the launches, steps and peak memory of the fit's trial actor
+        probe, = read_probes(result.path)
+        peak_gb, fit_launches = probe["peak_gb"], probe["launches"]
         m = result.metrics
         if m["steps"] != W1_STEPS or len(result.metrics_history) != 1:
             raise AssertionError(f"[w1] expected one epoch of {W1_STEPS} steps: "
@@ -2364,8 +2436,7 @@ def w1_main_path(dev) -> dict:
         best = result.checkpoint
         if best.get_metrics()["eval_loss"] != m["eval_loss"]:
             raise AssertionError("[w1] the best checkpoint is not the min eval_loss one")
-        losses = [float(loss) for loss, _ in marks[1:]]
-        step_ms = [a.elapsed_time(b) for (_, a), (_, b) in zip(marks, marks[1:])]
+        losses, step_ms = probe["losses"], probe["step_ms"]
         if len(losses) != W1_STEPS or not all(np.isfinite(losses + [m["loss"], m["eval_loss"]])):
             raise AssertionError(f"[w1] losses {losses}, metrics {m}")
         med = float(np.median(step_ms[1:]))
@@ -2376,7 +2447,10 @@ def w1_main_path(dev) -> dict:
             f"bf16 compute on f32 parameters ({m['params_bytes_total'] / 1e6:.1f} MB), random "
             f"weights from numpy seed {SEED}; batch {W1_BATCH} x {W1_LEN} source / {W1_LEN} "
             f"label tokens, AdamW lr 2e-5, one epoch of {m['steps']} steps and "
-            f"{W1_EVAL_ROWS} eval rows in {fit_wall:.1f} s")
+            f"{W1_EVAL_ROWS} eval rows in {fit_wall:.1f} s, in its trial actor (pid "
+            f"{probe['pid']}, lease {probe['lease']}, {probe['device']}): the training "
+            f"function ran {probe['t1'] - probe['t0']:.1f} s of it, its first step began "
+            f"{probe['t_first_step'] - probe['t0']:.1f} s in (model build)")
         log("[w1] loss per step: " + ", ".join(f"{x:.4f}" for x in losses)
             + f"; epoch loss {m['loss']:.4f}, eval_loss {m['eval_loss']:.4f}")
         log("[w1] step ms (device clock, first is the warm-up): "
@@ -2543,16 +2617,7 @@ def w1_timing(dev, kernels: list, errs: dict, w1_stats: dict) -> list:
     dt = torch.bfloat16
     rows = {}
     for part, (q, k, v, bias, mask, causal) in w1_flash_inputs(rng, cfg, dev).items():
-        lens = needed_keys(mask, L)
-        if causal:   # query i of a row of length n sees min(i + 1, n) keys
-            pairs = int(sum(np.minimum(np.arange(1, L + 1), int(n)).sum() for n in lens))
-        else:
-            pairs = L * int(lens.sum())
-        # q and out, k and v of the live keys, the bias up to the longest
-        # row, the key mask and the f32 lse
-        nbytes = (2 * B * H * L * D * 2 + 2 * H * D * 2 * int(lens.sum())
-                  + H * L * int(lens.max()) * 4 + B * L * 4 + B * H * L * 4)
-        flops = 4 * H * D * pairs
+        nbytes, flops = flash_work(B, H, L, D, needed_keys(mask, L), causal)
         b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
         lib_mask = bias + ((1.0 - mask) * -1e30)[:, None, None, :]
         if causal:
@@ -3009,10 +3074,11 @@ def w2_path(dev) -> dict:
     FLAN-T5-base (full width and depth, dropout 0.1, bf16 compute on f32
     parameters, random weights from numpy seed 0 in every trial, AdamW, W1's
     batch of 8 x 512/512), the reference's search space under
-    ``trainer_init_config``, 4 samples, ``ASHAScheduler(max_t=16)`` on
-    eval_loss, seed 0; each trial leases the card in its own actor
+    ``trainer_init_config``, ``ASHAScheduler(max_t=16)`` on eval_loss, seed
+    0; each trial leases the card in its own actor
     (``ScalingConfig(num_workers=1, use_gpu=True)``) and keeps its best
-    checkpoint.  Cut: an epoch is 2 steps (16 rows), evaluation 8 rows.
+    checkpoint.  Cut: 2 of the reference's 4 samples, an epoch is 2 steps
+    (16 rows), evaluation 8 rows.
     Then generation from the sweep's best checkpoint in bf16, through the
     kernels and through the plain versions on the card."""
     import shutil
@@ -3508,22 +3574,6 @@ def w6_path(dev) -> dict:
                              per_device_train_batch_size=W6_BATCH, num_train_epochs=1,
                              max_steps_per_epoch=W6_STEPS, seed=SEED)
     storage = tempfile.mkdtemp(prefix="chip_smoke-w6-")
-    marks = []
-    make_step = segformer_trainer.make_segformer_train_step
-
-    def recording_step(*a, **kw):
-        step = make_step(*a, **kw)
-
-        def rec(px, labels):
-            if not marks:
-                marks.append((None, torch.cuda.Event(enable_timing=True)))
-                marks[-1][1].record()
-            loss = step(px, labels)
-            marks.append((loss, torch.cuda.Event(enable_timing=True)))
-            marks[-1][1].record()
-            return loss
-        return rec
-
     trainer = SegformerTrainer(
         model_config=cfg, training_args=args,
         feature_extractor=SegformerImageProcessor(size=SEG_SIZE),
@@ -3533,23 +3583,19 @@ def w6_path(dev) -> dict:
         preprocessor=images_preprocessor(SEG_SIZE),
         run_config=RunConfig(storage_path=storage, checkpoint_config=CheckpointConfig(
             num_to_keep=1, checkpoint_score_attribute="loss", checkpoint_score_order="min")))
-    before = kernel_counts()
+    probed(trainer, step_maker="tpu_air_torch.train.segformer_trainer:make_segformer_train_step")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    segformer_trainer.make_segformer_train_step = recording_step
     t0 = time.perf_counter()
-    try:
-        result = trainer.fit()
-    finally:
-        segformer_trainer.make_segformer_train_step = make_step
+    result = trainer.fit()
     fit_wall = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     try:
         if result.error is not None:
             raise AssertionError(f"[w6] fit failed: {result.error}")
+        # recorded in the fit's trial actor
+        probe, = read_probes(result.path)
+        peak_gb, fit_launches = probe["peak_gb"], probe["launches"]
         m = result.metrics
-        losses = [float(loss) for loss, _ in marks[1:]]
-        step_ms = [a.elapsed_time(b) for (_, a), (_, b) in zip(marks, marks[1:])]
+        losses, step_ms = probe["losses"], probe["step_ms"]
         if m["steps"] != W6_STEPS or len(losses) != W6_STEPS or \
                 not all(np.isfinite(losses + [m["loss"], m["eval_loss"]])):
             raise AssertionError(f"[w6] losses {losses}, metrics {m}")
@@ -3578,6 +3624,7 @@ def w6_path(dev) -> dict:
             f"{peak_gb:.2f} GB")
 
         # the best checkpoint predicts the eval images on the card
+        before = kernel_counts()
         t0 = time.perf_counter()
         predictor = SemanticSegmentationPredictor.from_checkpoint(best)
         masks = predictor.predict(pd.DataFrame({"image": eval_imgs}))["predicted_mask"]
@@ -3595,7 +3642,7 @@ def w6_path(dev) -> dict:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(storage, ignore_errors=True)
-    launches = {k: n - before[k] for k, n in kernel_counts().items()}
+    launches = {k: fit_launches[k] + n - before[k] for k, n in kernel_counts().items()}
     if any(launches.values()):
         raise AssertionError(f"[w6] SegFormer launched the attention kernels: {launches}")
 
@@ -3603,8 +3650,9 @@ def w6_path(dev) -> dict:
     from tpu_air_torch.train.segformer_trainer import _make_optimizer
 
     model = SegformerForSemanticSegmentation(cfg, device=dev).init_weights(SEED).train()
-    step = make_step(model, _make_optimizer(args, 4, model.parameters()),
-                     torch.Generator(device=dev).manual_seed(SEED + 1))
+    step = segformer_trainer.make_segformer_train_step(
+        model, _make_optimizer(args, 4, model.parameters()),
+        torch.Generator(device=dev).manual_seed(SEED + 1))
     proc = SegformerImageProcessor(size=SEG_SIZE, do_reduce_labels=True)
     feats = proc(train_imgs[:W6_BATCH], segmentation_maps=train_ann[:W6_BATCH])
     px = torch.from_numpy(feats["pixel_values"]).to(dev)
@@ -4682,7 +4730,8 @@ def lm_live_path(dev, ckpt_dir: str, port: int, work: str, served: dict) -> dict
     engine = InferenceEngine(model, EngineConfig(**LM_ENGINE), auto_start=False,
                              name="lm-live-swap")
     decode_attention.launches = 0
-    streams = [engine.submit(p) for p in ps]
+    swap_ps, swap_base = ps[:LM_LIVE_SWAP_PROMPTS], base[:LM_LIVE_SWAP_PROMPTS]
+    streams = [engine.submit(p) for p in swap_ps]
     for _ in range(LM_LIVE_SWAP_AT):
         engine.step()
     same_ms = engine.swap_params(state, version=1)
@@ -4702,12 +4751,12 @@ def lm_live_path(dev, ckpt_dir: str, port: int, work: str, served: dict) -> dict
     launches, n_steps = decode_attention.launches, decode_steps(engine)
     engine.close()
     log(f"[lm live] (b) swap_params to byte-identical weights after {LM_LIVE_SWAP_AT} steps of "
-        f"the {len(ps)}-prompt burst: stall {same_ms:.3f} ms, tokens identical to phase 22 (b)'s "
-        f"burst: {toks == base}; swap to v2 (embedding E -> 1 - E) stall {v2_ms:.3f} ms, a fresh "
+        f"a {len(swap_ps)}-prompt burst: stall {same_ms:.3f} ms, tokens identical to phase 22 "
+        f"(b)'s burst: {toks == swap_base}; swap to v2 (embedding E -> 1 - E) stall {v2_ms:.3f} ms, a fresh "
         f"prompt's tokens under v2 differ: {under_v2 != base[1]}; rollback stall {back_ms:.3f} "
         f"ms, the prompt's tokens then equal phase 22's: {restored == base[1]}; a second "
         f"rollback: {second}; decode launches {launches}")
-    if toks != base:
+    if toks != swap_base:
         raise AssertionError("[lm live] (b) the same-weights swap changed tokens")
     if under_v2 == base[1] or restored != base[1] or second == "no error":
         raise AssertionError(f"[lm live] (b) v2 {under_v2 != base[1]}, restored "
@@ -5978,14 +6027,13 @@ def ring_adafactor(dev, storage: str) -> dict:
     args = TrainingArguments(learning_rate=1e-2, per_device_train_batch_size=1,
                              num_train_epochs=steps, seed=SEED, optimizer="adafactor",
                              evaluation_strategy="no", save_strategy="no")
-    trainer = LMTrainer(model_config=cfg, training_args=args, datasets={"train": rows},
-                        run_config=RunConfig(storage_path=storage), device=dev)
-    zero_flash_counts()
+    trainer = probed(LMTrainer(model_config=cfg, training_args=args, datasets={"train": rows},
+                               run_config=RunConfig(storage_path=storage), device=dev))
     result = trainer.fit()
-    torch.cuda.synchronize()
-    counts = {n: kernel_counts()[n] for n in FLASH_KERNELS}
     if result.error is not None:
         raise AssertionError(f"[ring] (d) Adafactor fit failed: {result.error}")
+    probe, = read_probes(result.path)           # counted in the fit's trial actor
+    counts = {n: probe["launches"][n] for n in FLASH_KERNELS}
     hist = result.metrics_history
     losses = [m["loss"] for m in hist]
     step_ms = [LM_LEN / m["train_tokens_per_sec"] * 1e3 for m in hist]
@@ -6001,8 +6049,9 @@ def ring_adafactor(dev, storage: str) -> dict:
 
 
 def ring_refusal(dev, storage: str) -> dict:
-    """27 (e): ``sequence_parallel=2`` on one card raises ``check_devices``'s
-    error before any rank starts; nothing runs on the CPU instead."""
+    """27 (e): ``sequence_parallel=2`` in a runtime of the card's one slot
+    raises before any rank starts (its 2 ranks need a lease of 2 slots);
+    nothing runs on the CPU instead."""
     import pandas as pd
 
     from tpu_air_torch.train import LMTrainer, RunConfig, ScalingConfig, TrainingArguments
@@ -6022,7 +6071,8 @@ def ring_refusal(dev, storage: str) -> dict:
         raise AssertionError(f"[ring] (e) sp=2 on {torch.cuda.device_count()} card(s) ran: "
                              f"{result.metrics}, error {result.error}")
     counts = {n: kernel_counts()[n] for n in FLASH_KERNELS}
-    want = f"needs 2 cards (rank r runs on cuda:r); {torch.cuda.device_count()} are visible"
+    want = f"needs 2 cards (chip slots of the runtime, wrapped onto its cards); the runtime " \
+           f"has {torch.cuda.device_count()}"
     log(f"[ring] (e) LMTrainer(ScalingConfig(num_workers=1, sequence_parallel=2)).fit() on "
         f"the card: ValueError in {time.perf_counter() - t0:.2f} s: {msg}")
     if want not in msg or any(counts.values()):
@@ -6547,23 +6597,20 @@ def tp_lm_fit(dev, work: str, lm_stats: dict) -> dict:
     rows = pd.DataFrame({"input_ids": list(lm_rows(1, LM_LEN, SEED + 20))})
     args = TrainingArguments(learning_rate=3e-4, per_device_train_batch_size=1,
                              num_train_epochs=TP_LM_STEPS, seed=SEED, evaluation_strategy="no")
-    trainer = LMTrainer(model_config=cfg, training_args=args, datasets={"train": rows},
-                        scaling_config=ScalingConfig(num_workers=1, model_parallel=2),
-                        run_config=RunConfig(storage_path=os.path.join(work, "tp_lm"),
-                                             checkpoint_config=CheckpointConfig(num_to_keep=1)),
-                        device=dev)
-    os.environ["TPU_AIR_CHIP_IDS"] = "0,1"      # the worker's 2 devices: cuda:0 twice
-    zero_flash_counts()
+    trainer = probed(LMTrainer(model_config=cfg, training_args=args, datasets={"train": rows},
+                               scaling_config=ScalingConfig(num_workers=1, model_parallel=2),
+                               run_config=RunConfig(storage_path=os.path.join(work, "tp_lm"),
+                                                    checkpoint_config=CheckpointConfig(
+                                                        num_to_keep=1))))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
+    with runtime_of(2):     # the trial actor's lease of 2 slots: cuda:0 twice
         result = trainer.fit()
-    finally:
-        os.environ.pop("TPU_AIR_CHIP_IDS", None)
     wall = time.perf_counter() - t0
-    launches = flash_counts()
     if result.error is not None:
         raise AssertionError(f"[tp] (a) fit failed: {result.error}")
+    probe, = read_probes(result.path)           # counted in the fit's trial actor
+    launches = {k: probe["launches"][k] for k in FLASH_KERNELS}
     hist = result.metrics_history
     m = hist[-1]
     losses = [h["loss"] for h in hist]
@@ -6574,7 +6621,7 @@ def tp_lm_fit(dev, work: str, lm_stats: dict) -> dict:
         f"phase's LM ({cfg.d_model} wide, {cfg.n_layers} layers, {cfg.n_heads} heads of "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}), bf16 on f32, L={LM_LEN}, {len(hist)} one-step "
         f"epochs in {wall:.1f} s; mesh data {m['mesh_data']} x model {m['mesh_model']} on "
-        f"{dev} twice; params {m['params_bytes_total'] / 1e6:.1f} MB logical, "
+        f"{probe['device']} twice (lease {probe['lease']}); params {m['params_bytes_total'] / 1e6:.1f} MB logical, "
         f"{m['params_bytes_per_device'] / 1e6:.1f} MB on the first device")
     log("[tp] (a) loss per step: " + ", ".join(f"{x:.4f}" for x in losses)
         + "; tp 1 ([lm]): " + ", ".join(f"{x:.4f}" for x in lm_stats["losses"][:len(hist)]))
@@ -6682,7 +6729,6 @@ def tp_w1(dev, work: str, w1_stats: dict) -> dict:
     steps on the dense path), then generation from its checkpoint."""
     from tpu_air_torch.models.tokenizer import ByteTokenizer
     from tpu_air_torch.ops.decode_attention import decode_attention
-    from tpu_air_torch.ops.flash_attention import flash_attention
     from tpu_air_torch.predict.predictors import T5GenerativePredictor
     from tpu_air_torch.train import RunConfig, ScalingConfig, T5Trainer, TrainingArguments
 
@@ -6695,26 +6741,22 @@ def tp_w1(dev, work: str, w1_stats: dict) -> dict:
     args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
                              per_device_train_batch_size=W1_BATCH, num_train_epochs=1,
                              max_steps_per_epoch=TP_W1_STEPS, seed=SEED)
-    trainer = T5Trainer(model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
-                        scaling_config=ScalingConfig(model_parallel=2),
-                        datasets={"train": train, "evaluation": evaluation},
-                        run_config=RunConfig(storage_path=os.path.join(work, "tp_w1")),
-                        device=dev)
-    os.environ["TPU_AIR_CHIP_IDS"] = "0,1"
-    zero_flash_counts()
-    decode_attention.launches = 0
+    trainer = probed(T5Trainer(
+        model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
+        scaling_config=ScalingConfig(model_parallel=2),
+        datasets={"train": train, "evaluation": evaluation},
+        run_config=RunConfig(storage_path=os.path.join(work, "tp_w1"))),
+        step_maker=T5_STEP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
-        with recorded_t5_steps() as marks:
-            result = trainer.fit()
-    finally:
-        os.environ.pop("TPU_AIR_CHIP_IDS", None)
+    with runtime_of(2):     # the trial actor's lease of 2 slots: cuda:0 twice
+        result = trainer.fit()
     wall = time.perf_counter() - t0
-    step_ms = [a.elapsed_time(b) for (_, a), (_, b) in zip(marks, marks[1:])]
-    fit_launches = counts()
     if result.error is not None:
         raise AssertionError(f"[tp] (b) fit failed: {result.error}")
+    probe, = read_probes(result.path)           # recorded in the fit's trial actor
+    step_ms = probe["step_ms"]
+    fit_launches = {k: probe["launches"][k] for k in counts()}
     m = result.metrics
     attn = cfg.num_layers + 2 * cfg.num_decoder_layers
     log(f"[tp] (b) T5Trainer at tp 2: FLAN-T5-base width and depth, dropout "
@@ -6822,10 +6864,7 @@ def tp_timing(dev) -> dict:
     q, k, v, bias, mask = flash_inputs(rng, B, H, Lw, D, torch.bfloat16, dev)
     got = flash_attention(q, k, v, bias, kv_mask=mask, scale=1.0)
     want = flash_plain(q, k, v, bias, mask)
-    lens = needed_keys(mask, Lw)
-    nbytes = (2 * B * H * Lw * D * 2 + 2 * H * D * 2 * int(lens.sum())
-              + H * Lw * int(lens.max()) * 4 + B * Lw * 4 + B * H * Lw * 4)
-    flops = 4 * H * D * Lw * int(lens.sum())
+    nbytes, flops = flash_work(B, H, Lw, D, needed_keys(mask, Lw), False)
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
     lib_mask = (bias + ((1.0 - mask) * -1e30)[:, None, None, :]).to(torch.bfloat16)
     enc = {"ms": device_ms(lambda: flash_attention(q, k, v, bias, kv_mask=mask, scale=1.0), 10),
@@ -7010,16 +7049,13 @@ def mh_parity_rows(cfg) -> dict:
 def mh_one_host(dev, work: str) -> dict:
     """Phase 30 (b)'s yardstick, before the cluster starts: the f32 fit at
     W1 width, depth cut to MH_PARITY_LAYERS + MH_PARITY_LAYERS, dropout 0, on
-    one host running dp 4 x tp 2 in this process (lease ids 0-7 wrap onto
-    the card)."""
+    one host running dp 4 x tp 2 in its trial actor (lease ids 0-7 wrap onto
+    the card; TF32 off there as here)."""
     cfg = w1_config("float32", MH_PARITY_LAYERS, dropout=0.0)
     trainer, _ = mh_trainer(cfg, mh_parity_args(), mh_parity_rows(cfg), work, dict(
-        num_workers=1, num_chips_per_worker=8, model_parallel=2), "mh_one_host", dev)
-    os.environ["TPU_AIR_CHIP_IDS"] = ",".join(str(i) for i in range(8))
-    try:
-        result = trainer.fit()
-    finally:
-        os.environ.pop("TPU_AIR_CHIP_IDS", None)
+        num_workers=1, num_chips_per_worker=8, model_parallel=2), "mh_one_host", None)
+    with runtime_of(8):     # the trial actor's lease of 8 slots, all on the card
+        result = probed(trainer).fit()
     if result.error is not None:
         raise AssertionError(f"[multihost] (b) one-host fit failed: {result.error}")
     params = result.checkpoint.get_params()
@@ -7188,6 +7224,68 @@ def mh_elastic(dev, work: str) -> dict:
             "history": hist}
 
 
+def flash_shape_timing(dev, B: int, H: int, seed: int, tag: str, where: str) -> dict:
+    """The bf16 flash forward at W1's length and head dim, B rows and H
+    heads, as W1's encoder (bias, a ragged source key mask) and decoder
+    (causal, bias, a label key mask), against its plain version, beside
+    its bound (:func:`flash_work`), its plain version's time and one SDPA
+    call with the same additive mask.  These calls are not counted."""
+    from tpu_air_torch.ops.flash_attention import flash_attention, flash_attention_backward
+
+    counted = flash_counts()
+    rng = np.random.default_rng(seed)
+    cfg = w1_config()
+    L, D, dt = W1_LEN, cfg.d_kv, torch.bfloat16
+    rows = {}
+    for part, causal in (("encoder", False), ("decoder", True)):
+        q, k, v, bias, mask = flash_inputs(rng, B, H, L, D, dt, dev, mask=not causal)
+        if causal:      # label key masks that always admit the start position
+            lens = rng.integers(16, 129, B)
+            lens[0] = L
+            mask = torch.from_numpy((np.arange(L)[None] < lens[:, None]).astype(np.float32)
+                                    ).to(dev)
+        got = flash_attention(q, k, v, bias, kv_mask=mask, scale=1.0, causal=causal)
+        want = flash_plain(q, k, v, bias, mask, causal=causal)
+        nbytes, flops = flash_work(B, H, L, D, needed_keys(mask, L), causal)
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
+        lib_mask = bias + ((1.0 - mask) * -1e30)[:, None, None, :]
+        if causal:
+            lib_mask = lib_mask + torch.full((L, L), -1e30, device=dev).triu(1)
+        lib_mask = lib_mask.to(dt)
+        rows[part] = {
+            "ms": device_ms(lambda: flash_attention(q, k, v, bias, kv_mask=mask, scale=1.0,
+                                                    causal=causal), 10),
+            "plain_ms": device_ms(lambda: flash_plain(q, k, v, bias, mask, causal=causal), 5),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask, scale=1.0), 10),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "max_abs_err": max_err(got, want), "tol": TOL[dt],
+            "shape": (f"B{B} H{H} L{L} D{D} bf16, bias [1,H,L,L] f32, "
+                      + ("causal, label key mask" if causal else "source key mask")
+                      + f" ({where})")}
+        r = rows[part]
+        log(f"{tag} flash_attention {part} {r['shape']}: kernel {r['ms']:.4f} ms device time, "
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by}; kernel against plain {r['max_abs_err']:.3e}")
+        if not r["max_abs_err"] < TOL[dt]:
+            raise AssertionError(f"{tag} {part} against plain: {r['max_abs_err']}")
+        del q, k, v, bias, mask, lib_mask, got, want
+        torch.cuda.empty_cache()
+    # the comparisons' and timings' launches are not counted
+    flash_attention.launches = counted["flash_attention"]
+    flash_attention_backward.dq_launches = counted["flash_attention_bwd_dq"]
+    flash_attention_backward.dkv_launches = counted["flash_attention_bwd_dkv"]
+    return rows
+
+
+def mh_shard_timing(dev) -> dict:
+    """Phase 30 (d): the flash forward at (a)'s replica shard, the shape
+    each host launches in its eval (B 2, H 6: a dp 4 x tp 2 replica's 2
+    rows and half of T5's 12 heads)."""
+    return flash_shape_timing(dev, W1_BATCH // 4, w1_config().num_heads // 2, SEED + 62,
+                              "[multihost] (d)", "a dp 4 x tp 2 replica's shard of W1")
+
+
 def mh_path(dev, work: str, w1_stats: dict) -> dict:
     """Phase 30 (``[multihost]``): two emulated hosts on the one card.  See
     the module docstring."""
@@ -7225,6 +7323,9 @@ def mh_path(dev, work: str, w1_stats: dict) -> dict:
     finally:
         tpu_air_torch.shutdown()
         cluster.shutdown()
+    t = time.perf_counter()
+    out["d"] = mh_shard_timing(dev)
+    parts["d"] = time.perf_counter() - t
     out["part_s"] = parts
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[multihost] phase 30 {out['phase_s']:.1f} s: "
@@ -7232,9 +7333,491 @@ def mh_path(dev, work: str, w1_stats: dict) -> dict:
     return out
 
 
+# -- training in runtime actors: the probe fit()'s actors run -------------------
+
+
+def zero_kernel_counts() -> None:
+    from tpu_air_torch.ops.decode_attention import decode_attention
+
+    zero_flash_counts()
+    decode_attention.launches = 0
+
+
+def param_digest(model) -> str:
+    """sha256 of a model's parameters, each folded exactly on the card: the
+    int64 sums (mod 2**64) of its f32 bits as int32 and of those bits times
+    their index mod 65521 plus 1, so two ranks' digests are equal only
+    where their parameters are, bit for bit, with no copy of ~1 GB to the
+    host."""
+    import hashlib
+
+    sums = []
+    names = []
+    for name, p in sorted(model.named_parameters()):
+        x = p.detach().float().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(x.numel(), device=x.device, dtype=torch.int64) % 65521 + 1
+        sums.append(torch.stack([x.sum(), (x * w).sum()]))
+        names.append(name)
+    h = hashlib.sha256()
+    for name, (a, b) in zip(names, torch.stack(sums).tolist()):
+        h.update(name.encode() + a.to_bytes(8, "little", signed=True)
+                 + b.to_bytes(8, "little", signed=True))
+    return h.hexdigest()
+
+
+def actor_probe(inner, step_maker=None, digests: bool = False, die=None):
+    """A training function for ``fit()``'s trial actor, or for each rank of
+    its worker group: ``inner`` under this run's TF32 settings, with the
+    kernels' launch counters set to 0 in that process.  ``step_maker``
+    (``"module:function"``) records every step the function builds, its
+    loss and its end on the device clock; ``digests`` folds the rank's
+    parameters (:func:`param_digest`) at every report; ``die`` =
+    ``(rank, report, marker)`` ends that rank's process outright at that
+    report once (the marker file says it did).  What the process saw goes
+    to ``probe-<rank>-<pid>.json`` in the run's directory: the launches,
+    peak memory, steps, digests, its device, lease, group backend, the
+    checkpoint it resumed from, and the host clock at the function's start,
+    its first step's start and its end."""
+    flags = tf32_flags()
+
+    def probe(config):
+        import importlib
+
+        import torch.distributed as dist
+
+        from tpu_air_torch.train import session
+
+        backends = getattr(torch, "backends")
+        matmul, cudnn = (f == "True" for f in flags.split(","))
+        backends.cuda.matmul.allow_tf32 = matmul
+        backends.cudnn.allow_tf32 = cudnn
+        zero_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        sess = session.get_session()
+        rank = sess.world_rank
+        marks, digest_list, patches, first_step = [], [], [], []
+        if step_maker:
+            mod_name, attr = step_maker.split(":")
+            mod = importlib.import_module(mod_name)
+            make = getattr(mod, attr)
+
+            def recording(*a, **kw):
+                step = make(*a, **kw)
+
+                def rec(*b, **k):
+                    if not marks:
+                        first_step.append(time.time())
+                        marks.append((None, torch.cuda.Event(enable_timing=True)))
+                        marks[-1][1].record()
+                    loss = step(*b, **k)
+                    marks.append((loss, torch.cuda.Event(enable_timing=True)))
+                    marks[-1][1].record()
+                    return loss
+                return rec
+
+            patches.append((mod, attr, make))
+            setattr(mod, attr, recording)
+        if digests or die:
+            from tpu_air_torch.parallel import sharding
+
+            models = []
+            shard = sharding.shard_module
+            report = session.report
+
+            def keep(model, *a, **kw):
+                models.append(model)
+                return shard(model, *a, **kw)
+
+            def probed_report(metrics, checkpoint=None):
+                n = len(digest_list) + 1
+                if die and rank == die[0] and n == die[1] and not os.path.exists(die[2]):
+                    open(die[2], "w").close()
+                    os._exit(7)
+                if digests:
+                    digest_list.append(param_digest(models[-1]))
+                else:
+                    digest_list.append(None)
+                return report(metrics, checkpoint)
+
+            patches += [(sharding, "shard_module", shard), (session, "report", report)]
+            sharding.shard_module = keep
+            session.report = probed_report
+        t0 = time.time()
+        try:
+            return inner(config)
+        finally:
+            for mod, attr, orig in patches:
+                setattr(mod, attr, orig)
+            torch.cuda.synchronize()
+            out = {"pid": os.getpid(), "rank": rank, "t0": t0, "t1": time.time(),
+                   "t_first_step": first_step[0] if first_step else None,
+                   "threads": torch.get_num_threads(),
+                   "cpus": len(os.sched_getaffinity(0)), "loadavg": os.getloadavg(),
+                   "lease": os.environ.get("TPU_AIR_CHIP_IDS"),
+                   "device": f"cuda:{torch.cuda.current_device()}",
+                   "backend": dist.get_backend() if dist.is_initialized() else None,
+                   "resume": config.get("resume_from_checkpoint"),
+                   "launches": kernel_counts(),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "losses": [float(loss) for loss, _ in marks[1:]],
+                   "step_ms": [a.elapsed_time(b) for (_, a), (_, b) in zip(marks, marks[1:])],
+                   "digests": digest_list}
+            with open(os.path.join(sess.run_dir, f"probe-{rank}-{os.getpid()}.json"), "w") as f:
+                json.dump(out, f)
+
+    return probe
+
+
+def probed(trainer, **kw):
+    """``trainer`` with its training function run under :func:`actor_probe`."""
+    inner = trainer._training_fn()
+    trainer._training_fn = lambda: actor_probe(inner, **kw)
+    return trainer
+
+
+@contextlib.contextmanager
+def runtime_of(slots: int):
+    """A runtime of ``slots`` chip slots for the block: a fit's lease of
+    several slots wraps onto the one card."""
+    import tpu_air_torch
+
+    tpu_air_torch.init(num_chips=slots)
+    try:
+        yield
+    finally:
+        tpu_air_torch.shutdown()
+
+
+def read_probes(run_dir: str) -> list:
+    """The probes a run's processes wrote, oldest first."""
+    out = []
+    for name in os.listdir(run_dir):
+        if name.startswith("probe-") and name.endswith(".json"):
+            with open(os.path.join(run_dir, name)) as f:
+                out.append(json.load(f))
+    return sorted(out, key=lambda p: (p["t0"], p["rank"]))
+
+
+def summed_launches(probes: list) -> dict:
+    out = {}
+    for p in probes:
+        for k, n in p["launches"].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split()[2] != "Z"
+    except OSError:
+        return False
+
+
+def lease_back(runtime, phase: str) -> None:
+    if runtime.avail["chip"] != float(runtime.num_chips) or \
+            sorted(runtime.free_chips) != list(range(runtime.num_chips)):
+        raise AssertionError(f"[{phase}] the lease is not back: avail {runtime.avail}, free "
+                             f"{runtime.free_chips}")
+
+
+# -- phase 31 ---------------------------------------------------------------------
+
+
+def actors_sweep(dev, work: str, runtime) -> dict:
+    """31 (a): ``Tuner(T5Trainer)`` with ``ScalingConfig(num_workers=2,
+    use_gpu=True)``: each trial's runner leases 2 slots at once and runs
+    its attempt on 2 rank actors placed on them (gloo: both on the card);
+    the two ranks' parameters are equal at every report; then generation
+    from the best checkpoint through the kernels, equal to the plain path's."""
+    from tpu_air_torch import tune
+    from tpu_air_torch.models.tokenizer import ByteTokenizer
+    from tpu_air_torch.ops.decode_attention import decode_attention
+    from tpu_air_torch.ops.flash_attention import flash_attention
+    from tpu_air_torch.predict.predictors import T5GenerativePredictor
+    from tpu_air_torch.train import (CheckpointConfig, RunConfig, ScalingConfig, T5Trainer,
+                                     TrainingArguments)
+
+    class DigestingT5Trainer(T5Trainer):
+        def _training_fn(self):
+            return actor_probe(super()._training_fn(), digests=True,
+                               step_maker=T5_STEP)
+
+    cfg = w1_config()
+    storage = os.path.join(work, "actors_sweep")
+    args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                             per_device_train_batch_size=W1_BATCH // 2,
+                             per_device_eval_batch_size=W1_BATCH // 2,
+                             num_train_epochs=ACT_EPOCHS, seed=SEED)
+    trainer = DigestingT5Trainer(
+        model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
+        datasets={"train": w1_rows(W1_BATCH * W2_STEPS, cfg.vocab_size, SEED + 80),
+                  "evaluation": w1_rows(W2_EVAL_ROWS, cfg.vocab_size, SEED + 81)},
+        scaling_config=ScalingConfig(num_workers=2, use_gpu=True),
+        run_config=RunConfig(storage_path=storage, checkpoint_config=CheckpointConfig(
+            num_to_keep=1, checkpoint_score_attribute="eval_loss", checkpoint_score_order="min")))
+    space = {"trainer_init_config": {"learning_rate": tune.choice(W2_SPACE["learning_rate"]),
+                                     "weight_decay": tune.choice(W2_SPACE["weight_decay"])}}
+    t0 = time.perf_counter()
+    grid = tune.Tuner(trainer, param_space=space, tune_config=tune.TuneConfig(
+        metric="eval_loss", mode="min", num_samples=ACT_SAMPLES, seed=SEED,
+        scheduler=tune.ASHAScheduler(max_t=ACT_EPOCHS))).fit()
+    sweep_s = time.perf_counter() - t0
+    if grid.num_errors or len(grid) != ACT_SAMPLES:
+        raise AssertionError(f"[actors] (a) trial errors: {grid.errors}")
+    per_epoch = -(-W2_EVAL_ROWS // W1_BATCH) * (cfg.num_layers + 2 * cfg.num_decoder_layers)
+    trials, spans, pids = [], [], []
+    for i, r in enumerate(grid):
+        probes = read_probes(r.path)
+        hist = r.metrics_history
+        by_rank = {p["rank"]: p for p in probes}
+        pids += [p["pid"] for p in probes]
+        spans.append((min(p["t0"] for p in probes), max(p["t1"] for p in probes)))
+        log(f"[actors] (a) trial {i}: lr {r.config['learning_rate']}, weight decay "
+            f"{r.config['weight_decay']}: {len(hist)} of {ACT_EPOCHS} epochs, eval_loss "
+            + ", ".join(f"{m['eval_loss']:.4f}" for m in hist) + "; ranks "
+            + "; ".join(f"{p['rank']}: pid {p['pid']}, lease {p['lease']}, {p['device']}, "
+                        f"{p['backend']}, peak {p['peak_gb']:.2f} GB, launches {p['launches']}, "
+                        f"first step {p['t_first_step'] - p['t0']:.1f} s in, step ms (device "
+                        "clock, the all-reduce in each) "
+                        + ", ".join(f"{x:.0f}" for x in p["step_ms"])
+                        + f", function {p['t1'] - p['t0']:.1f} s" for p in probes)
+            + f"; digests at each report equal: {by_rank[0]['digests'] == by_rank[1]['digests']}")
+        if len(probes) != 2 or set(by_rank) != {0, 1}:
+            raise AssertionError(f"[actors] (a) trial {i} probes {probes}")
+        if by_rank[0]["digests"] != by_rank[1]["digests"] or \
+                len(by_rank[0]["digests"]) != len(hist) or not hist:
+            raise AssertionError(f"[actors] (a) trial {i}: the ranks' parameters differ: "
+                                 f"{by_rank[0]['digests']} vs {by_rank[1]['digests']}")
+        for p in probes:
+            if p["device"] != "cuda:0" or p["backend"] != "gloo" or \
+                    p["launches"]["flash_attention"] != per_epoch * len(hist) or \
+                    p["launches"]["decode_attention"] or p["launches"]["flash_attention_bwd_dq"]:
+                raise AssertionError(f"[actors] (a) trial {i} rank {p['rank']}: {p}")
+        if [m["steps"] for m in hist] != [W2_STEPS] * len(hist) or \
+                any(m["mesh_data"] != 2 for m in hist):
+            raise AssertionError(f"[actors] (a) trial {i} history {hist}")
+        trials.append({"config": {k: r.config[k] for k in ("learning_rate", "weight_decay")},
+                       "epochs_ran": len(hist), "eval_loss": [m["eval_loss"] for m in hist],
+                       "digests_equal": True, "ranks": probes})
+    overlap = min(e for _, e in spans) - max(s for s, _ in spans)
+    launches = summed_launches([p for t in trials for p in t["ranks"]])
+    log(f"[actors] (a) Tuner(T5Trainer(ScalingConfig(num_workers=2))) over FLAN-T5-base "
+        f"({cfg.d_model} wide, {cfg.num_layers}+{cfg.num_decoder_layers} layers, dropout "
+        f"{cfg.dropout_rate}, bf16 on f32), global batch {W1_BATCH} x {W1_LEN}/{W1_LEN} as 2 x "
+        f"{W1_BATCH // 2}, {ACT_SAMPLES} trials of up to {ACT_EPOCHS} epochs of {W2_STEPS} "
+        f"steps, ASHA(max_t={ACT_EPOCHS}): sweep wall {sweep_s:.1f} s, the trials' ranks ran "
+        f"together for {overlap:.1f} s; ranks' launches {launches}")
+    if overlap <= 0:
+        raise AssertionError(f"[actors] (a) the trials did not run at once: {spans}")
+    lease_back(runtime, "actors")
+    if [p for p in pids if pid_alive(p)]:
+        raise AssertionError(f"[actors] (a) rank processes left: {pids}")
+    best = grid.get_best_result()
+    predictor = T5GenerativePredictor.from_checkpoint(best.checkpoint, dtype="bfloat16",
+                                                      device=dev, tokenizer=IdTokenizer())
+    ids, mask = prompts(W1_PROMPTS, W1_LEN, cfg.vocab_size, SEED + 82)
+    batch = {"input_ids": ids, "attention_mask": mask}
+    flash_attention.launches = decode_attention.launches = 0
+    t0 = time.perf_counter()
+    out = predictor.predict(batch, max_new_tokens=W1_NEW)["generated_output"].tolist()
+    gen_s = time.perf_counter() - t0
+    gen = {"flash_attention": flash_attention.launches,
+           "decode_attention": decode_attention.launches}
+    with plain_attention():
+        plain = predictor.predict(batch, max_new_tokens=W1_NEW)["generated_output"].tolist()
+    if (flash_attention.launches, decode_attention.launches) != tuple(gen.values()):
+        raise AssertionError("[actors] (a) the plain path launched kernels")
+    dsteps = gen["decode_attention"] // (2 * cfg.num_decoder_layers)
+    log(f"[actors] (a) best trial (lr {best.config['learning_rate']}, weight decay "
+        f"{best.config['weight_decay']}, eval_loss {best.metrics['eval_loss']:.4f}): "
+        f"{W1_PROMPTS} prompts x {W1_LEN} -> {W1_NEW} new tokens in {gen_s:.2f} s, {dsteps} "
+        f"decode steps, launches {gen}; tokens equal to the plain path's: {out == plain}")
+    if gen["flash_attention"] != cfg.num_layers or gen["decode_attention"] <= 0 or \
+            gen["decode_attention"] != dsteps * 2 * cfg.num_decoder_layers or out != plain:
+        raise AssertionError(f"[actors] (a) generation: launches {gen}, tokens equal "
+                             f"{out == plain}")
+    del predictor
+    torch.cuda.empty_cache()
+    return {"sweep_wall_s": sweep_s, "trials_overlap_s": overlap, "trials": trials,
+            "generate_s": gen_s, "decode_steps": dsteps,
+            "launches": {"ranks": launches, "generate": gen}}
+
+
+def actors_fit_crash(dev, work: str, runtime) -> dict:
+    """31 (b): ``T5Trainer.fit()`` over 2 rank actors at W1's width; rank 1
+    dies outright at its report ACT_DIE_AT; the retry resumes from that
+    report's checkpoint and ends; the lease is back and no rank's process
+    is left."""
+    from tpu_air_torch.models.tokenizer import ByteTokenizer
+    from tpu_air_torch.train import (CheckpointConfig, FailureConfig, RunConfig, ScalingConfig,
+                                     T5Trainer, TrainingArguments)
+
+    cfg = w1_config()
+    storage = os.path.join(work, "actors_fit")
+    marker = os.path.join(work, "actors_fit_died")
+    args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                             per_device_train_batch_size=W1_BATCH // 2,
+                             per_device_eval_batch_size=W1_BATCH // 2,
+                             num_train_epochs=ACT_FIT_EPOCHS, max_steps_per_epoch=1, seed=SEED)
+    trainer = probed(T5Trainer(
+        model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
+        datasets={"train": w1_rows(W1_BATCH, cfg.vocab_size, SEED + 83),
+                  "evaluation": w1_rows(W1_BATCH, cfg.vocab_size, SEED + 84)},
+        scaling_config=ScalingConfig(num_workers=2, use_gpu=True),
+        run_config=RunConfig(storage_path=storage, name="fit",
+                             checkpoint_config=CheckpointConfig(num_to_keep=1),
+                             failure_config=FailureConfig(max_failures=1))),
+        die=(1, ACT_DIE_AT, marker), step_maker=T5_STEP)
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    wall = time.perf_counter() - t0
+    probes = read_probes(result.path)
+    first = [p for p in probes if p["resume"] is None]
+    retry = [p for p in probes if p["resume"] is not None]
+    hist = result.metrics_history
+    log(f"[actors] (b) T5Trainer(ScalingConfig(num_workers=2)).fit() at FLAN-T5-base width, "
+        f"{ACT_FIT_EPOCHS} one-step epochs of {W1_BATCH} x {W1_LEN}, rank 1 dying outright at "
+        f"its report {ACT_DIE_AT}, FailureConfig(max_failures=1): error {result.error}, "
+        f"{wall:.1f} s; the first attempt's ranks {[(p['rank'], p['pid']) for p in first]} "
+        f"(rank 1 left no probe: it died), the retry's {[(p['rank'], p['pid']) for p in retry]} "
+        f"resumed from {os.path.basename(retry[0]['resume']) if retry else None}; rank 0's "
+        f"functions ran " + ", ".join(f"{p['t1'] - p['t0']:.1f} s (first step "
+                                      f"{p['t_first_step'] - p['t0']:.1f} s in)"
+                                      for p in probes if p["rank"] == 0) + "; history "
+        + ", ".join(f"{m['epoch']}: loss {m['loss']:.4f} eval_loss {m['eval_loss']:.4f}"
+                    for m in hist))
+    if result.error is not None or not os.path.exists(marker):
+        raise AssertionError(f"[actors] (b) {result.error}, died {os.path.exists(marker)}")
+    if len(first) != 1 or first[0]["rank"] != 0 or len(retry) != 2 or \
+            any(not p["resume"].endswith(f"checkpoint_{ACT_DIE_AT:06d}") for p in retry) or \
+            len(hist) != ACT_FIT_EPOCHS:
+        raise AssertionError(f"[actors] (b) probes {probes}, history {hist}")
+    lease_back(runtime, "actors")
+    left = [p["pid"] for p in probes if pid_alive(p["pid"])]
+    if left:
+        raise AssertionError(f"[actors] (b) rank processes left: {left}")
+    log("[actors] (b) afterwards the runtime's 4 slots are free and no rank's process is left")
+    return {"wall_s": wall, "resumed_from": os.path.basename(retry[0]["resume"]),
+            "history": [{k: m[k] for k in ("epoch", "loss", "eval_loss")} for m in hist],
+            "launches": summed_launches(probes)}
+
+
+def actors_parity(dev, work: str) -> dict:
+    """31 (c): one f32 step of W1's model at [w1 parity]'s cut depth,
+    dropout 0, over 2 rank actors (each half the batch, the gradients
+    all-reduced over gloo) against 1 rank at the whole batch: the losses
+    within 1e-6 relative, the parameters within 1e-6 in norm."""
+    from tpu_air_torch.train import RunConfig, ScalingConfig, T5Trainer, TrainingArguments
+
+    import threading
+
+    cfg = w1_config("float32", W1_PARITY_LAYERS, dropout=0.0)
+    rows = w1_rows(W1_BATCH, cfg.vocab_size, SEED + 85)
+    results = {}
+
+    def fit(workers):
+        args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                                 per_device_train_batch_size=W1_BATCH // workers,
+                                 num_train_epochs=1, evaluation_strategy="no", seed=SEED)
+        results[workers] = probed(T5Trainer(
+            model_config=cfg, training_args=args, datasets={"train": rows},
+            scaling_config=ScalingConfig(num_workers=workers, use_gpu=True),
+            run_config=RunConfig(storage_path=os.path.join(work, f"actors_parity{workers}"))),
+            step_maker=T5_STEP).fit()
+
+    # both fits at once: 3 of the runtime's 4 slots
+    threads = [threading.Thread(target=fit, args=(w,)) for w in (2, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    runs = {}
+    for workers in (2, 1):
+        result = results.get(workers)
+        if result is None or result.error is not None:
+            raise AssertionError(f"[actors] (c) {workers} ranks: "
+                                 f"{None if result is None else result.error}")
+        runs[workers] = (result.metrics["loss"], result.checkpoint.get_params(),
+                         summed_launches(read_probes(result.path)))
+    (l2, p2, n2), (l1, p1, n1) = runs[2], runs[1]
+    loss_rel = abs(l2 - l1) / abs(l1)
+    flat2 = torch.cat([p2[k].reshape(-1).double() for k in sorted(p1)])
+    flat1 = torch.cat([p1[k].reshape(-1).double() for k in sorted(p1)])
+    param_rel = float((flat2 - flat1).norm() / flat1.norm())
+    errs = {k: norm_err(p2[k], p1[k]) for k in p1}
+    worst = max(errs, key=errs.get)
+    log(f"[actors] (c) f32, {cfg.d_model} wide, depth cut to {cfg.num_layers}+"
+        f"{cfg.num_decoder_layers}, dropout 0, one step of {W1_BATCH} x {W1_LEN}: 2 ranks loss "
+        f"{l2:.7f}, 1 rank {l1:.7f} (rel diff {loss_rel:.2e}); parameters ||2 - 1|| / ||1|| "
+        f"{param_rel:.2e} (worst tensor {worst} {errs[worst]:.2e}); launches 2 ranks {n2}, 1 "
+        f"rank {n1}")
+    if not (loss_rel < 1e-6 and param_rel < 1e-6):
+        raise AssertionError(f"[actors] (c) loss rel {loss_rel}, parameters {param_rel}")
+    del p1, p2, flat1, flat2
+    torch.cuda.empty_cache()
+    return {"loss_rel_diff": loss_rel, "param_norm_rel_diff": param_rel,
+            "param_worst_tensor": worst, "param_worst_tensor_rel": errs[worst],
+            "launches": summed_launches([{"launches": n2}, {"launches": n1}])}
+
+
+def actors_shard_timing(dev) -> dict:
+    """31 (d): the flash forward at the shape each rank of (a) and (b)
+    launches in its eval (B 4, H 12: half of W1's batch, every head)."""
+    return flash_shape_timing(dev, W1_BATCH // 2, w1_config().num_heads, SEED + 86,
+                              "[actors] (d)", "a rank's half of W1's eval batch")
+
+
+def actors_path(dev, work: str) -> dict:
+    """Phase 31 (``[actors]``): training in runtime actors, in a runtime of 4
+    chip slots on the one card.  See the module docstring."""
+    import tpu_air_torch
+    from tpu_air_torch.core.runtime import get_runtime
+
+    t_phase = time.perf_counter()
+    tpu_air_torch.init(num_chips=4)
+    parts, out = {}, {}
+    try:
+        runtime = get_runtime()
+        for key, fn in (("a", lambda: actors_sweep(dev, work, runtime)),
+                        ("b", lambda: actors_fit_crash(dev, work, runtime)),
+                        ("c", lambda: actors_parity(dev, work))):
+            t = time.perf_counter()
+            out[key] = fn()
+            parts[key] = time.perf_counter() - t
+    finally:
+        tpu_air_torch.shutdown()
+    t = time.perf_counter()
+    out["d"] = actors_shard_timing(dev)
+    parts["d"] = time.perf_counter() - t
+    out["part_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[actors] phase 31 {out['phase_s']:.1f} s: "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items()))
+    return out
+
+
+def add_actor_rows(kernels: list, actors: dict) -> None:
+    """Phase 31's launches (the sweep's ranks and its generation, and the
+    fits' ranks of (b) and (c)) into the kernels' rows, and (d)'s rank
+    shape timings into the flash forward's."""
+    next(r for r in kernels if r["name"] == "flash_attention")["actors_rank_eval"] = actors["d"]
+    for r in kernels:
+        by = r.setdefault("launches_by_path", {})
+        sweep = actors["a"]["launches"]
+        by["actors_sweep"] = (sweep["ranks"].get(r["name"], 0)
+                              + sweep["generate"].get(r["name"], 0))
+        by["actors_fit"] = (actors["b"]["launches"].get(r["name"], 0)
+                            + actors["c"]["launches"].get(r["name"], 0))
+        r["launches"] += by["actors_sweep"] + by["actors_fit"]
+
+
 def add_mh_rows(kernels: list, mh: dict) -> None:
     """Phase 30's launches (both hosts' fits and the generation after (a))
-    into the kernels' rows."""
+    into the kernels' rows, and (d)'s replica-shard timings into the flash
+    forward's."""
+    fwd = next(r for r in kernels if r["name"] == "flash_attention")
+    fwd["multihost_replica_shard"] = mh["d"]
     for r in kernels:
         by = r.setdefault("launches_by_path", {})
         for where, n in (("multihost_w1_hosts_generate", mh["a"]["launches"]),
@@ -7329,6 +7912,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     dist_stats = dist_path(dev, lm_stats["checkpoint_dir"], lm_serve_stats)
     tp_stats = tp_path(dev, work, lm_stats, w1_stats)
     mh_stats = mh_path(dev, work, w1_stats)
+    actor_stats = actors_path(dev, work)
     del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     row = next(r for r in kernels if r["name"] == "decode_attention")
@@ -7342,6 +7926,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     add_dist_rows(kernels, dist_stats)
     add_tp_rows(kernels, tp_stats)
     add_mh_rows(kernels, mh_stats)
+    add_actor_rows(kernels, actor_stats)
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)
@@ -7357,7 +7942,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
                       "lm_live": lm_live_stats, "obs_serve": obs_stats,
                       "batch_lane": lane_stats, "native": native_stats,
                       "ring": ring_stats, "dist": dist_stats, "tp": tp_stats,
-                      "multihost": mh_stats}),
+                      "multihost": mh_stats, "actors": actor_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

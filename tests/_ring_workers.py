@@ -1,6 +1,6 @@
 """Per-rank functions that the ring and sequence-parallel tests run in gloo
 worker processes (``tpu_air_torch.parallel.distributed.run_workers``).
-They import torch and the port only, so a spawned worker does not import
+They import torch and the port only, so a rank actor does not import
 JAX; the tests hold what they return against the JAX package."""
 
 import numpy as np

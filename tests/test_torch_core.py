@@ -130,8 +130,9 @@ def test_actor_pool_over_two_actors(tair):
 
 def test_leased_actor_maps_its_lease_to_a_cuda_device(tair):
     """An actor with num_chips holds its lease on its worker context and in
-    TPU_AIR_CHIP_IDS; resolve_device() there is cuda:<first leased id>, and
-    without CUDA it raises unless device='cpu' was given."""
+    TPU_AIR_CHIP_IDS; resolve_device() there is cuda:<first leased id> (on
+    as many cards as slots), and without CUDA it raises unless device='cpu'
+    was given."""
     @tpu_air_torch.remote(num_chips=1)
     class Leased:
         def probe(self):
@@ -144,7 +145,8 @@ def test_leased_actor_maps_its_lease_to_a_cuda_device(tair):
             except RuntimeError as e:
                 refused = str(e)
             cpu = str(resolve_device("cpu"))
-            torch.cuda.is_available = lambda: True      # as on a machine with cards
+            torch.cuda.is_available = lambda: True      # as on a machine with 2 cards
+            torch.cuda.device_count = lambda: 2
             return lease, os.environ.get("TPU_AIR_CHIP_IDS"), refused, cpu, str(resolve_device())
 
     actors = [Leased.remote() for _ in range(2)]

@@ -1286,13 +1286,14 @@ def test_multihost_t5_fit_on_one_card_matches_one_host(dev, tmp_path):
                          run_config=RunConfig(storage_path=str(tmp_path / name)),
                          device=dev).fit()
 
-    os.environ["TPU_AIR_CHIP_IDS"] = "0,1,2,3,4,5,6,7"
+    saved = rt._runtime
+    rt._runtime = None
+    # one host: the fit's trial actor leases 8 slots, all on the card
+    tpu_air_torch.init(num_cpus=1, num_chips=8)
     try:
         one = fit("one", num_chips_per_worker=8, model_parallel=2)
     finally:
-        os.environ.pop("TPU_AIR_CHIP_IDS", None)
-    saved = rt._runtime
-    rt._runtime = None
+        tpu_air_torch.shutdown()
     cluster = spawn_local_cluster(2, devices_per_process=4)
     try:
         tpu_air_torch.init(num_cpus=1)
@@ -1314,3 +1315,51 @@ def test_multihost_t5_fit_on_one_card_matches_one_host(dev, tmp_path):
     for name, w in want_p.items():
         rel = ((got_p[name].float() - w.float()).norm() / w.float().norm()).item()
         assert rel < 1e-5, (name, rel)
+
+
+def test_two_worker_actors_on_one_card_match_one_rank(dev, tmp_path):
+    """``T5Trainer(ScalingConfig(num_workers=2))`` in a runtime of 2 chip
+    slots on the one card: the fit's trial actor leases both and its two
+    rank actors train on ``cuda:0`` over gloo, in f32 at
+    ``T5Config.tiny()``; their two steps equal one rank's at the doubled
+    per-device batch: losses to 1e-6 relative, parameters to 1e-6 in norm."""
+    import pandas as pd
+
+    import tpu_air_torch
+    from tpu_air_torch.core import runtime as rt
+    from tpu_air_torch.models.t5.config import T5Config
+    from tpu_air_torch.train import RunConfig, ScalingConfig, T5Trainer, TrainingArguments
+
+    rng = np.random.default_rng(11)
+    n, seq = 8, 32
+    ids = rng.integers(3, 256, (n, seq)) * (np.arange(seq)[None] < rng.integers(4, seq, (n, 1)))
+    labels = rng.integers(3, 256, (n, seq)) * (np.arange(seq)[None] < rng.integers(2, 12, (n, 1)))
+    rows = pd.DataFrame({"input_ids": list(ids), "attention_mask": list((ids != 0).astype(int)),
+                         "labels": list(labels)})
+    saved = rt._runtime
+    rt._runtime = None
+    tpu_air_torch.init(num_cpus=1, num_chips=2)
+    try:
+        runs = {}
+        for workers in (2, 1):
+            runs[workers] = T5Trainer(
+                model_config=T5Config.tiny(),
+                training_args=TrainingArguments(learning_rate=1e-4, num_train_epochs=2,
+                                                per_device_train_batch_size=8 // workers,
+                                                evaluation_strategy="no", seed=3),
+                scaling_config=ScalingConfig(num_workers=workers),
+                datasets={"train": rows},
+                run_config=RunConfig(storage_path=str(tmp_path / f"w{workers}"))).fit()
+        runtime = rt.get_runtime()
+        assert runtime.avail["chip"] == 2.0 and sorted(runtime.free_chips) == [0, 1]
+    finally:
+        tpu_air_torch.shutdown()
+        rt._runtime = saved
+    two, one = runs[2], runs[1]
+    assert two.error is None and one.error is None, (two.error, one.error)
+    assert [m["mesh_data"] for m in two.metrics_history] == [2, 2]
+    np.testing.assert_allclose([m["loss"] for m in two.metrics_history],
+                               [m["loss"] for m in one.metrics_history], rtol=1e-6)
+    got, want = two.checkpoint.get_params(), one.checkpoint.get_params()
+    flat = lambda p: torch.cat([p[k].reshape(-1).double() for k in sorted(want)])  # noqa: E731
+    assert ((flat(got) - flat(want)).norm() / flat(want).norm()).item() < 1e-6

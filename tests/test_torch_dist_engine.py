@@ -615,6 +615,20 @@ def test_submit_prefilled_rides_a_drain_and_refuses_slab(lm):
 WAIT_S = 60.0
 
 
+def _until(cond, what: str) -> None:
+    """Wait for ``cond()`` on the condition itself, up to ``WAIT_S``."""
+    deadline = time.monotonic() + WAIT_S
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.005)
+
+
+def _replicas_up(router) -> None:
+    """Every prefill replica's actor is placed and built: its ready object is
+    in the store (a replica still starting would add it later)."""
+    tpu_air_torch.get([w._ready_ref for w in router._workers], timeout=WAIT_S)
+
+
 def _router(ckpt, name, **kw):
     return DisaggRouter(ckpt, EngineConfig(num_slots=4, slot_len=64, max_new_tokens=6,
                                            page_len=8),
@@ -695,15 +709,15 @@ def test_router_handoffs_leave_no_payload_in_the_store(lm, ckpt, tair, _clean, d
     router = DisaggRouter(ckpt, ecfg, prefill_replicas=2, prefill_timeout=WAIT_S,
                           device="cpu", name=f"disagg-leak-{int(deferred)}")
     try:
-        router.submit(prompts[0], max_new).result(WAIT_S)     # the replicas are up
+        _replicas_up(router)
+        router.submit(prompts[0], max_new).result(WAIT_S)
+        _until(lambda: router.handoffs == 1, "the first handoff did not land")
         before = _store_level()
         if deferred:
             with router.engine._between_steps():
                 streams = [router.submit(p, max_new) for p in prompts]
-                deadline = time.monotonic() + WAIT_S
-                while router.handoffs < len(prompts) + 1:
-                    assert time.monotonic() < deadline, "the handoffs did not arrive"
-                    time.sleep(0.005)
+                _until(lambda: router.handoffs >= len(prompts) + 1,
+                       "the handoffs did not arrive")
                 assert router.engine.scheduler.depth() == len(prompts)
                 held = _store_level()
                 assert held["arena_objects"] + held["files"] == \
@@ -711,8 +725,10 @@ def test_router_handoffs_leave_no_payload_in_the_store(lm, ckpt, tair, _clean, d
         else:
             streams = [router.submit(p, max_new) for p in prompts]
         assert [s.result(WAIT_S) for s in streams] == want
+        # a stream can finish before its dispatcher thread counts the handoff
+        _until(lambda: router.handoffs >= len(prompts) + 1, "the handoffs did not arrive")
         assert router.handoffs == len(prompts) + 1 and router.fallbacks == 0
-        deadline = time.monotonic() + 10.0
+        deadline = time.monotonic() + WAIT_S
         while _store_level() != before and time.monotonic() < deadline:
             time.sleep(0.05)
         assert _store_level() == before
@@ -734,12 +750,17 @@ def test_prefill_worker_fault_reroutes_then_falls_back(lm, ckpt, tair, _clean):
     ]))
     router = _router(ckpt, "disagg-death")
     try:
+        _replicas_up(router)
         first_prompt = [41, 42, 43, 44, 45]
         first = router.submit(first_prompt, 50)
+        # replica 0 has taken the first prompt before the next one picks
+        _until(lambda: router.handoffs == 1, "the first handoff did not land")
         p = [[51, 52, 53, 54], [55, 56, 57], [61, 62, 63]]
         assert router.submit(p[0]).result(WAIT_S) == _offline(model, p[0], 6)
+        _until(lambda: router.handoffs == 2, "the second handoff did not land")
         assert (router.handoffs, router.reroutes, router.fallbacks) == (2, 0, 0)
         assert router.submit(p[1]).result(WAIT_S) == _offline(model, p[1], 6)
+        _until(lambda: router.handoffs == 3, "the third handoff did not land")
         assert router.live_prefill_replicas() == 1
         assert (router.handoffs, router.reroutes, router.fallbacks) == (3, 1, 0)
         assert router.submit(p[2]).result(WAIT_S) == _offline(model, p[2], 6)

@@ -9,6 +9,8 @@ takes the kernels' plain versions.  Everything is float32.
 """
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pandas as pd
@@ -206,14 +208,19 @@ def test_lm_trainer_reports_eval_and_retries_from_checkpoint(tmp_path):
     """Eval over a partial last batch (padded with all-pad rows), metric
     keys, and FailureConfig: a failed attempt resumes from its latest
     checkpoint."""
-    calls = []
+    # the attempts run in the trial actor: each records its resume path in
+    # a file of its own
+    record = str(tmp_path / "calls")
+    os.makedirs(record)
 
     def flaky(config):
-        calls.append(config.get("resume_from_checkpoint"))
+        n = len(os.listdir(record))
+        with open(os.path.join(record, str(n)), "w") as f:
+            json.dump(config.get("resume_from_checkpoint"), f)
         from tpu_air_torch.train.lm_trainer import lm_train_loop
 
         lm_train_loop(config)
-        if len(calls) == 1:
+        if n == 0:
             raise RuntimeError("injected failure after epoch reports")
 
     from tpu_air_torch.train import FailureConfig
@@ -232,6 +239,7 @@ def test_lm_trainer_reports_eval_and_retries_from_checkpoint(tmp_path):
     trainer._training_fn = lambda: flaky
     result = trainer.fit()
     assert result.error is None
+    calls = [json.load(open(os.path.join(record, str(i)))) for i in range(len(os.listdir(record)))]
     assert calls[0] is None and calls[1].endswith("checkpoint_000002")
     m = result.metrics
     for key in ("loss", "steps", "train_tokens_per_sec", "train_tokens_per_sec_per_chip",

@@ -475,3 +475,29 @@ def test_same_operations_give_equal_stats(seed, tmp_path):
         assert seen["port"] == seen["jax"], (step, op)
     for a in arenas.values():
         a.close()
+
+
+# -- the store hammer under the sanitizers ------------------------------------------
+
+
+@pytest.mark.parametrize("sanitizer", ["asan", "tsan"])
+@pytest.mark.parametrize("mode, args", [("threads", (4, 4, 200)), ("procs", (4, 4, 200)),
+                                        ("dup", (8, 0, 200))])
+def test_store_hammer_under_the_sanitizers(sanitizer, mode, args, tmp_path):
+    """``store_hammer.cc`` linked with the port's ``store.cpp`` under
+    AddressSanitizer and ThreadSanitizer, built into ``_build/`` by the
+    port's loader: writer and reader threads on one mapping (``threads``,
+    ThreadSanitizer's target), forked writer and reader processes on one
+    file (``procs``), and threads racing duplicate puts of one id
+    (``dup``).  Every object is found sealed and byte-exact, and the
+    sanitizer reports nothing."""
+    import subprocess
+
+    path = _native.build_store_hammer(sanitizer)
+    assert os.path.dirname(path) == _native.BUILD_DIR
+    assert os.path.basename(path).startswith(f"store_hammer_{sanitizer}-")
+    proc = subprocess.run([path, mode, str(tmp_path / "arena"), *map(str, args)],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert f"hammer {mode}: OK" in proc.stdout, proc.stdout
+    assert "Sanitizer" not in proc.stderr, proc.stderr

@@ -456,7 +456,8 @@ def test_segformer_over_two_devices_of_a_worker_matches_the_jax_loop(tmp_path):
 
 def test_a_tp_trial_meshes_its_lease_in_its_actor(tmp_path):
     """``Tuner(T5Trainer(model_parallel=2))`` with one worker starts no
-    process: its trial actor leases 2 chip slots and trains at tp 2."""
+    process: its trial actor trains at tp 2 (on the CPU named twice: a
+    trainer on the CPU leases no chip slot)."""
     import tpu_air_torch
     from tpu_air_torch import tune
     from tpu_air_torch.core import runtime as rt

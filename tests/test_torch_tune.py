@@ -9,7 +9,9 @@ package's ``tpu_air.tune``.
   pruned, the best result), both run one trial at a time so that ASHA sees
   the reports in one order.  ``tpu_air`` runs on the session ``air``
   fixture; the port on a runtime of its own with ONE lease slot
-  (``init(num_chips=1)``), so its trials queue on the lease in order.
+  (``init(num_chips=1)``), so a function trainable's trials queue on the
+  lease in order; a trainer's on the CPU lease nothing, and a sweep whose
+  order matters runs them with ``max_concurrent_trials=1``.
 * W2 at tiny width: ``Tuner`` over ``T5Trainer(T5Config.tiny(),
   device="cpu")`` from a Flax init, W2's search space, 4 samples, ASHA
   (max_t 4): each trial's loss and eval_loss history equals the JAX
@@ -19,7 +21,7 @@ package's ``tpu_air.tune``.
 * Failures: a retry resumes from the trial's latest checkpoint (after an
   exception, and after the runner's process died); a trial that calls
   ``os._exit`` is an error in the grid while the others finish; trials
-  that would spawn worker processes are refused.
+  of two ranks run on worker actors on the trial's own lease.
 """
 
 import dataclasses
@@ -291,14 +293,15 @@ def w2_sweep(tair, jax_params, tmp_path_factory):
     grid = tune.Tuner(
         trainer, param_space=_space(tune, W2_SPACE),
         tune_config=tune.TuneConfig(metric="eval_loss", mode="min", num_samples=4, seed=0,
-                                    scheduler=tune.ASHAScheduler(max_t=4)),
+                                    scheduler=tune.ASHAScheduler(max_t=4),
+                                    max_concurrent_trials=1),
     ).fit()
     return grid, train, evaluation, tmp
 
 
 def _port_fit(jax_params, rows, args, tmp, scale=1.0):
-    """The port's T5Trainer in this process from the Flax init times
-    ``scale``: its loss and eval_loss per epoch."""
+    """The port's ``T5Trainer.fit()`` (in its trial actor) from the Flax
+    init times ``scale``: its loss and eval_loss per epoch."""
     params = {k: v * scale if v.is_floating_point() else v
               for k, v in params_from_jax(jax_params, T5Config.tiny()).items()}
     r = T5Trainer(model_config=T5Config.tiny(), training_args=args, pretrained_params=params,
@@ -437,27 +440,53 @@ def test_hard_trial_crash_is_isolated(tair, tmp_path):
         if rt.store.contains(k)]
 
 
-def test_trials_that_would_spawn_workers_are_refused(tair, tmp_path):
-    """A trial actor may not start processes: a sweep whose trainer spawns
-    num_workers > 1 workers is refused before any trial starts, and a
-    function trainable that starts workers itself fails as an error."""
-    for trainer in (
-        T5Trainer(model_config=T5Config.tiny(), datasets={"train": _rows(4, 1)},
-                  scaling_config=ScalingConfig(num_workers=2), device="cpu"),
-        TorchTrainer(lambda c: None, scaling_config=ScalingConfig(num_workers=2)),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-            tune.Tuner(trainer, run_config=RunConfig(storage_path=str(tmp_path))).fit()
+@pytest.mark.parametrize("subject", ["T5Trainer", "TorchTrainer", "function"])
+def test_trials_with_workers_run_as_worker_actors(tair, tmp_path, subject):
+    """A trial of ``num_workers=2`` runs on two worker actors placed on the
+    trial's own lease (none for a trainer on the CPU; the function
+    trainable's one slot) and joined in one gloo group: a
+    ``T5Trainer`` trains at ``mesh_data`` 2, a ``TorchTrainer``'s function
+    runs on both ranks (rank 0 reports), and a function trainable starts a
+    group of its own with ``run_workers`` from inside its trial actor.  The
+    leases come back after the sweep."""
+    from tpu_air_torch.parallel.distributed import all_reduce_sum, run_workers
 
-    def spawning(config):
-        from tpu_air_torch.parallel.distributed import run_workers
+    two = ScalingConfig(num_workers=2)
+    if subject == "T5Trainer":
+        trainable = T5Trainer(model_config=T5Config.tiny(), datasets={"train": _rows(4, 1)},
+                              training_args=TrainingArguments(
+                                  per_device_train_batch_size=1, num_train_epochs=1,
+                                  evaluation_strategy="no"),
+                              scaling_config=two, device="cpu")
+    elif subject == "TorchTrainer":
+        def per_rank(config):
+            t = all_reduce_sum(torch.tensor([float(session.get_world_rank() + 1)]))
+            session.report({"world": session.get_world_size(), "sum": float(t),
+                            "rank": session.get_world_rank()})
 
-        run_workers(dict, (), 2, torch.device("cpu"))
+        trainable = TorchTrainer(per_rank, scaling_config=two, device="cpu")
+    else:
+        def rank_sum(rank, world, device):
+            t = all_reduce_sum(torch.tensor([float(rank + 1)], device=device))
+            return {"rank": rank, "world": world, "sum": float(t), "error": None}
 
-    grid = tune.Tuner(spawning, run_config=RunConfig(
-        storage_path=str(tmp_path), failure_config=FailureConfig(max_failures=2))).fit()
-    assert grid.num_errors == 1
-    assert "NotImplementedError" in repr(grid.errors[0]) and "item 12" in repr(grid.errors[0])
+        def trainable(config):
+            outs = run_workers(rank_sum, (), 2, torch.device("cpu"))
+            session.report({"world": outs[0]["world"], "sum": outs[1]["sum"],
+                            "rank": outs[1]["rank"]})
+
+    grid = tune.Tuner(trainable, param_space={"x": tune.grid_search([1, 2])},
+                      run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    assert grid.num_errors == 0, grid.errors
+    for r in grid:
+        if subject == "T5Trainer":
+            assert r.metrics["mesh_data"] == 2 and np.isfinite(r.metrics["loss"])
+        else:
+            want_rank = 0 if subject == "TorchTrainer" else 1
+            assert (r.metrics["world"], r.metrics["sum"], r.metrics["rank"]) == \
+                (2, 3.0, want_rank)
+    rt = trt.get_runtime()
+    assert rt.avail["chip"] == 1.0 and rt.free_chips == [0]
 
 
 def test_a_lease_returns_only_after_its_process_exits(tair):

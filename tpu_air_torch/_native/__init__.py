@@ -3,7 +3,9 @@ the shared-memory object arena (``store.cpp``, loaded with :mod:`ctypes`)
 and the GCS control-plane daemon (``gcs_server.cpp`` over ``gcs.proto``).
 
 Both are built from these sources at first use into
-``tpu_air_torch/_build/``, never next to the sources:
+``tpu_air_torch/_build/``, never next to the sources, and so is the
+arena's concurrency hammer (``store_hammer.cc``) under AddressSanitizer and
+ThreadSanitizer (:func:`build_store_hammer`):
 
 * the arena library needs ``g++`` (``$CXX``) and pthreads;
 * the daemon needs ``protoc``, the protobuf C++ headers and library as
@@ -156,6 +158,39 @@ def load_store_lib() -> ctypes.CDLL:
         f.restype = ctypes.c_uint64
     _store_lib = lib
     return lib
+
+
+# -- the store hammer under the sanitizers ------------------------------------
+
+# the race-detection harness's builds (the JAX package's ``build.sh
+# sanitizers``): AddressSanitizer for the cross-process protocol,
+# ThreadSanitizer for the data races of one process's threads
+SANITIZERS = {"asan": "-fsanitize=address", "tsan": "-fsanitize=thread"}
+HAMMER_FLAGS = ("-std=c++17", "-g", "-O1", "-fno-omit-frame-pointer")
+
+
+def store_hammer_path(sanitizer: str) -> str:
+    flags = (*HAMMER_FLAGS, SANITIZERS[sanitizer])
+    digest = _digest(["store.cpp", "store_hammer.cc"], *flags, _cxx_version())
+    return os.path.join(BUILD_DIR, f"store_hammer_{sanitizer}-{digest}")
+
+
+def build_store_hammer(sanitizer: str) -> str:
+    """Path of ``store_hammer.cc`` linked with ``store.cpp`` under
+    ``sanitizer`` (``"asan"`` or ``"tsan"``), compiled first if it is not
+    built.  Run it as ``<path> threads|procs|dup <arena> <writers>
+    <readers> <objects a writer>``; it exits 0 when every object was found
+    sealed and byte-exact and the sanitizer reported nothing."""
+    final = store_hammer_path(sanitizer)
+    if os.path.exists(final):
+        return final
+    with _build_lock():
+        if not os.path.exists(final):
+            tmp = f"{final}.{os.getpid()}.tmp"
+            _compile([_cxx(), *HAMMER_FLAGS, SANITIZERS[sanitizer],
+                      os.path.join(_DIR, "store.cpp"), os.path.join(_DIR, "store_hammer.cc"),
+                      "-o", tmp, "-lpthread"], tmp, final, f"store_hammer.cc ({sanitizer})")
+    return final
 
 
 # -- the GCS daemon ----------------------------------------------------------

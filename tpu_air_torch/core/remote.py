@@ -15,7 +15,7 @@ from a worker is routed to the driver scheduler over the worker's control pipe
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from . import runtime as rt
 from . import serialization
@@ -72,9 +72,12 @@ def _submit_task(fn, args, kwargs, resources) -> ObjectRef:
                                         trace_ctx=trace_ctx)
 
 
-def _create_actor(cls, args, kwargs, resources, name=None) -> "ActorHandle":
+def _create_actor(cls, args, kwargs, resources, name=None, chip_ids=None) -> "ActorHandle":
     trace_ctx = _tracing.current_propagation()
     ctx = rt.current_worker()
+    if chip_ids is not None and ctx is None:
+        raise ValueError("chip_ids= places an actor on a part of its creating actor's "
+                         "lease: only an actor of the runtime can pass it")
     if ctx is not None:
         actor_id = new_object_id()
         ready_id = new_object_id()
@@ -90,6 +93,7 @@ def _create_actor(cls, args, kwargs, resources, name=None) -> "ActorHandle":
                     "resources": resources,
                     "name": name,
                     "trace_ctx": trace_ctx,
+                    "sublease": None if chip_ids is None else [int(c) for c in chip_ids],
                 },
             )
         )
@@ -188,15 +192,22 @@ class ActorHandle:
 
 
 class ActorClass:
-    def __init__(self, cls, resources: Dict[str, float], name: Optional[str] = None):
+    def __init__(self, cls, resources: Dict[str, float], name: Optional[str] = None,
+                 chip_ids: Optional[List[int]] = None):
         self._cls = cls
         self._resources = resources
         self._name = name
+        self._chip_ids = chip_ids
 
     def remote(self, *args, **kwargs) -> ActorHandle:
-        return _create_actor(self._cls, args, kwargs, dict(self._resources), self._name)
+        return _create_actor(self._cls, args, kwargs, dict(self._resources), self._name,
+                             self._chip_ids)
 
-    def options(self, num_cpus=None, num_chips=None, resources=None, name=None, **_ig):
+    def options(self, num_cpus=None, num_chips=None, resources=None, name=None,
+                chip_ids=None, **_ig):
+        """``chip_ids``: inside an actor, place the new actor on these ids of
+        the creating actor's own lease (``[]`` for none) instead of
+        claiming from the pool; it dies with its creator."""
         merged = dict(self._resources)
         if num_cpus is not None:
             merged["cpu"] = float(num_cpus)
@@ -204,7 +215,8 @@ class ActorClass:
             merged["chip"] = float(num_chips)
         if resources:
             merged.update(resources)
-        return ActorClass(self._cls, merged, name=name or self._name)
+        return ActorClass(self._cls, merged, name=name or self._name,
+                          chip_ids=self._chip_ids if chip_ids is None else list(chip_ids))
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

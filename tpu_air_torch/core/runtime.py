@@ -16,7 +16,11 @@ for ``num_chips=k`` receives a lease of k device ids, exported to its
 process as ``TPU_AIR_CHIP_IDS`` and kept on its worker context, so that
 :func:`tpu_air_torch.device.resolve_device` places its model on
 ``cuda:<first leased id>``.  ``num_chips`` defaults to
-``torch.cuda.device_count()``.
+``torch.cuda.device_count()``.  An actor may place actors on a part of its
+own lease (``options(chip_ids=[...])``, a Tune trial's worker ranks): they
+claim nothing from the pool, skip its queue, die with their creator, and
+the creator's claim returns to the pool only once their processes have
+exited.
 
 Workers start through a **forkserver** (default start method) whose
 server has preloaded torch, numpy and pandas (worker_preload.py) and never
@@ -257,10 +261,18 @@ class _ActorState:
     actor_id: str
     worker: _WorkerState
     name: Optional[str]
+    # the ids this actor claimed from the pool and returns to it
     chip_ids: List[int] = field(default_factory=list)
     resources: Dict[str, float] = field(default_factory=dict)
     dead: bool = False
     pending: int = 0
+    # the ids its process runs on: its own claim, or, for an actor placed
+    # on its creator's lease (``options(chip_ids=...)``), a part of that
+    lease: List[int] = field(default_factory=list)
+    parent: Optional[str] = None
+    # actors placed on this one's lease: they die with it, and its claim
+    # returns to the pool only once their processes have exited
+    children: List["_ActorState"] = field(default_factory=list)
 
 
 # --------------------------------------------------------------------------
@@ -576,6 +588,8 @@ class Runtime:
         self.actor_queue: List[dict] = []
         self.pending_actors: Dict[str, dict] = {}          # queued, not yet placed
         self.pending_actor_tasks: Dict[str, List[_TaskSpec]] = {}
+        # actors refused a place on their creator's lease, with the reason
+        self._refused_actors: Dict[str, "_ErrorSentinel"] = {}
         # Event-driven wait(): notified whenever a result object may have
         # been sealed (task done / worker death / driver put).
         self._obj_cv = threading.Condition()
@@ -808,7 +822,7 @@ class Runtime:
             self._enqueue(spec)
         elif kind == "create_actor":
             # Non-blocking: the creation queues for resources in _schedule.
-            self._create_actor(**msg[1], from_worker=True)
+            self._create_actor(**msg[1], from_worker=True, creator=worker.actor_id)
         elif kind == "actor_call":
             spec = _TaskSpec(**msg[1])
             spec.from_worker = True
@@ -817,12 +831,16 @@ class Runtime:
                     self.task_trace[spec.task_id] = spec.trace_ctx["trace_id"]
             self._submit_actor_task_spec(spec)
         elif kind == "kill_actor":
-            self.kill_actor(msg[1], no_restart=True)
+            # off the listener thread: a kill waits for the process to exit,
+            # and the listener must keep reading every worker's messages
+            threading.Thread(target=self.kill_actor, args=(msg[1],), daemon=True,
+                             name="tpu_air_torch-kill").start()
 
     def _on_worker_death(self, worker: _WorkerState):
         crashed_traces = []
         chip_ids: List[int] = []
         dead_actor = None
+        orphaned = None
         with self.lock:
             worker.alive = False
             outstanding = [
@@ -855,17 +873,28 @@ class Runtime:
                     dead_actor = worker.actor_id
                     if st.name:
                         self.named_actors.pop(st.name, None)
-                    # release the FULL claim (cpu + chip), exactly like
-                    # kill_actor — chip avail comes back via st.resources,
-                    # the physical ids via free_chips
-                    self._release(st.resources)
-                    st.resources = {}
                     chip_ids = list(st.chip_ids)
-                    self.free_chips.extend(st.chip_ids)
+                    children = self._retire_children_locked(st)
+                    if children:
+                        # the claim returns once the actors placed on it
+                        # have exited (below, off the listener thread)
+                        orphaned = (children, st.resources, st.chip_ids)
+                    else:
+                        # release the FULL claim (cpu + chip), exactly like
+                        # kill_actor — chip avail comes back via
+                        # st.resources, the physical ids via free_chips
+                        self._release(st.resources)
+                        self.free_chips.extend(st.chip_ids)
+                    st.resources = {}
                     st.chip_ids = []
             self.workers.pop(worker.worker_id, None)
         if dead_actor:
             self._gcs("mark_actor_dead", dead_actor)
+        if orphaned is not None:
+            for w in orphaned[0]:
+                self._gcs("mark_actor_dead", w.actor_id)
+            threading.Thread(target=self._stop_then_release, args=orphaned,
+                             daemon=True, name="tpu_air_torch-orphans").start()
         # flight recorder (outside the lock: dump() scrapes snapshot()/
         # engine_stats(), which re-take it); no-op unless
         # TPU_AIR_POSTMORTEM_DIR is set, and dump() never raises.  The
@@ -1226,7 +1255,13 @@ class Runtime:
         name: Optional[str],
         from_worker: bool = False,
         trace_ctx: Optional[Dict[str, str]] = None,
+        sublease: Optional[List[int]] = None,
+        creator: Optional[str] = None,
     ):
+        if sublease is not None:
+            self._place_on_lease(actor_id, ready_id, payload, payload_ref, name,
+                                 trace_ctx, list(sublease), creator)
+            return
         try:
             self._check_satisfiable(resources)
         except TpuAirError:
@@ -1258,6 +1293,82 @@ class Runtime:
         with self.lock:
             self.actor_queue.append(rec)
             self.pending_actors[actor_id] = rec
+        self._schedule()
+
+    def _place_on_lease(self, actor_id, ready_id, payload, payload_ref, name,
+                        trace_ctx, ids: List[int], creator: Optional[str]) -> None:
+        """An actor placed on ``ids``, a part of its creating actor's own
+        lease (``options(chip_ids=...)`` inside an actor): no claim on the
+        pool, and no place in the FIFO queue, where it could wait behind a
+        request for the very devices its creator holds.  It dies with its
+        creator, whose claim returns to the pool only after this actor's
+        process has exited."""
+        with self.lock:
+            parent = self.actors.get(creator) if creator else None
+            why = None
+            if parent is None or parent.dead:
+                why = "only a live actor may place actors on its own lease"
+            elif not set(ids) <= set(parent.lease):
+                why = f"chip_ids {ids} are not a part of the creating actor's lease {parent.lease}"
+            if why is None:
+                rec = {"actor_id": actor_id, "ready_id": ready_id, "payload": payload,
+                       "payload_ref": payload_ref, "resources": {}, "name": name,
+                       "trace_ctx": trace_ctx, "parent": creator}
+                self.pending_actors[actor_id] = rec
+                self._to_spawn.append((rec, ids))
+        if why is not None:
+            sentinel = _ErrorSentinel(f"ActorPlacementFailed(actor={actor_id})", why)
+            with self.lock:
+                # its method calls raise the reason too
+                self._refused_actors[actor_id] = sentinel
+            self.store.put(sentinel, ready_id)
+            self._notify_objects()
+            return
+        self._placement_event.set()
+
+    def _retire_children_locked(self, st: _ActorState) -> List[_WorkerState]:
+        """Mark every actor placed on ``st``'s lease (and theirs) dead and
+        return their workers, for :meth:`_stop_processes`.  Caller holds
+        the lock."""
+        workers = []
+        for child in st.children:
+            workers.extend(self._retire_children_locked(child))
+            workers.append(child.worker)
+            if not child.dead:
+                child.dead = True
+                if child.name:
+                    self.named_actors.pop(child.name, None)
+                child.worker.alive = False
+                self.workers.pop(child.worker.worker_id, None)
+        st.children = []
+        return workers
+
+    @staticmethod
+    def _stop_processes(workers: List[_WorkerState]) -> None:
+        """Ask each worker to exit, then terminate, then kill: every process
+        has exited when this returns."""
+        for w in workers:
+            try:
+                w.conn.send(("shutdown",))
+            except OSError:
+                pass
+        for w in workers:
+            w.proc.join(timeout=2)
+            if w.proc.is_alive():
+                w.proc.terminate()
+        for w in workers:
+            w.proc.join(timeout=10)
+            if w.proc.is_alive():
+                _kill_quietly(w.proc)
+                w.proc.join(timeout=10)
+
+    def _stop_then_release(self, children: List[_WorkerState], resources: Dict[str, float],
+                           chip_ids: List[int]) -> None:
+        """A dead actor's claim, once the actors placed on it have exited."""
+        self._stop_processes(children)
+        with self.lock:
+            self._release(resources)
+            self.free_chips.extend(chip_ids)
         self._schedule()
 
     def _claim_queued_actors(self):
@@ -1314,8 +1425,9 @@ class Runtime:
                 # ready ref resolved, or callers blocked on the actor (some
                 # deliberately without timeout) hang forever on a leaked lease
                 with self.lock:
-                    self._release(rec["resources"])
-                    self.free_chips.extend(chip_ids)
+                    if not rec.get("parent"):
+                        self._release(rec["resources"])
+                        self.free_chips.extend(chip_ids)
                     self.pending_actors.pop(rec["actor_id"], None)
                     buffered = self.pending_actor_tasks.pop(rec["actor_id"], [])
                 sentinel = _ErrorSentinel(
@@ -1329,25 +1441,56 @@ class Runtime:
                     self.store.put(sentinel, tid)
                 self._notify_objects()
                 continue
+            orphan: List[str] = []
             with self.lock:
+                parent_id = rec.get("parent")
+                parent = self.actors.get(parent_id) if parent_id else None
+                if parent_id and (parent is None or parent.dead) and not rec.get("cancelled"):
+                    # its creator died while this actor was being spawned:
+                    # nobody is left to kill it, so it is never registered
+                    rec["cancelled"] = True
+                    self.pending_actors.pop(rec["actor_id"], None)
+                    orphan = [rec["ready_id"]] + [
+                        t.task_id for t in self.pending_actor_tasks.pop(rec["actor_id"], [])]
                 if rec.get("cancelled") or self._stop.is_set():
                     # kill_actor() cancelled this creation while we were
                     # spawning (lock released around the process spawn), or
                     # the runtime is shutting down and must not register a
                     # worker after shutdown() cleared the table — undo the
-                    # placement so nothing leaks
-                    self._release(rec["resources"])
-                    self.free_chips.extend(chip_ids)
+                    # placement so nothing leaks (an actor on its creator's
+                    # lease claimed nothing)
+                    if not parent_id:
+                        self._release(rec["resources"])
+                        self.free_chips.extend(chip_ids)
                     worker.alive = False
                     self.workers.pop(worker.worker_id, None)
                     try:
                         worker.conn.send(("shutdown",))
                     except OSError:
                         pass
+                    cancelled = True
+                else:
+                    cancelled = False
+                    actor_id, ready_id = rec["actor_id"], rec["ready_id"]
+                    st = _ActorState(actor_id, worker, rec["name"],
+                                     [] if parent_id else chip_ids, rec["resources"],
+                                     lease=list(chip_ids), parent=parent_id)
+                    if parent is not None:
+                        parent.children.append(st)
+                    self.actors[actor_id] = st
+            if cancelled:
+                for tid in orphan:
+                    self.store.put(_ErrorSentinel(f"ActorDiedError(actor={rec['actor_id']})",
+                                                  "its creating actor died"), tid)
+                if orphan:
+                    self._notify_objects()
+                continue
+            with self.lock:
+                if st.dead:
+                    # its creator was killed in the moment the lock was free:
+                    # kill_actor retired it and stops its process
+                    self.pending_actors.pop(st.actor_id, None)
                     continue
-                actor_id, ready_id = rec["actor_id"], rec["ready_id"]
-                st = _ActorState(actor_id, worker, rec["name"], chip_ids, rec["resources"])
-                self.actors[actor_id] = st
                 if rec["name"]:
                     self.named_actors[rec["name"]] = actor_id
                 worker.busy_task = ready_id
@@ -1417,7 +1560,7 @@ class Runtime:
             st = self.actors.get(spec.actor_id)
             if st is None or st.dead or not st.worker.alive:
                 self.store.put(  # airlint: disable=CC003 — chaos-only: the fault-plan delay inside put models the slow-disk stall this bounded error-sentinel write already risks under the lock; zero cost with no plan installed
-                    _ErrorSentinel(
+                    self._refused_actors.get(spec.actor_id) or _ErrorSentinel(
                         f"ActorDiedError(actor={spec.actor_id})", "",
                         trace_id=(spec.trace_ctx or {}).get("trace_id"),
                     ),
@@ -1509,30 +1652,31 @@ class Runtime:
             resources, chips = st.resources, st.chip_ids
             st.resources = {}
             st.chip_ids = []
-            if not chips:
+            children = self._retire_children_locked(st)
+            if not chips and not children:
                 self._release(resources)
             worker = st.worker
             worker.alive = False
             self.workers.pop(worker.worker_id, None)
-        self._gcs("mark_actor_dead", actor_id)
-        try:
-            worker.conn.send(("shutdown",))
-        except OSError:
-            pass
-        worker.proc.join(timeout=2)
-        if worker.proc.is_alive():
-            worker.proc.terminate()
-        if chips:
+        for w in [worker] + children:
+            self._gcs("mark_actor_dead", w.actor_id)
+        if chips or children:
             # a card's lease returns only once the process that holds its
-            # CUDA context has exited: the next actor placed on the card
+            # CUDA context has exited, and the processes of the actors
+            # placed on that lease too: the next actor placed on the card
             # must not share it with a context still being torn down
-            worker.proc.join(timeout=10)
-            if worker.proc.is_alive():
-                _kill_quietly(worker.proc)
-                worker.proc.join(timeout=10)
+            self._stop_processes([worker] + children)
             with self.lock:
                 self._release(resources)
                 self.free_chips.extend(chips)
+        else:
+            try:
+                worker.conn.send(("shutdown",))
+            except OSError:
+                pass
+            worker.proc.join(timeout=2)
+            if worker.proc.is_alive():
+                worker.proc.terminate()
         self._schedule()  # freed chips/cpus may place queued actors
 
     # -- object plane ---------------------------------------------------------

@@ -26,6 +26,12 @@ try:
 except Exception:
     pass
 try:
+    # a trainer's first optimizer step imports dynamo (and the distributed
+    # tensor ops it registers) lazily: about 2 s a process
+    import torch._dynamo  # noqa: F401
+except Exception:
+    pass
+try:
     import tpu_air_torch.core.runtime  # noqa: F401
 except Exception:
     pass

@@ -2,7 +2,8 @@
 
 The port runs on the card.  An entry point that is given no device takes
 ``cuda:<first leased id>`` inside an actor of the port's runtime that holds
-a chip lease (``num_chips``), and ``cuda:0`` anywhere else; where there is
+a chip lease (``num_chips``; the id wrapped onto the cards where the runtime
+has more slots than cards), and ``cuda:0`` anywhere else; where there is
 no CUDA device it raises rather than carry on on the CPU, which would run
 the plain versions in place of the kernels.  A caller that wants the CPU
 (the tests) says so with ``device="cpu"``.
@@ -18,8 +19,8 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """The named device; else ``cuda:<first leased id>`` in a leased actor
-    and ``cuda:0`` elsewhere.  Raises when CUDA is absent and no device was
+    """The named device; else ``cuda:<first leased id mod cards>`` in a
+    leased actor and ``cuda:0`` elsewhere.  Raises when CUDA is absent and no device was
     named."""
     if device is not None:
         return torch.device(device)
@@ -34,4 +35,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "pass device='cpu' to run the plain PyTorch versions of its "
             "kernels on the CPU"
         )
-    return torch.device("cuda", lease[0] if lease else 0)
+    # lease ids index the runtime's chip slots; a runtime with more slots
+    # than cards wraps them onto the cards, as ``parallel.mesh.visible_devices``
+    return torch.device("cuda", lease[0] % torch.cuda.device_count() if lease else 0)

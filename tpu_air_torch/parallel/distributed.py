@@ -4,12 +4,16 @@ JAX package's ``data`` mesh axis (``ScalingConfig(num_workers=N)``).
 The JAX package jits one SPMD step over N devices: the batch is sharded
 over ``data`` (device r holds rows ``[r*b, (r+1)*b)`` of each global batch)
 and XLA sums the gradients of the replicated parameters.  Here N worker
-processes each hold the whole model; :func:`run_workers` starts them with
-``torch.multiprocessing.start_processes`` and ``spawn`` (forking a process
-that has touched CUDA breaks the children) and joins a
-``torch.distributed`` group through a file store in a fresh temporary
-directory (no port to pick, so no race for one): ``gloo`` on the CPU,
-``nccl`` on CUDA, where rank r runs on ``cuda:r``.  A train step
+processes each hold the whole model, joined in a ``torch.distributed``
+group through a file store in a fresh temporary directory (no port to
+pick, so no race for one).  :func:`run_workers` makes each rank an actor
+of the port's runtime placed on its share of one lease
+(:func:`run_actor_workers`): inside an actor (a ``fit()``'s or a Tune
+trial's runner) that actor's own lease, elsewhere a carrier actor's.  The
+group's backend is ``nccl`` where every rank has a card of its own,
+``gloo`` on the CPU and where ranks share a card (:func:`group_backend`).
+:func:`any_rank` is a decision
+every rank of a group takes together (a Tune trial's stop).  A train step
 all-reduces its token count and then the gradients of
 ``local_sum / global_count`` with a SUM (:func:`all_reduce_grads`), which
 is the JAX step's gradient of the global mean; averaging per-rank means, as
@@ -61,7 +65,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as tmp
 
 
 def world() -> tuple:
@@ -235,112 +238,215 @@ def _sync(by_type: Dict[tuple, List[torch.Tensor]]) -> None:
             torch.cuda.synchronize(device)
 
 
-def check_devices(num_workers: int, device: torch.device) -> None:
-    """N ranks on CUDA need N cards of this machine: rank r runs on
-    ``cuda:r``.  (A multi-host fit starts no ranks: one controller a host
-    runs over that host's share of the lease.)"""
-    if device.type == "cuda" and torch.cuda.device_count() < num_workers:
+def check_slots(ranks: int, devices_per_rank: int, slots: int) -> None:
+    """A group of ``ranks`` ranks over ``devices_per_rank`` cards each
+    leases that many chip slots of the runtime (wrapped onto its cards):
+    refused before any rank starts where the runtime has fewer."""
+    need = ranks * devices_per_rank
+    if need > slots:
         raise ValueError(
-            f"a run of {num_workers} ranks on CUDA needs {num_workers} cards (rank r runs "
-            f"on cuda:r); {torch.cuda.device_count()} are visible")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no worker group for device {device}")
-
-
-def _worker(rank: int, world_size: int, store: str, device_type: str, threads: int,
-            payload: str, out_dir: str, chips_per_worker: int = 1) -> None:
-    """One worker: join the group, run ``fn(rank, world_size, device,
-    *args)`` from the payload file and write its result to ``out_dir/<rank>``.
-    On CUDA ``device`` is the first of the worker's ``chips_per_worker``
-    devices (``mesh.worker_devices``: ``cuda:rank`` for one a worker), which
-    its training function meshes again from its rank.  A result that holds
-    an error raises after it is written, so that ``start_processes`` stops
-    the workers still running (one may wait in a collective for the failed
-    rank)."""
-    if device_type == "cuda":
-        from .mesh import worker_devices
-
-        check_devices(world_size, torch.device("cuda"))
-        devices = worker_devices(rank, chips_per_worker, torch.device("cuda"))
-        if not devices:
-            raise ValueError(f"worker {rank} of {chips_per_worker} devices each has none of "
-                             f"the {torch.cuda.device_count()} visible cards")
-        device = devices[0]
-        torch.cuda.set_device(device)
-    else:
-        device = torch.device("cpu")
-        torch.set_num_threads(threads)
-    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
-                            init_method=f"file://{store}", world_size=world_size, rank=rank)
-    try:
-        with open(payload, "rb") as f:
-            fn, args = pickle.load(f)
-        out = fn(rank, world_size, device, *args)
-    finally:
-        dist.destroy_process_group()
-    with open(os.path.join(out_dir, str(rank)), "wb") as f:
-        pickle.dump(out, f)
-    if out.get("error"):
-        raise RuntimeError(f"worker {rank}: {out['error']}")
+            f"a run of {ranks} ranks of {devices_per_rank} devices each needs {need} cards "
+            f"(chip slots of the runtime, wrapped onto its cards); the runtime has {slots}")
 
 
 def run_workers(fn: Callable[..., Dict[str, Any]], args: tuple, num_workers: int,
-                device: torch.device, cloudpickled: bool = False,
-                chips_per_worker: int = 1) -> List[Dict[str, Any]]:
-    """Run ``fn(rank, num_workers, device_of_rank, *args)`` in
-    ``num_workers`` spawned processes joined in one ``torch.distributed``
-    group; return each rank's result (a dict; ``{"error": ...}`` for a
-    rank that raised, or that was stopped when another failed).  ``fn`` and
-    ``args`` are pickled (``cloudpickled`` for objects plain pickle
-    refuses, such as a preprocessor wrapping a lambda).  A daemonic
-    process (an actor of the port's runtime, a Tune trial's among them) may
-    not start processes, so there it raises."""
-    import multiprocessing
+                device: torch.device, chips_per_worker: int = 1) -> List[Dict[str, Any]]:
+    """Run ``fn(rank, num_workers, device_of_rank, *args)`` on
+    ``num_workers`` ranks joined in one ``torch.distributed`` group; return
+    each rank's result (a dict; ``{"error": ...}`` for a rank that raised,
+    or that was stopped when another failed).  When one rank fails, the
+    others get 30 s to fail in their collectives and write their own
+    results (rank 0's names the latest checkpoint a retry resumes from)
+    before they are stopped.  ``fn`` and ``args`` travel cloudpickled.
 
-    if multiprocessing.current_process().daemon:
-        raise NotImplementedError(
-            f"{num_workers} worker processes from an actor of the runtime (a Tune trial): "
-            "a daemonic process may not start processes (ROADMAP Queue 1 item 12)")
-    check_devices(num_workers, device)
-    if cloudpickled:
-        import cloudpickle
+    Each rank is an actor of the port's runtime placed on its share of one
+    lease (:func:`run_actor_workers`).  Called from an actor (a Tune
+    trial's, or the one ``fit()`` runs its attempt in), that lease is the
+    actor's own.  Elsewhere a carrier actor leases the group's cards (none
+    on the CPU) and runs the group from inside: in the runtime that runs,
+    or in one started for the call and stopped after it."""
+    import cloudpickle
 
-        payload = cloudpickle.dumps((fn, args))
-    else:
-        payload = pickle.dumps((fn, args))
-    work = tempfile.mkdtemp(prefix="tpu_air_torch-workers-")
-    threads = max(1, torch.get_num_threads() // num_workers)
-    failure = ""
+    from tpu_air_torch.core import api
+    from tpu_air_torch.core import runtime as _rt
+    from tpu_air_torch.core.remote import kill, remote
+
+    if _rt.current_worker() is not None:
+        return run_actor_workers(fn, args, num_workers, device, chips_per_worker)
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no worker group for device {device}")
+    on_cards = device.type == "cuda"
+    started = not _rt.is_initialized()
+    if on_cards:    # a runtime started here has a slot a card
+        check_slots(num_workers, chips_per_worker,
+                    torch.cuda.device_count() if started else _rt.get_runtime().num_chips)
+    if started:
+        _rt.init(num_chips=None if on_cards else 0)
     try:
-        # through a file, not the process arguments: spawn writes those to
-        # each child's pipe, and a write larger than the pipe blocks until
-        # that child has imported its main module, so the children would
-        # start one after another
-        with open(os.path.join(work, "payload"), "wb") as f:
-            f.write(payload)
+        carrier = remote(_Carrier).options(
+            num_cpus=0, num_chips=num_workers * chips_per_worker if on_cards else None).remote()
         try:
-            group = tmp.start_processes(
-                _worker, nprocs=num_workers, start_method="spawn", join=False,
-                args=(num_workers, os.path.join(work, "store"), device.type, threads,
-                      os.path.join(work, "payload"), work, chips_per_worker))
-            # when one worker fails, the others get 30 s to fail in their
-            # collectives and write their own results (rank 0's names the
-            # latest checkpoint a retry resumes from) before they are stopped
-            while not group.join(grace_period=30.0):
-                pass
-        except (tmp.ProcessRaisedException, tmp.ProcessExitedException) as e:
-            failure = str(e)
-        outs = []
-        for r in range(num_workers):
-            path = os.path.join(work, str(r))
-            if not os.path.exists(path):
-                outs.append({"error": f"worker {r} left no result:{failure}"})
-                continue
-            with open(path, "rb") as f:
-                outs.append(pickle.load(f))
-        return outs
+            return api.get(carrier.run.remote(cloudpickle.dumps((fn, args)), num_workers,
+                                              device, chips_per_worker,
+                                              torch.get_num_threads()))
+        finally:
+            kill(carrier)
     finally:
+        if started:
+            _rt.shutdown()
+
+
+class _Carrier:
+    """The actor that holds a group's lease for :func:`run_workers` called
+    outside the runtime's actors, and runs the group on it."""
+
+    def run(self, payload: bytes, num_workers: int, device: torch.device,
+            chips_per_worker: int, threads: int) -> List[Dict[str, Any]]:
+        torch.set_num_threads(threads)
+        return _run_rank_actors(payload, num_workers, device, chips_per_worker)
+
+
+# how long the other ranks of a failed group get to fail in their
+# collectives and write their results before they are stopped
+_GRACE_S = 30.0
+
+# a worker group's control group (gloo, CPU tensors) where its data backend
+# is nccl; None where the default group is gloo
+_CONTROL: Optional[Any] = None
+
+
+def any_rank(flag: bool) -> bool:
+    """Whether ``flag`` holds on any rank of this worker group: a decision
+    every rank takes at the same point of its program (a MAX all-reduce of
+    a CPU tensor over gloo).  ``flag`` itself outside a group."""
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return flag
+    t = torch.tensor([1.0 if flag else 0.0])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_CONTROL)
+    return bool(t.item())
+
+
+def group_backend(cards: Sequence[Optional[int]]) -> str:
+    """The data backend of a worker group whose rank r runs on card
+    ``cards[r]`` (None on the CPU): ``nccl`` where every rank has a card
+    of its own, ``gloo`` on the CPU and where ranks share a card (NCCL
+    refuses two ranks on one device; gloo carries CUDA tensors through host
+    memory), as :func:`host_backend` rules for hosts."""
+    if any(c is None for c in cards) or len(set(cards)) < len(cards):
+        return "gloo"
+    return "nccl"
+
+
+class _Rank:
+    """One rank of an actor worker group (an actor placed on its share of
+    the group's lease)."""
+
+    def run(self, rank: int, world_size: int, store: str, backend: str, device_type: str,
+            threads: int, lease: Optional[List[int]], chips_per_worker: int,
+            payload: bytes) -> Dict[str, Any]:
+        global _CONTROL
+        if lease is not None:
+            # the group's whole lease: the rank's devices are its
+            # chips_per_worker consecutive ones (mesh.worker_devices)
+            os.environ["TPU_AIR_CHIP_IDS"] = ",".join(str(c) for c in lease)
+        if device_type == "cuda":
+            from .mesh import worker_devices
+
+            device = worker_devices(rank, chips_per_worker, torch.device("cuda"))[0]
+            torch.cuda.set_device(device)
+        else:
+            device = torch.device("cpu")
+            torch.set_num_threads(threads)
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                world_size=world_size, rank=rank)
+        _CONTROL = dist.new_group(backend="gloo") if backend == "nccl" else None
+        try:
+            fn, args = pickle.loads(payload)
+            return fn(rank, world_size, device, *args)
+        except Exception:  # noqa: BLE001 - a rank's failure is its result
+            return {"error": f"worker {rank}: {traceback.format_exc()}"}
+        finally:
+            _CONTROL = None
+            dist.destroy_process_group()
+
+
+def run_actor_workers(fn: Callable[..., Dict[str, Any]], args: tuple, num_workers: int,
+                      device: torch.device, chips_per_worker: int = 1
+                      ) -> List[Dict[str, Any]]:
+    """:func:`run_workers` from inside an actor of the port's runtime: each
+    rank is an actor placed on its ``chips_per_worker`` ids of this actor's
+    lease (none when the lease is empty, on the CPU), never claimed from the
+    pool again, so a trial's workers cannot wait for cards their own trial
+    holds.  They die with this actor, whose lease returns to the pool only
+    once their processes have exited.  The ranks join a group through a
+    file store in a fresh directory; its backend is
+    :func:`group_backend`'s.  The payload is cloudpickled once into the
+    object store."""
+    import cloudpickle
+
+    return _run_rank_actors(cloudpickle.dumps((fn, args)), num_workers, device,
+                            chips_per_worker)
+
+
+def _run_rank_actors(payload: bytes, num_workers: int, device: torch.device,
+                     chips_per_worker: int) -> List[Dict[str, Any]]:
+    from tpu_air_torch.core import api
+    from tpu_air_torch.core.remote import kill, remote
+    from tpu_air_torch.core.runtime import RemoteError, current_worker
+
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no worker group for device {device}")
+    ctx = current_worker()
+    lease = list(ctx.chip_ids)
+    need = num_workers * chips_per_worker
+    if device.type == "cuda" and len(lease) < need:
+        raise ValueError(
+            f"a group of {num_workers} ranks of {chips_per_worker} devices each on CUDA "
+            f"needs a lease of {need} chips; this actor holds {lease}")
+    shares = ([lease[r * chips_per_worker:(r + 1) * chips_per_worker]
+               for r in range(num_workers)] if len(lease) >= need
+              else [[] for _ in range(num_workers)])
+    cards = ([share[0] % torch.cuda.device_count() for share in shares]
+             if device.type == "cuda" else [None] * num_workers)
+    backend = group_backend(cards)
+    group_lease = lease[:need] if device.type == "cuda" else None
+    threads = max(1, torch.get_num_threads() // num_workers)
+    payload = api.put(payload)
+    work = tempfile.mkdtemp(prefix="tpu_air_torch-workers-")
+    rank_cls = remote(_Rank)
+    ranks = [rank_cls.options(num_cpus=0, chip_ids=shares[r]).remote()
+             for r in range(num_workers)]
+    futures = [a.run.remote(r, num_workers, os.path.join(work, "store"), backend,
+                            device.type, threads, group_lease, chips_per_worker, payload)
+               for r, a in enumerate(ranks)]
+    outs: List[Optional[Dict[str, Any]]] = [None] * num_workers
+    failed_at: Optional[float] = None
+    try:
+        pending = list(futures)
+        while pending:
+            slot = 0.5 if failed_at is None else failed_at + _GRACE_S - time.monotonic()
+            if slot <= 0:
+                break
+            ready, pending = api.wait(pending, num_returns=1, timeout=slot)
+            for ref in ready:
+                r = futures.index(ref)
+                try:
+                    outs[r] = api.get(ref)
+                except RemoteError as e:    # the rank's process died outright
+                    outs[r] = {"error": f"worker {r}: {e}"}
+                ctx.store.delete(ref.id)
+                if outs[r].get("error") and failed_at is None:
+                    failed_at = time.monotonic()
+    finally:
+        for a in ranks:
+            kill(a)
+        ctx.store.delete(payload.id)
         shutil.rmtree(work, ignore_errors=True)
+    return [o if o is not None else
+            {"error": f"worker {r} was stopped {_GRACE_S:.0f} s after another failed"}
+            for r, o in enumerate(outs)]
 
 
 # --------------------------------------------------------------------------

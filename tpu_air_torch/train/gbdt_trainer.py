@@ -387,9 +387,9 @@ class GBDTTrainer(BaseTrainer):
     one report (and, at a stride, a checkpoint) per boosting round."""
 
     _name_prefix = "GBDTTrainer"
-    # host numpy: no device to place, and num_workers > 1 runs worker actors
+    # host numpy: no device to place or lease
     _needs_device = False
-    _spawns_workers = False
+    _uses_cards = False
 
     def __init__(
         self,
@@ -406,6 +406,11 @@ class GBDTTrainer(BaseTrainer):
 
     def _training_fn(self):
         return gbdt_train_loop
+
+    def _num_ranks(self) -> int:
+        """One: with num_workers > 1 the training function starts worker
+        actors of its own."""
+        return 1
 
     def _train_loop_config(self) -> Dict[str, Any]:
         return {

@@ -3,25 +3,32 @@ counterpart of ``tpu_air/train/trainer.py``).
 
 An attempt runs one of two ways:
 
-* ``BaseTrainer.fit()`` runs it in the calling process on the trainer's
-  device, or, with ``ScalingConfig(num_workers=N > 1)``, in N spawned
-  worker processes joined in one ``torch.distributed`` group
-  (``parallel/distributed.py``), whose rank 0 reports and checkpoints.
-  A worker's rank runs over its ``num_chips_per_worker`` devices (a
-  tensor-parallel mesh, in-worker data replicas), except that ``LMTrainer``'s
+* On this host, ``BaseTrainer.fit()`` calls ``tpu_air_torch.init()`` (a
+  runtime already running is reused; one that ``fit()`` starts for itself
+  is stopped when it returns) and runs every attempt in a
+  :class:`_TrialRunner`, an actor of the port's runtime that leases
+  ``ScalingConfig.total_chips`` chip slots, as the JAX package's
+  ``_run_actor_attempts`` does (``_runner_chips()``, a Tune trial's rule
+  too), none on the CPU (``device="cpu"``, ``use_gpu=False``, or a
+  trainer that uses no card).  A training function given no device takes
+  ``cuda:<first leased id>`` there.  With ``ScalingConfig(num_workers=N >
+  1)`` the runner runs the attempt on N rank actors placed on its own
+  lease (``parallel/distributed.py::run_actor_workers``), joined in one
+  ``torch.distributed`` group, whose rank 0 reports and checkpoints.  A
+  rank runs over its ``num_chips_per_worker`` devices (a tensor-parallel
+  mesh, in-worker data replicas), except that ``LMTrainer``'s
   sequence-parallel step starts one rank a device: ``_num_ranks()`` and
-  ``_devices_per_rank()``.
-  The JAX package runs ``fit()``'s attempts in a trial actor that holds a
-  chip lease; the port keeps them in process (ROADMAP Queue 1 item 13),
-  which the W1 loop and its gloo workers rely on.
-* Tune runs each attempt of a trial in a :class:`_TrialRunner`, an actor of
-  the port's runtime that leases ``ScalingConfig.total_chips`` cards; a
-  training function given no device takes ``cuda:<first leased id>``
-  there.  Each report streams to the driver through the object store and
-  the scheduler's decision comes back the same way; a stopped trial ends
-  with ``StopTrial``, which is a clean stop, not an error.  A trial actor
-  is a daemonic process, which may not start processes, so a trial cannot
-  spawn ``num_workers > 1`` workers (ROADMAP Queue 1 item 12).
+  ``_devices_per_rank()``.  A runner that dies outright fails its attempt
+  with the ``RemoteError``; the retry resumes from the newest checkpoint on
+  disk (``_scan_latest_checkpoint``).  The runner is killed after each
+  attempt, and its lease returns once its processes, its ranks' among
+  them, have exited.
+* Tune runs each attempt of a trial in a :class:`_TrialRunner` the same
+  way.  Each report streams to the driver through the object store and the
+  scheduler's decision comes back the same way; on a trial of several
+  ranks rank 0 asks and every rank takes its answer at that report
+  (``_shared_decision``), so all stop together; a stopped trial ends with
+  ``StopTrial``, which is a clean stop, not an error.
 
 * Across hosts: with an active cluster (``parallel/distributed.py``'s
   ``spawn_local_cluster`` or ``set_active_cluster``) and a lease larger
@@ -37,11 +44,10 @@ An attempt runs one of two ways:
   from ``max_failures``); once the lease fits one host, the remaining
   attempts run on this host as above.
 
-The attempt loop is that of ``_run_actor_attempts``: an attempt whose
-training function raises (on any rank) is retried, up to
-``FailureConfig.max_failures`` times, resuming from the newest checkpoint
-that attempt retained.  A ``preprocessor`` is fitted on the train dataset
-and applied to every dataset before the first attempt.
+The attempt loop: an attempt whose training function raises (on any rank)
+is retried, up to ``FailureConfig.max_failures`` times, resuming from the
+newest checkpoint that attempt retained.  A ``preprocessor`` is fitted on
+the train dataset and applied to every dataset before the first attempt.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import traceback
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from tpu_air_torch.core.remote import remote
 from tpu_air_torch.device import DeviceLike, resolve_device
@@ -210,57 +217,99 @@ def _run_trial(training_fn: Callable[[Dict[str, Any]], None], config: Dict[str, 
     return out
 
 
+def _tune_decision_cb(trial_id: str):
+    """The Tune driver's decision on each report of ``trial_id``, through
+    the object store: stream the report, then wait briefly for the
+    scheduler's ack, so that a prune lands BEFORE the next epoch spends
+    compute.  If the driver is slow the trial goes on and the
+    ``{trial}-stop`` marker catches it at a later report."""
+    from tpu_air_torch.core import runtime as _rt
+
+    store = _rt.current_worker().store
+
+    def decision_cb(rec, seq):
+        store.put(rec, f"{trial_id}-report-{seq}")
+        try:
+            ok = bool(store.get(f"{trial_id}-ack-{seq}", timeout=5.0))
+            store.delete(f"{trial_id}-ack-{seq}")
+            if not ok:
+                return False
+        except TimeoutError:
+            pass
+        return not store.contains(f"{trial_id}-stop")
+
+    return decision_cb
+
+
+def _shared_decision(own):
+    """A worker group's decision on each report: rank 0's (``own``, None on
+    the other ranks), shared over the group by a MAX all-reduce of the stop
+    flag before any rank goes on, so every rank stops at the same report
+    and none is left waiting in the next step's collectives."""
+    from tpu_air_torch.parallel.distributed import any_rank
+
+    def decision_cb(rec, seq):
+        go = own(rec, seq) if own is not None else True
+        return not any_rank(not go)
+
+    return decision_cb
+
+
 @remote
 class _TrialRunner:
-    """Actor hosting one attempt of a Tune trial on its chip lease."""
+    """Actor hosting one attempt of a ``fit()`` or of a Tune trial on its
+    chip lease.  With ``ranks > 1`` the attempt runs on a worker group of
+    actors placed on that lease (``parallel/distributed.py``), whose rank 0
+    reports and checkpoints."""
 
     def run(self, training_fn: Callable[[Dict[str, Any]], None], config: Dict[str, Any],
             run_dir: str, datasets: Dict[str, Any], checkpoint_config: CheckpointConfig,
-            world_size: int, trial_id: str) -> Dict[str, Any]:
-        from tpu_air_torch.core import runtime as _rt
-
-        store = _rt.current_worker().store
-
-        def decision_cb(rec, seq):
-            # Stream the report to the driver, then wait briefly for the
-            # scheduler's ack so a prune lands BEFORE the next epoch spends
-            # compute.  If the driver is slow the trial goes on and the
-            # `{trial}-stop` marker catches it at a later report.
-            store.put(rec, f"{trial_id}-report-{seq}")
-            try:
-                ok = bool(store.get(f"{trial_id}-ack-{seq}", timeout=5.0))
-                store.delete(f"{trial_id}-ack-{seq}")
-                if not ok:
-                    return False
-            except TimeoutError:
-                pass
-            return not store.contains(f"{trial_id}-stop")
-
+            world_size: int, trial_id: Optional[str], ranks: int = 1,
+            devices_per_rank: int = 1, threads: Optional[int] = None) -> Dict[str, Any]:
+        if threads:
+            # fit()'s attempt runs with its caller's torch threads
+            torch.set_num_threads(threads)
+        if ranks > 1:
+            return _run_workers_trial(training_fn, config, run_dir, datasets,
+                                      checkpoint_config, ranks,
+                                      resolve_device(config.get("_device")),
+                                      devices_per_rank, trial_id)
         return _run_trial(training_fn, config, run_dir, datasets, checkpoint_config,
-                          world_size, decision_cb=decision_cb)
+                          world_size, decision_cb=(None if trial_id is None
+                                                   else _tune_decision_cb(trial_id)))
 
 
 def _worker_trial(rank: int, world_size: int, device, training_fn, config, run_dir,
-                  datasets, checkpoint_config) -> Dict[str, Any]:
-    """One rank of an attempt, in a worker process on its own device."""
+                  datasets, checkpoint_config, trial_id=None) -> Dict[str, Any]:
+    """One rank of an attempt, in a worker process on its own device.  In a
+    Tune trial rank 0 asks the driver at every report and every rank takes
+    its answer."""
     config = dict(config, _device=device)
+    decision_cb = None
+    if trial_id is not None:
+        decision_cb = _shared_decision(_tune_decision_cb(trial_id) if rank == 0 else None)
     return _run_trial(training_fn, config, run_dir, datasets, checkpoint_config,
-                      world_size, rank)
+                      world_size, rank, decision_cb=decision_cb)
 
 
 def _run_workers_trial(training_fn, config, run_dir, datasets, checkpoint_config,
-                       num_workers: int, device, devices_per_rank: int = 1) -> Dict[str, Any]:
-    """One attempt over ``num_workers`` worker processes: rank 0's record,
-    with the errors of every rank."""
-    from tpu_air_torch.parallel.distributed import run_workers
+                       num_workers: int, device, devices_per_rank: int = 1,
+                       trial_id: Optional[str] = None) -> Dict[str, Any]:
+    """One attempt over ``num_workers`` rank actors on this actor's lease:
+    rank 0's record, with the errors of every rank (a rank stopped by the
+    scheduler is no error)."""
+    from tpu_air_torch.parallel.distributed import run_actor_workers
 
-    outs = run_workers(_worker_trial,
-                       (training_fn, config, run_dir, datasets, checkpoint_config),
-                       num_workers, device,
-                       cloudpickled=config.get("_preprocessor") is not None,
-                       chips_per_worker=devices_per_rank)
+    outs = run_actor_workers(_worker_trial,
+                             (training_fn, config, run_dir, datasets, checkpoint_config,
+                              trial_id),
+                             num_workers, device, chips_per_worker=devices_per_rank)
     errors = [o["error"] for o in outs if o.get("error")]
     out = dict(outs[0])
+    out.setdefault("history", [])
+    out.setdefault("checkpoints", [])
+    out.setdefault("best_checkpoint", None)
+    out.setdefault("latest_checkpoint", None)
     out["error"] = "\n".join(errors) if errors else None
     return out
 
@@ -279,9 +328,9 @@ class BaseTrainer:
     takes the device named here, or, when none was, its leased card."""
 
     _name_prefix = "Trainer"
-    # num_workers > 1 spawns worker processes (parallel/distributed.py),
-    # which a trial actor may not start
-    _spawns_workers = True
+    # a trainer that runs on no card (host numpy) runs on the CPU: its
+    # runners lease no chip slot
+    _uses_cards = True
     # the training function builds a model on self.device, resolved here so
     # that a missing card raises at construction; a trainer that places
     # nothing itself passes the named device (or None) on to its function
@@ -318,7 +367,9 @@ class BaseTrainer:
         raise NotImplementedError
 
     def _num_ranks(self) -> int:
-        """Processes an attempt runs in: one a data-parallel worker."""
+        """Processes an attempt runs in: one a data-parallel worker, a
+        worker group of rank actors (``parallel/distributed.py``) when
+        more than one."""
         return self.scaling_config.num_workers
 
     def _devices_per_rank(self) -> int:
@@ -340,18 +391,48 @@ class BaseTrainer:
                 datasets[k] = self.preprocessor.transform(ds)
         return datasets
 
+    def _on_cpu(self) -> bool:
+        """Whether the run holds no card: its device is the CPU
+        (``device="cpu"``, ``use_gpu=False``), or the trainer uses none."""
+        named = self._named_device
+        return not self._uses_cards or (named is not None and torch.device(named).type == "cpu")
+
+    def _runner_chips(self) -> int:
+        """The chip slots an attempt's runner leases, in ``fit()`` and in a
+        Tune trial alike: ``ScalingConfig.total_chips``, none on the CPU."""
+        return 0 if self._on_cpu() else self.scaling_config.total_chips
+
+    def _start_runtime(self) -> bool:
+        """``tpu_air_torch.init()`` unless a runtime runs (or this is one of
+        its workers); True when this call started it.  A run on the CPU
+        starts one without cards; any other asks for the cards, and raises
+        where there are none."""
+        from tpu_air_torch.core import runtime as _rt
+
+        if _rt.current_worker() is not None or _rt.is_initialized():
+            return False
+        _rt.init(num_chips=0 if self._on_cpu() else None)
+        return True
+
     def fit(self) -> Result:
-        name = self.run_config.name or (
-            f"{self._name_prefix}_{int(time.time())}_{os.urandom(3).hex()}"
-        )
-        run_dir = os.path.join(self.run_config.storage_path or _default_storage(), name)
-        os.makedirs(run_dir, exist_ok=True)
-        datasets = self._preprocess()
-        config = dict(self._train_loop_config())
-        config["_preprocessor"] = self.preprocessor
-        config["_scaling_config"] = self.scaling_config
-        config["_device"] = self.device if self._needs_device else self._named_device
-        return self._run_attempts(config, run_dir, datasets)
+        started = self._start_runtime()
+        try:
+            name = self.run_config.name or (
+                f"{self._name_prefix}_{int(time.time())}_{os.urandom(3).hex()}"
+            )
+            run_dir = os.path.join(self.run_config.storage_path or _default_storage(), name)
+            os.makedirs(run_dir, exist_ok=True)
+            datasets = self._preprocess()
+            config = dict(self._train_loop_config())
+            config["_preprocessor"] = self.preprocessor
+            config["_scaling_config"] = self.scaling_config
+            config["_device"] = self.device if self._needs_device else self._named_device
+            return self._run_attempts(config, run_dir, datasets)
+        finally:
+            if started:
+                from tpu_air_torch.core import runtime as _rt
+
+                _rt.shutdown()
 
     def _run_attempts(self, config: Dict[str, Any], run_dir: str,
                       datasets: Dict[str, Any]) -> Result:
@@ -372,24 +453,42 @@ class BaseTrainer:
     def _run_local_attempts(self, config: Dict[str, Any], run_dir: str,
                             datasets: Dict[str, Any], resume) -> Result:
         """The attempts on this host (also where an elastic shrink of a
-        multi-host lease lands once it fits one host)."""
+        multi-host lease lands once it fits one host), each in a
+        :class:`_TrialRunner` on a lease of :meth:`_runner_chips` cards, as
+        the JAX package's ``_run_actor_attempts``.  A runner that dies
+        outright fails its attempt with the ``RemoteError``, and the retry
+        resumes from the newest checkpoint on disk."""
+        import tpu_air_torch
+
+        from tpu_air_torch.core import runtime as _rt
+        from tpu_air_torch.parallel.distributed import check_slots
+
         rc = self.run_config
-        workers = self._num_ranks()
+        ranks = self._num_ranks()
+        chips = self._runner_chips()
+        if _rt.current_worker() is None and chips:
+            check_slots(ranks, self._devices_per_rank(), _rt.get_runtime().num_chips)
+        # the runner resolves a device left unnamed to its own lease
+        config = dict(config, _device=self._named_device)
         attempt = 0
         while True:
             if resume is not None:
                 config["resume_from_checkpoint"] = (
                     resume.to_directory() if isinstance(resume, Checkpoint) else resume
                 )
-            if workers > 1 and self._spawns_workers:
-                out = _run_workers_trial(self._training_fn(), config, run_dir, datasets,
-                                         rc.checkpoint_config, workers,
-                                         self.device or resolve_device(self._named_device),
-                                         self._devices_per_rank())
-            else:
-                out = _run_trial(self._training_fn(), config, run_dir, datasets,
-                                 rc.checkpoint_config)
-            err = out["error"]
+            runner = _TrialRunner.options(num_chips=chips or None, num_cpus=0).remote()
+            try:
+                out = tpu_air_torch.get(runner.run.remote(
+                    self._training_fn(), config, run_dir, datasets, rc.checkpoint_config,
+                    1, None, ranks, self._devices_per_rank(), torch.get_num_threads()))
+                err = out["error"]
+            except tpu_air_torch.RemoteError as e:   # the runner died outright
+                # the crash took the session's list of checkpoints with it
+                out = {"history": [], "checkpoints": [], "best_checkpoint": None,
+                       "latest_checkpoint": _scan_latest_checkpoint(run_dir)}
+                err = str(e)
+            finally:
+                tpu_air_torch.kill(runner)
             if err is None:
                 return self._assemble(out, run_dir, config, None)
             latest = out.get("latest_checkpoint")

@@ -7,13 +7,21 @@ scheduler)`` (both import spellings), ``tuner.fit() -> ResultGrid``.
 
 Resource model: every trial runs in a ``_TrialRunner`` actor
 (``train/trainer.py``) that leases the trainer's
-``ScalingConfig.total_chips`` cards.  The runtime queues the actors until a
-lease frees, so on one card the trials run one after another; a finished
-trial's runner is killed, and its card returns to the pool only once the
-runner's process (and its CUDA context) has exited.  Leases are whole
-cards, as in the JAX runtime.  In the actor a training function given no
-device takes ``cuda:<first leased id>``; a device named on the trainer (the
-tests' ``"cpu"``) is passed on as it is.
+``ScalingConfig.total_chips`` cards at once, as the JAX trial does, and as
+``fit()``'s runner does (``BaseTrainer._runner_chips``: none for a trainer
+on the CPU, whose trials ``TuneConfig.max_concurrent_trials`` bounds).  The
+runtime queues the actors until a lease frees, so on one card the trials
+run one after another; a finished trial's runner is killed, and its cards
+return to the pool only once the runner's process (and its CUDA context)
+has exited.  Leases are whole cards, as in the JAX runtime.  In the actor a
+training function given no device takes ``cuda:<first leased id>``; a
+device named on the trainer (the tests' ``"cpu"``) is passed on as it is.
+A trainer with ``num_workers > 1`` runs its trial on that many worker
+actors placed on the runner's own lease (never claimed from the pool
+again, so two trials cannot each hold half of their cards and wait for the
+rest), joined in one ``torch.distributed`` group; rank 0 reports, and the
+scheduler's decision on each report reaches every rank before any of them
+goes on (``train/trainer.py::_shared_decision``).
 
 Driver loop: trials stream per-epoch reports through the object store
 (``{trial}-report-{i}`` keys written by the trial's decision callback); the
@@ -119,15 +127,15 @@ class Tuner:
     # -- fit ----------------------------------------------------------------
     def fit(self) -> ResultGrid:
         sc = self._trainer.scaling_config
-        if sc.num_workers > 1 and self._trainer._spawns_workers:
-            raise NotImplementedError(
-                f"{type(self._trainer).__name__} with ScalingConfig(num_workers="
-                f"{sc.num_workers}) in a Tune trial: its workers are spawned processes, "
-                "and a trial actor may not start any (ROADMAP Queue 1 item 12)")
+        # a trainer whose function runs on several ranks runs them as worker
+        # actors on the trial's own lease
+        ranks = self._trainer._num_ranks()
         tpu_air_torch.init()
         from tpu_air_torch.core.runtime import get_runtime
 
         store = get_runtime().store
+        # the runner's lease: fit()'s rule
+        chips = self._trainer._runner_chips()
         tc = self.tune_config
         # schedulers accumulate rung/stop state per sweep; a second fit() (or
         # a scheduler shared across Tuners) must not judge trials against a
@@ -185,14 +193,12 @@ class Tuner:
 
         def launch(tr):
             os.makedirs(tr["dir"], exist_ok=True)
-            runner = _TrialRunner.options(
-                num_chips=sc.total_chips or None, num_cpus=0
-            ).remote()
+            runner = _TrialRunner.options(num_chips=chips or None, num_cpus=0).remote()
             tr["runner"] = runner
             tr["start"] = time.time()
             tr["future"] = runner.run.remote(
                 training_fn, tr["config"], tr["dir"], datasets, cc,
-                sc.num_workers, tr["id"],
+                sc.num_workers, tr["id"], ranks, self._trainer._devices_per_rank(),
             )
             running.append(tr)
 
