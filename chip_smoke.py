@@ -171,8 +171,14 @@ Phases, each fatal on failure:
               same weights: loss, every gradient and the running stats;
 20. w8       — W8 as the reference runs it, through
               ``examples/torch_xgboost_e2e.py``'s functions: 2000 seeded
-              taxi-shaped rows, ``GBDTTrainer`` (binary:logistic, 50 rounds)
-              over a MinMaxScaler, ``Tuner`` with 3 samples, then
+              taxi-shaped rows, written to a parquet directory with
+              ``Dataset.write_parquet`` and read back through
+              ``tpu_air_torch.data.read_parquet`` as the reference enters
+              them (where pyarrow is absent a line says so and the rows go
+              through ``write_csv``/``read_csv``; either way the rows read
+              must equal the rows written), ``GBDTTrainer``
+              (binary:logistic, 50 rounds) over a MinMaxScaler, ``Tuner``
+              with 3 samples, then
               ``serve.run(PredictorDeployment.options(name="XGBoostService",
               num_replicas=2, route_prefix="/rayair").bind(GBDTPredictor,
               best_ckpt, http_adapter=pandas_read_json))`` on the host; 64
@@ -462,7 +468,26 @@ Phases, each fatal on failure:
               (d) the flash forward at a rank's eval shape in (a) and (b)
               (B 4, H 12, L 512, D 64; bias and a source key mask, and
               causal with a label key mask) against its plain version,
-              beside its bound and SDPA.
+              beside its bound and SDPA;
+32. surface  — (a) ``T5Trainer.fit()`` at FLAN-T5-base width, depth cut to
+              2+2, bf16 on f32, W1's rows 8 x 512/512, 4 one-step epochs, a
+              checkpoint a report, under a ``FaultPlan`` whose
+              ``train.report`` kill ends the trial actor at its report 3,
+              ``FailureConfig(max_failures=1)``, with
+              ``TPU_AIR_TENSORBOARD=1`` where tensorboardX is installed (a
+              line says so where it is not): the run ends at epoch 4, the
+              retry's history is epochs 3-4, resumed from report 2's
+              checkpoint, the event files' scalars equal the reports'
+              numbers and no trial process is left; then 8 prompts
+              generate from the final checkpoint through the kernels;
+              (b) the phase-4 model in f32 with ``decode_cache_int8=True``:
+              greedy tokens through the kernels and the plain versions
+              identical; then in bf16 at W3's 64 x 512, 32 new tokens:
+              finite first-step logits, decode launches, tokens/s; and the
+              int8 decode calls at that run's cross and self step shapes
+              beside their bound (int8 bytes over 3.35 TB/s, f32 operations
+              over 67 TFLOP/s), their plain versions and SDPA on the same
+              cache dequantized to bf16.
 
 Every ``fit()`` runs its attempt in a trial actor of the port's runtime (a
 runtime of the card's one slot that ``fit()`` starts for it, or, for the
@@ -490,7 +515,10 @@ around each of its f32 steps, in (b)'s trial actor and around its
 generation, and phase 30's on each host (read through the agent plane)
 around (a)'s and (b)'s fits, and in this process around (a)'s generation,
 and phase 31's in each rank actor of its sweep and fits, around its
-training function, and in this process around (a)'s generation.  The SegFormer
+training function, and in this process around (a)'s generation, and
+phase 32's in (a)'s retried trial actor around its training function (the
+killed attempt's process leaves no count) and in this process around
+(a)'s generation and (b)'s bf16 int8 generation.  The SegFormer
 phases launch none of the four kernels (no Pallas kernel lies on that path),
 which W7's in-process run and W6's fit check.
 The line before the last is the ``{"kernels": [...]}`` summary; the last is
@@ -507,6 +535,7 @@ import os
 import re
 import shutil
 import signal
+import struct
 import subprocess
 import sys
 import tempfile
@@ -642,8 +671,8 @@ NATIVE_PAGES, NATIVE_REPS, NATIVE_SMALL_ARENA = (1, 135), 3, 64 << 10
 # engine configuration and 32 prompts: (a) MeshEngine meshes on the one card
 # in bf16 (16 prefill chunks a step: tokens do not depend on the schedule),
 # every burst over the first DIST_MESH_PROMPTS prompts (a depth cut: 32
-# took 75-100 s of the run's 1200; fewer than 9 leave dp 2's second replica
-# empty)
+# took 75-100 s of the run's 1200, 16 until phase 32 was added; fewer than 9
+# leave dp 2's second replica empty)
 # and in f32 at phase 22 (e)'s cut depth; (b) the router's fault run over the
 # first DIST_FAULT_PROMPTS prompts; (c) one POST of DIST_POST prompts a
 # deployment; (d) the decode kernel at (label, b, h) of the meshes' shards
@@ -651,7 +680,7 @@ DIST_ENGINE = {**LM_ENGINE, "prefill_chunks_per_step": 16}
 # f32 (kernel and plain) on the 2 x 2 mesh alone, whose replicas are tp 2
 # meshes (a depth cut: tp 2 alone ran too before phase 30 was added)
 DIST_BF16_MESHES, DIST_F32_MESHES = ((2, 1), (1, 2), (2, 2)), ((2, 2),)
-DIST_FAULT_PROMPTS, DIST_POST, DIST_FIRST, DIST_MESH_PROMPTS = 6, 8, 8, 16
+DIST_FAULT_PROMPTS, DIST_POST, DIST_FIRST, DIST_MESH_PROMPTS = 6, 8, 8, 10
 DIST_TIMING = (("dp 2", 8, 8), ("tp 2", 16, 4), ("tp 4", 16, 2))
 # tensor-parallel training dials (phase 29): (a) the [lm] phase's LM and rows
 # at tp 2, TP_LM_STEPS one-step epochs (the first a warm-up), and its f32 step
@@ -672,6 +701,14 @@ MH_PARITY_LAYERS, MH_PARITY_STEPS = 2, 2
 # ACT_DIE_AT, one retry; (c) one f32 step at [w1 parity]'s cut depth, dropout
 # 0, over 2 ranks against 1 rank at the doubled batch
 ACT_SAMPLES, ACT_EPOCHS, ACT_FIT_EPOCHS, ACT_DIE_AT = 2, 2, 2, 2
+# the rest of the surface (phase 32): (a) W1 at its width, bf16 on f32, depth
+# cut to SURFACE_LAYERS + SURFACE_LAYERS, W1_BATCH rows of W1_LEN,
+# SURFACE_EPOCHS one-step epochs, a FaultPlan kill at train.report
+# SURFACE_KILL_AT and one retry, then W1's generation from its checkpoint;
+# (b) the W3 model with the int8 decode cache: f32 over [parity]'s prompts,
+# then bf16 at W3's BATCH x PROMPT_LEN, SURFACE_INT8_NEW new tokens
+SURFACE_LAYERS, SURFACE_EPOCHS, SURFACE_KILL_AT, SURFACE_INT8_NEW = 2, 4, 3, 32
+PEAK_F32_FLOP_S = 67e12     # H100 SXM float32 outside the tensor cores
 T5_STEP = "tpu_air_torch.train.t5_trainer:make_t5_train_step"
 
 
@@ -3757,9 +3794,46 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def w8_path(port: int) -> dict:
+def w8_rows(work: str):
+    """W8's seeded taxi-shaped rows as the reference enters them (cc-9): written
+    to a parquet directory with ``Dataset.write_parquet`` and read back with
+    ``tpu_air_torch.data.read_parquet``, as ``examples/torch_xgboost_e2e.py
+    --parquet`` reads them (csv both ways where pyarrow is not installed).
+    The rows read must equal the ones written."""
+    import importlib.util
+
+    import pandas as pd
+
+    import tpu_air_torch.data as tad
+
+    ex = example_module("torch_xgboost_e2e")
+    made = ex.make_taxi_like(W8_ROWS)
+    if importlib.util.find_spec("pyarrow") is not None:
+        reader, path = "read_parquet", os.path.join(work, "w8_parquet")
+        made.write_parquet(path)
+    else:
+        log("[w8] pyarrow is not installed here: the rows go through write_csv and read_csv")
+        reader, path = "read_csv", os.path.join(work, "w8_csv")
+        made.write_csv(path)
+    t0 = time.perf_counter()
+    ds = getattr(tad, reader)(path)
+    read_s = time.perf_counter() - t0
+    want, got = made.to_pandas(), ds.to_pandas()
+    same = list(got.columns) == list(want.columns) and got.equals(want)
+    log(f"[w8] {W8_ROWS} rows written to {os.path.basename(path)} "
+        f"({len(os.listdir(path))} files) and read back through tpu_air_torch.data.{reader} "
+        f"in {read_s * 1e3:.1f} ms ({ds.num_blocks()} blocks): equal to the rows written: "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"[w8] {reader} gave other rows:\n"
+                             f"{pd.concat([want, got], axis=1).head()}")
+    return ds, {"reader": reader, "read_ms": read_s * 1e3, "files": len(os.listdir(path))}
+
+
+def w8_path(port: int, work: str) -> dict:
     """W8 as the reference runs it, through ``examples/torch_xgboost_e2e.py``:
-    seeded taxi-shaped rows, ``GBDTTrainer`` (binary:logistic, 50 rounds)
+    seeded taxi-shaped rows entered through ``read_parquet``
+    (:func:`w8_rows`), ``GBDTTrainer`` (binary:logistic, 50 rounds)
     over a MinMaxScaler, ``Tuner`` with 3 samples, then ``serve.run(
     PredictorDeployment.options(name="XGBoostService", num_replicas=2,
     route_prefix="/rayair").bind(GBDTPredictor, best_ckpt,
@@ -3771,9 +3845,9 @@ def w8_path(port: int) -> dict:
     from tpu_air_torch.serve import pandas_read_json
 
     ex = example_module("torch_xgboost_e2e")
+    rows, read = w8_rows(work)
     t0 = time.perf_counter()
-    result, best, valid_ds = ex.train_and_tune(ex.make_taxi_like(W8_ROWS),
-                                               num_boost_round=W8_ROUNDS,
+    result, best, valid_ds = ex.train_and_tune(rows, num_boost_round=W8_ROUNDS,
                                                num_samples=W8_SAMPLES)
     fit_s = time.perf_counter() - t0
     records = valid_ds.drop_columns(["is_big_tip"]).to_pandas().head(W8_POSTS) \
@@ -3811,7 +3885,7 @@ def w8_path(port: int) -> dict:
             "latency_p50_ms": float(np.percentile(lat_ms, 50)),
             "latency_p99_ms": float(np.percentile(lat_ms, 99)),
             "batch_post_ms": batch_s * 1e3, "rows": len(records),
-            "best_config": best.config["params"], "equal_to_in_process": True}
+            "best_config": best.config["params"], "equal_to_in_process": True, "read": read}
 
 
 def gained(before: dict, after: dict) -> dict:
@@ -7826,6 +7900,334 @@ def add_mh_rows(kernels: list, mh: dict) -> None:
             r["launches"] += by[where]
 
 
+# -- phase 32 ---------------------------------------------------------------------
+
+
+def continue_epochs(inner, total: int):
+    """``inner`` (the T5 loop) with a retry that goes on from its checkpoint:
+    the loop, in both packages, runs all its epochs again from a resumed
+    checkpoint's weights, so a resumed attempt here runs the epochs after
+    the checkpoint's, its reports (and their checkpoints' metrics) numbered
+    on from it, as the JAX package's test of the ``train.report`` site does
+    with a loop of its own."""
+    def fn(config):
+        from tpu_air_torch.train import Checkpoint, session
+
+        resume = config.get("resume_from_checkpoint")
+        if not resume:
+            return inner(config)
+        done = int(Checkpoint.from_directory(resume).get_metrics()["epoch"])
+        report = session.report
+
+        def numbered_on(metrics, checkpoint=None):
+            metrics = dict(metrics, epoch=metrics["epoch"] + done)
+            if checkpoint is not None:
+                with open(os.path.join(checkpoint.path, "metrics.json"), "w") as f:
+                    json.dump(metrics, f, default=float)
+            return report(metrics, checkpoint)
+
+        session.report = numbered_on
+        try:
+            return inner(dict(config, epochs=total - done))
+        finally:
+            session.report = report
+    return fn
+
+
+def event_scalars(log_dir: str) -> list:
+    """(step, tag, value) of every scalar in the tensorboard event files under
+    ``log_dir`` (TFRecord framing: a u64 length, its crc, the ``Event``
+    bytes, their crc)."""
+    from tensorboardX.proto.event_pb2 import Event
+
+    out = []
+    for name in sorted(os.listdir(log_dir)):
+        if not name.startswith("events.out.tfevents."):
+            continue
+        with open(os.path.join(log_dir, name), "rb") as f:
+            data = f.read()
+        off = 0
+        while off + 12 <= len(data):
+            (n,) = struct.unpack_from("<Q", data, off)
+            ev = Event.FromString(data[off + 12:off + 12 + n])
+            off += 12 + n + 4
+            out += [(ev.step, v.tag, v.simple_value) for v in ev.summary.value]
+    return out
+
+
+def reported_scalars(records: list) -> list:
+    """What a session's sink logs of ``records`` (progress.jsonl's), as
+    :func:`event_scalars` reads it back: each number at the report's
+    iteration, held in f32."""
+    return [(rec["training_iteration"], k, float(np.float32(v))) for rec in records
+            for k, v in rec.items()
+            if not k.startswith("_") and isinstance(v, (int, float))]
+
+
+def surface_fit(dev, work: str) -> dict:
+    """32 (a): ``T5Trainer.fit()`` under a ``FaultPlan`` that kills the trial
+    actor at ``train.report`` SURFACE_KILL_AT, with the tensorboard sink on
+    where tensorboardX is installed; then generation from its checkpoint."""
+    import importlib.util
+
+    from tpu_air_torch import faults
+    from tpu_air_torch.models.tokenizer import ByteTokenizer
+    from tpu_air_torch.predict.predictors import T5GenerativePredictor
+    from tpu_air_torch.train import (FailureConfig, RunConfig, T5Trainer,
+                                     TrainingArguments)
+
+    cfg = w1_config(layers=SURFACE_LAYERS)
+    args = TrainingArguments(learning_rate=2e-5, weight_decay=0.01,
+                             per_device_train_batch_size=W1_BATCH,
+                             num_train_epochs=SURFACE_EPOCHS, max_steps_per_epoch=1, seed=SEED)
+    trainer = T5Trainer(
+        model_config=cfg, training_args=args, tokenizer=ByteTokenizer(W1_LEN),
+        datasets={"train": w1_rows(W1_BATCH, cfg.vocab_size, SEED + 90),
+                  "evaluation": w1_rows(W1_BATCH, cfg.vocab_size, SEED + 91)},
+        run_config=RunConfig(storage_path=os.path.join(work, "surface"), name="fit",
+                             failure_config=FailureConfig(max_failures=1)),
+        device=dev)
+    inner = trainer._training_fn()
+    trainer._training_fn = lambda: actor_probe(continue_epochs(inner, SURFACE_EPOCHS),
+                                               step_maker=T5_STEP)
+    tensorboard = importlib.util.find_spec("tensorboardX") is not None
+    if not tensorboard:
+        log("[surface] (a) tensorboardX is not installed here: the fit runs without the "
+            "tensorboard sink (TPU_AIR_TENSORBOARD unset)")
+    faults.install(faults.FaultPlan(seed=SEED, specs=[
+        faults.FaultSpec("train.report", "kill", at=SURFACE_KILL_AT)]))
+    if tensorboard:
+        os.environ["TPU_AIR_TENSORBOARD"] = "1"
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit()
+    finally:
+        faults.clear()
+        os.environ.pop("TPU_AIR_TENSORBOARD", None)
+    wall = time.perf_counter() - t0
+    if result.error is not None:
+        raise AssertionError(f"[surface] (a) fit failed: {result.error}")
+    with open(os.path.join(result.path, "progress.jsonl")) as f:
+        progress = [json.loads(line) for line in f]
+    probes = read_probes(result.path)
+    hist = result.metrics_history
+    log(f"[surface] (a) T5Trainer.fit() at FLAN-T5-base width ({cfg.d_model} wide, "
+        f"{cfg.num_heads} heads of {cfg.d_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth "
+        f"{cfg.num_layers}+{cfg.num_decoder_layers}, bf16 on f32, {W1_BATCH} x {W1_LEN}/"
+        f"{W1_LEN}, {SURFACE_EPOCHS} one-step epochs, a FaultPlan kill at train.report "
+        f"{SURFACE_KILL_AT}, FailureConfig(max_failures=1): {wall:.1f} s; progress.jsonl "
+        f"epochs {[r['epoch'] for r in progress]}; the retry's trial actor (pid "
+        f"{[p['pid'] for p in probes]}) resumed from "
+        f"{[os.path.basename(p['resume'] or '-') for p in probes]}; history "
+        + ", ".join(f"{m['epoch']}: loss {m['loss']:.4f} eval_loss {m['eval_loss']:.4f}"
+                    for m in hist))
+    if [r["epoch"] for r in progress] != list(range(1, SURFACE_EPOCHS + 1)) or \
+            [m["epoch"] for m in hist] != list(range(SURFACE_KILL_AT, SURFACE_EPOCHS + 1)) or \
+            len(probes) != 1 or not (probes[0]["resume"] or "").endswith(
+                f"checkpoint_{SURFACE_KILL_AT - 1:06d}") or \
+            result.checkpoint.get_metrics()["epoch"] != SURFACE_EPOCHS or \
+            not all(np.isfinite([m["loss"] for m in hist] + [m["eval_loss"] for m in hist])):
+        raise AssertionError(f"[surface] (a) progress {progress}, probes {probes}, "
+                             f"history {hist}")
+    events = None
+    if tensorboard:
+        events = event_scalars(result.path)
+        want = reported_scalars(progress)
+        log(f"[surface] (a) tensorboard sink: {len(events)} scalars in "
+            f"{len([n for n in os.listdir(result.path) if n.startswith('events.')])} event "
+            f"files (one an attempt), equal to the {len(progress)} reports' numbers: "
+            f"{sorted(events) == sorted(want)}")
+        if sorted(events) != sorted(want):
+            raise AssertionError(f"[surface] (a) event scalars {sorted(events)} != "
+                                 f"{sorted(want)}")
+    left = [p["pid"] for p in probes if pid_alive(p["pid"])]
+    if left:
+        raise AssertionError(f"[surface] (a) trial actor processes left: {left}")
+    fit_launches = summed_launches(probes)
+    predictor = T5GenerativePredictor.from_checkpoint(result.checkpoint, dtype="bfloat16",
+                                                      device=dev, tokenizer=ByteTokenizer)
+    ids, mask = prompts(W1_PROMPTS, W1_LEN, cfg.vocab_size, SEED + 92)
+    zero_kernel_counts()
+    out = predictor.predict({"input_ids": ids, "attention_mask": mask},
+                            max_new_tokens=W1_NEW)
+    gen = kernel_counts()
+    steps = gen["decode_attention"] // (2 * cfg.num_decoder_layers)
+    log(f"[surface] (a) launches in the retry's trial actor {fit_launches}; generation of "
+        f"{W1_PROMPTS} prompts x {W1_LEN} -> {W1_NEW} tokens from the final checkpoint "
+        f"(bf16): {len(out)} rows, {steps} decode steps, launches {gen}")
+    if len(out) != W1_PROMPTS or gen["flash_attention"] != cfg.num_layers or \
+            gen["decode_attention"] <= 0 or \
+            gen["decode_attention"] != steps * 2 * cfg.num_decoder_layers:
+        raise AssertionError(f"[surface] (a) generation: {len(out)} rows, launches {gen}")
+    del predictor
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "resumed_from": os.path.basename(probes[0]["resume"]),
+            "progress_epochs": [r["epoch"] for r in progress],
+            "history": [{k: m[k] for k in ("epoch", "loss", "eval_loss")} for m in hist],
+            "event_scalars": None if events is None else len(events),
+            "launches": {k: fit_launches.get(k, 0) + gen[k] for k in gen}}
+
+
+def int8_decode_timing(dev, b: int, L_cross: int, L_self: int, launches: dict) -> dict:
+    """The int8 decode calls of 32 (b)'s bf16 generation at its cross (key
+    mask, per-channel scales) and self (bias with the causal row,
+    per-position scales) step shapes: the kernel's device time on fresh
+    inputs, its plain version's, and SDPA on the same cache dequantized to
+    bf16 beforehand, beside the bound of the int8 bytes and the f32
+    operations the call needs."""
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+
+    rng = np.random.default_rng(SEED + 93)
+    cfg = model_config()
+    h, d, dt = cfg.num_heads, cfg.d_kv, torch.bfloat16
+    rows = {}
+    for key, kind, Lk in (("cross", "int8_chan", L_cross), ("self", "int8_pos", L_self)):
+        copies = max(2, -(-COLD_BYTES // (2 * b * Lk * h * d)))
+        sets = [decode_inputs(rng, b, Lk, h, d, dt, dev, kind) for _ in range(copies)]
+        kernels_, plains, libs = [], [], []
+        for q_, k_, v_, kw_ in sets:
+            def deq(x, scale):
+                scale = scale.view(b, 1, h, d) if kind == "int8_chan" else scale.view(b, Lk, h, 1)
+                return (x.float().view(b, Lk, h, d) * scale).to(dt).transpose(1, 2)
+
+            k4, v4 = deq(k_, kw_["k_scale"]), deq(v_, kw_["v_scale"])
+            if kind == "int8_chan":
+                lib_mask = torch.where(kw_["kv_mask"] > 0, 0.0, -1e20)[:, None, None, :].to(dt)
+            else:
+                lib_mask = kw_["bias"][None, :, None, :].to(dt)
+            kernels_.append(partial(decode_attention, q_, k_, v_, **kw_))
+            plains.append(partial(decode_attention_reference, q_, k_, v_, **kw_))
+            libs.append(partial(F.scaled_dot_product_attention, q_.transpose(1, 2), k4, v4,
+                                attn_mask=lib_mask, scale=1.0))
+        q, k, v, kw = sets[0]
+        if kind == "int8_chan":
+            keys = needed_keys(kw["kv_mask"], Lk)
+            extra = b * Lk * 4 + 2 * b * h * d * 4                  # key mask, scales
+        else:   # keys after the query position carry weight 0
+            keys = torch.full((b,), int((kw["bias"][0] > -1e8).sum()))
+            extra = h * int(keys[0]) * 4 + 2 * h * int(keys.sum()) * 4   # bias row, scales
+        nbytes = 2 * h * d * int(keys.sum()) + 2 * b * h * d * 2 + extra
+        flops = 4 * h * d * int(keys.sum())
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32_FLOP_S)
+        rows[key] = {
+            "label": f"decode_attention int8 {key} step", "launches": launches[key],
+            "max_abs_err": max_err(kernels_[0](), plains[0]()), "tol": TOL[dt],
+            "ms": device_ms(cycled(kernels_), 200), "plain_ms": device_ms(cycled(plains), 20),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(cycled(libs), 200),
+            "library": "SDPA on the cache dequantized to bf16 beforehand",
+            "shape": f"b{b} L{Lk} h{h} d{d}, bf16 q, int8 K/V with "
+                     + ("per-channel scales [b,1,h*d], key mask" if key == "cross"
+                        else "per-position scales [b,L,h], bias [h,L] with causal row"),
+            "bytes": nbytes, "flops": flops, "input_copies": copies,
+        }
+        r = rows[key]
+        log(f"[surface] (b) {r['label']} {r['shape']}: kernel {r['ms']:.4f} ms device time, "
+            f"plain {r['plain_ms']:.4f} ms, {r['library']} {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes, {flops} f32 flops at "
+            f"{PEAK_F32_FLOP_S / 1e12:g} TFLOP/s); max abs err {r['max_abs_err']:.3e}; "
+            f"{r['launches']} launches in the generation")
+        if not scaled_err(kernels_[0](), plains[0]()) < TOL[dt]:
+            raise AssertionError(f"[surface] (b) int8 {key} step: kernel and plain differ")
+        del sets, kernels_, plains, libs, q, k, v, kw, k4, v4, lib_mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def surface_int8(dev) -> dict:
+    """32 (b): T5 generation with the int8 decode cache, end to end."""
+    import dataclasses
+
+    from tpu_air_torch.models.t5.generate import generate, init_cache
+    from tpu_air_torch.models.t5.modeling import T5ForConditionalGeneration
+
+    cfg = dataclasses.replace(model_config(), dtype="float32", decode_cache_int8=True)
+    model = T5ForConditionalGeneration(cfg, device=dev).init_weights(SEED)
+    ids, mask = prompts(PARITY_BATCH, PROMPT_LEN, cfg.vocab_size, SEED + 2)
+    kernel, plain, enc_err = kernel_vs_plain(model, ids, mask, dev)
+    same = bool((kernel == plain).all())
+    log(f"[surface] (b) f32 with decode_cache_int8, FLAN-T5-base width and depth, "
+        f"{PARITY_BATCH} prompts x {PROMPT_LEN} (ragged, one all-pad row), {PARITY_NEW} new "
+        f"tokens: greedy tokens through the kernels and the plain versions identical = {same}; "
+        f"encoder output max abs err {enc_err:.3e}")
+    if not same or not enc_err < 1e-4:
+        raise AssertionError(f"[surface] (b) int8 parity: tokens\n{kernel}\n{plain}\n"
+                             f"encoder err {enc_err}")
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    model16 = T5ForConditionalGeneration(cfg16, device=dev)
+    model16.load_state_dict(model.state_dict())
+    model16 = model16.to(torch.bfloat16)
+    del model
+    torch.cuda.empty_cache()
+    n, L, new = BATCH, PROMPT_LEN, SURFACE_INT8_NEW
+    ids, mask = prompts(n, L, cfg.vocab_size, SEED + 1)
+    with torch.no_grad():
+        generate(model16, ids, mask, max_new_tokens=2)          # warm-up at the same shapes
+        zero_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model16, ids, mask, max_new_tokens=new).cpu().numpy()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        tids, tmask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+        cache = init_cache(model16, n, new + 1, model16.encode(tids, tmask), tmask)
+        logits = model16.decode(torch.zeros(n, 1, dtype=torch.long, device=dev), cache=cache)
+        finite = bool(torch.isfinite(logits.float()).all())
+        slabs = {cache.self_attn[0].k.dtype, cache.cross_attn[0].k.dtype}
+    emitted = 0
+    for row in toks[:-1]:
+        eos = np.flatnonzero(row == cfg.eos_token_id)
+        emitted += int(eos[0]) + 1 if eos.size else new
+    steps = launches["decode_attention"] // (2 * cfg.num_decoder_layers)
+    log(f"[surface] (b) bf16 with decode_cache_int8 (slabs {slabs}), {n} prompts x {L} -> "
+        f"{new} new tokens: {toks.shape}, {wall:.3f} s, {emitted / wall:.1f} generated "
+        f"tokens/s, {steps} decode steps, launches {launches}; the first decode step's logits "
+        f"finite: {finite}")
+    if toks.shape != (n, new) or toks.min() < 0 or toks.max() >= cfg.vocab_size or \
+            (toks[-1] != cfg.pad_token_id).any() or not finite or slabs != {torch.int8} or \
+            launches["flash_attention"] != cfg.num_layers or launches["decode_attention"] <= 0 \
+            or launches["decode_attention"] != steps * 2 * cfg.num_decoder_layers:
+        raise AssertionError(f"[surface] (b) bf16 int8 generation: {toks.shape}, finite "
+                             f"{finite}, slabs {slabs}, launches {launches}")
+    del model16, cache, logits
+    torch.cuda.empty_cache()
+    per_kind = launches["decode_attention"] // 2                # half cross, half self
+    timing_ = int8_decode_timing(dev, n, L, new + 1, {"cross": per_kind, "self": per_kind})
+    return {"parity_tokens_identical": same, "parity_encoder_max_abs_err": enc_err,
+            "tokens_per_s": emitted / wall, "wall_s": wall, "decode_steps": steps,
+            "launches": launches, "timing": timing_}
+
+
+def surface_path(dev, work: str) -> dict:
+    """Phase 32 (``[surface]``): the train.report fault site with the
+    metric sinks, and the int8 decode cache end to end.  See the module
+    docstring."""
+    t_phase = time.perf_counter()
+    parts, out = {}, {}
+    for key, fn in (("a", lambda: surface_fit(dev, work)), ("b", lambda: surface_int8(dev))):
+        t = time.perf_counter()
+        out[key] = fn()
+        parts[key] = time.perf_counter() - t
+    out["part_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[surface] phase 32 {out['phase_s']:.1f} s: "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items()))
+    return out
+
+
+def add_surface_rows(kernels: list, surface: dict) -> None:
+    """Phase 32's launches (the retried fit and its generation, the int8
+    generation) into the kernels' rows, and (b)'s int8 step timings into the
+    decode kernel's."""
+    dec = next(r for r in kernels if r["name"] == "decode_attention")
+    dec["int8_cross_step"] = surface["b"]["timing"]["cross"]
+    dec["int8_self_step"] = surface["b"]["timing"]["self"]
+    for r in kernels:
+        by = r.setdefault("launches_by_path", {})
+        by["surface_fit"] = surface["a"]["launches"].get(r["name"], 0)
+        by["int8_generate"] = surface["b"]["launches"].get(r["name"], 0)
+        r["launches"] += by["surface_fit"] + by["int8_generate"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on the card",
@@ -7893,7 +8295,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     tpu_air_torch.init()
     try:
         port = free_port()
-        w8_stats = w8_path(port)
+        w8_stats = w8_path(port, work)
         serve_stats = serve_t5_path(dev, os.path.join(work, "w3_ckpt"), port)
         serve_stats["parity"] = serve_t5_parity(dev, work, port)
         lm_serve_stats = lm_serve_path(dev, lm_stats["checkpoint_dir"], port)
@@ -7913,6 +8315,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     tp_stats = tp_path(dev, work, lm_stats, w1_stats)
     mh_stats = mh_path(dev, work, w1_stats)
     actor_stats = actors_path(dev, work)
+    surface_stats = surface_path(dev, work)
     del lm_serve_stats["burst_tokens"]
     kernels = lm_serve_timing(dev, kernels, lm_serve_stats)
     row = next(r for r in kernels if r["name"] == "decode_attention")
@@ -7927,6 +8330,7 @@ def run_phases(dev, work: str, t_start: float) -> int:
     add_tp_rows(kernels, tp_stats)
     add_mh_rows(kernels, mh_stats)
     add_actor_rows(kernels, actor_stats)
+    add_surface_rows(kernels, surface_stats)
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)
@@ -7942,7 +8346,8 @@ def run_phases(dev, work: str, t_start: float) -> int:
                       "lm_live": lm_live_stats, "obs_serve": obs_stats,
                       "batch_lane": lane_stats, "native": native_stats,
                       "ring": ring_stats, "dist": dist_stats, "tp": tp_stats,
-                      "multihost": mh_stats, "actors": actor_stats}),
+                      "multihost": mh_stats, "actors": actor_stats,
+                      "surface": surface_stats}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ The GBDT runs on the host and the serve replicas lease no card; the
 runtime still takes its lease count from the CUDA devices (each Tune trial
 leases one) and raises where there are none, unless ``--device cpu`` asks
 for the CPU.  Offline: the rows are made from a seed (the real dataset is
-an S3 parquet).
+an S3 parquet); ``--parquet PATH`` reads a parquet file or directory of
+your own instead, through ``tpu_air_torch.data.read_parquet`` (cc-9).
 """
 
 from __future__ import annotations
@@ -100,12 +101,14 @@ def post_rows(port: int, rows, timeout: float = 30.0):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=2000)
+    ap.add_argument("--parquet", default=None, help="read your own dataset")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default=None,
                     help="'cpu' to run without a card; default: lease the CUDA devices")
     args = ap.parse_args(argv)
 
     import tpu_air_torch
+    import tpu_air_torch.data as tad
     from tpu_air_torch import serve
     from tpu_air_torch.predict import BatchPredictor, GBDTPredictor
 
@@ -113,7 +116,7 @@ def main(argv=None) -> int:
     # slot stands in for it (the trials run in turn)
     tpu_air_torch.init(num_chips=1 if args.device == "cpu" else None)
     try:
-        ds = make_taxi_like(args.rows)
+        ds = tad.read_parquet(args.parquet) if args.parquet else make_taxi_like(args.rows)
         result, best, valid_ds = train_and_tune(ds)
         print(f"train metrics: { {k: round(v, 4) for k, v in result.metrics.items() if isinstance(v, float)} }")
         print(f"best config: {best.config['params']}  "

@@ -825,6 +825,35 @@ def test_t5_engine_streams_on_the_card_kernels_match_plain(dev, monkeypatch):
     assert got == want
 
 
+def test_int8_generate_on_the_card_matches_plain_and_the_cpu(dev, monkeypatch):
+    """T5 generation with ``decode_cache_int8=True`` on cuda:0 (tiny T5,
+    f32, TF32 off, ragged prompts and an all-pad row): the int8 decode
+    launches run, and the greedy tokens equal those of the plain versions
+    on the card and of the same weights on the CPU."""
+    import dataclasses
+
+    from tpu_air_torch.models.t5 import modeling
+    from tpu_air_torch.models.t5.config import T5Config
+    from tpu_air_torch.models.t5.generate import generate
+    from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
+
+    cfg = dataclasses.replace(T5Config.tiny(), decode_cache_int8=True)
+    model = modeling.T5ForConditionalGeneration(cfg, device=dev).init_weights(0)
+    rng = np.random.default_rng(9)
+    lens = np.array([24, 17, 9, 0])
+    mask = (np.arange(24)[None] < lens[:, None]).astype(np.int64)
+    ids = rng.integers(2, cfg.vocab_size, (4, 24)) * mask
+    before = decode_attention.launches
+    got = generate(model, ids, mask, max_new_tokens=12, early_stop=False).cpu()
+    assert decode_attention.launches - before == 2 * cfg.num_decoder_layers * 12
+    monkeypatch.setattr(modeling, "decode_attention", decode_attention_reference)
+    plain = generate(model, ids, mask, max_new_tokens=12, early_stop=False).cpu()
+    monkeypatch.undo()
+    cpu = modeling.T5ForConditionalGeneration(cfg, device="cpu").init_weights(0)
+    want = generate(cpu, ids, mask, max_new_tokens=12, early_stop=False)
+    assert torch.equal(got, plain) and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_decode_kernel_at_the_lm_engine_shape(dev, dtype):
     """The LM engine's 1-token step: b 16 slots over L 1024 keys, 8 heads of

@@ -20,6 +20,7 @@ Subpackages mirror tpu_air's layout (``core``, ``data``, ``models.t5``,
 or explicitly; importing this package builds nothing.
 """
 
+from tpu_air_torch._exports import lazy_exports
 from tpu_air_torch.core import (
     ActorDiedError,
     ActorHandle,
@@ -40,17 +41,8 @@ from tpu_air_torch.core import (
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES = ("data", "models", "ops", "parallel", "predict", "train", "tune")
-
-
-def __getattr__(name):
-    if name in _LAZY_SUBMODULES:
-        import importlib
-
-        module = importlib.import_module(f"tpu_air_torch.{name}")
-        globals()[name] = module
-        return module
-    raise AttributeError(f"module 'tpu_air_torch' has no attribute '{name}'")
+__getattr__ = lazy_exports(__name__, {},
+                           ("data", "models", "ops", "parallel", "predict", "train", "tune"))
 
 
 __all__ = [

@@ -58,6 +58,17 @@ def deserialize(buf, zero_copy: bool = True) -> Any:
     return pickle.loads(payload, buffers=oob)
 
 
+def deserialize_ex(buf, zero_copy: bool = True) -> Tuple[Any, int]:
+    """Like :func:`deserialize`, also returning the out-of-band buffer count.
+
+    ``nbuf == 0`` means the value is fully self-contained (no views into
+    ``buf``): a caller holding a read pin on ``buf`` may release it at once
+    instead of tying it to the value's lifetime."""
+    payload, pieces = _parse_wire(buf)
+    oob = pieces if zero_copy else [p.tobytes() for p in pieces]
+    return pickle.loads(payload, buffers=oob), len(pieces)
+
+
 def _parse_wire(buf) -> Tuple[memoryview, List[memoryview]]:
     """Split a wire-format buffer into (pickle payload, oob piece views)."""
     mv = memoryview(buf)

@@ -42,6 +42,10 @@ site                  actions
 ``batch.runner``      ``delay``, ``kill`` (the batch-job driver dies at
                       a chunk-commit boundary: BatchJobKilled; a rerun
                       of the same job_id must resume exactly-once)
+``train.report``      ``kill`` (the training process, a trial actor or
+                      a rank actor, exits at the report numbered by the
+                      hit, before its checkpoint is kept; the retry
+                      resumes from the newest one on disk)
 ====================  ==========================================
 """
 
@@ -61,6 +65,7 @@ __all__ = [
     "FaultSpec",
     "LeaseRevokedError",
     "clear",
+    "current_plan",
     "enabled",
     "hit",
     "install",
@@ -143,8 +148,8 @@ class FaultPlan:
         """Derive a schedule from the seed alone.  Each site template gets
         a randomized trigger point (and delay where meaningful) from a
         private ``random.Random(seed)``, so every run of a seed replays the
-        identical schedule.  The templates are the JAX package's, sites the
-        port has no hook for included, so one seed is one plan in both."""
+        identical schedule.  The templates are the JAX package's, so one
+        seed is one plan in both."""
         rng = random.Random(seed)
         templates = {
             "object_store.get": lambda: FaultSpec(
@@ -191,6 +196,11 @@ _fired: Dict[str, int] = {}   # "site:action" -> times fired
 def enabled() -> bool:
     """Fast global check — every hook guards on this before doing work."""
     return _plan is not None
+
+
+def current_plan() -> Optional[FaultPlan]:
+    """The plan installed in this process, or None."""
+    return _plan
 
 
 def install(plan: FaultPlan) -> None:

@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tpu_air_torch._exports import make_callable
 from tpu_air_torch.models.sampling import sample_token
 
 from .modeling import DecodeCache, LayerCache, T5ForConditionalGeneration, torch_dtype
@@ -150,3 +151,6 @@ def make_t5_decode_step_fn(model: T5ForConditionalGeneration):
             return cache, torch.argmax(logits[:, -1, :], dim=-1)
 
     return step
+
+
+make_callable(__name__)   # the JAX package exports the function under this name

@@ -126,3 +126,16 @@ def load_t5(path: str, dtype: str = "float32",
     model = T5ForConditionalGeneration(config, device=dev)
     model.load_state_dict(sd)
     return model.to(torch_dtype(dtype))
+
+
+def load_t5_from_hf(name_or_path: str, dtype: str = "float32",
+                    device: DeviceLike = None) -> T5ForConditionalGeneration:
+    """The JAX package's entry under its name: :func:`load_t5` of a local
+    Hugging Face directory.  The port downloads nothing, so a name that is
+    no directory (a hub id such as ``google/flan-t5-base``) raises; point
+    it at a downloaded copy instead."""
+    if not os.path.isdir(name_or_path):
+        raise FileNotFoundError(
+            f"load_t5_from_hf takes a local directory with config.json and "
+            f"model.safetensors; {name_or_path!r} is none (the port downloads nothing)")
+    return load_t5(name_or_path, dtype=dtype, device=device)

@@ -59,6 +59,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpu_air_torch._exports import make_callable
+
 from . import _build
 
 NEG_INF = -1e30
@@ -407,3 +409,6 @@ def flash_attention_with_lse(q, k, v, bias=None, *, kv_mask=None, scale=None,
 flash_attention.launches = 0
 flash_attention_backward.dq_launches = 0
 flash_attention_backward.dkv_launches = 0
+
+
+make_callable(__name__)   # the JAX package exports the function under this name

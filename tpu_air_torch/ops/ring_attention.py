@@ -48,6 +48,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from tpu_air_torch._exports import make_callable
+
 from .flash_attention import flash_attention_backward, flash_attention_with_lse
 
 NEG_INF = -1e30
@@ -253,3 +255,6 @@ def ring_attention_in_memory(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tens
     if scale is None:
         scale = 1.0 / (qs[0].shape[-1] ** 0.5)
     return list(_Ring.apply(_InMemory(len(qs)), scale, causal, *qs, *ks, *vs))
+
+
+make_callable(__name__)   # the JAX package exports the function under this name

@@ -91,6 +91,7 @@ class BatchPredictor:
         max_scoring_workers: Optional[int] = None,
         num_chips_per_worker: float = 0,
         num_gpus_per_worker: float = 0,  # reference-API alias → chips
+        separate_preprocessor: bool = False,  # reference-API, accepted and unused
         **predict_kwargs: Any,
     ) -> Dataset:
         chips = num_chips_per_worker or num_gpus_per_worker

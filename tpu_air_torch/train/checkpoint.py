@@ -24,9 +24,10 @@ models' ``params_from_jax``, no flax needed), and ``from_model(...,
 format="jax")`` writes one that the JAX package loads.  Pickled files
 (``preprocessor.pkl``, ``extras.pkl``, ``data.pkl``) are read with
 :class:`PortUnpickler`, which maps the JAX package's preprocessor,
-tokenizer, histogram-GBDT and SegFormer image-processor and config classes
-to the port's copies and refuses any other ``tpu_air`` module, so loading
-never imports the JAX package.  What cannot be read raises, naming it.
+tokenizer, GBDT (``HistGBDT``, ``BaggedGBDT``) and SegFormer
+image-processor and config classes to the port's copies and refuses any
+other ``tpu_air`` module, so loading never imports the JAX package.  What
+cannot be read raises, naming it.
 
 A SegFormer's batch-norm running stats are buffers of the port's model, in
 its state dict; in the JAX layout they are the ``batch_stats`` collection,
@@ -58,6 +59,7 @@ _COPIED_MODULES = {
     "tpu_air.models.segformer.config": "tpu_air_torch.models.segformer.config",
     "tpu_air.models.segformer.image_processor": "tpu_air_torch.models.segformer.image_processor",
     "tpu_air.models.tokenizer": "tpu_air_torch.models.tokenizer",
+    "tpu_air.train.gbdt_trainer": "tpu_air_torch.train.gbdt_trainer",
     "tpu_air.train.hist_gbdt": "tpu_air_torch.train.hist_gbdt",
 }
 _KINDS = ("torch_model", "jax_model", "dict")

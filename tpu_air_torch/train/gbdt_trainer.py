@@ -72,6 +72,32 @@ def _valid_metrics(model, Xv, yv, is_classif: bool) -> Dict[str, float]:
     return {"valid-rmse": float(np.sqrt(np.mean((pv - yv) ** 2)))}
 
 
+class BaggedGBDT:
+    """Unpickle-compat shim for checkpoints written by the JAX package's
+    older distributed sklearn backend (which bagged per-rank estimators).
+    Distributed training produces a single merged-histogram ``HistGBDT``;
+    this class only keeps such ``extras.pkl`` artifacts loadable and
+    scorable here (``train/checkpoint.py`` maps the JAX module to this
+    one)."""
+
+    def __init__(self, models, is_classif: bool):
+        self.models = list(models)
+        self._is_classif = is_classif
+
+    def _bagged_proba(self, X):
+        return np.mean([m.predict_proba(X) for m in self.models], axis=0)
+
+    def __getattr__(self, name):
+        if name == "predict_proba" and self.__dict__.get("_is_classif"):
+            return self._bagged_proba
+        raise AttributeError(name)
+
+    def predict(self, X):
+        if self._is_classif:
+            return (self._bagged_proba(X)[:, 1] > 0.5).astype(np.int64)
+        return np.mean([m.predict(X) for m in self.models], axis=0)
+
+
 def _sk_params(params: Dict[str, Any], num_boost_round: int) -> Dict[str, Any]:
     sk: Dict[str, Any] = {
         "n_estimators": num_boost_round,

@@ -15,8 +15,15 @@ published to that :class:`~tpu_air_torch.serve.weights.WeightStore`, the
 live-serving handoff.  With tracing on (``TPU_AIR_TRACE=1``), each report
 records a ``train.iteration`` span under the trace context the session was
 made in, so ``step_timer`` numbers and ``profile_trace`` land on the same
-timeline.  Fault-plan hooks and metric sinks wait for the slices that port
-them.
+timeline.  Each report goes to the session's metric sinks too
+(``utils/metrics.py``), on rank 0, where the progress file is written:
+the ``sinks`` given, or by default a ``TensorboardSink`` over the run
+directory when ``TPU_AIR_TENSORBOARD=1`` (opt-in, as in the JAX package).
+
+The ``train.report`` fault site (``faults/plan.py``): a ``kill`` spec
+ends this process at its report, before the report is recorded and its
+checkpoint kept, on every rank it reaches; ``fit()``'s retry then resumes
+from the newest checkpoint on disk.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from tpu_air_torch.faults import plan as _faults
 from tpu_air_torch.observability import tracing as _tracing
 
 from .checkpoint import Checkpoint
@@ -49,6 +57,7 @@ class Session:
         world_rank: int = 0,
         decision_cb: Optional[Callable[[Dict[str, Any], int], bool]] = None,
         local_rank: Optional[int] = None,
+        sinks: Optional[List] = None,
     ):
         self.run_dir = run_dir
         self.checkpoint_config = checkpoint_config or CheckpointConfig()
@@ -61,6 +70,7 @@ class Session:
         # controller a host runs over all of the host's devices
         self.local_rank = world_rank if local_rank is None else local_rank
         self.decision_cb = decision_cb
+        self.sinks = sinks if sinks is not None else _default_sinks(run_dir, world_rank)
         self.history: List[Dict[str, Any]] = []
         self.checkpoints: List[Tuple[str, Dict[str, Any]]] = []  # (dir, metrics)
         self._iter = 0
@@ -76,6 +86,13 @@ class Session:
 
     def report(self, metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None):
         self._iter += 1
+        if _faults.enabled():
+            # a "kill" takes this process down before the report's checkpoint
+            # is kept: the crash FailureConfig's retry resumes from the
+            # previous checkpoint on disk
+            spec = _faults.perturb("train.report", key=str(self._iter))
+            if spec is not None and spec.action == "kill":
+                os._exit(1)
         rec = dict(metrics)
         rec.setdefault("training_iteration", self._iter)
         rec.setdefault("_timestamp", time.time())
@@ -85,6 +102,11 @@ class Session:
         if self.world_rank == 0:
             with open(os.path.join(self.run_dir, "progress.jsonl"), "a") as f:
                 f.write(json.dumps(rec, default=float) + "\n")
+            for sink in self.sinks:
+                try:
+                    sink.log(rec, self._iter)
+                except Exception:  # noqa: BLE001 - a broken sink must not stop training
+                    pass
             if checkpoint is not None:
                 self._retain(checkpoint, rec)
                 if self.checkpoint_config.publish_weights_to:
@@ -195,6 +217,21 @@ class Session:
 
     def latest_checkpoint(self) -> Optional[Tuple[str, Dict[str, Any]]]:
         return self.checkpoints[-1] if self.checkpoints else None
+
+
+def _default_sinks(run_dir: str, world_rank: int = 0) -> List:
+    """Tensorboard logging is opt-in (``TPU_AIR_TENSORBOARD=1``), on rank 0:
+    the reference pins tensorboardX but never configures it, and the
+    writer's protobuf import chain costs ~2.5 s a process, too much to pay
+    silently in every trial."""
+    if world_rank != 0 or os.environ.get("TPU_AIR_TENSORBOARD", "0") != "1":
+        return []
+    from tpu_air_torch.utils.metrics import TensorboardSink
+
+    try:
+        return [TensorboardSink(run_dir)]
+    except ImportError:  # tensorboardX missing: run without the sink
+        return []
 
 
 # -- the active session (what training loops import) -------------------------

@@ -306,10 +306,11 @@ def _run_workers_trial(training_fn, config, run_dir, datasets, checkpoint_config
                              num_workers, device, chips_per_worker=devices_per_rank)
     errors = [o["error"] for o in outs if o.get("error")]
     out = dict(outs[0])
-    out.setdefault("history", [])
-    out.setdefault("checkpoints", [])
-    out.setdefault("best_checkpoint", None)
-    out.setdefault("latest_checkpoint", None)
+    if "history" not in out:
+        # rank 0 died outright (or was stopped after another rank failed)
+        # and took its session's list of checkpoints with it
+        out.update(history=[], checkpoints=[], best_checkpoint=None,
+                   latest_checkpoint=_scan_latest_checkpoint(run_dir))
     out["error"] = "\n".join(errors) if errors else None
     return out
 

@@ -1,10 +1,19 @@
-"""Prometheus text-exposition helpers, copied from ``tpu_air/utils/metrics.py``
-(the part the engine's metrics render with; the port imports nothing of
-``tpu_air``)."""
+"""Prometheus text-exposition helpers and the training session's metric
+sinks, copied from ``tpu_air/utils/metrics.py`` (the port imports nothing
+of ``tpu_air``).
+
+The sinks take each report of a training session (``train/session.py``):
+:class:`TensorboardSink` writes its numbers as tensorboardX scalars at the
+report's iteration, in the file before ``log`` returns; :class:`PrometheusSink`
+keeps the latest of each as a ``prometheus_client`` gauge.  Both packages are optional: a sink raises
+``ImportError`` at construction where its package is absent.
+"""
 
 from __future__ import annotations
 
+import os
 import re
+import time
 from typing import Any, Dict, List, Optional
 
 _INVALID_METRIC_CHARS = re.compile(r"[^a-zA-Z0-9_:]")
@@ -100,3 +109,81 @@ class ExpositionBuilder:
             out.append(f"# TYPE {name} {fam['type']}")
             out.extend(fam["lines"])
         return out
+
+
+class TensorboardSink:
+    """tensorboardX scalars of each report, written synchronously: every
+    ``log`` has its events in the file when it returns.  (The JAX package's
+    sink goes through ``SummaryWriter``, whose flush does not drain the
+    writer thread's queue, so a trial actor ended after its attempt, or
+    killed at a report, loses the last reports' events.)  The writer is
+    created on first log, not at session construction, because the
+    tensorboardX import chain costs ~2.5s (protobuf); presence is probed at
+    construction (find_spec is cheap) so callers' ImportError fallbacks keep
+    working."""
+
+    def __init__(self, log_dir: str):
+        import importlib.util
+
+        if importlib.util.find_spec("tensorboardX") is None:
+            raise ImportError("tensorboardX is not installed")
+        self.log_dir = log_dir
+        self.writer = None
+
+    def _ensure_writer(self):
+        if self.writer is None:
+            from tensorboardX.event_file_writer import EventsWriter
+
+            os.makedirs(self.log_dir, exist_ok=True)
+            # the file is named by the second and the host: the pid keeps a
+            # retry's process from truncating its failed attempt's file
+            self.writer = EventsWriter(os.path.join(self.log_dir, "events"),
+                                       filename_suffix=f".{os.getpid()}")
+        return self.writer
+
+    def log(self, metrics: Dict[str, Any], step: int):
+        from tensorboardX.proto.event_pb2 import Event
+        from tensorboardX.summary import scalar
+
+        w = self._ensure_writer()
+        now = time.time()
+        for k, v in metrics.items():
+            if k.startswith("_"):
+                continue
+            try:
+                value = float(v)
+            except (TypeError, ValueError):
+                continue
+            w.write_event(Event(wall_time=now, step=step, summary=scalar(k, value)))
+        w.flush()
+
+    def close(self):
+        if self.writer is not None:
+            self.writer.close()
+
+
+class PrometheusSink:
+    """Exposes latest metric values as prometheus gauges (scraped via the
+    dashboard's /metrics endpoint)."""
+
+    def __init__(self, namespace: str = "tpu_air"):
+        from prometheus_client import Gauge
+
+        self._gauge_cls = Gauge
+        self.namespace = namespace
+        self.gauges: Dict[str, Any] = {}
+
+    def log(self, metrics: Dict[str, Any], step: int):
+        for k, v in metrics.items():
+            if k.startswith("_"):
+                continue
+            try:
+                fv = float(v)
+            except (TypeError, ValueError):
+                continue
+            name = sanitize_metric_name(k)
+            if name not in self.gauges:
+                self.gauges[name] = self._gauge_cls(
+                    f"{self.namespace}_{name}", f"tpu_air metric {k}"
+                )
+            self.gauges[name].set(fv)
