@@ -24,10 +24,12 @@ Phases, each fatal on failure:
               forward and the backward's dq and dk/dv a bf16 and an f16
               wgmma instance for every head dim (and the backward no
               ``mma.sync`` kernel), no tensor-core kernel may spill, and
-              ptxas may serialise no wgmma kernel's products; the bf16/f16
-              decode kernel needs a bf16 and an f16 instance for every head
-              dim, each with the bulk copy (``UBLKCP``) in its SASS, and no
-              decode kernel may spill;
+              ptxas may serialise no wgmma kernel's products; the decode
+              kernel needs an instance for every head dim and every query
+              and slab type pair (f32, bf16 and f16 queries over slabs of
+              their type or int8), each with the bulk copy (``UBLKCP``) in
+              its SASS, no decode kernel may spill, and no retired
+              ``decode_kernel`` or ``decode_combine_kernel`` may be left;
 2. compare  — each T5 kernel against its plain PyTorch version on the card, at
               the generation path's shapes and at edge cases (masked rows,
               causal, ragged lengths, int8 slabs), and the decode kernel where
@@ -56,8 +58,8 @@ Phases, each fatal on failure:
               least time the card could take (bytes over 3.35 TB/s, flops
               over 989 TFLOP/s, the H100 SXM data-sheet peaks); split
               decode calls at the LM engine's shape under the profiler, in
-              bf16 and f16, must record no device work but
-              ``decode_ring_kernel``, at most once a call;
+              bf16, f16 and f32 and over int8 slabs, must record no device
+              work but ``decode_ring_kernel``, at most once a call;
 6. backward — the flash backward kernels (dq, dk/dv) against
               ``flash_attention_backward_reference`` on the card: head dims
               16-128, causal or not, key masks with a fully masked row (whose
@@ -484,10 +486,12 @@ Phases, each fatal on failure:
               greedy tokens through the kernels and the plain versions
               identical; then in bf16 at W3's 64 x 512, 32 new tokens:
               finite first-step logits, decode launches, tokens/s; and the
-              int8 decode calls at that run's cross and self step shapes
-              beside their bound (int8 bytes over 3.35 TB/s, f32 operations
-              over 67 TFLOP/s), their plain versions and SDPA on the same
-              cache dequantized to bf16.
+              int8 decode calls at that run's cross and self step shapes,
+              the bf16 calls at the same two shapes and the f32 calls at
+              the W3 cross step's and the LM engine step's shapes, each
+              beside its bound (bytes over 3.35 TB/s, f32 operations over
+              67 TFLOP/s), its plain version and SDPA on the same cache (an
+              int8 one dequantized to bf16).
 
 Every ``fit()`` runs its attempt in a trial actor of the port's runtime (a
 runtime of the card's one slot that ``fit()`` starts for it, or, for the
@@ -1116,28 +1120,36 @@ def tensor_core_kind(fn: str):
     return next((k for k in TENSOR_CORE_KINDS if name.endswith(k[0])), None)
 
 
-# the bulk-copy kernels each source must hold a bf16 and an f16 instance of
-# for every head dim, each with UBLKCP and 0 spill bytes
+# the bulk-copy kernels of each source, each needing an instance for every
+# (query type, slab type) pair and head dim, with UBLKCP and 0 spill bytes,
+# and the kernels that source must no longer hold
 BULK_COPY_KERNELS = {"decode_attention": ("decode_ring_kernel",)}
+DECODE_TYPE_PAIRS = (("f32", "f32"), ("f32", "int8"), ("bf16", "bf16"), ("bf16", "int8"),
+                     ("f16", "f16"), ("f16", "int8"))
+RETIRED_KERNELS = {"decode_attention": ("decode_kernel", "decode_combine_kernel")}
 
 
 def check_bulk_copy_kernels(src: str, counts: dict, spills: dict) -> None:
-    """Raise unless every kernel of ``BULK_COPY_KERNELS[src]`` (the bf16/f16
-    decode kernel) has a bf16 and an f16 instance for every head dim, every
-    instance holds the bulk copy's opcode (``UBLKCP``) in its SASS, and no
-    kernel of ``src`` spills.  ``counts``: ``bulk_copy_counts``; ``spills``:
-    {kernel: spill bytes}, empty when the source was built by an earlier
-    run."""
+    """Raise unless every kernel of ``BULK_COPY_KERNELS[src]`` (the decode
+    kernel) has an instance for every query and slab type pair of
+    ``DECODE_TYPE_PAIRS`` and every head dim, every instance holds the bulk
+    copy's opcode (``UBLKCP``) in its SASS, no kernel of ``src`` spills and
+    none of ``RETIRED_KERNELS[src]`` is left.  ``counts``:
+    ``bulk_copy_counts``; ``spills``: {kernel: spill bytes}, empty when the
+    source was built by an earlier run."""
     for kernel in BULK_COPY_KERNELS.get(src, ()):
-        for ty in ("bf16", "f16"):
+        for tq, tkv in DECODE_TYPE_PAIRS:
             for d in FLASH_HEAD_DIMS:
-                inst = [fn for fn in counts if re.match(rf"{kernel}<{ty},{d}[,>]", fn)]
+                inst = [fn for fn in counts if fn == f"{kernel}<{tq},{tkv},{d}>"]
                 if not inst or any(counts[fn] == 0 for fn in inst):
-                    raise AssertionError(f"[build] {kernel}<{ty}, {d}>: instances {inst}, "
-                                         "none may lack the bulk copy (UBLKCP)")
+                    raise AssertionError(f"[build] {kernel}<{tq}, {tkv}, {d}>: instances "
+                                         f"{inst}, none may lack the bulk copy (UBLKCP)")
         spilled = [fn for fn, n in spills.items() if n]
         if spilled:
             raise AssertionError(f"[build] {src}.cu kernels that spill: {spilled}")
+    left = [fn for fn in counts if fn.split("<")[0] in RETIRED_KERNELS.get(src, ())]
+    if left:
+        raise AssertionError(f"[build] {src}.cu still holds retired kernels: {left}")
 
 
 def check_tensor_core_kernels(src: str, counts: dict, spills: dict) -> None:
@@ -1325,7 +1337,8 @@ def w1_flash_inputs(rng, cfg, dev) -> dict:
 
 
 def decode_chunk(b, h, d, L, dtype, dev, masked: bool = True) -> int:
-    """The positions per block the decode kernel takes at this shape."""
+    """The positions per block the decode kernel takes at this shape, over
+    slabs of ``dtype``."""
     from tpu_air_torch.ops.decode_attention import plan_chunk
 
     return plan_chunk(b, h, d, L, dtype, torch.cuda.get_device_properties(dev).multi_processor_count,
@@ -1394,7 +1407,7 @@ def compare(dev, dtypes=(torch.float32, torch.bfloat16), phase: str = "compare")
         # and where it splits L into chunks
         for b, Lk, kind in SPLIT_CASES:
             q, k, v, kw = decode_inputs(rng, b, Lk, H, D, dtype, dev, kind)
-            chunks = -(-Lk // decode_chunk(b, H, D, Lk, dtype, dev, "kv_mask" in kw))
+            chunks = -(-Lk // decode_chunk(b, H, D, Lk, k.dtype, dev, "kv_mask" in kw))
             if chunks < 2:
                 raise AssertionError(f"[{phase}] decode b{b} L{Lk}: {chunks} chunk, no split")
             check(f"decode {tag} {kind} b{b} L{Lk} ({chunks} chunks)",
@@ -1592,14 +1605,17 @@ def parity(dev) -> dict:
 # -- phase 5 -----------------------------------------------------------------
 
 
-def decode_one_kernel(dev, calls: int = 10) -> dict:
+def decode_one_kernel(dev, calls: int = 40) -> dict:
     """Calls of the decode kernel at the LM engine's shape (b 16, L 1024, 8
     heads of 128, per-row mask; split over L, a cluster a row) under the
-    profiler, in bf16 and in f16: the only device work recorded must be
-    ``decode_ring_kernel``, at most once a call (no merge kernel, no
-    workspace, no copy).  The profiler can drop records of cluster launches
-    (on the H100 it kept 1 of 3), so the count is bounded, not matched.
-    These launches are not counted."""
+    profiler, in bf16, f16 and f32 and over int8 slabs under a bf16 query:
+    the only device work recorded must be ``decode_ring_kernel``, at most
+    once a call (no merge kernel, no workspace, no copy).  The profiler can
+    drop kernel records (on the H100, in this script's runs, it kept 8 of 10
+    launches a profile, once none, with or without host pauses inside the
+    profiled window), so the count is bounded, not matched, and a profile
+    with no device record at all is taken again, up to three times.  These
+    launches are not counted."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_air_torch.ops.decode_attention import decode_attention
@@ -1610,26 +1626,33 @@ def decode_one_kernel(dev, calls: int = 10) -> dict:
     pos[0] = 0
     mask = torch.from_numpy((np.arange(L)[None] <= pos[:, None]).astype(np.float32)).to(dev)
     out = {}
-    for dt in (torch.bfloat16, torch.float16):
-        q, k, v, _ = decode_inputs(rng, b, L, h, d, dt, dev, "plain")
-        chunks = -(-L // decode_chunk(b, h, d, L, dt, dev))
+    for dt, kind in ((torch.bfloat16, "plain"), (torch.float16, "plain"),
+                     (torch.float32, "plain"), (torch.bfloat16, "int8_chan")):
+        q, k, v, kw = decode_inputs(rng, b, L, h, d, dt, dev, kind)
+        kw["kv_mask"] = mask
+        tag = TAG[dt] + (" q, int8 K/V" if kind != "plain" else "")
+        chunks = -(-L // decode_chunk(b, h, d, L, k.dtype, dev))
         before = decode_attention.launches
-        decode_attention(q, k, v, kv_mask=mask)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                decode_attention(q, k, v, kv_mask=mask)
+        for tries in range(1, 4):
+            decode_attention(q, k, v, **kw)
             torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    decode_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+            kernels = device_kernels(prof, calls)
+            if kernels:
+                break
         decode_attention.launches = before
-        names = [(name[:80], c * calls) for name, (_, c) in device_kernels(prof, calls).items()]
-        log(f"[timing] decode_attention {TAG[dt]} at the LM engine's shape, {chunks} chunks a "
-            f"row, {calls} calls profiled: device records {names}")
+        names = [(name[:80], c * calls) for name, (_, c) in kernels.items()]
+        log(f"[timing] decode_attention {tag} at the LM engine's shape, {chunks} chunks a "
+            f"row, {calls} calls profiled: device records {names} (profile {tries} of 3)")
         if chunks < 2 or len(names) != 1 or "decode_ring_kernel" not in names[0][0] \
                 or not 1 <= names[0][1] <= calls:
-            raise AssertionError(f"[timing] decode_attention {TAG[dt]} split over {chunks} "
+            raise AssertionError(f"[timing] decode_attention {tag} split over {chunks} "
                                  f"chunks: device records over {calls} calls {names}, expect "
                                  "decode_ring_kernel alone, at most once a call")
-        out[TAG[dt]] = {"chunks": chunks, "calls": calls, "device_records": names}
+        out[tag] = {"chunks": chunks, "calls": calls, "device_records": names, "profiles": tries}
     return out
 
 
@@ -8068,30 +8091,92 @@ def surface_fit(dev, work: str) -> dict:
             "launches": {k: fit_launches.get(k, 0) + gen[k] for k in gen}}
 
 
+def decode_step_inputs(rng, b, L, h, d, dt, dev, kind):
+    """``copies`` input sets of one decode call (``decode_inputs``; ``"lm"``:
+    the LM engine's per-row mask, live keys 0..pos, one row at 0, as
+    ``[lm serve] (f)`` draws it, and q scaled by d^-0.5 in its own type as
+    the model scales it; ``"lm_one_key"``: that grid with one live key a
+    row), cycled through ``COLD_BYTES`` of slabs, and the bytes and f32
+    flops the call needs: its live keys' K/V, q and the output, the mask or
+    the bias row, and the scales it reads."""
+    elem = 1 if kind.startswith("int8") else torch.empty((), dtype=dt).element_size()
+    copies = max(2, -(-COLD_BYTES // (2 * b * L * h * d * elem)))
+    if kind.startswith("lm"):
+        pos = rng.integers(L // 16, L, b)
+        pos[0] = 0
+        if kind == "lm_one_key":
+            pos[:] = 0
+        mask = torch.from_numpy((np.arange(L)[None] <= pos[:, None]).astype(np.float32)).to(dev)
+        scale = float(torch.tensor(d ** -0.5, dtype=dt))
+        sets = []
+        for _ in range(copies):
+            q, k, v, _ = decode_inputs(rng, b, L, h, d, dt, dev, "plain")
+            sets.append((q * scale, k, v, {"kv_mask": mask}))
+    else:
+        sets = [decode_inputs(rng, b, L, h, d, dt, dev, kind) for _ in range(copies)]
+    kw = sets[0][3]
+    if "kv_mask" in kw:
+        keys = needed_keys(kw["kv_mask"], L)
+        extra = b * L * 4                                          # the key mask
+    else:   # keys after the query position carry weight 0
+        keys = torch.full((b,), int((kw["bias"][0] > -1e8).sum()))
+        extra = h * int(keys[0]) * 4                               # the bias row
+    if kind == "int8_chan":
+        extra += 2 * b * h * d * 4
+    elif kind == "int8_pos":
+        extra += 2 * h * int(keys.sum()) * 4
+    q_elem = torch.empty((), dtype=dt).element_size()
+    nbytes = 2 * h * d * elem * int(keys.sum()) + 2 * b * h * d * q_elem + extra
+    return sets, nbytes, 4 * h * d * int(keys.sum())
+
+
+# The decode calls 32 (b) times in one call, so that the instances' ratios
+# come from one host: (key, kind, query type, b, L, h, d, what it is); b, L
+# of the int8 generation's steps are filled in at the call
+DECODE_STEP_ROWS = (
+    ("cross", "int8_chan", torch.bfloat16, None, "cross", 12, 64,
+     "per-channel scales [b,1,h*d], key mask"),
+    ("self", "int8_pos", torch.bfloat16, None, "self", 12, 64,
+     "per-position scales [b,L,h], bias [h,L] with causal row"),
+    ("bf16_cross", "cross", torch.bfloat16, None, "cross", 12, 64,
+     "bf16 K/V at the int8 cross step's shape, key mask"),
+    ("bf16_self", "self", torch.bfloat16, None, "self", 12, 64,
+     "bf16 K/V at the int8 self step's shape, bias [h,L] with causal row"),
+    ("f32_cross", "cross", torch.float32, BATCH, PROMPT_LEN, 12, 64,
+     "f32 K/V at the W3 cross step's shape, key mask"),
+    ("f32_lm", "lm", torch.float32, LM_ENGINE["num_slots"], LM_ENGINE["slot_len"], 8, 128,
+     "f32 K/V at the LM engine step's shape, per-row mask"),
+)
+
+
 def int8_decode_timing(dev, b: int, L_cross: int, L_self: int, launches: dict) -> dict:
-    """The int8 decode calls of 32 (b)'s bf16 generation at its cross (key
+    """The decode calls of 32 (b)'s bf16 int8 generation at its cross (key
     mask, per-channel scales) and self (bias with the causal row,
-    per-position scales) step shapes: the kernel's device time on fresh
-    inputs, its plain version's, and SDPA on the same cache dequantized to
-    bf16 beforehand, beside the bound of the int8 bytes and the f32
-    operations the call needs."""
+    per-position scales) step shapes, the bf16 instance at the same two
+    shapes, and the f32 instance at the W3 cross step's and the LM engine
+    step's shapes (the f32 parity runs' calls): each kernel's device time
+    on fresh inputs, its plain version's, and SDPA's on the same cache in
+    the query's type (an int8 cache dequantized to bf16 beforehand), beside
+    the bound of the bytes and the f32 operations the call needs."""
     from tpu_air_torch.ops.decode_attention import decode_attention, decode_attention_reference
 
     rng = np.random.default_rng(SEED + 93)
-    cfg = model_config()
-    h, d, dt = cfg.num_heads, cfg.d_kv, torch.bfloat16
     rows = {}
-    for key, kind, Lk in (("cross", "int8_chan", L_cross), ("self", "int8_pos", L_self)):
-        copies = max(2, -(-COLD_BYTES // (2 * b * Lk * h * d)))
-        sets = [decode_inputs(rng, b, Lk, h, d, dt, dev, kind) for _ in range(copies)]
+    for key, kind, dt, rb, rl, h, d, what in DECODE_STEP_ROWS:
+        rb = b if rb is None else rb
+        Lk = {"cross": L_cross, "self": L_self}.get(rl, rl)
+        sets, nbytes, flops = decode_step_inputs(rng, rb, Lk, h, d, dt, dev, kind)
         kernels_, plains, libs = [], [], []
         for q_, k_, v_, kw_ in sets:
-            def deq(x, scale):
-                scale = scale.view(b, 1, h, d) if kind == "int8_chan" else scale.view(b, Lk, h, 1)
-                return (x.float().view(b, Lk, h, d) * scale).to(dt).transpose(1, 2)
+            def deq(x, scale=None):
+                x = x.float().view(rb, Lk, h, d)
+                if scale is not None:
+                    x = x * (scale.view(rb, 1, h, d) if kind == "int8_chan"
+                             else scale.view(rb, Lk, h, 1))
+                return x.to(dt).transpose(1, 2)
 
-            k4, v4 = deq(k_, kw_["k_scale"]), deq(v_, kw_["v_scale"])
-            if kind == "int8_chan":
+            k4, v4 = deq(k_, kw_.get("k_scale")), deq(v_, kw_.get("v_scale"))
+            if "kv_mask" in kw_:
                 lib_mask = torch.where(kw_["kv_mask"] > 0, 0.0, -1e20)[:, None, None, :].to(dt)
             else:
                 lib_mask = kw_["bias"][None, :, None, :].to(dt)
@@ -8099,37 +8184,35 @@ def int8_decode_timing(dev, b: int, L_cross: int, L_self: int, launches: dict) -
             plains.append(partial(decode_attention_reference, q_, k_, v_, **kw_))
             libs.append(partial(F.scaled_dot_product_attention, q_.transpose(1, 2), k4, v4,
                                 attn_mask=lib_mask, scale=1.0))
-        q, k, v, kw = sets[0]
-        if kind == "int8_chan":
-            keys = needed_keys(kw["kv_mask"], Lk)
-            extra = b * Lk * 4 + 2 * b * h * d * 4                  # key mask, scales
-        else:   # keys after the query position carry weight 0
-            keys = torch.full((b,), int((kw["bias"][0] > -1e8).sum()))
-            extra = h * int(keys[0]) * 4 + 2 * h * int(keys.sum()) * 4   # bias row, scales
-        nbytes = 2 * h * d * int(keys.sum()) + 2 * b * h * d * 2 + extra
-        flops = 4 * h * d * int(keys.sum())
         b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32_FLOP_S)
+        k_ = sets[0][1]
+        chunks = -(-Lk // decode_chunk(rb, h, d, Lk, k_.dtype, dev, "kv_mask" in sets[0][3]))
         rows[key] = {
-            "label": f"decode_attention int8 {key} step", "launches": launches[key],
-            "max_abs_err": max_err(kernels_[0](), plains[0]()), "tol": TOL[dt],
-            "ms": device_ms(cycled(kernels_), 200), "plain_ms": device_ms(cycled(plains), 20),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(cycled(libs), 200),
-            "library": "SDPA on the cache dequantized to bf16 beforehand",
-            "shape": f"b{b} L{Lk} h{h} d{d}, bf16 q, int8 K/V with "
-                     + ("per-channel scales [b,1,h*d], key mask" if key == "cross"
-                        else "per-position scales [b,L,h], bias [h,L] with causal row"),
-            "bytes": nbytes, "flops": flops, "input_copies": copies,
+            "label": f"decode_attention {TAG[dt]} q, {str(k_.dtype).split('.')[-1]} K/V, "
+                     f"{key.split('_')[-1]} step",
+            "launches": launches.get(key), "max_abs_err": max_err(kernels_[0](), plains[0]()),
+            "tol": TOL[dt], "ms": device_ms(cycled(kernels_), 200),
+            "plain_ms": device_ms(cycled(plains), 20), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_ms(cycled(libs), 200),
+            "library": "SDPA on the cache dequantized to bf16 beforehand"
+                       if kind.startswith("int8") else f"SDPA on the same {TAG[dt]} cache",
+            "shape": f"b{rb} L{Lk} h{h} d{d}, {TAG[dt]} q, {what}, {chunks} chunk"
+                     + ("s" if chunks > 1 else ""),
+            "bytes": nbytes, "flops": flops, "chunks": chunks, "input_copies": len(sets),
         }
         r = rows[key]
         log(f"[surface] (b) {r['label']} {r['shape']}: kernel {r['ms']:.4f} ms device time, "
             f"plain {r['plain_ms']:.4f} ms, {r['library']} {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes, {flops} f32 flops at "
-            f"{PEAK_F32_FLOP_S / 1e12:g} TFLOP/s); max abs err {r['max_abs_err']:.3e}; "
-            f"{r['launches']} launches in the generation")
+            f"{PEAK_F32_FLOP_S / 1e12:g} TFLOP/s); max abs err {r['max_abs_err']:.3e}"
+            + (f"; {r['launches']} launches in the generation" if r["launches"] else ""))
         if not scaled_err(kernels_[0](), plains[0]()) < TOL[dt]:
-            raise AssertionError(f"[surface] (b) int8 {key} step: kernel and plain differ")
-        del sets, kernels_, plains, libs, q, k, v, kw, k4, v4, lib_mask
+            raise AssertionError(f"[surface] (b) decode {key} step: kernel and plain differ")
+        del sets, kernels_, plains, libs, k4, v4, lib_mask, k_
         torch.cuda.empty_cache()
+    log(f"[surface] (b) int8 / bf16 kernel time in this call: cross step "
+        f"{rows['cross']['ms'] / rows['bf16_cross']['ms']:.3f}, self step "
+        f"{rows['self']['ms'] / rows['bf16_self']['ms']:.3f}")
     return rows
 
 
@@ -8216,11 +8299,13 @@ def surface_path(dev, work: str) -> dict:
 
 def add_surface_rows(kernels: list, surface: dict) -> None:
     """Phase 32's launches (the retried fit and its generation, the int8
-    generation) into the kernels' rows, and (b)'s int8 step timings into the
-    decode kernel's."""
+    generation) into the kernels' rows, and (b)'s decode step timings (int8,
+    bf16 at the int8 shapes, f32) into the decode kernel's."""
     dec = next(r for r in kernels if r["name"] == "decode_attention")
-    dec["int8_cross_step"] = surface["b"]["timing"]["cross"]
-    dec["int8_self_step"] = surface["b"]["timing"]["self"]
+    timing_ = surface["b"]["timing"]
+    dec["int8_cross_step"], dec["int8_self_step"] = timing_["cross"], timing_["self"]
+    for key in ("bf16_cross", "bf16_self", "f32_cross", "f32_lm"):
+        dec[f"{key}_step"] = timing_[key]
     for r in kernels:
         by = r.setdefault("launches_by_path", {})
         by["surface_fit"] = surface["a"]["launches"].get(r["name"], 0)
@@ -8331,6 +8416,9 @@ def run_phases(dev, work: str, t_start: float) -> int:
     add_mh_rows(kernels, mh_stats)
     add_actor_rows(kernels, actor_stats)
     add_surface_rows(kernels, surface_stats)
+    dec = next(r for r in kernels if r["name"] == "decode_attention")
+    dec["instances"] = {fn: v for fn, v in built.items()     # every (query, slab, d) instance
+                        if fn.startswith("decode_ring_kernel<")}
     for r in kernels:       # the serve path's launches, counted in its replicas
         for where in ("predictor", "engine"):
             n = serve_stats[where]["launches"].get(r["name"], 0)

@@ -141,9 +141,9 @@ def test_decode_kernel_matches_plain(dev, dtype, d, L, b, case):
 
 
 def _ring_mask(b, L, chunk):
-    """Rows of a key mask at the bf16/f16 decode kernel's edges: full; live
-    keys starting and ending mid-stage with masked holes inside; a few live
-    keys past the first chunk's length, mid-stage (one block of the row's
+    """Rows of a key mask at the decode kernel's edges: full; live keys
+    starting and ending mid-stage with masked holes inside; a few live keys
+    past the first chunk's length, mid-stage (one block of the row's
     cluster holds them, the others skip); all-pad; a ragged tail."""
     m = np.zeros((b, L), bool)
     m[0] = True
@@ -156,12 +156,32 @@ def _ring_mask(b, L, chunk):
     return m                               # row 3: all-pad
 
 
-@pytest.mark.parametrize("dtype", HALF)
+# the decode kernel's instances: (query type, slab kind); int8 slabs with
+# per-position scales under a bf16 query, per-channel under an f32 one
+RING_KINDS = [(torch.bfloat16, "same"), (torch.float16, "same"), (torch.float32, "same"),
+              (torch.bfloat16, "int8_pos"), (torch.float32, "int8_chan")]
+
+
+def _ring_slabs(rng, b, L, h, d, dev, dtype, slab):
+    """q, k, v and the scales of one decode call: slabs in q's type, or int8
+    with both scales of one kind."""
+    q = _t(rng.standard_normal((b, 1, h, d)), dev, dtype)
+    if slab == "same":
+        return (q, _t(rng.standard_normal((b, L, h * d)), dev, dtype),
+                _t(rng.standard_normal((b, L, h * d)), dev, dtype), {})
+    k = _t(rng.integers(-127, 128, (b, L, h * d)), dev, torch.int8)
+    v = _t(rng.integers(-127, 128, (b, L, h * d)), dev, torch.int8)
+    shape = (b, L, h) if slab == "int8_pos" else (b, 1, h * d)
+    return q, k, v, {"k_scale": _t(rng.uniform(0.001, 0.02, shape), dev, torch.float32),
+                     "v_scale": _t(rng.uniform(0.001, 0.02, shape), dev, torch.float32)}
+
+
+@pytest.mark.parametrize("dtype,slab", RING_KINDS)
 @pytest.mark.parametrize("cluster", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("case", ["mask", "bias"])
-def test_decode_ring_kernel_cluster_sizes(dev, monkeypatch, dtype, cluster, case):
-    """The bf16/f16 kernel with L = 1000 (no multiple of a stage or a chunk)
-    in clusters of 1 to 8 blocks, each block walking several ring stages:
+def test_decode_ring_kernel_cluster_sizes(dev, monkeypatch, dtype, slab, cluster, case):
+    """Every instance with L = 1000 (no multiple of a stage or a chunk) in
+    clusters of 1 to 8 blocks, each block walking several ring stages:
     rows whose live range starts and ends mid-stage, holes inside it, live
     keys in one block's stage only, an all-pad row; and a bias with a causal
     row and no mask (every block reads its whole share)."""
@@ -172,44 +192,42 @@ def test_decode_ring_kernel_cluster_sizes(dev, monkeypatch, dtype, cluster, case
     chunk = -(-(-(-L // cluster)) // tdec._STAGE_POS) * tdec._STAGE_POS
     assert -(-L // chunk) == cluster
     monkeypatch.setattr(tdec, "split_chunk", lambda *_: chunk)
-    q = _t(rng.standard_normal((b, 1, h, d)), dev, dtype)
-    k = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
-    v = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+    q, k, v, kw = _ring_slabs(rng, b, L, h, d, dev, dtype, slab)
     if case == "mask":
-        kw = {"kv_mask": _t(_ring_mask(b, L, chunk), dev, torch.float32)}
+        kw["kv_mask"] = _t(_ring_mask(b, L, chunk), dev, torch.float32)
     else:
         causal = np.where(np.arange(L) <= 2 * L // 3, 0.0, -1e9)
-        kw = {"bias": _t(rng.standard_normal((h, L)) + causal, dev, torch.float32)}
+        kw["bias"] = _t(rng.standard_normal((h, L)) + causal, dev, torch.float32)
     got = tdec.decode_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = tdec.decode_attention_reference(q, k, v, **kw)
     assert torch.isfinite(got.float()).all()
     assert _err(got, want) < TOL[dtype]
-    if case == "mask":                       # the all-pad row: mean(V)
-        mean_v = v[3].float().reshape(L, h, d).mean(0)
-        assert _err(got[3, 0], mean_v) < TOL[dtype]
+    if case == "mask":                       # the all-pad row: mean(V), dequantized
+        v3 = v[3].float().reshape(L, h, d)
+        if slab != "same":
+            v3 = v3 * kw["v_scale"][3].reshape(-1, h, 1 if slab == "int8_pos" else d)
+        assert _err(got[3, 0], v3.mean(0)) < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("dtype,slab", RING_KINDS)
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("L", [1, 3, 4, 5, 31, 32, 33, 95, 257, 1000])
-def test_decode_ring_kernel_at_stage_edges(dev, dtype, d, L):
-    """Every head dim at lengths around the ring's 32-position stages and
-    4-position units, the split rule's own chunks (b 6 x h 2: split
-    wherever L allows), a key mask with the rows of ``_ring_mask`` and a
-    bias."""
+def test_decode_ring_kernel_at_stage_edges(dev, dtype, slab, d, L):
+    """Every instance and head dim at lengths around the ring's 32-position
+    stages and 4-position units, the split rule's own chunks (b 6 x h 2:
+    split wherever L allows), a key mask with the rows of ``_ring_mask``
+    and a bias."""
     from tpu_air_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference, plan_chunk)
 
     rng = np.random.default_rng(L * d)
     b, h = 6, 2
-    chunk = plan_chunk(b, h, d, L, dtype,
+    q, k, v, kw = _ring_slabs(rng, b, L, h, d, dev, dtype, slab)
+    chunk = plan_chunk(b, h, d, L, k.dtype,
                        torch.cuda.get_device_properties(dev).multi_processor_count)
-    q = _t(rng.standard_normal((b, 1, h, d)), dev, dtype)
-    k = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
-    v = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
-    kw = {"kv_mask": _t(_ring_mask(b, L, chunk), dev, torch.float32),
-          "bias": _t(rng.standard_normal((h, L)), dev, torch.float32)}
+    kw.update(kv_mask=_t(_ring_mask(b, L, chunk), dev, torch.float32),
+              bias=_t(rng.standard_normal((h, L)), dev, torch.float32))
     got = decode_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = decode_attention_reference(q, k, v, **kw)
@@ -217,43 +235,40 @@ def test_decode_ring_kernel_at_stage_edges(dev, dtype, d, L):
     assert _err(got, want) < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", HALF)
-def test_decode_ring_kernel_is_bitwise_deterministic(dev, dtype):
+@pytest.mark.parametrize("dtype,slab", RING_KINDS)
+def test_decode_ring_kernel_is_bitwise_deterministic(dev, dtype, slab):
     """The cluster merge runs in rank order: two calls on the same inputs
-    are bitwise equal, at the LM engine shape (8 chunks a row) and at the
-    W3 cross step (one chunk)."""
+    are bitwise equal, at the LM engine shape (several chunks a row) and at
+    the W3 cross step, for every instance."""
     from tpu_air_torch.ops.decode_attention import decode_attention
 
     rng = np.random.default_rng(7)
     for b, L, h, d in ((16, 1024, 8, 128), (64, 512, 12, 64)):
-        q = _t(rng.standard_normal((b, 1, h, d)), dev, dtype)
-        k = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
-        v = _t(rng.standard_normal((b, L, h * d)), dev, dtype)
+        q, k, v, kw = _ring_slabs(rng, b, L, h, d, dev, dtype, slab)
         pos = rng.integers(1, L, b)
-        mask = _t((np.arange(L)[None] <= pos[:, None]).astype(np.float32), dev, torch.float32)
-        first = decode_attention(q, k, v, kv_mask=mask)
-        second = decode_attention(q, k, v, kv_mask=mask)
+        kw["kv_mask"] = _t((np.arange(L)[None] <= pos[:, None]).astype(np.float32), dev,
+                           torch.float32)
+        first = decode_attention(q, k, v, **kw)
+        second = decode_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
 
 
 def test_decode_ring_entry_refuses_more_than_eight_chunks(dev):
-    """A bf16 launch whose chunk would need more than 8 blocks a row (a
-    cluster's portable limit) is refused by the C entry, and the wrapper
-    raises; f32 takes the same chunk through its merge kernel."""
+    """A launch whose chunk would need more than 8 blocks a row (a cluster's
+    portable limit) is refused by the C entry, and the wrapper raises, for
+    every query and slab type: no instance has a merge kernel to fall back
+    on."""
     from tpu_air_torch.ops import decode_attention as tdec
 
     b, L, h, d = 1, 9 * 32, 2, 64
-    q = torch.zeros(b, 1, h, d, device=dev, dtype=torch.bfloat16)
-    k = torch.zeros(b, L, h * d, device=dev, dtype=torch.bfloat16)
     saved = tdec.split_chunk
     try:
         tdec.split_chunk = lambda *_: 32
-        with pytest.raises(RuntimeError, match="cudaError"):
-            tdec.decode_attention(q, k, k)
-        out = tdec.decode_attention(q.float(), k.float(), k.float())
-        torch.cuda.synchronize()
-        assert torch.equal(out, torch.zeros_like(out))
+        for dtype, slab in RING_KINDS:
+            q, k, v, kw = _ring_slabs(np.random.default_rng(0), b, L, h, d, dev, dtype, slab)
+            with pytest.raises(RuntimeError, match="cudaError"):
+                tdec.decode_attention(q, k, v, **kw)
     finally:
         tdec.split_chunk = saved
 

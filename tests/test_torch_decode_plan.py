@@ -1,6 +1,7 @@
-"""The bf16/f16 decode kernel's schedule, mirrored in torch, on the CPU.
+"""The decode kernel's schedule, mirrored in torch, on the CPU.
 
-``csrc/decode_attention.cu`` runs one block per (row, group of heads, chunk)
+``csrc/decode_attention.cu`` runs every call, f32, bf16 or f16 queries over
+slabs of their own type or int8, as one block per (row, group of heads, chunk)
 in a thread-block cluster per row: the row's stages of 32 positions are
 dealt to the cluster's blocks in turn, each stage's units of 4 positions to
 a block's eight warps, and every warp copies its own units into its own ring
@@ -9,15 +10,17 @@ keys inside weigh 0); a block with none reads nothing when the row has a
 live key, and everything (mean(V)) when it has none.  The warps' and then
 the cluster's (m, den, acc) states merge in a fixed order.
 
-``plan`` and ``walk`` (``tests/_decode_schedule.py``) restate that layout;
-``mirror`` computes the output along it.  The tests hold the walk to its
-rules at the full W3, LM-engine and ``chip_smoke.SPLIT_CASES`` shapes (plan
-only) and the mirror to the port's plain version and to the JAX package's
-``decode_attention`` (its Pallas kernel in interpret mode) and
-``decode_attention_reference``.  Tolerances: in f32 the three differ in
-summation order (2e-5); on bf16 slabs the kernel computes in f32 from the
-rounded values and rounds the output once (2e-2 of max(1, |want|), as on
-the card).
+``plan``, ``walk`` and ``mirror`` (``tests/_decode_schedule.py``) restate
+that layout and compute the output along it.  The tests hold the walk to
+its rules at the full W3, LM-engine and ``chip_smoke.SPLIT_CASES`` shapes
+(plan only) and the mirror to the port's plain version and to the JAX
+package's ``decode_attention`` (its Pallas kernel in interpret mode) and
+``decode_attention_reference``, on f32 slabs and on int8 slabs with both
+scale kinds.  Tolerances: in f32 the three differ in summation order
+(2e-5; int8 slabs hold integers exactly in f32, and their scales multiply
+once in every version); on bf16 slabs, or under a bf16 query, the kernel
+computes in f32 from the rounded values and rounds the output once (2e-2
+of max(1, |want|), as on the card).
 """
 
 import numpy as np
@@ -31,7 +34,7 @@ import importlib  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from _decode_schedule import (MAX_CLUSTER, SMEM_LIMIT, STAGE_POS, UNIT_POS, WARPS,  # noqa: E402
-                              block_positions, copies, plan, walk)
+                              block_positions, copies, mirror, plan, walk)
 from tpu_air_torch.ops import decode_attention as tdec  # noqa: E402
 
 jdec = importlib.import_module("tpu_air.ops.decode_attention")
@@ -92,8 +95,8 @@ FULL_SHAPES += [(b, 12, 64, L, {"cross": "prefix", "self": "none"}.get(kind, kin
                 for b, L, kind in chip_smoke.SPLIT_CASES if not kind.startswith("int8")]
 
 
-def _chunk(b, h, d, L, masked=True):
-    return tdec.plan_chunk(b, h, d, L, torch.bfloat16, SMS, masked)
+def _chunk(b, h, d, L, masked=True, dtype=torch.bfloat16):
+    return tdec.plan_chunk(b, h, d, L, dtype, SMS, masked)
 
 
 @pytest.mark.parametrize("b,h,d,L,kind", FULL_SHAPES)
@@ -123,6 +126,56 @@ def test_plan_groups_heads_that_fit_one_load(h, d):
     assert h % g == 0 and g * d <= 256
     assert all(g2 * d > 256 or h % g2 for g2 in range(g + 1, h + 1))
     assert pl["smem"] <= SMEM_LIMIT
+
+
+# the slab kinds beside bf16/f16: (slab, scale kind), per-position scales
+# with a bias (the T5 self step's three aux rows)
+SLABS = [("f32", None), ("int8", "pos"), ("int8", "chan")]
+ELEM = {"f32": 4, "int8": 1}
+SLAB_DTYPE = {"f32": torch.float32, "int8": torch.int8}
+
+
+@pytest.mark.parametrize("b,h,d,L,kind", FULL_SHAPES)
+@pytest.mark.parametrize("slab,scale", SLABS)
+def test_plan_fits_every_slab_type(b, h, d, L, kind, slab, scale):
+    """f32 and int8 slabs take the same plan at their own element size: a
+    group of heads whose slices of a position fill at most one warp load of
+    512 bytes (T5's heads of 64: 2 in f32, 6 in int8; the LM's of 128: 1 in
+    f32), the split rule's chunk over those groups, at most 8 chunks, and
+    the bias and per-position scale rows beside each unit within 227 KB."""
+    masked = kind != "none"
+    chunk = _chunk(b, h, d, L, masked, SLAB_DTYPE[slab])
+    pos = scale == "pos"
+    pl = plan(b, h, d, L, chunk, SMS, bias=not masked, mask=masked, elem=ELEM[slab],
+              k_pos=pos, v_pos=pos)
+    g = pl["group"]
+    assert pl["smem"] <= SMEM_LIMIT and 1 <= pl["cluster"] <= MAX_CLUSTER
+    assert chunk == L or chunk % STAGE_POS == 0
+    assert (pl["cluster"] - 1) * chunk < L
+    assert h % g == 0 and pl["span_bytes"] == g * d * ELEM[slab] <= 512
+    assert all(g2 * d * ELEM[slab] > 512 or h % g2 for g2 in range(g + 1, h + 1))
+    assert pl["aux_rows"] == int(not masked) + 2 * int(pos)
+    assert 2 <= pl["slots"] or pl["slots"] == -(-chunk // STAGE_POS)
+    if (h, d) == (12, 64):
+        assert g == {"f32": 2, "int8": 6}[slab]
+
+
+def test_int8_ring_keeps_the_bf16_bytes_in_flight():
+    """At the W3 cross step (b 64, L 512, 12 heads of 64, key mask) the int8
+    ring's slots an SM hold at least the bytes the bf16 ring's do: its
+    group spans are 384 bytes against 512, and it takes more slots."""
+    b, h, d, L = 64, 12, 64, 512
+
+    def in_flight(dtype, elem):
+        pl = plan(b, h, d, L, _chunk(b, h, d, L, True, dtype), SMS, mask=True, elem=elem)
+        blocks = pl["grid"][0] * pl["grid"][1] * pl["grid"][2]
+        per_sm = min(2, -(-blocks // SMS))
+        return per_sm * WARPS * pl["slots"] * pl["unit_bytes"], pl
+
+    int8_bytes, int8_pl = in_flight(torch.int8, 1)
+    bf16_bytes, _ = in_flight(torch.bfloat16, 2)
+    assert int8_pl["span_bytes"] == 384 and int8_pl["cluster"] == 2
+    assert int8_bytes >= bf16_bytes
 
 
 def _check_walk(L, nrank, live):
@@ -213,63 +266,6 @@ def test_copies_are_one_a_position_read(nrank):
 # -- the kernel's arithmetic along the walk ---------------------------------
 
 
-def mirror(q, k, v, bias=None, kv_mask=None, *, chunk):
-    """What decode_ring_kernel computes, in torch f32 along ``walk``: per
-    row, group and rank, each warp's online softmax (m, den, acc) of each
-    head over its units, masked keys inside a block's range at -inf and
-    the others at the -1e20 floor; the warps merged in warp order,
-    then the cluster's ranks in rank order with the max floored at -1e20.
-    q [b, h, d]; k/v [b, L, h*d]; bias [h, L]; kv_mask [b, L]."""
-    b, h, d = q.shape
-    L = k.shape[1]
-    pl = plan(b, h, d, L, chunk, SMS, bias=bias is not None, mask=kv_mask is not None)
-    G, nrank = pl["group"], pl["cluster"]
-    kf, vf, qf = k.float().reshape(b, L, h, d), v.float().reshape(b, L, h, d), q.float()
-    out = torch.empty(b, h, d)
-    for bi in range(b):
-        live = None if kv_mask is None else (kv_mask[bi] > 0)
-        blocks = walk(L, nrank, None if live is None else live.tolist())
-        for h0 in range(0, h, G):
-            hs = slice(h0, h0 + G)
-            ranks = []
-            for r in range(nrank):
-                blk = blocks[r]
-                warps = []
-                for w in range(WARPS):
-                    m, den, acc = torch.full((G,), FLOOR), torch.zeros(G), torch.zeros(G, d)
-                    for _, read in blk["units"][w]:
-                        if not read:
-                            continue
-                        idx = torch.tensor(read)
-                        s = torch.einsum("lgd,gd->gl", kf[bi, idx, hs], qf[bi, hs])
-                        add = torch.zeros(G, len(read))
-                        if bias is not None:
-                            add = add + bias[hs][:, idx]
-                        if live is not None:
-                            lv = live[idx][None]
-                            add = add + torch.where(lv, 0.0, FLOOR)
-                            if blk["drop"]:
-                                add = torch.where(lv, add, float("-inf"))
-                        s = s + add
-                        mx = torch.maximum(m, s.max(1).values)
-                        alpha = torch.exp(m - mx)
-                        p = torch.exp(s - mx[:, None])
-                        den = den * alpha + p.sum(1)
-                        acc = acc * alpha[:, None] + torch.einsum("gl,lgd->gd", p, vf[bi, idx, hs])
-                        m = mx
-                    warps.append((m, den, acc))
-                top = torch.stack([wm for wm, _, _ in warps]).max(0).values
-                e = [torch.exp(wm - top) for wm, _, _ in warps]
-                ranks.append((top, sum(wd * ei for (_, wd, _), ei in zip(warps, e)),
-                              sum(wa * ei[:, None] for (_, _, wa), ei in zip(warps, e))))
-            top = torch.clamp(torch.stack([rm for rm, _, _ in ranks]).max(0).values, min=FLOOR)
-            e = [torch.exp(rm - top) for rm, _, _ in ranks]
-            den = sum(rd * ei for (_, rd, _), ei in zip(ranks, e))
-            acc = sum(ra * ei[:, None] for (_, _, ra), ei in zip(ranks, e))
-            out[bi, hs] = acc / torch.clamp(den, min=1e-20)[:, None]
-    return out.to(q.dtype)
-
-
 def _inputs(b, L, h, d, seed):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
@@ -332,6 +328,82 @@ def test_mirror_on_bf16_slabs_matches_within_one_rounding(d):
     assert chip_smoke.scaled_err(got, want) < chip_smoke.TOL[torch.bfloat16]
 
 
+def _int8(rng, b, L, h, d, scale):
+    """int8 K/V and their f32 scales, per-position ``[b, L, h]`` or
+    per-channel ``[b, 1, h*d]`` (flat; the JAX package's 4-D forms beside)."""
+    k8 = rng.integers(-127, 128, (b, L, h, d)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (b, L, h, d)).astype(np.int8)
+    shape4 = (b, L, h, 1) if scale == "pos" else (b, 1, h, d)
+    ks = rng.uniform(0.001, 0.02, shape4).astype(np.float32)
+    vs = rng.uniform(0.001, 0.02, shape4).astype(np.float32)
+    flat = (b, L, h) if scale == "pos" else (b, 1, h * d)
+    return k8, v8, ks, vs, flat
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("kind", ["prefix", "holes", "one_stage", "none"])
+@pytest.mark.parametrize("slab,scale", SLABS)
+def test_mirror_on_int8_and_f32_slabs_matches_the_references(cluster, kind, slab, scale):
+    """The mirror at the f32 and int8 instances' own groups (6 heads of 64:
+    2 a block in f32, all 6 in int8), in clusters of 1 to 8 blocks, against
+    the port's plain version, the JAX package's Pallas kernel in interpret
+    mode (int8 slabs with ``k_scale``/``v_scale``) and its reference: prefix
+    masks with an all-pad row (mean(V)), live ranges with holes, one live
+    stage, and the T5 self step's bias with a causal row and no mask (with
+    per-position scales: three aux rows a unit)."""
+    b, h, d = 2, 6, 64
+    L, chunk, block_k = (96, 96, 32) if cluster == 1 else (64 * cluster - 24, 64, 8)
+    assert -(-L // chunk) == cluster
+    q, k, v, bias, rng = _inputs(b, L, h, d, 100 + cluster)
+    mask = _masks(kind, b, L, rng)
+    kw_np = {"bias": bias} if mask is None else {"kv_mask": mask.astype(np.float32)}
+    kw_t = {n: _t(a) for n, a in kw_np.items()}
+    kw_j = {n: jnp.asarray(a) for n, a in kw_np.items()}
+    if slab == "int8":
+        k, v, ks, vs, flat = _int8(rng, b, L, h, d, scale)
+        kw_t.update(k_scale=_t(ks.reshape(flat)), v_scale=_t(vs.reshape(flat)))
+        kw_j.update(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    tq, tk, tv = _t(q)[:, 0], _t(k.reshape(b, L, -1)), _t(v.reshape(b, L, -1))
+    got = mirror(tq, tk, tv, **kw_t, chunk=chunk)
+    want = tdec.decode_attention_reference(tq, tk, tv, **kw_t)
+    want_kernel = jdec.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        block_k=block_k, interpret=True, **kw_j)
+    want_ref = jdec.decode_attention_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                               **kw_j)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel)[:, 0], atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref)[:, 0], atol=ATOL, rtol=ATOL)
+    if mask is not None and not mask[-1].any():          # the all-pad row: mean(V)
+        v_deq = v[-1].astype(np.float32)
+        if slab == "int8":
+            v_deq = v_deq * vs[-1]
+        np.testing.assert_allclose(got.numpy()[-1], v_deq.mean(0), atol=ATOL)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("scale", ["pos", "chan"])
+def test_mirror_on_int8_slabs_under_a_bf16_query_matches_within_one_rounding(d, scale):
+    """int8 slabs under a bf16 query (the bf16 int8 generation's calls): the
+    kernel unpacks the int8 values exactly, computes in f32 and rounds the
+    output once, so the mirror at every head dim (4 heads: groups of 4 up to
+    d 128, one warp load of 512 bytes) holds to the plain version on the
+    same inputs at the card's bf16 tolerance, with the LM engine's mask
+    and a bias."""
+    b, L, h = 4, 100, 4
+    q, _, _, bias, rng = _inputs(b, L, h, d, d + 7)
+    k, v, ks, vs, flat = _int8(rng, b, L, h, d, scale)
+    mask = torch.from_numpy(_masks("lm_engine", b, L, rng).astype(np.float32))
+    tq = _t(q[:, 0]).to(torch.bfloat16)
+    tk, tv = _t(k.reshape(b, L, -1)), _t(v.reshape(b, L, -1))
+    kw = {"kv_mask": mask, "bias": _t(bias), "k_scale": _t(ks.reshape(flat)),
+          "v_scale": _t(vs.reshape(flat))}
+    chunk = _chunk(b, h, d, L, True, torch.int8)
+    got = mirror(tq, tk, tv, **kw, chunk=chunk)
+    want = tdec.decode_attention_reference(tq, tk, tv, **kw)
+    assert got.dtype == torch.bfloat16
+    assert chip_smoke.scaled_err(got, want) < chip_smoke.TOL[torch.bfloat16]
+
+
 def test_mirror_merge_is_in_a_fixed_order():
     """The warps' and ranks' states merge in a fixed order, so the mirror,
     like the kernel, gives bitwise-equal outputs on a second run, and the
@@ -348,39 +420,50 @@ def test_mirror_merge_is_in_a_fixed_order():
 
 # cuobjdump -sass excerpts of decode_ring_kernel instances (anonymous
 # namespace, mangled names as the build prints them)
-_RING = ("_ZN52_GLOBAL__N__4c1d2e3f_19_decode_attention_cu_0a1b2c3d18decode_ring_kernelI{ty}"
-         "Li{d}ELi{nl}EEEvNS_10RingParamsE")
+_RING = "_ZN52_GLOBAL__N__4c1d2e3f_19_decode_attention_cu_0a1b2c3d18decode_ring_kernelI{tys}Li{d}EEEvNS_10RingParamsE"
+_TYPES = {("f32", "f32"): "ff", ("f32", "int8"): "fa", ("bf16", "bf16"): "13__nv_bfloat16S1_",
+          ("bf16", "int8"): "13__nv_bfloat16a", ("f16", "f16"): "6__halfS1_",
+          ("f16", "int8"): "6__halfa"}
 _BODY = {"UBLKCP": "        /*0c40*/              @UP0 UBLKCP.S.G [UR8], [UR4], UR10 ;\n",
          "none": "        /*0010*/                   MOV R1, c[0x0][0x28] ;\n"}
 
 
-def _ring_sass(body="UBLKCP", drop=None):
+def _ring_sass(body="UBLKCP", drop=None, extra=""):
     text = "\n\tcode for sm_90a\n"
-    for ty in ("13__nv_bfloat16", "6__half"):
+    for pair, tys in _TYPES.items():
         for d in (16, 32, 64, 128):
-            for nl in (1, 2, 3, 4):
-                if (ty, d) != drop:
-                    text += (f"\t\tFunction : {_RING.format(ty=ty, d=d, nl=nl)}\n"
-                             f"\t.headerflags\t@\"EF_CUDA_SM90\"\n{_BODY[body]}")
-    return text
+            if (pair, d) != drop:
+                text += (f"\t\tFunction : {_RING.format(tys=tys, d=d)}\n"
+                         f"\t.headerflags\t@\"EF_CUDA_SM90\"\n{_BODY[body]}")
+    return text + extra
 
 
 def test_bulk_copy_check_on_canned_sass():
     """The build phase's count of bulk copies (UBLKCP) in ``cuobjdump -sass``
-    output and its check: a bf16 and an f16 decode_ring_kernel instance for
-    every head dim, each with the bulk copy and no spill; a missing
-    instance, one compiled without the bulk copy, or a spill each fail."""
+    output and its check: an instance of decode_ring_kernel for every query
+    and slab type pair (f32, bf16 and f16 queries over slabs of their type
+    or int8) and every head dim, each with the bulk copy and no spill; a
+    missing instance, one compiled without the bulk copy, a spill, or a
+    retired decode_kernel or decode_combine_kernel left in the library each
+    fail."""
     counts = chip_smoke.bulk_copy_counts(_ring_sass())
-    assert counts["decode_ring_kernel<bf16,64,3>"] == 1 and len(counts) == 32
+    assert counts["decode_ring_kernel<bf16,bf16,64>"] == 1 and len(counts) == 24
+    assert counts["decode_ring_kernel<f32,int8,16>"] == 1
+    assert counts["decode_ring_kernel<f16,f16,128>"] == 1
     chip_smoke.check_bulk_copy_kernels("decode_attention", counts, {fn: 0 for fn in counts})
     with pytest.raises(AssertionError, match="spill"):
         chip_smoke.check_bulk_copy_kernels("decode_attention", counts,
-                                           {"decode_ring_kernel<f16,128,4>": 16})
+                                           {"decode_ring_kernel<f32,int8,128>": 16})
     with pytest.raises(AssertionError, match="UBLKCP"):
         chip_smoke.check_bulk_copy_kernels(
             "decode_attention", chip_smoke.bulk_copy_counts(_ring_sass(body="none")), {})
-    for drop in (("6__half", 64), ("13__nv_bfloat16", 16)):
+    for drop in ((("f16", "f16"), 64), (("bf16", "int8"), 16), (("f32", "f32"), 128)):
         with pytest.raises(AssertionError, match="decode_ring_kernel"):
             chip_smoke.check_bulk_copy_kernels(
                 "decode_attention", chip_smoke.bulk_copy_counts(_ring_sass(drop=drop)), {})
+    old = ("\t\tFunction : _ZN52_GLOBAL__N__4c1d2e3f_19_decode_attention_cu_0a1b2c3d13decode_kernel"
+           "IfaLi64EEEvPKT_PKT0_S6_PKfS8_S8_S8_PS2_Pfiiiii\n")
+    with pytest.raises(AssertionError, match="retired"):
+        chip_smoke.check_bulk_copy_kernels(
+            "decode_attention", chip_smoke.bulk_copy_counts(_ring_sass(extra=old)), {})
     chip_smoke.check_bulk_copy_kernels("flash_attention", {}, {})   # no bulk-copy kernel there

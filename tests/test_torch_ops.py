@@ -176,80 +176,25 @@ def test_decode_fully_masked_row_is_mean_v():
 
 
 # -- the decode kernel's split-K arithmetic ----------------------------------
-# (the f32 and int8 kernel's; tests/test_torch_decode_plan.py mirrors the
-# bf16/f16 kernel's cluster walk)
-
-
-def _split_decode_mirror(q, k, v, bias=None, kv_mask=None, k_scale=None, v_scale=None, *,
-                         chunk):
-    """What csrc/decode_attention.cu's decode_kernel and
-    decode_combine_kernel (f32 and int8 slabs) compute, step for step in
-    torch: per (b, h) and chunk of ``chunk`` positions, the f32 softmax
-    state (m, den, acc) over the chunk's range from its first live key to
-    its last, masked keys inside it at weight 0; (-1e20, 0, 0), K/V unread,
-    for a chunk without a live key in a row that has one; every position,
-    each at the -1e20 floor, in a row without one.  Then the states merge.
-    q [b, h, d]; k/v [b, L, h*d]; scales flat.  Returns the output and the
-    number of (b, h, position) K/V reads."""
-    b, h, d = q.shape
-    L = k.shape[1]
-    kf, vf = k.reshape(b, L, h, d).float(), v.reshape(b, L, h, d).float()
-    qf = q.float()
-    k_kind = tdec._scale_kind(k_scale, b, L, h, d, "k_scale")
-    v_kind = tdec._scale_kind(v_scale, b, L, h, d, "v_scale")
-    if k_kind == tdec._CHAN:
-        qf = qf * k_scale.reshape(b, h, d)
-    floor = tdec.MASK_FLOOR
-    out, reads = torch.empty(b, h, d), 0
-    for bi in range(b):
-        live = None if kv_mask is None else kv_mask[bi] > 0
-        drop = live is not None and bool(live.any())
-        for hi in range(h):
-            states = []
-            for c0 in range(0, L, chunk):
-                idx = torch.arange(c0, min(L, c0 + chunk))
-                if drop:
-                    first_last = idx[live[idx]]
-                    if first_last.numel() == 0:          # skipped
-                        states.append((floor, 0.0, torch.zeros(d)))
-                        continue
-                    idx = torch.arange(int(first_last[0]), int(first_last[-1]) + 1)
-                reads += idx.numel()
-                s = kf[bi, idx, hi] @ qf[bi, hi]
-                if k_kind == tdec._POS:
-                    s = s * k_scale[bi, idx, hi]
-                if bias is not None:
-                    s = s + bias[hi, idx]
-                if live is not None:
-                    s = s + torch.where(live[idx], 0.0, floor)
-                    if drop:
-                        s = torch.where(live[idx], s, float("-inf"))
-                m = max(float(s.max()), floor)
-                p = torch.exp(s - m)
-                pv = p * v_scale[bi, idx, hi] if v_kind == tdec._POS else p
-                states.append((m, float(p.sum()), pv @ vf[bi, idx, hi]))
-            top = max(st[0] for st in states)
-            w = [np.exp(np.float64(st[0] - top)) for st in states]
-            den = sum(wi * st[1] for wi, st in zip(w, states))
-            acc = sum(float(wi) * st[2] for wi, st in zip(w, states))
-            o = acc / max(den, 1e-20)
-            if v_kind == tdec._CHAN:
-                o = o * v_scale.reshape(b, h, d)[bi, hi]
-            out[bi, hi] = o
-    return out.to(q.dtype), reads
+# (tests/_decode_schedule.py mirrors the kernel's cluster walk;
+# tests/test_torch_decode_plan.py holds it to its rules)
 
 
 @pytest.mark.parametrize("chunk", [32, 64, 96])
 @pytest.mark.parametrize("case", ["splits", "masked_chunks", "all_pad", "one_chunk",
                                   "int8_pos", "int8_chan"])
 def test_decode_split_mirror_matches_references(case, chunk):
-    """The split-K merge and the masked-chunk skip, mirrored in torch,
-    against the port's plain version and the JAX reference, at chunks the
-    split rule gives (whole 32-position stages): several chunks (L = 100 is
-    no multiple of any), padded rows whose tails are whole masked chunks,
-    an all-pad row (mean(V), every chunk read), live keys in one chunk
-    only, and both int8 scale kinds.  The mirror reads K/V only where the
-    kernel does: the live range of each row, all of an all-pad row."""
+    """The split-K merge and the masked-chunk skip, mirrored in torch along
+    the kernel's walk (``_decode_schedule.mirror``: a row's chunks one
+    cluster, its stages dealt in turn), against the port's plain version
+    and the JAX reference, at chunks the split rule gives (whole 32-position
+    stages): several chunks (L = 100 is no multiple of any), padded rows
+    whose tails are whole masked chunks, an all-pad row (mean(V), every
+    chunk read), live keys in one chunk only, and both int8 scale kinds.
+    The walk reads K/V only where the kernel does: the live range of each
+    row, all of an all-pad row."""
+    from _decode_schedule import mirror, reads
+
     b, L, h, d = 4, 100, 3, 16
     rng = np.random.default_rng(chunk)
     q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
@@ -274,19 +219,22 @@ def test_decode_split_mirror_matches_references(case, chunk):
     flat_s = (b, L, h) if case == "int8_pos" else (b, 1, h * d)
     kw_t = {n: _t(a.reshape(flat_s) if n.endswith("scale") else a) for n, a in kw.items()}
     tq, tk, tv = _t(q)[:, 0], _t(k.reshape(b, L, -1)), _t(v.reshape(b, L, -1))
-    got, reads = _split_decode_mirror(tq, tk, tv, **kw_t, chunk=chunk)
+    got = mirror(tq, tk, tv, **kw_t, chunk=chunk)
     want = tdec.decode_attention_reference(tq, tk, tv, **kw_t)
     want_jax = jdec.decode_attention_reference(_j(q), _j(k), _j(v),
                                                **{n: _j(a) for n, a in kw.items()})
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=ATOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_jax)[:, 0], atol=ATOL, rtol=ATOL)
+    nrank = -(-L // chunk)
+    live = [None] * b if case == "splits" else [list(m > 0) for m in mask]
+    read = h * sum(reads(L, nrank, row) for row in live)   # the group holds all 3 heads
     if case == "splits":
-        assert reads == b * h * L
+        assert read == b * h * L
     elif case == "one_chunk":
-        assert reads == b * h * 3
+        assert read == b * h * 3
     else:
         needed = np.where(lens == 0, L, lens)       # an all-pad row reads every key
-        assert reads == h * int(needed.sum())
+        assert read == h * int(needed.sum())
     if case == "all_pad":
         np.testing.assert_allclose(got.numpy()[3], v[3].astype(np.float32).mean(0), atol=ATOL)
 
@@ -302,15 +250,18 @@ def test_decode_split_mirror_matches_references(case, chunk):
     (5, 3, 64, 129, torch.float16, True, 5), (1, 12, 64, 100, torch.float16, True, 4),
     (32, 12, 64, 512, torch.bfloat16, True, 2),             # a wave of two blocks a pair
     (200, 12, 64, 512, torch.bfloat16, True, 1),            # enough rows: unsplit
-    (64, 12, 64, 512, torch.float32, True, 1), (16, 8, 128, 1024, torch.float32, True, 5),
-    (8, 12, 64, 4096, torch.float32, True, 6), (1, 12, 64, 4133, torch.int8, True, 8),
+    (64, 12, 64, 512, torch.float32, True, 1), (16, 8, 128, 1024, torch.float32, True, 2),
+    (8, 12, 64, 4096, torch.float32, True, 5), (1, 12, 64, 4133, torch.int8, True, 8),
+    (64, 12, 64, 512, torch.int8, True, 2),                 # the int8 W3 cross step
+    (64, 12, 64, 33, torch.int8, False, 1),                 # the int8 self step
+    (8, 12, 64, 4133, torch.int8, True, 8), (4, 8, 128, 1024, torch.float32, False, 4),
 ])
 def test_decode_split_chunk(b, h, d, L, dtype, masked, chunks):
     """The kernel splits L into as many chunks as one wave of blocks holds
-    (bf16/f16: two blocks an SM of an H100's 132, each reading a group of
-    heads, one an SM without a key mask; f32 and int8: five blocks of one
-    head), at most 8 (a cluster), each a whole number of 32-position
-    stages, never an empty one."""
+    (two blocks an SM of an H100's 132, each reading a group of heads that
+    fills one warp load of 512 bytes: 4 of 64 in bf16/f16, 6 in int8, 2 in
+    f32; one block an SM without a key mask), at most 8 (a cluster), each
+    a whole number of 32-position stages, never an empty one."""
     chunk = tdec.plan_chunk(b, h, d, L, dtype, 132, masked)
     assert -(-L // chunk) == chunks
     assert chunk == L or chunk % tdec._STAGE_POS == 0

@@ -2,14 +2,14 @@
 """Time the port's decode kernel against other builds of it, in turns, on one card.
 
     python3 tools/torch_decode_in_turns.py --other parent=DIR [--other NAME=DIR ...]
-        [--shapes lm,w3_cross,...] [--dtype bfloat16|float16] [--sweep] [--out FILE]
+        [--shapes lm,w3_cross,...] [--dtype bfloat16|float16|float32] [--sweep] [--out FILE]
 
 Each ``DIR`` holds a copy of the port's ``tpu_air_torch/ops`` package (for
 example ``git archive <commit> tpu_air_torch/ops`` unpacked into a
 git-ignored directory, or a copy with the kernel's constants changed); it is
 imported under a name of its own and builds its kernels into the ``_build``
 directory beside it.  At every shape the same cold input sets (cycled
-through ``chip_smoke.COLD_BYTES`` of slabs, as ``[timing]`` does) go through
+through ``chip_smoke.COLD_BYTES`` of slabs, ``chip_smoke.decode_step_inputs``) go through
 this tree's ``decode_attention`` and each other build's, and each build's
 device time (``chip_smoke.device_ms``) and host time a call
 (``chip_smoke.host_us``) are taken in turns: other, this, this, other.
@@ -18,8 +18,10 @@ tolerance of ``chip_smoke.TOL``.  Prints one line a shape and build and,
 last, a JSON object of every reading beside the card's name and power
 limit (written to ``--out`` as well).  ``lm_one_key`` is the LM engine's
 grid with one live key a row: its time is the call's fixed cost at that
-grid, what is left of ``lm``'s once the bytes are gone.  ``--sweep`` also
-times this tree's kernel at the ``lm``, ``w3_cross`` and ``w3_self`` shapes
+grid, what is left of ``lm``'s once the bytes are gone.  ``int8_cross`` and
+``int8_self`` are 32 (b)'s int8 steps: int8 K/V with per-channel or
+per-position scales under a ``--dtype`` query.  ``--sweep`` also
+times this tree's kernel at the ``lm``, ``w3_cross``, ``w3_self`` and int8 shapes
 with the chunk forced to each cluster size from 1 to 8 (no turns).  Needs a
 CUDA card and ``nvcc``.
 """
@@ -57,6 +59,8 @@ SHAPES = {
     "b8_cross": (8, 512, 12, 64, "cross"),
     "b8_self33": (8, 33, 12, 64, "self"),
     "b8_self65": (8, 65, 12, 64, "self"),
+    "int8_cross": (64, 512, 12, 64, "int8_chan"),
+    "int8_self": (64, 33, 12, 64, "int8_pos"),
 }
 
 
@@ -91,34 +95,6 @@ def build_all(mods) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def inputs(rng, shape, dtype, dev):
-    """(copies of (q, k, v, kwargs), needed bytes, flops) at ``shape``."""
-    b, L, h, d, kind = shape
-    copies = max(2, -(-cs.COLD_BYTES // (2 * b * L * h * d * 2)))
-    sets = []
-    if kind.startswith("lm"):
-        pos = rng.integers(L // 16, L, b)
-        pos[0] = 0
-        if kind == "lm_one_key":
-            pos[:] = 0
-        mask = torch.from_numpy((np.arange(L)[None] <= pos[:, None]).astype(np.float32)).to(dev)
-        for _ in range(copies):
-            q, k, v, _ = cs.decode_inputs(rng, b, L, h, d, dtype, dev, "plain")
-            sets.append((q * float(torch.tensor(d ** -0.5, dtype=dtype)), k, v,
-                         {"kv_mask": mask}))
-    else:
-        sets = [cs.decode_inputs(rng, b, L, h, d, dtype, dev, kind) for _ in range(copies)]
-    kw = sets[0][3]
-    if "kv_mask" in kw:
-        keys = cs.needed_keys(kw["kv_mask"], L)
-        extra = b * L * 4
-    else:                                   # keys after the query position weigh 0
-        keys = torch.full((b,), int((kw["bias"][0] > -1e8).sum()))
-        extra = h * int(keys[0]) * 4
-    nbytes = 2 * h * d * 2 * int(keys.sum()) + 2 * b * h * d * 2 + extra
-    return sets, nbytes, 4 * h * d * int(keys.sum())
-
-
 def sweep(mod, call, L) -> dict:
     """{cluster size: device ms} of ``call`` with the module's chunk forced
     to each cluster size from 1 to 8 that whole stages allow."""
@@ -140,7 +116,7 @@ def main() -> int:
     ap.add_argument("--other", action="append", default=[], metavar="NAME=DIR",
                     help="another build's ops package directory")
     ap.add_argument("--shapes", default=",".join(SHAPES))
-    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float16"))
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float16", "float32"))
     ap.add_argument("--sweep", action="store_true",
                     help="time this tree's kernel at every cluster size too")
     ap.add_argument("--out", default=None)
@@ -162,13 +138,16 @@ def main() -> int:
         shape = SHAPES[key]
         # the LM engine's mask as [lm serve] (f) draws it
         rng = np.random.default_rng(cs.SEED + (44 if key == "lm" else 60))
-        sets, nbytes, flops = inputs(rng, shape, dtype, dev)
-        b_ms, b_by = cs.bound_ms(nbytes, flops, cs.PEAK_BF16_FLOP_S)
+        sets, nbytes, flops = cs.decode_step_inputs(rng, *shape[:4], dtype, dev, shape[4])
         q, k, v, kw = sets[0]
+        # bf16/f16 K/V at the tensor cores' rate, as [timing] states it; f32
+        # and int8 at the f32 rate, as 32 (b) does
+        b_ms, b_by = cs.bound_ms(nbytes, flops, cs.PEAK_BF16_FLOP_S if k.element_size() == 2
+                                 else cs.PEAK_F32_FLOP_S)
         want = this.decode_attention_reference(q, k, v, **kw)
         b, L, h, d, _ = shape
         row = {"shape": shape, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "chunk": this.plan_chunk(b, h, d, L, dtype,
+               "chunk": this.plan_chunk(b, h, d, L, k.dtype,
                                         torch.cuda.get_device_properties(dev).multi_processor_count,
                                         "kv_mask" in kw),
                "builds": {}}
@@ -189,7 +168,7 @@ def main() -> int:
             print(f"[turns] {key} {shape}: {n} {np.mean(r['ms']):.4f} ms ({', '.join(f'{x:.4f}' for x in r['ms'])}), "
                   f"host {np.mean(r['host_us']):.1f} us/call, err {r['err']:.2e}; bound "
                   f"{b_ms:.4f} ms by {b_by}, chunk {row['chunk']}", flush=True)
-        if args.sweep and key in ("lm", "w3_cross", "w3_self"):
+        if args.sweep and key in ("lm", "w3_cross", "w3_self", "int8_cross", "int8_self"):
             row["by_cluster"] = sweep(this, calls["this"], L)
             print(f"[turns] {key}: this tree by cluster size "
                   + ", ".join(f"{c} {ms:.4f} ms" for c, ms in row["by_cluster"].items()), flush=True)

@@ -11,48 +11,56 @@
 //   out   = sum_l p_l V[b, l, h] / max(den, 1e-20)
 // int8 slabs stay int8 in memory and their scales fold into the arithmetic
 // exactly as the TPU kernel folds them: a per-channel K scale [b, 1, h*d]
-// into q, a per-position K scale [b, L, h] into the scores, a per-position
-// V scale into p (after den is taken), a per-channel V scale into the
-// output.  No dequantized slab is ever written.  A row whose every key is
-// masked sits at the -1e20 floor everywhere and yields mean(V), finite.
+// into q, a per-position K scale [b, L, h] into the scores (before the bias
+// and mask are added), a per-position V scale into p (after den is taken), a
+// per-channel V scale into the output.  No dequantized slab is ever written.
+// A row whose every key is masked sits at the -1e20 floor everywhere and
+// yields mean(V), finite.
 //
 // What bounds it on the H100: bytes.  Each step reads the cache once and
 // does about 4 flops per cached element, far below the card's ~295 flops
-// per byte, so both designs read each needed slab byte once with as many
-// bytes in flight as the SMs can hold, split L into chunks when b*h blocks
-// alone cannot fill the card (the wrapper's split_chunk), and skip masked
-// chunks: a block reads K/V only over the range from its chunk's first
-// live key to its last.  A chunk with no live key contributes exactly 0
+// per byte, so the kernel reads each needed slab byte once with as many
+// bytes in flight as the SMs can hold, splits L into chunks when the row's
+// head groups alone cannot fill the card (the wrapper's split_chunk), and
+// skips masked chunks: a block reads K/V only over the range from its first
+// live key to its last.  A block with no live key contributes exactly 0
 // when the row has a live key elsewhere (exp(-1e20 - m) underflows to 0 in
 // f32), so its K/V bytes are never read; a row with no live key at all
 // reads everything and yields mean(V).  The bias is never read as a mask:
 // the self step reads its whole slab.
 //
-// bf16 and f16 slabs (decode_ring_kernel<T, D>, every main path):
+// One design, decode_ring_kernel<TQ, TKV, D>, for every call: TQ the query
+// and output type (f32, bf16 or f16), TKV the slab type (TQ, or int8 with
+// scales).
 // - A block reads a group of heads of one row (ring_group: as many as one
-//   warp load covers, 4 of T5's heads of 64, 2 of the LM's of 128), so a
-//   position's K (or V) slices of the group are one contiguous span of up
-//   to 512 bytes, copied by one bulk copy (cp.async.bulk, completed on an
-//   mbarrier's transaction count) and read back by one 16-byte load a lane.
+//   warp load of 512 bytes covers: 4 of T5's heads of 64 in bf16, 6 in int8,
+//   2 in f32; 2 of the LM's of 128 in bf16, 1 in f32), so a position's K (or
+//   V) slices of the group are one contiguous span of up to 512 bytes,
+//   copied by one bulk copy (cp.async.bulk, completed on an mbarrier's
+//   transaction count) and read back by one 16-byte load a lane: 4 f32, 8
+//   bf16 or f16, or 16 int8 elements, one head's slice among D * size / 16
+//   lanes.  int8 becomes f32 by a byte permute into an f32 of exponent 2^23
+//   and one subtraction, exact, at the integer and f32 pipes' rates (not the
+//   conversion unit's).
 // - Rings in shared memory, one a warp.  The block's positions are cut into
 //   units of kUnitPos, dealt to its eight warps in turn; each warp copies
-//   its own units into its own slots (the bias values beside them by 4-byte
-//   cp.async), reads a unit back, scores it with the f32 online softmax of
-//   lane groups of D / 8 lanes, and refills the slot.  The bytes in flight
-//   no longer depend on registers: the blocks an SM runs share kSmRingBytes
-//   of slots.  Every warp issues its own copies because one warp issues a
-//   bulk copy only every few tens of nanoseconds (the compiler serialises
-//   the lanes' copies through the uniform datapath), which made one
-//   producer warp the bound of a block.  No tensor map: nothing is
-//   encoded on the host per call.
+//   its own units into its own slots (the bias and per-position scale rows
+//   of the group beside them by 4-byte cp.async), reads a unit back, scores
+//   it with the f32 online softmax of its lane groups, and refills the slot.
+//   The bytes in flight do not depend on registers: the blocks an SM runs
+//   share kSmRingBytes of slots.  Every warp issues its own copies because
+//   one warp issues a bulk copy only every few tens of nanoseconds (the
+//   compiler serialises the lanes' copies through the uniform datapath),
+//   which made one producer warp the bound of a block.  No tensor map:
+//   nothing is encoded on the host per call.
 // - One launch a call.  The chunks of a row form a thread-block cluster (at
 //   most 8 blocks); the row's stages of kStagePos positions are dealt to
 //   them in turn, so a prefix mask (the W3 prompts', the LM engine's) gives
 //   each the same share.  Every other rank stores its (m, den, acc) of each
 //   head into rank 0's shared memory (mapa, st.shared::cluster); after a
 //   cluster barrier rank 0 merges them in rank order with the max floored at
-//   -1e20 and writes the output: no workspace, no second kernel,
-//   bitwise-deterministic results.
+//   -1e20, applies a per-channel V scale and writes the output: no
+//   workspace, no second kernel, bitwise-deterministic results.
 // - The live range without a serial pre-pass: the block reads the mask of
 //   its positions once, keeps it a byte a position, and reduces its first
 //   and last live key in each warp and then across the warps (no atomics).
@@ -60,14 +68,6 @@
 //   the other ranks' ranges from distributed shared memory after the
 //   cluster's first barrier, which every other block passes without
 //   waiting until its walk is done.
-//
-// f32 and int8 slabs (decode_kernel + decode_combine_kernel, the f32
-// parity runs and T5Config.decode_cache_int8, on no main path) keep the
-// CUDA-core design: 16-byte loads (4 f32 or 16 int8 a lane) of kUnroll
-// positions issued together, then scored and accumulated in one pass; the
-// chunk's mask is reduced with shared-memory atomics before any K/V byte;
-// with more than one chunk each block writes its (m, den, acc) to a
-// workspace that decode_combine_kernel merges per (b, h).
 // Every slab and the query must start on a 16-byte boundary (the wrapper
 // checks; the C entry refuses others with cudaErrorMisalignedAddress).
 #include <cuda_runtime.h>
@@ -84,16 +84,6 @@
 namespace {
 
 constexpr float kMaskFloor = -1e20f;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-// Positions a lane group has in flight per step.  More cost registers, and
-// with them resident blocks: at 2 an SM holds seven blocks of the bf16
-// kernel, and 4 or 8 streamed slower on the H100.
-constexpr int kUnroll = 2;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -106,14 +96,10 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
 
 enum ScaleKind { kNone = 0, kPerPosition = 1, kPerChannel = 2 };
 
-__device__ __forceinline__ uint4 load16(const void* p, bool ok) {
-  return ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
-}
-
 // The 16 loaded bytes as floats: 4 f32, 8 bf16 (the high half of an f32), 8
 // f16 or 16 int8; element i lies at the i-th lowest address.
-template <typename TKV>
-__device__ __forceinline__ void unpack(const uint4& w, float (&x)[16 / sizeof(TKV)]);
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& w, float (&x)[16 / sizeof(T)]);
 template <>
 __device__ __forceinline__ void unpack<float>(const uint4& w, float (&x)[4]) {
   x[0] = __uint_as_float(w.x);
@@ -139,226 +125,19 @@ __device__ __forceinline__ void unpack<__half>(const uint4& w, float (&x)[8]) {
     x[2 * i + 1] = __half2float(__ushort_as_half(static_cast<unsigned short>(u[i] >> 16)));
   }
 }
+// int8: each byte with its sign bit flipped (x + 128, unsigned) becomes the
+// low byte of the f32 2^23 + x + 128 by one byte permute; subtracting 2^23 +
+// 128 leaves x, exactly.
 template <>
 __device__ __forceinline__ void unpack<int8_t>(const uint4& w, float (&x)[16]) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+  const uint32_t u[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
+                         w.w ^ 0x80808080u};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      x[4 * i + j] = static_cast<float>(static_cast<int32_t>(u[i] << (24 - 8 * j)) >> 24);
+      x[4 * i + j] = __uint_as_float(__byte_perm(u[i], 0x4b000000u, 0x7540u | j)) - 8388736.f;
 }
-
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float x, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, off);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  __syncthreads();  // red[] may still be read from a previous reduction
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
-
-// TQ: query/output type.  TKV: slab type (TQ, or int8_t with scales).  One
-// block per (head, batch row, chunk of `chunk` positions).
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-              const TKV* __restrict__ v, const float* __restrict__ bias,
-              const float* __restrict__ mask, const float* __restrict__ k_scale,
-              const float* __restrict__ v_scale, TQ* __restrict__ out,
-              float* __restrict__ part, int L, int heads, int chunk, int k_kind,
-              int v_kind) {
-  constexpr int EPL = 16 / (int)sizeof(TKV);  // elements of one 16-byte load
-  constexpr int LPP = D / EPL;                // lanes that share one position
-  constexpr int NG = kThreads / LPP;          // positions the block reads at once
-  static_assert(D % EPL == 0 && LPP >= 1 && LPP <= 32, "a head slice is 1 to 32 loads");
-
-  __shared__ __align__(16) float acc_s[NG * D];  // each group's acc, then merged
-  __shared__ float w_s[NG];                      // each group's weight exp(m - M)
-  __shared__ float red[kWarps];
-  __shared__ int range_s[2];
-
-  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int hd = heads * D;
-  const int tid = threadIdx.x, grp = tid / LPP, gl = tid % LPP;
-  const int c0 = split * chunk, c1 = min(L, c0 + chunk);
-  const float* mrow = mask != nullptr ? mask + (long long)b * L : nullptr;
-
-  // this lane's EPL elements of q, the per-channel K scale folded in; loaded
-  // first, so that their latency overlaps the mask scan's
-  const long long qoff = (long long)b * hd + h * D + gl * EPL;
-  float qv[EPL];
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    float x = to_f32(q[qoff + i]);
-    if (k_kind == kPerChannel) x *= k_scale[qoff + i];
-    qv[i] = x;
-  }
-
-  // The range [lo, hi) of positions read: from the chunk's first live key to
-  // its last; none when the chunk has no live key but the row has one; the
-  // whole chunk when the row has none (every key at the floor: mean(V)).
-  int lo = c0, hi = c1;
-  bool drop_masked = false;  // masked keys inside [lo, hi) weigh exactly 0
-  if (mrow != nullptr) {
-    if (tid == 0) {
-      range_s[0] = c1;
-      range_s[1] = c0 - 1;
-    }
-    __syncthreads();
-    int first = c1, last = c0 - 1;
-#pragma unroll 4
-    for (int l = c0 + tid; l < c1; l += kThreads) {
-      if (mrow[l] > 0.f) {
-        first = min(first, l);
-        last = max(last, l);
-      }
-    }
-    first = __reduce_min_sync(0xffffffffu, first);
-    last = __reduce_max_sync(0xffffffffu, last);
-    if (tid % 32 == 0) {
-      atomicMin(&range_s[0], first);
-      atomicMax(&range_s[1], last);
-    }
-    __syncthreads();
-    first = range_s[0];
-    last = range_s[1];
-    if (first <= last) {
-      lo = first;
-      hi = last + 1;
-      drop_masked = true;
-    } else {
-      int any = 0;
-      for (int l = tid; l < L && !any; l += kThreads) any = mrow[l] > 0.f;
-      if (__syncthreads_or(any)) hi = lo;
-    }
-  }
-
-  const TKV* kb = k + (long long)b * L * hd + h * D + gl * EPL;
-  const TKV* vb = v + (long long)b * L * hd + h * D + gl * EPL;
-  const float* bias_h = bias != nullptr ? bias + (long long)h * L : nullptr;
-  // per-position scales [b, L, h]: position l of this head at l * heads
-  const float* ksp = k_kind == kPerPosition ? k_scale + (long long)b * L * heads + h : nullptr;
-  const float* vsp = v_kind == kPerPosition ? v_scale + (long long)b * L * heads + h : nullptr;
-
-  float m = kMaskFloor, den = 0.f, acc[EPL];
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) acc[i] = 0.f;
-
-  for (int base = lo; base < hi; base += NG * kUnroll) {
-    uint4 kw[kUnroll], vw[kUnroll];
-    float add[kUnroll], ks[kUnroll], vs[kUnroll];
-    // every load of kUnroll positions first, then the arithmetic
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int l = base + u * NG + grp;
-      const bool in = l < hi;
-      kw[u] = load16(kb + (long long)l * hd, in);
-      vw[u] = load16(vb + (long long)l * hd, in);
-      float a = -INFINITY;  // past the range: weight exactly 0
-      ks[u] = vs[u] = 1.f;
-      if (in) {
-        a = bias_h != nullptr ? bias_h[l] : 0.f;
-        if (mrow != nullptr) {
-          const bool live = mrow[l] > 0.f;
-          a = drop_masked && !live ? -INFINITY : a + (live ? 0.f : kMaskFloor);
-        }
-        if (ksp != nullptr) ks[u] = ksp[(long long)l * heads];
-        if (vsp != nullptr) vs[u] = vsp[(long long)l * heads];
-      }
-      add[u] = a;
-    }
-    float s[kUnroll];
-    float mx = m;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float x[EPL];
-      unpack<TKV>(kw[u], x);
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) dot = fmaf(qv[i], x[i], dot);
-#pragma unroll
-      for (int off = LPP / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      s[u] = dot * ks[u] + add[u];
-      mx = fmaxf(mx, s[u]);
-    }
-    const float alpha = expf(m - mx);  // both at or above the -1e20 floor
-    den *= alpha;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float p = expf(s[u] - mx);
-      den += p;
-      const float pv = p * vs[u];  // the per-position V scale after den
-      float y[EPL];
-      unpack<TKV>(vw[u], y);
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) acc[i] = fmaf(pv, y[i], acc[i]);
-    }
-    m = mx;
-  }
-
-  // merge the groups: every lane of a group holds its m and den
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) acc_s[grp * D + gl * EPL + i] = acc[i];
-  const float M = block_reduce<true>(m, red);
-  const float w = expf(m - M);
-  if (gl == 0) w_s[grp] = w;
-  const float den_all = block_reduce<false>(gl == 0 ? den * w : 0.f, red);
-  if (tid < D) {  // block_reduce's barriers published acc_s and w_s
-    float a = 0.f;
-    for (int g = 0; g < NG; ++g) a = fmaf(acc_s[g * D + tid], w_s[g], a);
-    const long long o = (long long)b * hd + h * D + tid;
-    if (gridDim.z == 1) {
-      float y = a / fmaxf(den_all, 1e-20f);
-      if (v_kind == kPerChannel) y *= v_scale[o];
-      out[o] = from_f32<TQ>(y);
-    } else {  // this chunk's (m, den, acc) for decode_combine_kernel
-      float* pp = part + (((long long)b * heads + h) * gridDim.z + split) * (D + 2);
-      if (tid == 0) {
-        pp[0] = M;
-        pp[1] = den_all;
-      }
-      pp[2 + tid] = a;
-    }
-  }
-}
-
-// Merge the (m, den, acc[d]) of `splits` chunks per (b, h): the output is
-// sum_c acc_c e^(m_c - M) / max(sum_c den_c e^(m_c - M), 1e-20), M the
-// largest m_c (each at or above the -1e20 floor).  A skipped chunk carries
-// (-1e20, 0, 0) and adds nothing.
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const float* __restrict__ part, const float* __restrict__ v_scale,
-                      TQ* __restrict__ out, int heads, int d, int splits, int v_kind) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const float* pp = part + ((long long)b * heads + h) * splits * (d + 2);
-  float M = kMaskFloor;
-  for (int c = 0; c < splits; ++c) M = fmaxf(M, pp[c * (d + 2)]);
-  float den = 0.f;
-  for (int c = 0; c < splits; ++c) den = fmaf(pp[c * (d + 2) + 1], expf(pp[c * (d + 2)] - M), den);
-  for (int e = threadIdx.x; e < d; e += kThreads) {
-    float a = 0.f;
-    for (int c = 0; c < splits; ++c) a = fmaf(pp[c * (d + 2) + 2 + e], expf(pp[c * (d + 2)] - M), a);
-    const long long o = (long long)b * heads * d + h * d + e;
-    float y = a / fmaxf(den, 1e-20f);
-    if (v_kind == kPerChannel) y *= v_scale[o];
-    out[o] = from_f32<TQ>(y);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 / f16: decode_ring_kernel
-// ---------------------------------------------------------------------------
 
 constexpr int kRingWarps = 8;
 constexpr int kRingThreads = 32 * kRingWarps;
@@ -369,14 +148,14 @@ constexpr int kRingBlocksPerSm = 2;                  // the launch bound's resid
 constexpr int kMaxSlots = 8;                         // ring slots a warp
 constexpr int kMaxCluster = 8;                       // the portable cluster size
 constexpr int kSmemLimit = 232448;                   // dynamic shared memory a block may take
-constexpr int kLoad = 256;                           // elements of a warp's 32 16-byte loads
+constexpr int kLoadBytes = 512;                      // a warp's 32 16-byte loads
 
 // Heads a block reads: the largest divisor of h whose slices of one
-// position fit one warp load (4 of T5's heads of 64, 2 of the LM's of 128):
-// a position's copy is then up to 512 contiguous bytes, and a warp reads
-// it with one 16-byte load a lane.
-int ring_group(int heads, int d) {
-  int g = kLoad / d;
+// position fit one warp load of 512 bytes (elem: the slab's bytes an
+// element): a position's copy is then up to 512 contiguous bytes, and a
+// warp reads it with one 16-byte load a lane.
+int ring_group(int heads, int d, int elem) {
+  int g = kLoadBytes / (d * elem);
   while (heads % g) --g;
   return g;
 }
@@ -385,23 +164,25 @@ int ring_group(int heads, int d) {
 struct RingPlan {
   int group;       // heads a block reads
   int slots;       // ring slots of each warp
-  int unit_bytes;  // one slot: K rows, V rows (each group * d), the bias rows
+  int unit_bytes;  // one slot: K rows, V rows (each group * d elements), the aux rows
   int part_off;    // rank 0's slots for the cluster's (m, den, acc) of every head
   int live_off;    // the key mask of the block's positions, a byte each
   int bar_off;     // full mbarriers (warp-major), then the live ranges
   int smem;        // dynamic shared memory of a block
 };
 
-// blocks: the grid's blocks; sms: the card's SMs.  Each block's ring takes
-// its share of kSmRingBytes among the blocks an SM runs at once.
-RingPlan plan_ring(int d, int heads, int chunk, int cluster, bool bias, bool mask, int blocks,
-                   int sms) {
+// elem: the slab's bytes an element; aux: the f32 rows of the group copied
+// beside a unit's K and V (the bias, a per-position K scale, a per-position
+// V scale: 0 to 3); blocks: the grid's blocks; sms: the card's SMs.  Each
+// block's ring takes its share of kSmRingBytes among the blocks an SM runs
+// at once.
+RingPlan plan_ring(int d, int elem, int heads, int chunk, int cluster, int aux, bool mask,
+                   int blocks, int sms) {
   RingPlan pl{};
-  pl.group = ring_group(heads, d);
-  const int span = pl.group * d;
-  const int kv = kUnitPos * span * 2;  // one operand's bytes in a unit
-  const int aux = (bias ? pl.group : 0) * kUnitPos * 4;
-  pl.unit_bytes = (2 * kv + aux + 127) / 128 * 128;
+  pl.group = ring_group(heads, d, elem);
+  const int span = pl.group * d;                      // elements of a position's group
+  const int kv = kUnitPos * span * elem;              // one operand's bytes in a unit
+  pl.unit_bytes = (2 * kv + aux * pl.group * kUnitPos * 4 + 127) / 128 * 128;
   const int need = (chunk + kStagePos - 1) / kStagePos;  // stages of a block (units of a warp)
   const int per_sm = min(kRingBlocksPerSm, max(1, (blocks + sms - 1) / sms));
   pl.slots = min(need, max(2, min(kMaxSlots, kSmRingBytes / per_sm / (kRingWarps * pl.unit_bytes))));
@@ -416,25 +197,30 @@ RingPlan plan_ring(int d, int heads, int chunk, int cluster, bool bias, bool mas
 
 struct RingParams {
   const void *q, *k, *v;
-  const float *bias, *mask;
+  const float *bias, *mask, *ks, *vs;
   void* out;
-  int L, heads, chunk, group, slots, unit_bytes, part_off, live_off, bar_off;
+  int L, heads, chunk, group, slots, unit_bytes, part_off, live_off, bar_off, k_kind, v_kind;
 };
 
-// T: bf16 or f16 (query, slabs, output).  Grid (h / group, b, chunks),
-// clusters of (1, 1, chunks): block (x, y, z) reads heads [x * group, (x +
-// 1) * group) of row y; the row's stages of kStagePos positions are dealt
-// to the cluster's blocks in turn, and each stage's units of kUnitPos
-// positions to the block's warps.  Each warp copies its own units
-// into its own ring slots, one bulk copy a position and operand, and reads
-// them back one position a load: lane l holds the 8 elements at 8 l of the
-// group's span, one head's slice among D / 8 lanes.
-template <typename T, int D>
+// Grid (h / group, b, chunks), clusters of (1, 1, chunks): block (x, y, z)
+// reads heads [x * group, (x + 1) * group) of row y; the row's stages of
+// kStagePos positions are dealt to the cluster's blocks in turn, and each
+// stage's units of kUnitPos positions to the block's warps.  Each warp
+// copies its own units into its own ring slots, one bulk copy a position
+// and operand, and reads them back one position a load: lane l holds the
+// EPL elements at EPL l of the group's span, one head's slice among LPP
+// lanes.
+template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kRingThreads, kRingBlocksPerSm)
 decode_ring_kernel(const RingParams p) {
-  constexpr int EPL = 8;                                 // elements of a 16-byte load
+  constexpr int E = sizeof(TKV);                         // bytes of a slab element
+  constexpr int EPL = 16 / E;                            // elements of a 16-byte load
   constexpr int LPP = D / EPL;                           // lanes of one head slice
-  static_assert(D % EPL == 0 && LPP >= 2 && LPP <= 32, "a head slice is 2 to 32 loads");
+  constexpr int QW = EPL * sizeof(TQ) / 16;              // 16-byte loads of a lane's q
+  static_assert(D % EPL == 0 && LPP >= 1 && LPP <= 32, "a head slice is 1 to 32 loads");
+  // only int8 slabs carry scales: the other instances compile without them
+  constexpr bool kScaled = std::is_same_v<TKV, int8_t>;
+  static_assert(std::is_same_v<TKV, TQ> || kScaled, "slabs in the query's type or int8");
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.bar_off);
@@ -446,10 +232,18 @@ decode_ring_kernel(const RingParams p) {
   const int G = p.group, h0 = blockIdx.x * G, b = blockIdx.y, rank = blockIdx.z;
   const int nrank = gridDim.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int L = p.L, hd = p.heads * D, span = G * D;
-  const int KV = kUnitPos * span * 2;          // bytes of one operand a unit
+  const int L = p.L, hd = p.heads * D, span = G * D, SB = span * E;  // SB: a span's bytes
+  const int KV = kUnitPos * SB;                // bytes of one operand a unit
   const float* mrow = p.mask != nullptr ? p.mask + (long long)b * L : nullptr;
   const float* bias = p.bias != nullptr ? p.bias + (long long)h0 * L : nullptr;
+  // per-position scales [b, L, h]: position l of the group's head g at l * heads + g
+  const long long srow = (long long)b * L * p.heads + h0;
+  const float* ksp = kScaled && p.k_kind == kPerPosition ? p.ks + srow : nullptr;
+  const float* vsp = kScaled && p.v_kind == kPerPosition ? p.vs + srow : nullptr;
+  // the aux rows of a slot, after its K and V: the bias, then the K scale,
+  // then the V scale, each G rows of kUnitPos floats, those present only
+  const int row_ks = bias != nullptr, row_vs = row_ks + (ksp != nullptr);
+  const int naux = row_vs + (vsp != nullptr);
   // the row's stages dealt in turn: this block's local stage j is the row's
   // stage rank + j * nrank, and its position k is pos(k)
   const int stages = (L + kStagePos - 1) / kStagePos;
@@ -457,22 +251,24 @@ decode_ring_kernel(const RingParams p) {
   auto pos = [&](int k) { return (rank + k / kStagePos * nrank) * kStagePos + k % kStagePos; };
 
   // Each warp initialises its own slots' barriers: a slot's phase completes
-  // with its copies' bytes, the expect_tx arrival and (with a bias) one
+  // with its copies' bytes, the expect_tx arrival and (with aux rows) one
   // cp.async arrival a lane.
   uint64_t* wfull = full + warp * p.slots;
   if (lane == 0) {
-    for (int s = 0; s < p.slots; ++s) hopper::mbar_init(&wfull[s], bias != nullptr ? 33 : 1);
+    for (int s = 0; s < p.slots; ++s) hopper::mbar_init(&wfull[s], naux ? 33 : 1);
     hopper::mbar_fence_init();
   }
   __syncwarp();
-  // this lane's 8 elements of q, loaded now and unpacked once the first
+  // this lane's EPL elements of q, loaded now and unpacked once the first
   // copies are issued
   const int hh = lane / LPP;             // this lane's head in the group
   const bool active = lane * EPL < span;
-  const uint4 qw = active ? __ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(p.q) +
-                                                                 ((long long)b * p.heads + h0) * D) +
-                                  lane)
-                          : make_uint4(0u, 0u, 0u, 0u);
+  const long long qoff = ((long long)b * p.heads + h0) * D + lane * EPL;
+  uint4 qw[QW];
+#pragma unroll
+  for (int i = 0; i < QW; ++i)
+    qw[i] = active ? __ldg(reinterpret_cast<const uint4*>(static_cast<const TQ*>(p.q) + qoff) + i)
+                   : make_uint4(0u, 0u, 0u, 0u);
   // The block's live range: the mask of its positions read once, 8 loads a
   // thread in flight and kept a byte a position, each warp's first and
   // last live key reduced in the warp, then across the warps through
@@ -545,36 +341,52 @@ decode_ring_kernel(const RingParams p) {
   const int j0 = hi > lo ? max(0, (lo / kStagePos - rank + nrank - 1) / nrank) : 0;
   const int mine = hi > lo ? ((hi - 1) / kStagePos - rank) / nrank - j0 + 1 : 0;
   unsigned char* wring = smem + warp * p.slots * p.unit_bytes;
-  const T* kb = static_cast<const T*>(p.k) + (long long)b * L * hd + h0 * D;
-  const T* vb = static_cast<const T*>(p.v) + (long long)b * L * hd + h0 * D;
+  const TKV* kb = static_cast<const TKV*>(p.k) + (long long)b * L * hd + h0 * D;
+  const TKV* vb = static_cast<const TKV*>(p.v) + (long long)b * L * hd + h0 * D;
   auto unit0 = [&](int j) { return (rank + (j0 + j) * nrank) * kStagePos + warp * kUnitPos; };
   // unit j of this warp into its slot `slot`: lane u in [ulo, uhi) copies
   // position u0 + u's K and V spans of the group's heads, the lanes in turn
-  // the group's bias values (4-byte cp.async: a bias row need not start on
+  // the group's aux values (4-byte cp.async: an aux row need not start on
   // 16 bytes)
   auto issue = [&](int j, int slot) {
     const int u0 = unit0(j), ulo = max(0, lo - u0), uhi = min(kUnitPos, hi - u0);
     unsigned char* st = wring + slot * p.unit_bytes;
-    if (lane == 0) hopper::mbar_arrive_expect_tx(&wfull[slot], 2u * max(0, uhi - ulo) * span * 2);
+    if (lane == 0) hopper::mbar_arrive_expect_tx(&wfull[slot], 2u * max(0, uhi - ulo) * SB);
     __syncwarp();
     if (lane >= ulo && lane < uhi) {
       const long long off = (long long)(u0 + lane) * hd;
-      hopper::bulk_load(st + lane * span * 2, kb + off, span * 2, &wfull[slot]);
-      hopper::bulk_load(st + KV + lane * span * 2, vb + off, span * 2, &wfull[slot]);
+      hopper::bulk_load(st + lane * SB, kb + off, SB, &wfull[slot]);
+      hopper::bulk_load(st + KV + lane * SB, vb + off, SB, &wfull[slot]);
     }
-    if (bias != nullptr) {
-      for (int x = lane; x < G * kUnitPos; x += 32) {
-        const int u = x % kUnitPos;
-        if (u >= ulo && u < uhi)
-          hopper::cp_async4(st + 2 * KV + x * 4,
-                            bias + (long long)(x / kUnitPos) * L + u0 + u, true);
-      }
+    if (naux) {
+      // aux row `row`: value (g, u) from src + g * gstride + (u0 + u) * ustride
+      auto copy_row = [&](int row, const float* src, long long gstride, long long ustride) {
+        float* dst = reinterpret_cast<float*>(st + 2 * KV) + row * G * kUnitPos;
+        for (int x = lane; x < G * kUnitPos; x += 32) {
+          const int u = x % kUnitPos;
+          if (u >= ulo && u < uhi)
+            hopper::cp_async4(dst + x, src + (x / kUnitPos) * gstride + (u0 + u) * ustride, true);
+        }
+      };
+      if (bias != nullptr) copy_row(0, bias, L, 1);
+      if (ksp != nullptr) copy_row(row_ks, ksp, 1, p.heads);
+      if (vsp != nullptr) copy_row(row_vs, vsp, 1, p.heads);
       hopper::mbar_arrive_cp_async(&wfull[slot]);
     }
   };
   for (int j = 0; j < min(mine, p.slots); ++j) issue(j, j);
   float qv[EPL];
-  unpack<T>(qw, qv);
+#pragma unroll
+  for (int i = 0; i < QW; ++i) {
+    float x[16 / sizeof(TQ)];
+    unpack<TQ>(qw[i], x);
+#pragma unroll
+    for (int e = 0; e < 16 / (int)sizeof(TQ); ++e) qv[i * (16 / sizeof(TQ)) + e] = x[e];
+  }
+  if (kScaled && p.k_kind == kPerChannel && active) {  // the per-channel K scale folds into q
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qv[e] *= __ldg(p.ks + qoff + e);
+  }
 
   float m = kMaskFloor, den = 0.f, acc[EPL];
 #pragma unroll
@@ -583,6 +395,10 @@ decode_ring_kernel(const RingParams p) {
     hopper::mbar_wait(&wfull[slot], phase);
     const int u0 = unit0(j), ulo = max(0, lo - u0), uhi = min(kUnitPos, hi - u0);
     const unsigned char* st = wring + slot * p.unit_bytes;
+    // this lane's head's aux values of position u of the unit
+    auto aux = [&](int row, int u) {
+      return reinterpret_cast<const float*>(st + 2 * KV)[(row * G + hh) * kUnitPos + u];
+    };
     // the unit's K and V from the slot, then its scores; positions outside
     // [ulo, uhi) were not copied: their slot bytes are stale and never read
     // (weight exactly 0)
@@ -590,9 +406,9 @@ decode_ring_kernel(const RingParams p) {
 #pragma unroll
     for (int u = 0; u < kUnitPos; ++u) {
       const bool in = u >= ulo && u < uhi && active;
-      kw[u] = in ? *reinterpret_cast<const uint4*>(st + u * span * 2 + lane * 16)
+      kw[u] = in ? *reinterpret_cast<const uint4*>(st + u * SB + lane * 16)
                  : make_uint4(0u, 0u, 0u, 0u);
-      vw[u] = in ? *reinterpret_cast<const uint4*>(st + KV + u * span * 2 + lane * 16)
+      vw[u] = in ? *reinterpret_cast<const uint4*>(st + KV + u * SB + lane * 16)
                  : make_uint4(0u, 0u, 0u, 0u);
     }
     const int k0 = (j0 + j) * kStagePos + warp * kUnitPos;  // live_s index of u0
@@ -601,7 +417,7 @@ decode_ring_kernel(const RingParams p) {
 #pragma unroll
     for (int u = 0; u < kUnitPos; ++u) {
       float x[EPL];
-      unpack<T>(kw[u], x);
+      unpack<TKV>(kw[u], x);
       float dot = 0.f;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) dot = fmaf(qv[e], x[e], dot);
@@ -609,9 +425,8 @@ decode_ring_kernel(const RingParams p) {
       for (int off = LPP / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
       float add = -INFINITY;  // not read: weight exactly 0
       if (u >= ulo && u < uhi) {
-        add = bias != nullptr && active
-                  ? *reinterpret_cast<const float*>(st + 2 * KV + (hh * kUnitPos + u) * 4)
-                  : 0.f;
+        if (ksp != nullptr && active) dot *= aux(row_ks, u);  // the per-position K scale
+        add = bias != nullptr && active ? aux(0, u) : 0.f;
         if (mrow != nullptr) {
           const bool live = live_s[k0 + u];
           add = drop_masked && !live ? -INFINITY : add + (live ? 0.f : kMaskFloor);
@@ -626,10 +441,12 @@ decode_ring_kernel(const RingParams p) {
     for (int e = 0; e < EPL; ++e) acc[e] *= alpha;
 #pragma unroll
     for (int u = 0; u < kUnitPos; ++u) {
-      const float pu = expf(sc[u] - mx);
+      float pu = expf(sc[u] - mx);
       den += pu;
+      // the per-position V scale after den
+      if (vsp != nullptr && active && u >= ulo && u < uhi) pu *= aux(row_vs, u);
       float y[EPL];
-      unpack<T>(vw[u], y);
+      unpack<TKV>(vw[u], y);
 #pragma unroll
       for (int e = 0; e < EPL; ++e) acc[e] = fmaf(pu, y[e], acc[e]);
     }
@@ -659,7 +476,8 @@ decode_ring_kernel(const RingParams p) {
     }
   }
   __syncthreads();
-  constexpr int NT = kLoad / kRingThreads;  // outputs a thread owns at most
+  // outputs a thread owns at most: a span is at most 512 bytes
+  constexpr int NT = (kLoadBytes / E + kRingThreads - 1) / kRingThreads;
   float M[NT], den_all[NT], a[NT];
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
@@ -715,9 +533,12 @@ decode_ring_kernel(const RingParams p) {
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     const int o = tid + t * kRingThreads;
-    if (o < span)
-      static_cast<T*>(p.out)[((long long)b * p.heads + h0) * D + o] =
-          from_f32<T>(a[t] / fmaxf(den_all[t], 1e-20f));
+    if (o < span) {
+      const long long at = ((long long)b * p.heads + h0) * D + o;
+      float y = a[t] / fmaxf(den_all[t], 1e-20f);
+      if (kScaled && p.v_kind == kPerChannel) y *= __ldg(p.vs + at);  // once, after the merge
+      static_cast<TQ*>(p.out)[at] = from_f32<TQ>(y);
+    }
   }
 }
 
@@ -725,24 +546,9 @@ struct Args {
   const void *q, *k, *v;
   const float *bias, *mask, *ks, *vs;
   void* out;
-  float* part;
   int b, L, heads, chunk, k_kind, v_kind;
   cudaStream_t stream;
 };
-
-template <typename TQ, typename TKV, int D>
-cudaError_t launch(const Args& a) {
-  const int splits = (a.L + a.chunk - 1) / a.chunk;
-  decode_kernel<TQ, TKV, D><<<dim3(a.heads, a.b, splits), kThreads, 0, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k), static_cast<const TKV*>(a.v),
-      a.bias, a.mask, a.ks, a.vs, static_cast<TQ*>(a.out), a.part, a.L, a.heads, a.chunk,
-      a.k_kind, a.v_kind);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  decode_combine_kernel<TQ><<<dim3(a.heads, a.b), kThreads, 0, a.stream>>>(
-      a.part, a.vs, static_cast<TQ*>(a.out), a.heads, D, splits, a.v_kind);
-  return cudaGetLastError();
-}
 
 // The card's SM count, read once a device.
 int device_sms(int dev) {
@@ -754,9 +560,9 @@ int device_sms(int dev) {
   return n;
 }
 
-template <typename T, int D>
+template <typename TQ, typename TKV, int D>
 cudaError_t launch_ring(const Args& a, const RingPlan& pl, int cluster, int dev) {
-  auto kernel = decode_ring_kernel<T, D>;
+  auto kernel = decode_ring_kernel<TQ, TKV, D>;
   // the attribute is set once a device (a bit each), not on every call
   static std::atomic<unsigned long long> ready{0};
   if (!(ready.load(std::memory_order_relaxed) & (1ull << dev))) {
@@ -765,9 +571,10 @@ cudaError_t launch_ring(const Args& a, const RingPlan& pl, int cluster, int dev)
     if (err != cudaSuccess) return err;
     ready.fetch_or(1ull << dev, std::memory_order_relaxed);
   }
-  const RingParams p{a.q,     a.k,           a.v,         a.bias,     a.mask,
-                     a.out,   a.L,           a.heads,     a.chunk,    pl.group,
-                     pl.slots, pl.unit_bytes, pl.part_off, pl.live_off, pl.bar_off};
+  const RingParams p{a.q,        a.k,          a.v,         a.bias,      a.mask,
+                     a.ks,       a.vs,         a.out,       a.L,         a.heads,
+                     a.chunk,    pl.group,     pl.slots,    pl.unit_bytes, pl.part_off,
+                     pl.live_off, pl.bar_off,  a.k_kind,    a.v_kind};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
@@ -785,7 +592,7 @@ cudaError_t launch_ring(const Args& a, const RingPlan& pl, int cluster, int dev)
 }
 
 // One launch of decode_ring_kernel: the chunks of a row form a cluster.
-template <typename T, int D>
+template <typename TQ, typename TKV, int D>
 cudaError_t launch_ring_d(const Args& a) {
   const int cluster = (a.L + a.chunk - 1) / a.chunk;
   if (cluster > kMaxCluster) return cudaErrorInvalidConfiguration;
@@ -794,28 +601,21 @@ cudaError_t launch_ring_d(const Args& a) {
   if (err != cudaSuccess) return err;
   const int sms = device_sms(dev);
   if (dev >= 64 || sms <= 0) return cudaErrorInvalidDevice;
-  const int group = ring_group(a.heads, D);
-  const RingPlan pl = plan_ring(D, a.heads, a.chunk, cluster, a.bias != nullptr,
-                                a.mask != nullptr, a.heads / group * a.b * cluster, sms);
+  const int elem = sizeof(TKV), group = ring_group(a.heads, D, elem);
+  const int aux = (a.bias != nullptr) + (a.k_kind == kPerPosition) + (a.v_kind == kPerPosition);
+  const RingPlan pl = plan_ring(D, elem, a.heads, a.chunk, cluster, aux, a.mask != nullptr,
+                                a.heads / group * a.b * cluster, sms);
   if (pl.smem > kSmemLimit) return cudaErrorInvalidConfiguration;
-  return launch_ring<T, D>(a, pl, cluster, dev);
-}
-
-template <typename TQ, typename TKV, int D>
-cudaError_t launch_d(const Args& a) {
-  if constexpr (std::is_same_v<TQ, TKV> && !std::is_same_v<TQ, float>)
-    return launch_ring_d<TQ, D>(a);
-  else
-    return launch<TQ, TKV, D>(a);
+  return launch_ring<TQ, TKV, D>(a, pl, cluster, dev);
 }
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 16: return launch_d<TQ, TKV, 16>(a);
-    case 32: return launch_d<TQ, TKV, 32>(a);
-    case 64: return launch_d<TQ, TKV, 64>(a);
-    case 128: return launch_d<TQ, TKV, 128>(a);
+    case 16: return launch_ring_d<TQ, TKV, 16>(a);
+    case 32: return launch_ring_d<TQ, TKV, 32>(a);
+    case 64: return launch_ring_d<TQ, TKV, 64>(a);
+    case 128: return launch_ring_d<TQ, TKV, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -831,26 +631,22 @@ extern "C" {
 // scale [b, L, h], 2 per-channel scale [b, 1, h*d] (f32).  bias [h, L] f32 and
 // mask [b, L] f32 (1 = attend) may be null.  All arrays contiguous on the
 // device; q, k and v start on 16-byte boundaries.  chunk: positions per
-// block.  bf16 and f16 slabs: at most 8 chunks (a cluster), no workspace;
-// f32 and int8 slabs: with ceil(L / chunk) > 1 chunks, workspace holds
-// b * h * chunks * (d + 2) floats.  Returns the cudaError_t of the launch.
+// block, at most 8 chunks (a cluster).  Returns the cudaError_t of the
+// launch.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          const float* bias, const float* mask, const float* k_scale,
-                         const float* v_scale, void* out, float* workspace, int b, int L,
-                         int heads, int d, int q_dtype, int kv_int8, int k_kind, int v_kind,
-                         int chunk, void* stream) {
+                         const float* v_scale, void* out, int b, int L, int heads, int d,
+                         int q_dtype, int kv_int8, int k_kind, int v_kind, int chunk,
+                         void* stream) {
   if (b <= 0 || L <= 0 || heads <= 0 || chunk <= 0 || b > 65535) return cudaErrorInvalidValue;
-  const int splits = (L + chunk - 1) / chunk;
-  const bool ring = q_dtype != 0 && !kv_int8;  // decode_ring_kernel
-  if (splits > 65535 || (ring && splits > kMaxCluster) ||
-      (!ring && splits > 1 && workspace == nullptr))
-    return cudaErrorInvalidValue;
+  if ((L + chunk - 1) / chunk > kMaxCluster) return cudaErrorInvalidValue;
   if ((k_kind != kNone) != (k_scale != nullptr)) return cudaErrorInvalidValue;
   if ((v_kind != kNone) != (v_scale != nullptr)) return cudaErrorInvalidValue;
   if (!kv_int8 && (k_kind != kNone || v_kind != kNone)) return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v)) return cudaErrorMisalignedAddress;
-  const Args a{q, k, v, bias, mask, k_scale, v_scale, out, workspace,
-               b, L, heads, chunk, k_kind, v_kind, static_cast<cudaStream_t>(stream)};
+  const Args a{q,     k, v,     bias,  mask,   k_scale, v_scale,
+               out,   b, L,     heads, chunk,  k_kind,  v_kind,
+               static_cast<cudaStream_t>(stream)};
   if (q_dtype == 0 && !kv_int8) return dispatch_d<float, float>(d, a);
   if (q_dtype == 0 && kv_int8) return dispatch_d<float, int8_t>(d, a);
   if (q_dtype == 1 && !kv_int8) return dispatch_d<__nv_bfloat16, __nv_bfloat16>(d, a);

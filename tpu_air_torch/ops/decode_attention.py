@@ -19,22 +19,21 @@ the running max is floored there too, so a row whose every key is masked
 yields mean(V), finite.
 
 The kernel reads each needed slab byte once, in one pass with an online
-softmax, split over chunks of L when ``b*h`` alone cannot fill the card
-(:func:`split_chunk`); with a key mask it skips the K/V bytes of every chunk
-whose keys are all masked.  bf16 and f16 slabs (every main path) stream
-through a ring of bulk copies in shared memory, and the chunks of a row,
-one thread-block cluster, merge their partial states inside the one
-launch; f32 and int8 slabs keep 16-byte register loads and merge the
-chunks in a second kernel over a workspace.  The slabs must start on a
-16-byte boundary, as fresh allocations do: the wrapper raises on one that
-does not and never copies a slab.
+softmax, split over chunks of L when the row's head groups alone cannot
+fill the card (:func:`split_chunk`); with a key mask it skips the K/V bytes
+of every chunk whose keys are all masked.  Every call, whatever the query
+and slab types, is one launch: a block streams a group of heads
+(:func:`ring_group`, one warp load of 512 bytes a position) through rings
+of bulk copies in shared memory, and the chunks of a row, one
+thread-block cluster, merge their partial states inside the launch.  The
+slabs must start on a 16-byte boundary, as fresh allocations do: the
+wrapper raises on one that does not and never copies a slab.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor takes :func:`decode_attention_reference`.  :func:`gather_pages`
 assembles a paged KV pool's slot slabs for it; like the JAX package's, it is
 plain indexing outside the kernel.
-``decode_attention.launches`` counts calls of the kernel (one launch in
-bf16 and f16; with the merge kernel in f32 and int8 when L is split).
+``decode_attention.launches`` counts launches of the kernel, one a call.
 """
 
 from __future__ import annotations
@@ -123,29 +122,26 @@ def gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     return pool[block_table].reshape(s, npg * page_len, hd)
 
 
-# q, k, v, bias, mask, k_scale, v_scale, out, workspace; b, L, h, d, q type,
-# int8, k kind, v kind, chunk; stream
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# q, k, v, bias, mask, k_scale, v_scale, out; b, L, h, d, q type, int8, k kind,
+# v kind, chunk; stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 # Split-K: the kernel runs one block per (b, group of heads, chunk of L).
-# L is split into as many chunks as one wave of ``blocks_per_sm`` blocks an
-# SM holds, at most _MAX_CLUSTER (the bf16/f16 kernel's thread-block
-# cluster, whose blocks merge their states in one launch), each a whole
-# number of the ring's stages of _STAGE_POS positions (8 warps x 4).  The
-# bf16/f16 kernel reads a group of heads (:func:`ring_group`) and runs
-# _RING_BLOCKS_PER_SM blocks an SM (its registers, 256 threads a block); the
-# f32/int8 kernel reads one head and runs _BLOCKS_PER_SM.
+# L is split into as many chunks as one wave of _RING_BLOCKS_PER_SM blocks an
+# SM holds (its registers, 256 threads a block), at most _MAX_CLUSTER (a
+# thread-block cluster, whose blocks merge their states in one launch), each
+# a whole number of the ring's stages of _STAGE_POS positions (8 warps x 4).
 _RING_BLOCKS_PER_SM = 2
-_BLOCKS_PER_SM = 5
 _STAGE_POS = 32
 _MAX_CLUSTER = 8
-_SPAN = 256          # elements of a warp's 32 16-byte loads
+_LOAD_BYTES = 512    # a warp's 32 16-byte loads
 
 
-def ring_group(h: int, d: int) -> int:
-    """Heads one block of the bf16/f16 kernel reads: the largest divisor of
-    ``h`` whose slices of one position fit one warp's 32 16-byte loads (4 of
-    T5's heads of 64, 2 of the LM's of 128), one contiguous bulk copy."""
-    g = _SPAN // d
+def ring_group(h: int, d: int, elem_bytes: int) -> int:
+    """Heads one block reads: the largest divisor of ``h`` whose slices of
+    one position, ``elem_bytes`` an element, fit one warp's 32 16-byte loads
+    (T5's heads of 64: 4 in bf16, 6 in int8, 2 in f32; the LM's of 128: 2
+    in bf16, 1 in f32), one contiguous bulk copy."""
+    g = _LOAD_BYTES // (d * elem_bytes)
     while h % g:
         g -= 1
     return g
@@ -169,17 +165,14 @@ def split_chunk(b: int, h: int, L: int, sm_count: int,
 
 def plan_chunk(b: int, h: int, d: int, L: int, dtype: torch.dtype, sm_count: int,
                masked: bool = True) -> int:
-    """The chunk a call at this shape runs: :func:`split_chunk` over the
-    bf16/f16 kernel's head groups (:func:`ring_group`), over single heads
-    for f32 and int8 slabs.  Without a key mask every row of a bf16/f16 call
-    reads all of L, so its blocks are even and L is split only until the
-    grid holds a block an SM; a key mask leaves rows of uneven length, which
-    the split evens out (a row's stages are dealt to its cluster in turn),
-    so a masked call fills the wave."""
-    if dtype in (torch.bfloat16, torch.float16):
-        return split_chunk(b, h // ring_group(h, d), L, sm_count,
-                           _RING_BLOCKS_PER_SM if masked else 1)
-    return split_chunk(b, h, L, sm_count, _BLOCKS_PER_SM)
+    """The chunk a call at this shape runs (``dtype``: the slabs' type):
+    :func:`split_chunk` over the kernel's head groups (:func:`ring_group`).
+    Without a key mask every row reads all of L, so its blocks are even and
+    L is split only until the grid holds a block an SM; a key mask leaves
+    rows of uneven length, which the split evens out (a row's stages are
+    dealt to its cluster in turn), so a masked call fills the wave."""
+    g = ring_group(h, d, dtype.itemsize)
+    return split_chunk(b, h // g, L, sm_count, _RING_BLOCKS_PER_SM if masked else 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,15 +229,11 @@ def _launch(q, k, v, bias, kv_mask, k_scale, v_scale):
         args.append(t.data_ptr())
     out = torch.empty(b, h, d, dtype=q.dtype, device=q.device)
     chunk = plan_chunk(b, h, d, L, k.dtype, _sm_count(q.device.index), kv_mask is not None)
-    splits = -(-L // chunk)
-    work = None
-    if splits > 1 and (kv_int8 or q.dtype == torch.float32):   # the merge kernel's input
-        work = torch.empty(b * h * splits * (d + 2), dtype=torch.float32, device=q.device)
     fn = _build.kernel_fn(_NAME, f"{_NAME}_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, out.data_ptr(), None if work is None else work.data_ptr(), b, L, h, d,
-                _QTYPES[q.dtype], int(kv_int8), k_kind, v_kind, chunk, stream)
+        rc = fn(*args, out.data_ptr(), b, L, h, d, _QTYPES[q.dtype], int(kv_int8), k_kind,
+                v_kind, chunk, stream)
     _build.check(_NAME, rc)
     decode_attention.launches += 1
     return out
