@@ -246,14 +246,16 @@ def test_loading_a_jax_checkpoint_imports_nothing_of_jax(tmp_path):
 
 
 def test_core_lint_is_clean():
-    """airlint's backend-neutral families (CC concurrency, RT actor runtime,
-    CS crash safety, FI fault injection) find nothing unsuppressed in the
-    port; the JAX (JX) and Pallas (PL) families do not apply to it."""
+    """The port's own airlint (tpu_air_torch.analysis), with every rule it
+    has — the CC, RT, CS and FI families it shares with the JAX package's
+    analyzer and PT004 — finds nothing unsuppressed in the port."""
     import json
 
-    out = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "airlint.py"), "--json",
-                          "--rules", "CC,RT,CS,FI", os.path.join(ROOT, "tpu_air_torch")],
+    out = subprocess.run([sys.executable, "-m", "tpu_air_torch.analysis", "--json",
+                          os.path.join(ROOT, "tpu_air_torch")],
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     report = json.loads(out.stdout)
     assert report["files_analyzed"] >= 50
     assert report["findings"] == [], report["findings"]
+    assert {f["rule"] for f in report["suppressed"]} >= {"CC001", "PT004"}
+    assert out.returncode == 0, out.stderr

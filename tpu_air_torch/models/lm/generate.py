@@ -114,6 +114,7 @@ def make_lm_generate_fn(model: CausalLM, max_new_tokens: int,
             toks = torch.full((b, max_new_tokens), pad, dtype=torch.long, device=dev)
             toks[:, 0] = tok
             for step in range(1, max_new_tokens):
+                # airlint: disable=PT004 — early stop, as the reference's while_loop condition
                 if early_stop and done is not None and bool(done.all()):
                     break
                 pos = torch.full((b, 1), lp + step - 1, dtype=torch.long, device=dev)

@@ -94,6 +94,7 @@ def generate(model: T5ForConditionalGeneration, input_ids, attention_mask=None,
     finished = attention_mask.sum(dim=-1) == 0
     toks = torch.full((bucket, max_new_tokens), pad_id, dtype=torch.long, device=dev)
     for step in range(max_new_tokens):
+        # airlint: disable=PT004 — early stop, as the reference's while_loop condition
         if early_stop and bool(finished.all()):
             break
         logits = model.decode(tok, cache=cache)[:, -1, :]

@@ -132,6 +132,7 @@ def lm_train_loop(config: Dict[str, Any]) -> None:
             if args.max_steps_per_epoch and nsteps >= args.max_steps_per_epoch:
                 break
         # one host sync, which also waits for the epoch's device work
+        # airlint: disable=PT004 — epoch cadence, not the step path
         loss_values = torch.stack(losses).cpu().numpy() if losses else None
         dt = time.time() - t0
         metrics: Dict[str, Any] = {
@@ -151,6 +152,7 @@ def lm_train_loop(config: Dict[str, Any]) -> None:
                 parts = [all_reduce_sum(torch.stack(sp_local_loss(model, ids, tgt, mesh)))
                          for ids, tgt, _ in batches(eval_ds, ebs, drop_last=False)]
             if parts:
+                # airlint: disable=PT004 — epoch cadence, not the step path
                 tot, cnt = torch.stack(parts).double().sum(0).tolist()
                 if cnt:
                     metrics["eval_loss"] = tot / cnt
